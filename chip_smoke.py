@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device — ``nvidia-smi`` name and power limit, torch/CUDA versions; TF32
+   is switched off for every float32 product.
+2. build — compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
+   one compiler process per source, all at once.
+3. kernel checks — each hand-written kernel against its plain PyTorch
+   version at the shapes of qwen3-0.6b's serving path, with medians of the
+   kernel, the plain version and a library yardstick the port never calls
+   (``torch._int_mm`` for the GEMM, ``scaled_dot_product_attention`` for
+   attention), and each call's bound on an H100 SXM (3.35 TB/s HBM3, 1979
+   dense int8 TOP/s, 67 f32 TFLOP/s outside the tensor cores).
+4. step parity — one prefill tick and one decode tick of the mixed step at
+   full width through the kernels and through the plain versions.
+5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
+   width (random weights from a seed); the kernels' launch counters are
+   zeroed just before and read just after.
+6. the kernels line, then the device line last.
+
+Any failed check raises, and the script exits non-zero. It needs one CUDA
+device and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core rate
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+ARCH = "qwen3-0.6b"
+DEVICE = "cuda"
+POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
+# (name, K, N, bits) of one qwen3-0.6b layer's GEMMs under POLICY
+LAYER_GEMMS = [("attn.q", 1024, 2048, 8), ("attn.k", 1024, 1024, 8),
+               ("attn.v", 1024, 1024, 8), ("attn.o", 2048, 1024, 8),
+               ("mlp.gate", 1024, 3072, 2), ("mlp.up", 1024, 3072, 2),
+               ("mlp.down", 3072, 1024, 2)]
+# the fused GEMM holds its plain version bit for bit: outputs and stats
+GEMM_TOL = 0.0
+# attention: kernel and plain version sum in different orders in f32 (about
+# 1e-6 relative); a bf16 output can then round to the neighbouring bf16
+# value, one step of 2**-8 relative, so bf16 outputs are held to 2**-7
+# relative, f32 outputs to 1e-5 absolute + 1e-5 relative
+ATTN_TOL = {"bfloat16": (1e-6, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+# step parity: the mixed step's only float-order difference between the two
+# paths is attention; a bf16 attention output that rounds the other way can
+# flip a quantization code downstream (int8 attn.o, int2 MLP), which moves
+# later layers. The logits are held to 10% relative L2 error per tick.
+STEP_REL_TOL = 0.1
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(torch, fn, reps: int = 25, flush=None) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up;
+    ``flush`` (a large buffer) is overwritten before each timed call so the
+    operands come from device memory, as they do on the serving path."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ------------------------------------------------------------ kernel checks
+def check_gemm(torch, flush):
+    from repro_torch.kernels.ops import pack_weights
+    from repro_torch.kernels.packing import PLANES
+    from repro_torch.kernels.tugemm_fused import tugemm_fused
+    from repro_torch.quant.quantize import compute_scale
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    M = 64  # max_batch * prefill_chunk of the serve phase
+    shapes = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+    variants = [("quant", 8, False, False), ("quant", 8, True, False),
+                ("quant", 2, False, False), ("quant", 2, True, False),
+                ("int8", 8, False, False), ("packed", 4, False, False),
+                ("packed", 2, False, False), ("quant", 8, False, True)]
+    records = []
+    for K, N in shapes:
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        for mode, bits, per_token, with_bias in variants:
+            if with_bias and (K, N) != (1024, 2048):
+                continue
+            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+            sx = compute_scale(x, bits, axis=0 if per_token else None)
+            sx = sx.reshape(-1, 1) if per_token else sx.reshape(1, 1)
+            if mode == "quant":
+                w = wf
+                sw = compute_scale(wf, bits, axis=1).reshape(1, N)
+                wq = torch.clamp(torch.round(wf.float() / sw), lo, hi).to(torch.int8)
+            else:
+                wq = torch.randint(lo, hi + 1, (K, N), device=dev, generator=gen,
+                                   dtype=torch.int8)
+                w = pack_weights(wq, bits) if mode == "packed" else wq
+                sw = (torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4)
+            bias = (torch.randn(N, device=dev, generator=gen).to(torch.bfloat16)
+                    if with_bias else None)
+            planes = PLANES[bits] if mode == "packed" else 1
+            args = (x, w, sx, sw, bias)
+            kw = dict(bits=bits, w_mode=mode, collect_stats=True, out_dtype=torch.bfloat16)
+            got = tugemm_fused(*args, impl="cuda", **kw)
+            want = tugemm_fused(*args, impl="torch", **kw)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            xq = torch.clamp(torch.round(x.float() / sx), lo, hi).to(torch.int8)
+            ms = median_ms(torch, lambda: tugemm_fused(*args, impl="cuda", **kw), flush=flush)
+            plain = median_ms(torch, lambda: tugemm_fused(*args, impl="torch", **kw), flush=flush)
+            lib = median_ms(torch, lambda: torch._int_mm(xq, wq), flush=flush)
+            byts = nbytes(x, w, sx, sw, bias, *got)
+            ops = 2 * M * K * N
+            rec = dict(kernel="tugemm_fused", M=M, K=K, N=N, w_mode=mode, bits=bits,
+                       per_token=per_token, bias=with_bias, planes=planes, exact=exact,
+                       max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                       bytes=byts, ops=ops,
+                       bound_ms=max(byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
+                       bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S
+                       else "operations")
+            emit({"phase": "check", **rec})
+            if not exact or err > GEMM_TOL:
+                raise AssertionError(f"tugemm_fused disagrees with its plain version: {rec}")
+            records.append(rec)
+    return records
+
+
+def _attn_case(torch, gen, *, rows, sq, kv, group, part_dims, hdv, bs, MB, kv_dtype,
+               q_dtype, alias_v=False):
+    """Random paged pools + a block table per row spec (pos, lens)."""
+    from repro_torch.models.attention import _quantize_kv
+
+    dev = torch.device(DEVICE)
+    B = len(rows)
+    P = B * MB
+    perm = torch.randperm(P, device=dev, generator=gen).reshape(B, MB).to(torch.int32)
+    tables = torch.full((B, MB), P, dtype=torch.int32, device=dev)
+    for b, (p, l) in enumerate(rows):
+        n = -(-(p + l) // bs)
+        tables[b, :n] = perm[b, :n]
+    pos = torch.tensor([p for p, _ in rows], dtype=torch.int32, device=dev)
+    kv_len = pos + torch.tensor([l for _, l in rows], dtype=torch.int32, device=dev)
+
+    def pool(f):
+        data = torch.randn(P + 1, bs, kv * f, device=dev, generator=gen)
+        if kv_dtype == torch.int8:
+            q, s = _quantize_kv(data.reshape(P + 1, bs, kv, f))
+            return q.reshape(P + 1, bs, kv * f), s
+        return data.to(kv_dtype), None
+
+    parts = [pool(f) for f in part_dims]
+    v, vs = parts[0] if alias_v else pool(hdv)
+    q = torch.randn(B, sq, kv * group, sum(part_dims), device=dev, generator=gen).to(q_dtype)
+    return (q, tuple(p for p, _ in parts), tuple(s for _, s in parts), v, vs,
+            tables, pos, kv_len)
+
+
+def _attn_bytes_ops(args, kv, bs):
+    """Bytes each input once (live pages only) + output; f32 operations."""
+    q, kparts, kscales, v, vs, tables, pos, kv_len = args
+    lens = kv_len.tolist()
+    pages = sum(-(-n // bs) for n in lens)
+    per_tok = sum(p.shape[2] * p.element_size() for p in kparts)
+    if not any(v is p for p in kparts):
+        per_tok += v.shape[2] * v.element_size()
+    scales = [s for s in (*kscales, vs) if s is not None]
+    per_tok += 4 * len({id(s) for s in scales})
+    B, sq, H, hd = q.shape
+    hdv = v.shape[2] // kv
+    out_b = B * sq * H * hdv * q.element_size()
+    byts = nbytes(q, tables, pos, kv_len) + pages * bs * per_tok + out_b
+    flops = sum(2 * H * sq * n * (hd + hdv) for n in lens)
+    return byts, flops
+
+
+def check_attention(torch, flush):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_paged import flash_paged_decode, flash_paged_ref, gather_pages
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    gqa = dict(kv=8, group=2, part_dims=(128,), hdv=128, bs=16, MB=128)
+    mla = dict(kv=1, group=16, part_dims=(512, 64), hdv=512, bs=16, MB=128, alias_v=True)
+    # (pos, lens) per row: a long decode to 2048 tokens, a mid one, an idle
+    # row (lens 0, kv_len 0: must emit exact zeros), a short one
+    dec = [(2047, 1), (1000, 1), (0, 0), (16, 1)]
+    pre = [(2032, 16), (500, 16), (0, 0), (0, 16)]
+    cases = [
+        ("gqa_decode_int8", gqa, dec, 1, i8, bf16, None),
+        ("gqa_decode_bf16", gqa, dec, 1, bf16, bf16, None),
+        ("gqa_step16_int8", gqa, pre, 16, i8, bf16, None),
+        ("gqa_step16_bf16", gqa, pre, 16, bf16, bf16, None),
+        ("gqa_step16_int8_f32q", gqa, pre, 16, i8, f32, None),
+        ("gqa_step16_int8_window256", gqa, pre, 16, i8, bf16, 256),
+        ("mla_decode_int8", mla, dec, 1, i8, bf16, None),
+        ("mla_step16_int8", mla, pre, 16, i8, bf16, None),
+    ]
+    records = []
+    for name, shape, rows, sq, kvt, qt, window in cases:
+        shape = dict(shape)
+        args = _attn_case(torch, gen, rows=rows, sq=sq, kv_dtype=kvt, q_dtype=qt, **shape)
+        kw = dict(kv_heads=shape["kv"], causal=True, window=window)
+        got = flash_paged_decode(*args, impl="cuda", **kw)
+        want = flash_paged_ref(*args, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL["float32" if qt == f32 else "bfloat16"]
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        idle = [b for b, (_, l) in enumerate(rows) if l == 0]
+        zeros = all(bool((got[b] == 0).all()) for b in idle)
+        # library yardstick: SDPA over the gathered, dequantized pages
+        q, kparts, kscales, v, vs, tables, pos, kv_len = args
+        B, _, H, hd = q.shape
+        Lk = tables.shape[1] * shape["bs"]
+        kg = torch.cat([gather_pages(p, s, tables).reshape(B, Lk, shape["kv"], -1)
+                        for p, s in zip(kparts, kscales)], -1)
+        vg = gather_pages(v, vs, tables).reshape(B, Lk, shape["kv"], -1)
+        rep = H // shape["kv"]
+        kq = kg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+        vq = vg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+        qq = q.permute(0, 2, 1, 3)
+        kpos = torch.arange(Lk, device=dev)
+        qpos = pos.long()[:, None] + torch.arange(sq, device=dev)
+        mask = (kpos[None, None, :] < kv_len.long()[:, None, None]) & (
+            kpos[None, None, :] <= qpos[:, :, None])
+        mask = mask[:, None]
+        ms = median_ms(torch, lambda: flash_paged_decode(*args, impl="cuda", **kw), flush=flush)
+        plain = median_ms(torch, lambda: flash_paged_ref(*args, **kw), flush=flush)
+        lib = median_ms(torch, lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask),
+                        flush=flush)
+        byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"])
+        rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
+                   kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
+                   kv_len=kv_len.tolist(), kv_dtype=str(kvt).split(".")[-1],
+                   q_dtype=str(qt).split(".")[-1], window=window, within_tol=ok,
+                   idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol], ms=ms,
+                   plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
+                   bound_ms=max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                   bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+                   else "operations")
+        emit({"phase": "check", **rec})
+        if not (ok and zeros):
+            raise AssertionError(f"flash_paged_decode disagrees with its plain version: {rec}")
+        records.append(rec)
+    return records
+
+
+# ------------------------------------------------------------- model phases
+def model_setup(torch):
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.models import init
+
+    cfg = get_config(ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=POLICY,
+                   kv_cache_dtype="int8", kv_layout="paged", block_size=16,
+                   prefill_chunk=16)
+    t0 = time.perf_counter()
+    params = init(cfg, rc, torch.Generator().manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    return cfg, rc, params, time.perf_counter() - t0
+
+
+def step_parity(torch, cfg, rc, params):
+    from repro_torch.models import init_caches
+    from repro_torch.serve.cache import BlockManager
+    from repro_torch.serve.scheduler import build_mixed_step
+
+    dev = torch.device(DEVICE)
+    B, W, cap = 4, rc.prefill_chunk, 256
+    mgr = BlockManager(B * cap // rc.block_size, rc.block_size, B, cap)
+    rng = torch.Generator().manual_seed(3)
+    lens = torch.tensor([16, 16, 9, 0], dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B, W), generator=rng, dtype=torch.int32)
+    for b in range(B):
+        mgr.extend(b, int(lens[b]) + 1)          # room for the decode tick too
+    tables = torch.from_numpy(mgr.tables.copy()).to(dev)
+    out = {}
+    for impl in ("cuda", "torch"):
+        caches = init_caches(cfg, rc, B, cap, num_pages=mgr.num_pages, device=dev)
+        step = build_mixed_step(cfg, rc, with_stats=True, impl=impl)
+        pos = torch.zeros(B, dtype=torch.int32)
+        caches, l1, cap1 = step(params, caches, tokens.to(dev), pos.to(dev), lens.to(dev), tables)
+        dec = torch.zeros((B, 1), dtype=torch.int32)
+        dec[:, 0] = torch.tensor([11, 22, 33, 0])
+        dlens = (lens > 0).to(torch.int32)
+        caches, l2, cap2 = step(params, caches, dec.to(dev), lens.to(dev), dlens.to(dev), tables)
+        out[impl] = (l1.float(), l2.float())
+    rec = {"phase": "step_parity", "tol_rel_l2": STEP_REL_TOL}
+    for t, name in enumerate(("prefill", "decode")):
+        a, b = out["cuda"][t], out["torch"][t]
+        live = (lens > 0).nonzero().flatten().tolist()
+        a, b = a[live], b[live]
+        if not (torch.isfinite(a).all() and a.shape == (len(live), cfg.vocab_size)):
+            raise AssertionError(f"{name} logits are not finite of shape (rows, vocab)")
+        rel = ((a - b).norm() / b.norm()).item()
+        rec[f"{name}_rel_l2"] = rel
+        rec[f"{name}_max_abs"] = (a - b).abs().max().item()
+        rec[f"{name}_argmax_agree"] = int((a.argmax(-1) == b.argmax(-1)).sum())
+        rec[f"{name}_rows"] = len(live)
+    emit(rec)
+    if rec["prefill_rel_l2"] > STEP_REL_TOL or rec["decode_rel_l2"] > STEP_REL_TOL:
+        raise AssertionError(f"mixed step: kernels vs plain versions beyond tolerance: {rec}")
+
+
+def serving_scheduler(cfg, rc, params, impl: str):
+    """The serve phase's workload: a Scheduler holding 8 requests of 32-128
+    prompt tokens from a seeded rng, 16 new tokens each."""
+    import numpy as np
+
+    from repro_torch.serve import Request, Scheduler
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(32, 129))).tolist()
+               for _ in range(8)]
+    sched = Scheduler(cfg, rc, params, capacity=256, max_batch=4, track_energy=True,
+                      device=DEVICE, impl=impl)
+    for rid, p in enumerate(prompts):
+        sched.submit(Request(rid=rid, prompt=p, max_new=16))
+    return sched, prompts
+
+
+def serve(torch, cfg, rc, params, impl: str):
+    from repro_torch.kernels import ops
+
+    sched, prompts = serving_scheduler(cfg, rc, params, impl)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.kernel_counts()
+    return sched, done, wall, counts, prompts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    t0 = time.perf_counter()
+    took = build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": took,
+          "sources": list(build.SOURCES)})
+
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    gemm = check_gemm(torch, flush)
+    attn = check_attention(torch, flush)
+    del flush
+
+    cfg, rc, params, init_s = model_setup(torch)
+    emit({"phase": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "seconds": init_s})
+    step_parity(torch, cfg, rc, params)
+
+    sched, done, wall, counts, prompts = serve(torch, cfg, rc, params, "auto")
+    outs = {r.rid: list(r.out) for r in done}
+    if sorted(outs) != list(range(len(prompts))) or any(len(o) != 16 for o in outs.values()):
+        raise AssertionError(f"not every request finished with 16 tokens: {outs}")
+    if any(not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise AssertionError("a token outside the vocabulary")
+    energy = sched.energy_summary()
+    if any(e["cycles"] <= 0 or set(e["cycles_by_bits"]) != {8, 2} for e in energy):
+        raise AssertionError(f"cycle totals missing: {energy}")
+    for name, c in counts.items():
+        if c["launches"] <= 0 or c["plain_calls"] != 0:
+            raise AssertionError(f"serve path did not run only the kernel of {name}: {counts}")
+    gen = sum(len(o) for o in outs.values())
+    emit({"phase": "serve", "requests": len(done), "generated_tokens": gen,
+          "prompt_tokens": sum(len(p) for p in prompts), "wall_s": wall,
+          "tokens_per_s": gen / wall, "ticks": sched.ticks,
+          "median_tick_ms": statistics.median(sched.tick_seconds) * 1e3,
+          "preemptions": sched.preemptions, "kernel_counts": counts,
+          "paths": ops.path_counts(), "cycles_by_bits": {
+              str(b): d for b, d in sorted(sched.cycles_by_bits.items())}})
+
+    # the same serve through the plain versions: how far greedy tokens agree
+    # when the only difference is attention's f32 summation order
+    _, done_p, wall_p, counts_p, _ = serve(torch, cfg, rc, params, "torch")
+    outs_p = {r.rid: list(r.out) for r in done_p}
+    same = sum(a == b for r in outs for a, b in zip(outs[r], outs_p[r]))
+    emit({"phase": "serve_plain", "wall_s": wall_p, "tokens_per_s": gen / wall_p,
+          "tokens_equal": same, "tokens": gen, "kernel_counts": counts_p})
+
+    layer = {g[0]: g for g in LAYER_GEMMS}
+    picked = [r for r in gemm if r["w_mode"] == "quant" and not r["per_token"]
+              and not r["bias"] and any((r["K"], r["N"], r["bits"]) == v[1:]
+                                        for v in layer.values())]
+    per_layer = []
+    for name, K, N, bits in LAYER_GEMMS:
+        per_layer.append(next(r for r in picked if (r["K"], r["N"], r["bits"]) == (K, N, bits)))
+    dec = next(r for r in attn if r["case"] == "gqa_decode_int8")
+    kernels = [
+        {"name": "tugemm_fused", "route": "cuda",
+         "source": "src/repro_torch/csrc/tugemm_fused.cu",
+         "replaces": "src/repro/kernels/tugemm_fused.py:151",
+         "launches": counts["tugemm_fused"]["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in gemm),
+         "ms": sum(r["ms"] for r in per_layer),
+         "plain_ms": sum(r["plain_ms"] for r in per_layer),
+         "bound_ms": sum(r["bound_ms"] for r in per_layer),
+         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_layer)
+         else "operations",
+         "library_ms": sum(r["library_ms"] for r in per_layer),
+         "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY},
+        {"name": "flash_paged_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_paged.cu",
+         "replaces": "src/repro/kernels/flash_paged.py:193",
+         "launches": counts["flash_paged_decode"]["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in attn),
+         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+         "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
+                  f"kv_len {dec['kv_len']}"},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

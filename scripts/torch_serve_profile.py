@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where a serving tick's time goes on the GPU: profile the port's paged
+scheduler serving chip_smoke.py's serve workload (its ``model_setup`` and
+``serving_scheduler``: qwen3-0.6b at full width, the slice's int8/int2
+policy, 8 requests of 32-128 prompt tokens, 16 new each).
+
+Runs the workload once to warm up, then once under ``torch.profiler`` with
+CPU and CUDA activities, and prints one JSON line: wall time (profiled, and
+the warm-up's without the profiler), the device's busy time (the union of
+the intervals of device-side activity: kernels, memcpy and memset; the host
+ops that launched them are not counted again), the device's idle share of
+the profiled wall, and the top device activities and host ops by time.
+
+    python3 scripts/torch_serve_profile.py
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def device_activity(events, cuda_type):
+    """Busy microseconds (union of intervals) and per-name totals of the
+    device-side events; host-side op events are skipped, since their device
+    time is the sum of the kernels they launched."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.device_type == cuda_type)
+    busy, end = 0.0, float("-inf")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for s, t, name in spans:
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+        by_name[name][0] += t - s
+        by_name[name][1] += 1
+    return busy, by_name
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
+        return 2
+    cfg, rc, params, _ = chip_smoke.model_setup(torch)
+
+    def serve():
+        s, _ = chip_smoke.serving_scheduler(cfg, rc, params, "auto")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        return s, time.perf_counter() - t0
+
+    _, wall_unprofiled = serve()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sched, wall = serve()
+    busy_us, by_name = device_activity(prof.events(), DeviceType.CUDA)
+    if busy_us <= 0:
+        raise RuntimeError("the profile holds no device-side events")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(json.dumps({
+        "phase": "serve_profile", "wall_s": wall, "wall_unprofiled_s": wall_unprofiled,
+        "ticks": sched.ticks,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_events": sum(c for _, c in by_name.values()),
+        "top_device": [{"name": k[:80], "ms": v[0] / 1e3, "calls": v[1],
+                        "share_of_busy": v[0] / busy_us} for k, v in top[:12]],
+        "top_host_self": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
+                           "calls": e.count} for e in host[:12]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,7 @@
+"""Import-all aggregator: registers every architecture the port serves (and
+its smoke variant) in the config registry. Later slices add their arch
+modules here as their model paths land."""
+
+from . import qwen3_0_6b  # noqa: F401
+
+ASSIGNED = ["qwen3-0.6b"]

@@ -1,0 +1,52 @@
+"""Shared pieces of the ctypes kernel wrappers: dtype codes, argument checks,
+launch counters and the launch-error check."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["DTYPE_CODE", "KernelCount", "check", "ptr", "stream_ptr", "raise_on"]
+
+# dtype codes of the C launchers (csrc/*.cu)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+class KernelCount:
+    """Launch counter beside a kernel: ``launches`` counts the kernel's own
+    launches (the wrapper adds one where it launches and nowhere else),
+    ``plain_calls`` the calls that ran the plain PyTorch version instead."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.plain_calls = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
+
+    def as_dict(self) -> dict:
+        return {"launches": self.launches, "plain_calls": self.plain_calls}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise if a C launcher reported an error (it returns the
+    cudaGetLastError of its launch, -1 for an unsupported dtype, -2 for a tile that does not fit)."""
+    if rc == -1:
+        raise ValueError(f"{name}: unsupported dtype combination")
+    if rc == -2:
+        raise ValueError(f"{name}: the tile does not fit one block")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError_t {rc})")

@@ -1,0 +1,139 @@
+"""Public kernel entry points with device dispatch and path counters.
+
+``impl`` selects the path of every kernel call: ``auto`` launches the
+hand-written CUDA kernel for CUDA tensors and runs the plain PyTorch
+version for CPU tensors; ``torch`` runs the plain version on any device;
+``cuda`` insists on the kernel. A CUDA tensor under ``auto`` launches or
+raises — there is no fallback.
+
+Two kinds of counters answer "which path did the work take":
+``kernel_counts()`` reads each kernel's launch counter and its plain
+version's call counter; ``record_path``/``path_counts`` count, per GEMM or
+attention call-site name, how many calls went down each path.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from ..core.tugemm import TuGemmStats
+from . import flash_paged as _flash
+from . import tugemm_fused as _tugemm
+from .packing import PLANES, pack_planes, pad_to_multiple
+
+__all__ = [
+    "matmul_fused",
+    "pack_weights",
+    "record_path",
+    "path_counts",
+    "kernel_counts",
+    "reset_counts",
+]
+
+_COUNTS = (_tugemm.COUNT, _flash.COUNT)
+_paths: Counter = Counter()
+
+
+def record_path(name: str, path: str) -> None:
+    """Count one call of ``name`` down ``path`` (cuda | torch)."""
+    _paths[(name, path)] += 1
+
+
+def resolve_path(impl: str, t: torch.Tensor) -> str:
+    """The path a call with ``impl`` takes for tensor ``t``."""
+    if impl == "auto":
+        return "cuda" if t.device.type == "cuda" else "torch"
+    if impl in ("torch", "cuda"):
+        return impl
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def path_counts() -> dict:
+    """{name: {path: calls}} since the last ``reset_counts``."""
+    out: dict[str, dict[str, int]] = {}
+    for (name, path), n in _paths.items():
+        out.setdefault(name, {})[path] = n
+    return out
+
+
+def kernel_counts() -> dict:
+    """{kernel: {"launches": n, "plain_calls": n}} since the last reset."""
+    return {c.name: c.as_dict() for c in _COUNTS}
+
+
+def reset_counts() -> None:
+    _paths.clear()
+    for c in _COUNTS:
+        c.reset()
+
+
+def pack_weights(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Offline weight packing for the sub-byte path (pads K to a plane
+    multiple)."""
+    if bits == 8:
+        return w.to(torch.int8)
+    return pack_planes(pad_to_multiple(w.to(torch.int8), 0, PLANES[bits]), bits)
+
+
+def _assemble_stats(ca: torch.Tensor, rb: torch.Tensor) -> TuGemmStats:
+    """TuGemmStats from the two logical-K absmax vectors (core cycle model)."""
+    sc = ca * rb.clamp_min(1)
+    return TuGemmStats(
+        step_cycles=sc,
+        serial_cycles=sc.sum(),
+        parallel_cycles=sc.max(),
+        max_abs=torch.maximum(ca.max(), rb.max()),
+        act_max=ca.max(),
+    )
+
+
+def matmul_fused(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sx: torch.Tensor,
+    sw: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    bits: int,
+    w_quantized: bool = False,
+    collect_stats: bool = False,
+    out_dtype: torch.dtype | None = None,
+    impl: str = "auto",
+    name: str = "matmul_fused",
+):
+    """Fused dynamic-quant linear layer: ``Y = clip(round(X/sx)) @ Wq ·
+    (sx·sw[n]) + bias`` with Wq quantized on load from float w (K, N)
+    (``w_quantized=False``) or taken from storage: int8 (K, N) at 8 bits,
+    plane-packed (ceil(K/planes), N) at 4/2 bits (``pack_weights`` layout).
+
+    sx: per-tensor scalar or per-token (M,) vector; sw: per-column (N,).
+    Returns y (M, N) ``out_dtype`` (default x.dtype), or (y, TuGemmStats)
+    when ``collect_stats`` — the stats come out of the same pass."""
+    path = resolve_path(impl, x)
+    record_path(name, path)
+    sx = torch.as_tensor(sx, dtype=torch.float32, device=x.device)
+    per_token = sx.numel() > 1
+    packed = w_quantized and bits < 8
+    planes = PLANES[bits] if packed else 1
+    w_mode = "packed" if packed else ("int8" if w_quantized else "quant")
+    M, K = x.shape
+    Kw, N = w.shape
+    Klog = planes * Kw
+    if (K > Klog) if packed else (K != Kw):
+        raise ValueError(f"x {tuple(x.shape)} does not match w {tuple(w.shape)} at {bits} bits")
+    if packed and K < Klog:
+        x = torch.nn.functional.pad(x, (0, Klog - K))
+    out = _tugemm.tugemm_fused(
+        x.contiguous(), w.contiguous(),
+        sx.reshape(-1, 1) if per_token else sx.reshape(1, 1),
+        sw.to(torch.float32).reshape(1, N), bias,
+        bits=bits, w_mode=w_mode, collect_stats=collect_stats,
+        out_dtype=out_dtype if out_dtype is not None else x.dtype, impl=path,
+    )
+    if not collect_stats:
+        return out
+    y, ca, rb = out
+    # plane-major -> logical K order: plane p holds logical rows [p·Kw, (p+1)·Kw)
+    return y, _assemble_stats(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K])

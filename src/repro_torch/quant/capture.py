@@ -1,0 +1,86 @@
+"""Eager, context-managed capture of per-GEMM tuGEMM statistics.
+
+The reference threads stats through ``jit``/``scan`` as traced outputs
+(trace-time frames). PyTorch runs eagerly, so the port's collector is a
+plain list: while a :func:`capture_stats` context is active, ``qlinear``
+appends every quantized GEMM's :class:`CapturedGemm` (one per executed
+GEMM, layer by layer), and :func:`tree_totals_by_bits` sums the cycle
+counts per bitwidth on the host — one device sync per bitwidth.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+import torch
+
+from ..core.tugemm import TuGemmStats
+
+__all__ = [
+    "CapturedGemm",
+    "Capture",
+    "capture_stats",
+    "stats_wanted",
+    "push",
+    "tree_totals_by_bits",
+]
+
+
+@dataclass
+class CapturedGemm:
+    """One executed quantized GEMM (M, K) @ (K, N) at ``bits``."""
+
+    name: str
+    M: int
+    K: int
+    N: int
+    stats: TuGemmStats
+    bits: int = 8
+
+
+@dataclass
+class Capture:
+    entries: list[CapturedGemm] = field(default_factory=list)
+
+
+_ACTIVE: list[Capture] = []
+
+
+def stats_wanted() -> bool:
+    return bool(_ACTIVE)
+
+
+def push(name: str, M: int, K: int, N: int, stats: TuGemmStats, bits: int = 8) -> None:
+    """Record one GEMM in the innermost capture (no-op when not capturing)."""
+    if _ACTIVE:
+        _ACTIVE[-1].entries.append(CapturedGemm(name, int(M), int(K), int(N), stats, int(bits)))
+
+
+@contextmanager
+def capture_stats():
+    """Collect every quantized GEMM run inside the block; yields the
+    :class:`Capture` whose ``entries`` hold the result."""
+    cap = Capture()
+    _ACTIVE.append(cap)
+    try:
+        yield cap
+    finally:
+        _ACTIVE.pop()
+
+
+def tree_totals_by_bits(cap: Capture) -> dict[int, dict[str, int]]:
+    """Serial/parallel cycle totals per bitwidth over every captured GEMM,
+    summed in int64 on the host — cycles at different bitwidths are not
+    interchangeable (clock and Table-I power differ per width)."""
+    by: dict[int, list[CapturedGemm]] = {}
+    for e in cap.entries:
+        by.setdefault(int(e.bits), []).append(e)
+    out: dict[int, dict[str, int]] = {}
+    for bits, es in by.items():
+        both = torch.stack([
+            torch.stack([e.stats.serial_cycles.to(torch.int64),
+                         e.stats.parallel_cycles.to(torch.int64)]) for e in es
+        ]).sum(dim=0).cpu()
+        out[bits] = {"serial_cycles": int(both[0]), "parallel_cycles": int(both[1])}
+    return out
