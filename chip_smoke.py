@@ -12,17 +12,23 @@ Phases, each printing one JSON line:
 2. build — compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
    one compiler process per source, all at once.
 3. kernel checks — each hand-written kernel against its plain PyTorch
-   version at the shapes of qwen3-0.6b's serving path, with medians of the
+   version at the shapes of qwen3-0.6b's serving paths, with medians of the
    kernel, the plain version and a library yardstick the port never calls
-   (``torch._int_mm`` for the GEMM, ``scaled_dot_product_attention`` for
-   attention), and each call's bound on an H100 SXM (3.35 TB/s HBM3, 1979
-   dense int8 TOP/s, 67 f32 TFLOP/s outside the tensor cores).
+   (``torch._int_mm`` for the GEMMs, ``scaled_dot_product_attention`` for
+   attention, ``abs().amax`` for the absmax reductions), and each call's
+   bound on an H100 SXM (3.35 TB/s HBM3, 1979 dense int8 TOP/s, 67 f32
+   TFLOP/s outside the tensor cores).
 4. step parity — one prefill tick and one decode tick of the mixed step at
    full width through the kernels and through the plain versions.
 5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
-   width (random weights from a seed); the kernels' launch counters are
-   zeroed just before and read just after.
-6. the kernels line, then the device line last.
+   width (random weights from a seed) under the fused dynamic policy; the
+   kernels' launch counters are zeroed just before and read just after.
+6. serve_prequant / step parity / serve_unfused — the same requests on the
+   same weights after ``apply_surgery``: fused GEMMs on offline-packed MLP
+   weights, then the legacy unfused pipeline (int8 GEMM, plane-packed GEMM
+   and absmax kernels, no fused GEMM), whose greedy tokens must equal the
+   fused-prequant serve's token for token (the two paths are bit-exact).
+7. the kernels line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
 device and exits non-zero without one.
@@ -46,12 +52,17 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 ARCH = "qwen3-0.6b"
 DEVICE = "cuda"
 POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
+# offline-packed int2 MLPs served by the fused kernel, and by the legacy
+# unfused pipeline (int8 attention quantized per call, packed MLP GEMMs)
+PREQUANT_POLICY = "attn.*=int8,mlp.*=int2:prequant,*=bf16"
+UNFUSED_POLICY = "attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16"
 # (name, K, N, bits) of one qwen3-0.6b layer's GEMMs under POLICY
 LAYER_GEMMS = [("attn.q", 1024, 2048, 8), ("attn.k", 1024, 1024, 8),
                ("attn.v", 1024, 1024, 8), ("attn.o", 2048, 1024, 8),
                ("mlp.gate", 1024, 3072, 2), ("mlp.up", 1024, 3072, 2),
                ("mlp.down", 3072, 1024, 2)]
-# the fused GEMM holds its plain version bit for bit: outputs and stats
+# the fused GEMM holds its plain version bit for bit: outputs and stats;
+# the unfused pipeline's kernels compute integers and are held exactly too
 GEMM_TOL = 0.0
 # attention: kernel and plain version sum in different orders in f32 (about
 # 1e-6 relative); a bf16 output can then round to the neighbouring bf16
@@ -280,6 +291,104 @@ def check_attention(torch, flush):
     return records
 
 
+def _bound(byts: int, ops: int) -> dict:
+    tb, to = byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return dict(bytes=byts, ops=ops, bound_ms=max(tb, to) * 1e3,
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def check_unfused(torch, flush):
+    """The unfused pipeline's kernels against their plain versions, exactly,
+    at the shapes of qwen3-0.6b's unfused serving path: M=64 (4 rows x chunk
+    16) and M=4 (decode), plus one ragged case per kernel."""
+    from repro_torch.kernels.ops import pack_weights
+    from repro_torch.kernels.tugemm_int8 import tugemm_int8
+    from repro_torch.kernels.tugemm_packed import tugemm_packed
+    from repro_torch.kernels.unary_stats import colabsmax, rowabsmax
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def i8(shape, bits=8):
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        t = torch.randint(lo, hi, shape, device=dev, generator=gen, dtype=torch.int8)
+        t.view(-1)[0] = lo            # the most negative code is in every operand
+        return t
+
+    def lib_int_mm(a, b):
+        # cuBLASLt's int8 product takes M > 16 and K, N multiples of 8
+        M, K = a.shape
+        if M <= 16 or K % 8 or b.shape[1] % 8:
+            return None
+        return median_ms(torch, lambda: torch._int_mm(a, b), flush=flush)
+
+    records = []
+
+    def run(kernel, case, fn, plain, lib_ms, byts, ops, **shape):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        rec = dict(kernel=kernel, case=case, **shape, exact=exact, max_abs_err=err,
+                   ms=median_ms(torch, fn, flush=flush),
+                   plain_ms=median_ms(torch, plain, flush=flush), library_ms=lib_ms,
+                   **_bound(byts, ops))
+        emit({"phase": "check", **rec})
+        if not exact or err > GEMM_TOL:
+            raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
+        records.append(rec)
+
+    gemms = [("attn.q", 1024, 2048), ("attn.k/v", 1024, 1024), ("attn.o", 2048, 1024)]
+    for M in (64, 4):
+        for case, K, N in gemms:
+            a, b = i8((M, K)), i8((K, N))
+            run("tugemm_int8", case, lambda: tugemm_int8(a, b, impl="cuda"),
+                lambda: tugemm_int8(a, b, impl="torch"), lib_int_mm(a, b),
+                nbytes(a, b) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N)
+            run("colabsmax", case, lambda: colabsmax(a, impl="cuda"),
+                lambda: colabsmax(a, impl="torch"),
+                median_ms(torch, lambda: a.abs().amax(0), flush=flush),
+                nbytes(a) + 4 * K, M * K, M=M, K=K)
+            if M == 64:
+                run("rowabsmax", case, lambda: rowabsmax(b, impl="cuda"),
+                    lambda: rowabsmax(b, impl="torch"),
+                    median_ms(torch, lambda: b.abs().amax(1), flush=flush),
+                    nbytes(b) + 4 * K, K * N, K=K, N=N)
+        for case, K, N, bits in [("mlp.gate/up", 1024, 3072, 2), ("mlp.down", 3072, 1024, 2)]:
+            a, wq = i8((M, K)), i8((K, N), bits)
+            pb = pack_weights(wq, bits)
+            run("tugemm_packed", case, lambda: tugemm_packed(a, pb, bits=bits, impl="cuda"),
+                lambda: tugemm_packed(a, pb, bits=bits, impl="torch"), lib_int_mm(a, wq),
+                nbytes(a, pb) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N, bits=bits)
+    M, K, N = 64, 1024, 2048
+    a, b = i8((M, K)), i8((K, N))
+    c = torch.randint(-(2 ** 20), 2 ** 20, (M, N), device=dev, generator=gen, dtype=torch.int32)
+    run("tugemm_int8", "attn.q with C", lambda: tugemm_int8(a, b, c, impl="cuda"),
+        lambda: tugemm_int8(a, b, c, impl="torch"), None,
+        nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N)
+    a, wq = i8((M, 1024)), i8((1024, 3072), 4)
+    pb = pack_weights(wq, 4)
+    run("tugemm_packed", "int4 1024x3072", lambda: tugemm_packed(a, pb, bits=4, impl="cuda"),
+        lambda: tugemm_packed(a, pb, bits=4, impl="torch"), lib_int_mm(a, wq),
+        nbytes(a, pb) + 4 * M * 3072, 2 * M * 1024 * 3072, M=M, K=1024, N=3072, bits=4)
+    # ragged: no dimension a multiple of any tile; packed K not a plane multiple
+    a, b = i8((37, 333)), i8((333, 65))
+    c = torch.randint(-99, 99, (37, 65), device=dev, generator=gen, dtype=torch.int32)
+    run("tugemm_int8", "ragged", lambda: tugemm_int8(a, b, c, impl="cuda"),
+        lambda: tugemm_int8(a, b, c, impl="torch"), None,
+        nbytes(a, b, c) + 4 * 37 * 65, 2 * 37 * 333 * 65, M=37, K=333, N=65)
+    run("colabsmax", "ragged", lambda: colabsmax(a, impl="cuda"),
+        lambda: colabsmax(a, impl="torch"), None, nbytes(a) + 4 * 333, 37 * 333, M=37, K=333)
+    run("rowabsmax", "ragged", lambda: rowabsmax(b, impl="cuda"),
+        lambda: rowabsmax(b, impl="torch"), None, nbytes(b) + 4 * 333, 333 * 65, K=333, N=65)
+    a, wq = i8((5, 199)), i8((199, 70), 2)
+    pb = pack_weights(wq, 2)
+    run("tugemm_packed", "ragged", lambda: tugemm_packed(a, pb, bits=2, impl="cuda"),
+        lambda: tugemm_packed(a, pb, bits=2, impl="torch"), None,
+        nbytes(a, pb) + 4 * 5 * 70, 2 * 5 * 199 * 70, M=5, K=199, N=70, bits=2)
+    return records
+
+
 # ------------------------------------------------------------- model phases
 def model_setup(torch):
     from repro_torch.configs.base import RunConfig, get_config
@@ -295,7 +404,18 @@ def model_setup(torch):
     return cfg, rc, params, time.perf_counter() - t0
 
 
-def step_parity(torch, cfg, rc, params):
+def surgered(cfg, rc, params, policy: str):
+    """The RunConfig under ``policy`` and the params after its surgery
+    (prequant leaves packed offline; the float tree is left as it is)."""
+    import dataclasses
+
+    from repro_torch.quant import apply_surgery
+
+    rc = dataclasses.replace(rc, quant_policy=policy)
+    return rc, apply_surgery(cfg, rc, params)
+
+
+def step_parity(torch, cfg, rc, params, phase: str = "step_parity"):
     from repro_torch.models import init_caches
     from repro_torch.serve.cache import BlockManager
     from repro_torch.serve.scheduler import build_mixed_step
@@ -320,7 +440,7 @@ def step_parity(torch, cfg, rc, params):
         dlens = (lens > 0).to(torch.int32)
         caches, l2, cap2 = step(params, caches, dec.to(dev), lens.to(dev), dlens.to(dev), tables)
         out[impl] = (l1.float(), l2.float())
-    rec = {"phase": "step_parity", "tol_rel_l2": STEP_REL_TOL}
+    rec = {"phase": phase, "policy": rc.quant_policy, "tol_rel_l2": STEP_REL_TOL}
     for t, name in enumerate(("prefill", "decode")):
         a, b = out["cuda"][t], out["torch"][t]
         live = (lens > 0).nonzero().flatten().tolist()
@@ -368,6 +488,35 @@ def serve(torch, cfg, rc, params, impl: str):
     return sched, done, wall, counts, prompts
 
 
+def check_served(cfg, sched, done, prompts, bits: set) -> dict:
+    """Every request finished with 16 in-vocabulary tokens and cycle totals
+    at exactly ``bits``; returns {rid: tokens}."""
+    outs = {r.rid: list(r.out) for r in done}
+    if sorted(outs) != list(range(len(prompts))) or any(len(o) != 16 for o in outs.values()):
+        raise AssertionError(f"not every request finished with 16 tokens: {outs}")
+    if any(not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise AssertionError("a token outside the vocabulary")
+    energy = sched.energy_summary()
+    if any(e["cycles"] <= 0 or set(e["cycles_by_bits"]) != bits for e in energy):
+        raise AssertionError(f"cycle totals missing: {energy}")
+    return outs
+
+
+def serve_record(phase, sched, done, wall, counts, prompts) -> dict:
+    from repro_torch.kernels import ops
+
+    gen = sum(len(r.out) for r in done)
+    launches = sum(c["launches"] for c in counts.values())
+    return {"phase": phase, "policy": sched.rc.quant_policy, "requests": len(done),
+            "generated_tokens": gen, "prompt_tokens": sum(len(p) for p in prompts),
+            "wall_s": wall, "tokens_per_s": gen / wall, "ticks": sched.ticks,
+            "median_tick_ms": statistics.median(sched.tick_seconds) * 1e3,
+            "kernel_launches_per_tick": launches / sched.ticks,
+            "preemptions": sched.preemptions, "kernel_counts": counts,
+            "paths": ops.path_counts(), "cycles_by_bits": {
+                str(b): d for b, d in sorted(sched.cycles_by_bits.items())}}
+
+
 def main() -> int:
     import torch
 
@@ -375,7 +524,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -393,9 +542,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": took,
           "sources": list(build.SOURCES)})
 
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
     gemm = check_gemm(torch, flush)
     attn = check_attention(torch, flush)
+    unf = check_unfused(torch, flush)
     del flush
 
     cfg, rc, params, init_s = model_setup(torch)
@@ -404,25 +554,14 @@ def main() -> int:
     step_parity(torch, cfg, rc, params)
 
     sched, done, wall, counts, prompts = serve(torch, cfg, rc, params, "auto")
-    outs = {r.rid: list(r.out) for r in done}
-    if sorted(outs) != list(range(len(prompts))) or any(len(o) != 16 for o in outs.values()):
-        raise AssertionError(f"not every request finished with 16 tokens: {outs}")
-    if any(not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
-        raise AssertionError("a token outside the vocabulary")
-    energy = sched.energy_summary()
-    if any(e["cycles"] <= 0 or set(e["cycles_by_bits"]) != {8, 2} for e in energy):
-        raise AssertionError(f"cycle totals missing: {energy}")
+    outs = check_served(cfg, sched, done, prompts, {8, 2})
+    fused_kernels = ("tugemm_fused", "flash_paged_decode")
     for name, c in counts.items():
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
+        ran = c["launches"] > 0 if name in fused_kernels else c["launches"] == 0
+        if not ran or c["plain_calls"] != 0:
             raise AssertionError(f"serve path did not run only the kernel of {name}: {counts}")
     gen = sum(len(o) for o in outs.values())
-    emit({"phase": "serve", "requests": len(done), "generated_tokens": gen,
-          "prompt_tokens": sum(len(p) for p in prompts), "wall_s": wall,
-          "tokens_per_s": gen / wall, "ticks": sched.ticks,
-          "median_tick_ms": statistics.median(sched.tick_seconds) * 1e3,
-          "preemptions": sched.preemptions, "kernel_counts": counts,
-          "paths": ops.path_counts(), "cycles_by_bits": {
-              str(b): d for b, d in sorted(sched.cycles_by_bits.items())}})
+    emit(serve_record("serve", sched, done, wall, counts, prompts))
 
     # the same serve through the plain versions: how far greedy tokens agree
     # when the only difference is attention's f32 summation order
@@ -431,6 +570,40 @@ def main() -> int:
     same = sum(a == b for r in outs for a, b in zip(outs[r], outs_p[r]))
     emit({"phase": "serve_plain", "wall_s": wall_p, "tokens_per_s": gen / wall_p,
           "tokens_equal": same, "tokens": gen, "kernel_counts": counts_p})
+
+    # the same requests on offline-packed weights: fused, then unfused
+    rc_pq, params_pq = surgered(cfg, rc, params, PREQUANT_POLICY)
+    sched_pq, done_pq, wall_pq, counts_pq, _ = serve(torch, cfg, rc_pq, params_pq, "auto")
+    outs_pq = check_served(cfg, sched_pq, done_pq, prompts, {8, 2})
+    emit(serve_record("serve_prequant", sched_pq, done_pq, wall_pq, counts_pq, prompts))
+    ran = {k for k, c in counts_pq.items() if c["launches"] > 0}
+    if ran != set(fused_kernels) or any(
+            c["plain_calls"] for c in counts_pq.values()):
+        raise AssertionError(f"prequant serve did not run only the fused kernels: {counts_pq}")
+    del params_pq
+
+    rc_unf, params_unf = surgered(cfg, rc, params, UNFUSED_POLICY)
+    step_parity(torch, cfg, rc_unf, params_unf, "step_parity_unfused")
+    sched_unf, done_unf, wall_unf, counts_unf, _ = serve(torch, cfg, rc_unf, params_unf, "auto")
+    # the unfused prequant MLPs record no cycles (the reference's behaviour)
+    outs_unf = check_served(cfg, sched_unf, done_unf, prompts, {8})
+    emit(serve_record("serve_unfused", sched_unf, done_unf, wall_unf, counts_unf, prompts))
+    unfused_kernels = ("tugemm_int8", "tugemm_packed", "colabsmax", "rowabsmax")
+    for name in (*unfused_kernels, "flash_paged_decode"):
+        c = counts_unf[name]
+        if c["launches"] <= 0 or c["plain_calls"] != 0:
+            raise AssertionError(f"unfused serve did not run only the kernel of {name}: "
+                                 f"{counts_unf}")
+    if counts_unf["tugemm_fused"] != {"launches": 0, "plain_calls": 0}:
+        raise AssertionError(f"unfused serve ran the fused GEMM: {counts_unf}")
+    same = sum(a == b for r in outs_pq for a, b in zip(outs_pq[r], outs_unf[r]))
+    cyc8 = (sched_unf.cycles_by_bits[8], sched_pq.cycles_by_bits[8])
+    emit({"phase": "unfused_vs_prequant", "tokens_equal": same, "tokens": gen,
+          "int8_cycles_equal": cyc8[0] == cyc8[1]})
+    if outs_unf != outs_pq or cyc8[0] != cyc8[1]:
+        raise AssertionError("the unfused serve's greedy tokens or int8 cycles differ from "
+                             "the fused-prequant serve's")
+    del params_unf
 
     layer = {g[0]: g for g in LAYER_GEMMS}
     picked = [r for r in gemm if r["w_mode"] == "quant" and not r["per_token"]
@@ -463,6 +636,36 @@ def main() -> int:
          "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
                   f"kv_len {dec['kv_len']}"},
     ]
+    # the unfused path's kernels: one qwen3-0.6b layer's calls at M=64
+    # (k and v share a shape, as gate and up do)
+    per_layer = {
+        "tugemm_int8": ("attn.q", "attn.k/v", "attn.k/v", "attn.o"),
+        "tugemm_packed": ("mlp.gate/up", "mlp.gate/up", "mlp.down"),
+        "colabsmax": ("attn.q", "attn.k/v", "attn.k/v", "attn.o"),
+        "rowabsmax": ("attn.q", "attn.k/v", "attn.k/v", "attn.o"),
+    }
+    replaces = {"tugemm_int8": "src/repro/kernels/tugemm_int8.py:57",
+                "tugemm_packed": "src/repro/kernels/tugemm_packed.py:47",
+                "colabsmax": "src/repro/kernels/unary_stats.py:37",
+                "rowabsmax": "src/repro/kernels/unary_stats.py:66"}
+    for name, cases in per_layer.items():
+        rows = [next(r for r in unf if r["kernel"] == name and r["case"] == c
+                     and r.get("M", 64) == 64) for c in cases]
+        libs = [r["library_ms"] for r in rows]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + ("unary_stats.cu" if "absmax" in name
+                                                 else f"{name}.cu"),
+            "replaces": replaces[name],
+            "launches": counts_unf[name]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in unf if r["kernel"] == name),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": None if None in libs else sum(libs),
+            "shape": f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under "
+                     + UNFUSED_POLICY})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

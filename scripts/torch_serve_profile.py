@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Where a serving tick's time goes on the GPU: profile the port's paged
 scheduler serving chip_smoke.py's serve workload (its ``model_setup`` and
-``serving_scheduler``: qwen3-0.6b at full width, the slice's int8/int2
-policy, 8 requests of 32-128 prompt tokens, 16 new each).
+``serving_scheduler``: qwen3-0.6b at full width, 8 requests of 32-128
+prompt tokens, 16 new each) under one quantization policy, after
+``apply_surgery`` has packed the policy's prequant leaves.
 
 Runs the workload once to warm up, then once under ``torch.profiler`` with
 CPU and CUDA activities, and prints one JSON line: wall time (profiled, and
 the warm-up's without the profiler), the device's busy time (the union of
 the intervals of device-side activity: kernels, memcpy and memset; the host
 ops that launched them are not counted again), the device's idle share of
-the profiled wall, and the top device activities and host ops by time.
+the profiled wall, kernel launches per tick, and the top device activities
+and host ops by time.
 
-    python3 scripts/torch_serve_profile.py
+    python3 scripts/torch_serve_profile.py          # chip_smoke.POLICY
+    python3 scripts/torch_serve_profile.py --policy 'attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16'
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -42,17 +46,22 @@ def device_activity(events, cuda_type):
     return busy, by_name
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--policy", default=chip_smoke.POLICY,
+                    help="QuantPolicy grammar (default: %(default)s)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
     cfg, rc, params, _ = chip_smoke.model_setup(torch)
+    rc, params = chip_smoke.surgered(cfg, rc, params, args.policy)
 
     def serve():
         s, _ = chip_smoke.serving_scheduler(cfg, rc, params, "auto")
@@ -70,9 +79,13 @@ def main() -> int:
         raise RuntimeError("the profile holds no device-side events")
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    launches = sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC"))
     print(json.dumps({
-        "phase": "serve_profile", "wall_s": wall, "wall_unprofiled_s": wall_unprofiled,
-        "ticks": sched.ticks,
+        "phase": "serve_profile", "policy": args.policy, "wall_s": wall,
+        "wall_unprofiled_s": wall_unprofiled, "ticks": sched.ticks,
+        "median_tick_ms": 1e3 * sorted(sched.tick_seconds)[len(sched.tick_seconds) // 2],
+        "launches_per_tick": launches / sched.ticks,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_events": sum(c for _, c in by_name.values()),

@@ -6,34 +6,66 @@ version for CPU tensors; ``torch`` runs the plain version on any device;
 ``cuda`` insists on the kernel. A CUDA tensor under ``auto`` launches or
 raises — there is no fallback.
 
-Two kinds of counters answer "which path did the work take":
+Three kinds of counters answer "which path did the work take":
 ``kernel_counts()`` reads each kernel's launch counter and its plain
 version's call counter; ``record_path``/``path_counts`` count, per GEMM or
-attention call-site name, how many calls went down each path.
+attention call-site name, how many calls went down each path; and
+``counting_dispatches`` lists, under the reference's names, the
+operand-sized passes a GEMM pipeline makes (the fused pipeline's two
+against the unfused one's six or more).
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from contextlib import contextmanager
 
 import torch
 
 from ..core.tugemm import TuGemmStats
 from . import flash_paged as _flash
 from . import tugemm_fused as _tugemm
+from . import tugemm_int8 as _int8
+from . import tugemm_packed as _packed
+from . import unary_stats as _stats
 from .packing import PLANES, pack_planes, pad_to_multiple
 
 __all__ = [
     "matmul_fused",
+    "matmul_int8",
+    "matmul_packed",
+    "unary_step_stats",
     "pack_weights",
+    "count_dispatch",
+    "counting_dispatches",
     "record_path",
     "path_counts",
     "kernel_counts",
     "reset_counts",
 ]
 
-_COUNTS = (_tugemm.COUNT, _flash.COUNT)
+_COUNTS = (_tugemm.COUNT, _flash.COUNT, _int8.COUNT, _packed.COUNT,
+           _stats.COL_COUNT, _stats.ROW_COUNT)
 _paths: Counter = Counter()
+_dispatch_log: list[str] | None = None
+
+
+def count_dispatch(name: str) -> None:
+    """Register one operand-sized device pass named ``name`` (only inside
+    :func:`counting_dispatches`)."""
+    if _dispatch_log is not None:
+        _dispatch_log.append(name)
+
+
+@contextmanager
+def counting_dispatches():
+    """Collect the pipeline's dispatch names into the yielded list."""
+    global _dispatch_log
+    prev, _dispatch_log = _dispatch_log, []
+    try:
+        yield _dispatch_log
+    finally:
+        _dispatch_log = prev
 
 
 def record_path(name: str, path: str) -> None:
@@ -77,6 +109,34 @@ def pack_weights(w: torch.Tensor, bits: int) -> torch.Tensor:
     return pack_planes(pad_to_multiple(w.to(torch.int8), 0, PLANES[bits]), bits)
 
 
+def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
+                collect_stats: bool = False, impl: str = "auto"):
+    """Exact int8 GEMM (the tuGEMM contract): A (M, K) · B (K, N) [+ C] ->
+    (M, N) int32, or (y, TuGemmStats) when ``collect_stats``."""
+    count_dispatch("matmul_int8")
+    y = _int8.tugemm_int8(a, b, c, impl=resolve_path(impl, a))
+    if not collect_stats:
+        return y
+    return y, unary_step_stats(a, b, impl=impl)
+
+
+def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") -> TuGemmStats:
+    """tuGEMM data-dependent cycle statistics for A (M, K) @ B (K, N)."""
+    count_dispatch("absmax_a")
+    count_dispatch("absmax_b")
+    path = resolve_path(impl, a)
+    return _assemble_stats(_stats.colabsmax(a, impl=path), _stats.rowabsmax(b, impl=path))
+
+
+def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
+                  impl: str = "auto") -> torch.Tensor:
+    """A (M, K) int8 · plane-packed B (ceil(K/planes), N) -> (M, N) int32.
+    A counts as zero-extended to ``planes * packed_b.shape[0]`` columns
+    (``pack_weights``' padding)."""
+    count_dispatch("matmul_packed")
+    return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a))
+
+
 def _assemble_stats(ca: torch.Tensor, rb: torch.Tensor) -> TuGemmStats:
     """TuGemmStats from the two logical-K absmax vectors (core cycle model)."""
     sc = ca * rb.clamp_min(1)
@@ -111,6 +171,7 @@ def matmul_fused(
     sx: per-tensor scalar or per-token (M,) vector; sw: per-column (N,).
     Returns y (M, N) ``out_dtype`` (default x.dtype), or (y, TuGemmStats)
     when ``collect_stats`` — the stats come out of the same pass."""
+    count_dispatch("matmul_fused")
     path = resolve_path(impl, x)
     record_path(name, path)
     sx = torch.as_tensor(sx, dtype=torch.float32, device=x.device)

@@ -1,8 +1,16 @@
-"""Plain PyTorch versions of the fused GEMM's arithmetic.
+"""Plain PyTorch versions of the kernels' arithmetic.
 
-``fused_gemm_ref`` is the function the CUDA kernel in ``tugemm_fused.py`` is
-held against bit for bit (on the card) and what runs on CPU tensors; it
-mirrors the reference's ``repro/kernels/ref.py::fused_gemm_ref`` op for op.
+Each function is what its CUDA kernel is held against bit for bit (on the
+card) and what runs on CPU tensors; each mirrors the function of the same
+name in the reference's ``repro/kernels/ref.py`` op for op:
+
+- ``matmul_int_ref`` — ``tugemm_int8.py`` (exact int8 GEMM [+ C])
+- ``packed_matmul_ref`` — ``tugemm_packed.py`` (int8 x plane-packed int4/int2)
+- ``colabsmax_ref``, ``rowabsmax_ref`` — ``unary_stats.py``;
+  ``unary_stats_ref`` bundles both with the step cycles
+- ``fused_gemm_ref`` — ``tugemm_fused.py``
+- ``dequant_bias_ref`` — the unfused pipeline's epilogue (no kernel: the
+  same multiply and add the fused kernel's epilogue makes)
 """
 
 from __future__ import annotations
@@ -11,7 +19,16 @@ import torch
 
 from .packing import BITS_TO_PLANES, unpack_plane
 
-__all__ = ["fused_gemm_ref", "int_matmul"]
+__all__ = [
+    "int_matmul",
+    "matmul_int_ref",
+    "packed_matmul_ref",
+    "colabsmax_ref",
+    "rowabsmax_ref",
+    "unary_stats_ref",
+    "dequant_bias_ref",
+    "fused_gemm_ref",
+]
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -22,6 +39,56 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return torch.matmul(a.to(torch.int32), b.to(torch.int32))
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def matmul_int_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact integer GEMM with int32 accumulation (the tuGEMM contract),
+    the accumulators starting at ``c`` when given (paper §II-B)."""
+    y = int_matmul(a, b)
+    if c is not None:
+        y = y + c.to(torch.int32)
+    return y
+
+
+def packed_matmul_ref(a: torch.Tensor, packed_b: torch.Tensor, bits: int,
+                      c: torch.Tensor | None = None) -> torch.Tensor:
+    """int8 A (M, planes·Kp) x plane-packed B (Kp, N): unpack the planes,
+    then the exact GEMM."""
+    planes = BITS_TO_PLANES[bits]
+    if a.shape[1] != packed_b.shape[0] * planes:
+        raise ValueError(f"a {tuple(a.shape)} does not match packed b "
+                         f"{tuple(packed_b.shape)} at {bits} bits")
+    b = torch.cat([unpack_plane(packed_b, bits, p) for p in range(planes)], dim=0)
+    return matmul_int_ref(a, b, c)
+
+
+def colabsmax_ref(a: torch.Tensor) -> torch.Tensor:
+    """``max_m |A[m, k]|`` as int32 (the abs in int32, so -128 counts 128)."""
+    return a.to(torch.int32).abs().amax(dim=0)
+
+
+def rowabsmax_ref(b: torch.Tensor) -> torch.Tensor:
+    """``max_n |B[k, n]|`` as int32 (the abs in int32, so -128 counts 128)."""
+    return b.to(torch.int32).abs().amax(dim=1)
+
+
+def unary_stats_ref(a: torch.Tensor, b: torch.Tensor):
+    """``(colmax_a, rowmax_b, step_cycles)``: per outer-product step k,
+    ``max_m |A[m,k]|``, ``max_n |B[k,n]|`` and their cycle count
+    ``colmax_a[k] * max(rowmax_b[k], 1)``."""
+    ca, rb = colabsmax_ref(a), rowabsmax_ref(b)
+    return ca, rb, ca * rb.clamp_min(1)
+
+
+def dequant_bias_ref(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                     bias: torch.Tensor | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """The unfused pipeline's epilogue: int32 acc -> out dtype (+ bias).
+    ``sx`` is the per-tensor scalar or a per-token (M,) vector; the float
+    ops are the fused kernel's own (``_dequant_bias``), so the two paths
+    agree bit for bit."""
+    sx = torch.as_tensor(sx, dtype=torch.float32, device=acc.device)
+    sx2 = sx.reshape(-1, 1) if sx.numel() > 1 else sx.reshape(1, 1)
+    return _dequant_bias(acc, sx2, sw.to(torch.float32).reshape(1, -1), bias, out_dtype)
 
 
 def _dequant_bias(acc, sx, sw, bias, out_dtype):

@@ -9,7 +9,8 @@ runs a Python loop over the stacked weights and updates the cache pools in
 place.
 
 Block layout (pre-norm, residual): ``x += attn(norm(x)); x += mlp(norm(x))``.
-This slice serves dense GQA stacks on the paged KV layout.
+This slice serves dense GQA stacks on the paged KV layout, with float or
+offline-packed (``quant.surgery.apply_surgery``) linear weights.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
-from ..quant.policy import PolicyError, QuantPolicy, effective_policy
+from ..quant.policy import QuantPolicy, effective_policy
+from ..quant.surgery import _check_stack_consistency, gemm_name_targets
 from .attention import KVView, gqa_attention, init_kv_cache
 from .layers import embed_lookup, mlp, rms_norm
 
@@ -34,7 +36,6 @@ __all__ = [
     "init_caches",
     "backend_from",
     "check_supported",
-    "gemm_name_targets",
     "torch_dtype",
 ]
 
@@ -103,38 +104,17 @@ def check_supported(cfg: ModelConfig, rc: RunConfig) -> None:
 
 
 # ------------------------------------------------------------ policy check
-_MLP = {"w_gate": "gate", "w_up": "up", "w_down": "down"}
-_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o"}
-
-
-def gemm_name_targets(cfg: ModelConfig) -> list[tuple[str, str]]:
-    """Every quantizable GEMM of the model as (runtime name, dotted param
-    path) — the reference surgery walk's naming for dense GQA stacks."""
-    out = []
-    for gi, g in enumerate(plan_groups(cfg)):
-        for j in range(len(g.kinds)):
-            base = f"groups.{gi}.k{j}"
-            out += [(f"attn.{n}", f"{base}.attn.{k}") for k, n in _ATTN.items()]
-            out += [(f"mlp.{n}", f"{base}.ffn.{k}") for k, n in _MLP.items()]
-    if not cfg.tie_embeddings:
-        out.append(("lm_head", "head"))
-    return out
-
-
 @functools.lru_cache(maxsize=64)
-def _validate_policy(cfg: ModelConfig, policy: QuantPolicy) -> None:
-    """Reject typo'd or shadowed rules, and rules whose path-level match
-    would make one stacked group diverge from its runtime name (only
-    prequant leaves could, and they are not ported yet)."""
+def _validate_policy(policy: QuantPolicy, targets: tuple, packed: frozenset) -> None:
+    """Reject typo'd or shadowed rules, and path-level rules that make one
+    stacked layer diverge from its runtime name where the params do not
+    carry the divergence (only packed prequant leaves can: their ``qbits``
+    decide their width). ``targets``/``packed`` come from
+    ``quant.surgery.gemm_name_targets`` on the live params."""
     if not policy.rules:
         return
-    targets = gemm_name_targets(cfg)
     policy.validate(targets)
-    for name, path in targets:
-        if policy.resolve(name) != policy.resolve(name, path):
-            raise PolicyError(
-                f"policy resolves {name!r} by name and via param path {path!r} to "
-                "different backends; layers stacked in one group share one runtime name")
+    _check_stack_consistency(policy, targets, packed=set(packed))
 
 
 def backend_from(rc: RunConfig):
@@ -170,10 +150,11 @@ def init_caches(cfg: ModelConfig, rc: RunConfig, batch: int, capacity: int, *,
 # ------------------------------------------------------------------ forward
 def _select(tree, i: int):
     """Layer ``i`` of a stacked tree (views: in-place writes land in the
-    stacked tensors)."""
+    stacked tensors); non-tensor leaves (a packed leaf's ``QBits``) are
+    shared by every layer."""
     if isinstance(tree, dict):
         return {k: _select(v, i) for k, v in tree.items()}
-    return tree[i]
+    return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
 def _apply_block(cfg, kind, p, x, positions, *, backend, cache, kv_view, impl):
@@ -203,7 +184,9 @@ def forward(
     ``kernels/ops.py``); a policy rule's own impl overrides it."""
     check_supported(cfg, rc)
     policy = effective_policy(rc)
-    _validate_policy(cfg, policy)
+    packed: set = set()
+    targets = gemm_name_targets(cfg, params, packed=packed)
+    _validate_policy(policy, tuple(targets), frozenset(packed))
     backend = policy.resolved()
     x = embed_lookup(params["embed"], batch["tokens"], torch_dtype(rc.dtype))
     B, S = x.shape[:2]

@@ -1,8 +1,11 @@
-"""Quantization: symmetric dynamic scales, per-layer policies, the fused
-GEMM backend and eager stats capture."""
+"""Quantization: symmetric scales, per-layer policies, the fused and the
+legacy unfused GEMM backends, offline prequantization (surgery), eager
+stats capture and the debug stats collector."""
 
 from .policy import LayerRule, PolicyError, QuantPolicy, effective_policy
-from .qlinear import BF16, GemmBackend, dense, gemm
+from .qlinear import BF16, GemmBackend, QBits, dense, gemm, prequantize_tree
+from .surgery import apply_surgery, plan_surgery, validate_runtime_policy
 
-__all__ = ["BF16", "GemmBackend", "LayerRule", "PolicyError", "QuantPolicy",
-           "dense", "effective_policy", "gemm"]
+__all__ = ["BF16", "GemmBackend", "LayerRule", "PolicyError", "QBits", "QuantPolicy",
+           "apply_surgery", "dense", "effective_policy", "gemm", "plan_surgery",
+           "prequantize_tree", "validate_runtime_policy"]

@@ -10,9 +10,9 @@ grammar (CLI / serving configs)::
     attn.*=int8:per_token                  # per-row activation scales
 
 The kernel impl flag takes the port's values (``auto``, ``torch``,
-``cuda``; see ``kernels/ops.py``). Only the fused dynamic path is served in
-this slice: ``prequant`` rules and ``unfused`` rules parse and round-trip
-but raise when a GEMM resolves to them.
+``cuda``; see ``kernels/ops.py``). ``prequant`` rules take effect once
+``quant.surgery.apply_surgery`` has packed their leaves; ``unfused`` rules
+select the legacy pipeline of separate passes (``quant/qlinear.py``).
 """
 
 from __future__ import annotations
@@ -176,6 +176,10 @@ class QuantPolicy:
     def resolve(self, name: str, path: str | None = None) -> GemmBackend:
         """Per-GEMM resolved backend (uncached — :meth:`resolved` memoizes)."""
         return self.rule_for(name, path)[0].backend()
+
+    @property
+    def is_quant(self) -> bool:
+        return self.default.is_quant or any(r.is_quant for r in self.rules)
 
     def resolved(self) -> "ResolvedPolicy":
         """A lazily-memoizing resolution table (trace-time cache)."""

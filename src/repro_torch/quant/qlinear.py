@@ -5,29 +5,37 @@ object (``quant.policy`` — anything with ``for_gemm(name)``), resolved per
 GEMM name, so one forward mixes int8 attention, int2 MLPs and bf16 heads.
 
 - ``bf16``: plain ``torch.matmul`` in the activation dtype.
-- ``int8|int4|int2`` dynamic: activation scale (per-tensor, or per-row with
-  ``act_scale="token"``) and per-out-channel weight scale from one
-  :func:`~repro_torch.quant.quantize.fused_scales` call, then ONE fused
-  ``ops.matmul_fused`` pass that quantizes on load, accumulates exactly in
-  int32, applies the dequant epilogue and bias, and — when stats are wanted
-  — emits the tuGEMM cycle statistics from the same pass.
+- ``int8|int4|int2``, the tuGEMM exact low-precision contract:
+    * ``dynamic`` — activation scale (per-tensor, or per-row with
+      ``act_scale="token"``) and per-out-channel weight scale computed on
+      the fly, exact integer GEMM, dequantize.
+    * ``prequant`` — weights quantized and plane-packed offline
+      (``prequantize_tree`` / ``quant.surgery.apply_surgery``) into
+      ``{'qkernel', 'qscale', 'qbits'}`` leaves.
 
-This slice serves the fused dynamic path. Offline prequantized weights
-(``qkernel`` leaves) and the legacy unfused pipeline belong to later slices
-and raise ``NotImplementedError``.
+The hot path is *fused*: one scale reduction and ONE ``ops.matmul_fused``
+pass that quantizes on load, accumulates exactly in int32, applies the
+dequant epilogue and bias, and — when stats are wanted — emits the tuGEMM
+cycle statistics from the same pass. ``GemmBackend(fused=False)`` (policy
+flag ``unfused``) keeps the legacy composition of separate passes — scales,
+quantize X and W, ``ops.matmul_int8`` or ``ops.matmul_packed``, the two
+absmax sweeps of ``ops.unary_step_stats``, the dequant epilogue — bit-exact
+against the fused path in outputs and stats.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import dequant_bias_ref
 from . import capture
-from .quantize import fused_scales
+from .quantize import compute_scale, fused_scales, quantize
+from .stats import record_stats
 
-__all__ = ["GemmBackend", "BF16", "gemm", "dense"]
+__all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree"]
 
 
 @dataclass(frozen=True)
@@ -53,6 +61,52 @@ class GemmBackend:
 BF16 = GemmBackend("bf16")
 
 
+@dataclass(frozen=True)
+class QBits:
+    """Bitwidth marker inside a prequantized param leaf: the width its
+    planes were packed at, so a mixed-precision tree stays self-describing
+    (the leaf, not the runtime policy, decides the width it runs at)."""
+
+    bits: int
+
+
+def _impl(backend: GemmBackend, impl: str) -> str:
+    """The kernel path: the caller's ``impl`` unless the rule pins one."""
+    return backend.impl if backend.impl != "auto" else impl
+
+
+def _want_stats(backend: GemmBackend, return_stats: bool) -> bool:
+    """Stats come out of the pass when anyone wants them: the debug
+    collector (``collect_stats``), the functional caller (``return_stats``)
+    or an active capture."""
+    return backend.collect_stats or return_stats or capture.stats_wanted()
+
+
+def _sink_stats(stats, x2, N, backend: GemmBackend, name: str, return_stats: bool):
+    """Route one GEMM's stats to the debug collector and/or the capture
+    (``return_stats=True``: the caller owns them, nothing is pushed)."""
+    if backend.collect_stats:
+        record_stats(name, x2.shape[0], x2.shape[1], N, stats.act_max,
+                     stats.serial_cycles, stats.parallel_cycles, bits=backend.bits)
+    if not return_stats:
+        capture.push(name, x2.shape[0], x2.shape[1], N, stats, bits=backend.bits)
+
+
+def _emit_fused(x2, w, sx, sw, bias, backend: GemmBackend, name: str, *,
+                w_quantized: bool, return_stats: bool, impl: str):
+    """One fused dispatch plus stats routing; returns (y 2-D, stats|None)."""
+    want = _want_stats(backend, return_stats)
+    out = ops.matmul_fused(
+        x2, w, sx=sx, sw=sw, bias=bias, bits=backend.bits, w_quantized=w_quantized,
+        collect_stats=want, impl=_impl(backend, impl), name=name,
+    )
+    if not want:
+        return out, None
+    y, stats = out
+    _sink_stats(stats, x2, sw.reshape(-1).shape[0], backend, name, return_stats)
+    return y, stats
+
+
 def _bf16_gemm(x, w, bias):
     y = torch.matmul(x, w.to(x.dtype))
     if bias is not None:
@@ -74,31 +128,106 @@ def gemm(
 
     ``impl`` is the caller's kernel path; a backend whose own ``impl`` is
     not ``auto`` overrides it. ``return_stats=True`` returns
-    ``(y, TuGemmStats | None)`` (None on the bf16 path)."""
+    ``(y, TuGemmStats | None)`` (None on the bf16 path). A float weight
+    runs dynamic whatever the mode: a ``prequant`` rule on a leaf that was
+    never packed quantizes on the fly, which is bit-exact with prequant."""
     backend = backend.for_gemm(name)
     if backend.kind == "bf16":
         y = _bf16_gemm(x, w, bias)
         return (y, None) if return_stats else y
-    if backend.mode != "dynamic" or not backend.fused:
-        raise NotImplementedError(
-            f"GEMM {name!r}: {backend.kind}:{backend.mode}"
-            f"{'' if backend.fused else ':unfused'} is not ported yet; the port "
-            "serves the fused dynamic path"
-        )
     bits = backend.bits
+    per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    sx, sw = fused_scales(x2, w, bits, backend.act_scale == "token")
-    want = backend.collect_stats or return_stats or capture.stats_wanted()
-    out = ops.matmul_fused(
-        x2, w, sx=sx, sw=sw, bias=bias, bits=bits, collect_stats=want,
-        impl=backend.impl if backend.impl != "auto" else impl, name=name,
-    )
-    y, stats = out if want else (out, None)
-    if stats is not None and not return_stats:
-        capture.push(name, x2.shape[0], x2.shape[1], w.shape[1], stats, bits=bits)
+    if backend.fused:
+        sx, sw = fused_scales(x2, w, bits, per_token)
+        ops.count_dispatch("fused_scales")
+        y, stats = _emit_fused(x2, w, sx, sw, bias, backend, name, w_quantized=False,
+                               return_stats=return_stats, impl=impl)
+        y = y.reshape(*lead, w.shape[1])
+        return (y, stats) if return_stats else y
+
+    # ------------------------------------------------ legacy unfused pipeline
+    path = _impl(backend, impl)
+    sx = compute_scale(x2, bits, axis=0 if per_token else None)
+    sw = compute_scale(w, bits, axis=1)
+    ops.count_dispatch("scale_x")
+    ops.count_dispatch("scale_w")
+    xq = quantize(x2, sx.reshape(-1, 1) if per_token else sx, bits)
+    wq = quantize(w, sw.reshape(1, -1), bits)
+    ops.count_dispatch("quantize_x")
+    ops.count_dispatch("quantize_w")
+    y_int = ops.matmul_int8(xq, wq, impl=path)
+    stats = None
+    if _want_stats(backend, return_stats):
+        stats = ops.unary_step_stats(xq, wq, impl=path)
+        # the stats come from the int8 operands; the record carries x's shape
+        _sink_stats(stats, x2, w.shape[1], backend, name, return_stats)
+    y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)
+    ops.count_dispatch("dequant_epilogue")
     y = y.reshape(*lead, w.shape[1])
     return (y, stats) if return_stats else y
+
+
+def _leaf_backend(leaf: dict, backend: GemmBackend) -> GemmBackend:
+    """Reconcile a resolved backend with a packed leaf's own ``qbits``: the
+    leaf decides the bitwidth (its planes were packed at that width). A
+    leaf the runtime policy resolves to bf16 (path-pattern surgery) still
+    runs prequant at its packed width."""
+    qb = leaf.get("qbits")
+    if qb is None:
+        return backend
+    kind = {8: "int8", 4: "int4", 2: "int2"}[qb.bits]
+    if backend.kind == "bf16":
+        return GemmBackend(kind, "prequant")
+    if backend.kind != kind:
+        return replace(backend, kind=kind)
+    return backend
+
+
+def _gemm_prequant(
+    x: torch.Tensor,
+    leaf: dict,
+    backend: GemmBackend,
+    name: str,
+    bias: torch.Tensor | None = None,
+    return_stats: bool = False,
+    impl: str = "auto",
+):
+    backend = _leaf_backend(leaf, backend)
+    bits = backend.bits
+    per_token = backend.act_scale == "token"
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    sx = compute_scale(x2, bits, axis=0 if per_token else None)
+    ops.count_dispatch("scale_x")
+    sw = leaf["qscale"]
+    N = sw.shape[0]
+    if backend.fused:
+        # the plane decode runs inside the fused kernel, and real cycle
+        # stats come out of the same pass
+        y, stats = _emit_fused(x2, leaf["qkernel"], sx, sw, bias, backend, name,
+                               w_quantized=True, return_stats=return_stats, impl=impl)
+        y = y.reshape(*lead, N)
+        return (y, stats) if return_stats else y
+
+    path = _impl(backend, impl)
+    xq = quantize(x2, sx.reshape(-1, 1) if per_token else sx, bits)
+    ops.count_dispatch("quantize_x")
+    if bits == 8:
+        y_int = ops.matmul_int8(xq, leaf["qkernel"], impl=path)
+    else:
+        y_int = ops.matmul_packed(xq, leaf["qkernel"], bits=bits, impl=path)
+    if backend.collect_stats:
+        # the legacy path has no unpacked weights at hand: it records the
+        # activation max only, with zero cycles, and pushes nothing to a
+        # capture (the reference's behaviour; the fused path does better)
+        record_stats(name, x2.shape[0], x2.shape[1], N, xq.abs().max(),
+                     torch.zeros(()), torch.zeros(()), bits=backend.bits)
+    y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)
+    ops.count_dispatch("dequant_epilogue")
+    y = y.reshape(*lead, N)
+    return (y, None) if return_stats else y
 
 
 def dense(
@@ -110,9 +239,36 @@ def dense(
     return_stats: bool = False,
     impl: str = "auto",
 ):
-    """Linear layer over a param leaf dict ``{'kernel': (K, N) [, 'bias']}``."""
+    """Linear layer over a param leaf dict ``{'kernel': (K, N) [, 'bias']}``
+    or its prequantized form ``{'qkernel', 'qscale' [, 'qbits'] [, 'bias']}``.
+    ``return_stats=True`` -> ``(y, TuGemmStats | None)``."""
+    backend = backend.for_gemm(name)
+    bias = params.get("bias")
     if "qkernel" in params:
-        raise NotImplementedError(
-            f"GEMM {name!r}: prequantized (qkernel) leaves are not ported yet")
-    return gemm(x, params["kernel"], backend=backend, name=name,
-                bias=params.get("bias"), return_stats=return_stats, impl=impl)
+        return _gemm_prequant(x, params, backend, name, bias=bias,
+                              return_stats=return_stats, impl=impl)
+    return gemm(x, params["kernel"], backend=backend, name=name, bias=bias,
+                return_stats=return_stats, impl=impl)
+
+
+def prequantize_tree(params, bits: int):
+    """Offline PTQ: replace every ``{'kernel': (K, N)}`` linear leaf-dict
+    with ``{'qkernel': packed int8, 'qscale': (N,) f32, 'qbits': QBits(bits)}``.
+    Biases, norms and embeddings stay float. For per-layer mixed widths use
+    ``quant.surgery.apply_surgery`` with a QuantPolicy."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "kernel" in node and getattr(node["kernel"], "ndim", 0) == 2:
+                w = node["kernel"]
+                sw = compute_scale(w, bits, axis=1)
+                wq = quantize(w, sw.reshape(1, -1), bits)
+                new = {"qkernel": ops.pack_weights(wq, bits), "qscale": sw,
+                       "qbits": QBits(bits)}
+                if "bias" in node:
+                    new["bias"] = node["bias"]
+                return new
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(params)

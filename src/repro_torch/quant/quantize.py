@@ -1,4 +1,5 @@
-"""Symmetric dynamic scales for the fused tuGEMM path.
+"""Symmetric quantization: dynamic scales, and the standalone quantize /
+dequantize passes of the unfused pipeline and of offline weight packing.
 
 Every scale flows through :func:`amax_to_scale`, which multiplies by the
 precomputed reciprocal of the top code (``amax * (1/hi)``) exactly as the
@@ -12,7 +13,8 @@ import torch
 
 from ..core.encoding import int_range
 
-__all__ = ["int_range", "compute_scale", "raw_amax", "amax_to_scale", "fused_scales"]
+__all__ = ["int_range", "compute_scale", "raw_amax", "amax_to_scale", "fused_scales",
+           "quantize", "dequantize"]
 
 
 def raw_amax(x: torch.Tensor, *, axis: int | None = None) -> torch.Tensor:
@@ -43,3 +45,16 @@ def fused_scales(x: torch.Tensor, w: torch.Tensor, bits: int,
     per-out-channel weight scale (N,) of a dynamic-quant linear layer."""
     sx = compute_scale(x, bits, axis=0 if per_token else None)
     return sx, compute_scale(w, bits, axis=1)
+
+
+def quantize(x: torch.Tensor, scale, bits: int) -> torch.Tensor:
+    """``clip(round(x / scale))`` to the w-bit two's-complement range, as
+    int8: an f32 IEEE divide, rounded half to even — the fused kernel's own
+    quantizer, so the unfused and fused pipelines agree bit for bit."""
+    lo, hi = int_range(bits)
+    q = torch.round(x.to(torch.float32) / scale)
+    return torch.clamp(q, lo, hi).to(torch.int8)
+
+
+def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    return q.to(torch.float32) * scale

@@ -1,0 +1,246 @@
+"""Model surgery: pack a float model's linear layers offline for its policy.
+
+- :func:`plan_surgery` resolves every linear leaf of a param tree to the
+  GEMM name its ``forward`` uses ("attn.q", "mlp.down", "lm_head") and to
+  the backend the RunConfig's QuantPolicy gives it, validating the policy
+  against the model's real GEMM names (a typo'd or shadowed rule raises).
+- :func:`apply_surgery` replaces every leaf whose rule says
+  ``mode="prequant"`` with ``{"qkernel", "qscale", "qbits"}``: the weight
+  quantized per out-channel and plane-packed at *that leaf's* bitwidth
+  (``kernels.ops.pack_weights`` layout), stacked along the layer axis like
+  the float kernel (``qkernel (L, Kp, N)``, ``qscale (L, N)``), with a
+  :class:`~repro_torch.quant.qlinear.QBits` marker pinning the width.
+  Dynamic-mode leaves stay float: the fused kernel quantizes on load.
+- :func:`validate_runtime_policy` gives the runtime entry points the same
+  policy checks on live (possibly surgered) params.
+
+This slice covers the dense GQA stacks the port serves (attention, MLP and
+an untied head); the reference's SSM, MoE-expert and frontend leaves come
+with the slices that port those layers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..configs.base import ModelConfig, RunConfig
+from ..kernels import ops
+from .policy import PolicyError, QuantPolicy, effective_policy
+from .qlinear import QBits
+from .quantize import compute_scale, quantize
+
+__all__ = [
+    "SurgeryEntry",
+    "SurgeryPlan",
+    "plan_surgery",
+    "apply_surgery",
+    "gemm_name_targets",
+    "validate_runtime_policy",
+]
+
+# param-tree key -> runtime GEMM name, per enclosing module; every other
+# key (norms, embeddings) is outside the tuGEMM hardware boundary
+_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o"}
+_MLP = {"w_gate": "gate", "w_up": "up", "w_down": "down"}
+_TOP = {"head": "lm_head"}
+
+
+def _gemm_name(cfg: ModelConfig, path: tuple) -> str | None:
+    """Runtime GEMM name of the linear leaf at ``path`` (None = not one)."""
+    key = path[-1]
+    if key in _TOP and len(path) == 1:
+        return _TOP[key]
+    if "attn" in path and key in _ATTN:
+        return f"attn.{_ATTN[key]}"
+    if "ffn" in path and key in _MLP:
+        return f"mlp.{_MLP[key]}"
+    return None
+
+
+@dataclass(frozen=True)
+class SurgeryEntry:
+    path: tuple          # keys into the param tree (ints for group tuples)
+    gemm_name: str       # runtime qlinear name
+    selected: bool       # resolved to a quant backend by the policy
+    shape: tuple         # kernel shape incl. the leading layer axis
+    bits: int = 16       # resolved bitwidth for this leaf (16 = bf16)
+    mode: str = "dynamic"  # resolved mode (dynamic | prequant)
+
+
+@dataclass(frozen=True)
+class SurgeryPlan:
+    policy: QuantPolicy
+    entries: tuple[SurgeryEntry, ...]
+
+    @property
+    def selected(self) -> tuple[SurgeryEntry, ...]:
+        return tuple(e for e in self.entries if e.selected)
+
+    @property
+    def bits_used(self) -> tuple[int, ...]:
+        """Distinct quant bitwidths actually assigned (sorted desc)."""
+        return tuple(sorted({e.bits for e in self.selected}, reverse=True))
+
+
+def _dotted(path: tuple) -> str:
+    return ".".join(str(k) for k in path)
+
+
+def _check_stack_consistency(policy: QuantPolicy, targets, packed: set | None = None) -> None:
+    """Layers stacked in one group share one runtime GEMM name, so a
+    path-pattern rule that resolves one of them differently from its name
+    can only take effect in ``prequant`` mode, where the packed leaf's own
+    ``qbits`` overrides the name. A dynamic-mode divergence would run at
+    the wrong precision and raises. ``packed`` is the set of dotted paths
+    whose leaves carry a ``qkernel`` (live params); None means surgery
+    itself is about to pack them. A prequant divergence on a leaf that is
+    not packed raises too."""
+    for name, path in targets:
+        run = policy.resolve(name)
+        surg = policy.resolve(name, path)
+        if surg == run:
+            continue
+        if surg.kind != "bf16" and surg.mode == "prequant":
+            if packed is None or path in packed:
+                continue  # leaf-level override via packed qbits
+            raise PolicyError(
+                f"policy resolves {name!r} to {surg.kind}:prequant via param path "
+                f"{path!r} but the leaf is not packed (no qkernel): run "
+                f"quant.surgery.apply_surgery on the params first — on float params "
+                f"the layer would run at the name-level resolution ({run.kind})"
+            )
+        raise PolicyError(
+            f"policy resolves {name!r} to {run.kind} by name but {surg.kind}:{surg.mode} "
+            f"via param path {path!r}: layers stacked in one group share a single "
+            f"runtime GEMM name, so per-stack divergence needs mode=prequant "
+            f"(per-leaf packed bits) or name-distinct patterns"
+        )
+
+
+def _walk(cfg: ModelConfig, node, path: tuple, visit):
+    """Visit every qlinear-executed linear (``{'kernel'}`` leaf-dicts and
+    their surgered ``{'qkernel'}`` form). ``visit(path, leaf, name)``
+    returns a replacement leaf-dict or None to keep it."""
+    if isinstance(node, dict):
+        if "qkernel" in node or ("kernel" in node and getattr(node["kernel"], "ndim", 0) >= 2):
+            name = _gemm_name(cfg, path)
+            if name is None:
+                return node
+            rep = visit(path, node, name)
+            return node if rep is None else rep
+        return {k: _walk(cfg, v, path + (k,), visit) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_walk(cfg, v, path + (i,), visit) for i, v in enumerate(node))
+    return node
+
+
+def gemm_name_targets(cfg: ModelConfig, params, *, packed: set | None = None
+                      ) -> list[tuple[str, str]]:
+    """Every qlinear-executed GEMM of a param tree as (runtime name, dotted
+    path), float or surgered. With a ``packed`` set, also collect the
+    dotted paths whose leaves carry a packed ``qkernel``."""
+    out: list[tuple[str, str]] = []
+
+    def visit(path, leaf, name):
+        d = _dotted(path)
+        out.append((name, d))
+        if packed is not None and "qkernel" in leaf:
+            packed.add(d)
+        return None
+
+    _walk(cfg, params, (), visit)
+    return out
+
+
+def validate_runtime_policy(cfg: ModelConfig, policy: QuantPolicy, params: dict) -> None:
+    """Policy checks for the runtime entry points on live params: a typo'd
+    or shadowed rule raises PolicyError, and so does a stacked-layer
+    divergence that the params' packed leaves do not carry."""
+    if not policy.rules:
+        return
+    packed: set = set()
+    targets = gemm_name_targets(cfg, params, packed=packed)
+    policy.validate(targets)
+    _check_stack_consistency(policy, targets, packed=packed)
+
+
+def plan_surgery(cfg: ModelConfig, rc: RunConfig, params: dict) -> SurgeryPlan:
+    """Every linear leaf, its runtime GEMM name and the backend the
+    RunConfig's QuantPolicy resolves it to; validates the policy."""
+    policy = effective_policy(rc)
+    entries: list[SurgeryEntry] = []
+
+    def visit(path, leaf, name):
+        be = policy.resolve(name, _dotted(path))
+        kern = leaf["kernel"] if "kernel" in leaf else leaf["qkernel"]
+        entries.append(SurgeryEntry(tuple(path), name, be.kind != "bf16", tuple(kern.shape),
+                                    bits=be.bits, mode=be.mode))
+        return None
+
+    _walk(cfg, params, (), visit)
+    targets = [(e.gemm_name, _dotted(e.path)) for e in entries]
+    if policy.rules:
+        policy.validate(targets)
+    _check_stack_consistency(policy, targets)
+    return SurgeryPlan(policy=policy, entries=tuple(entries))
+
+
+def _prequant_leaf(w: torch.Tensor, bits: int) -> dict:
+    """Offline PTQ of one kernel, for each slice along its leading stack
+    axes: (..., K, N) float -> {'qkernel': (..., Kp, N) packed int8,
+    'qscale': (..., N) f32}."""
+
+    def one(wi):
+        sw = compute_scale(wi, bits, axis=1)
+        wq = quantize(wi, sw.reshape(1, -1), bits)
+        return ops.pack_weights(wq, bits), sw
+
+    lead = tuple(w.shape[:-2])
+    if not lead:
+        qk, qs = one(w)
+        return {"qkernel": qk, "qscale": qs}
+    parts = [one(wi) for wi in w.reshape((-1,) + tuple(w.shape[-2:]))]
+    qk = torch.stack([p[0] for p in parts])
+    qs = torch.stack([p[1] for p in parts])
+    return {"qkernel": qk.reshape(lead + tuple(qk.shape[1:])),
+            "qscale": qs.reshape(lead + tuple(qs.shape[1:]))}
+
+
+def apply_surgery(cfg: ModelConfig, rc: RunConfig, params: dict) -> dict:
+    """Rewrite the param tree for the RunConfig's QuantPolicy: every leaf
+    whose rule says ``mode="prequant"`` is quantized and plane-packed
+    offline at its own bitwidth (biases ride along); dynamic and bf16 leaves
+    are left as they are. Returns a new tree; the input is not modified."""
+    policy = effective_policy(rc)
+    if not policy.is_quant:
+        return params
+    entries_seen: list[tuple[str, str]] = []
+
+    def visit(path, leaf, name):
+        entries_seen.append((name, _dotted(path)))
+        be = policy.resolve(name, _dotted(path))
+        if "qkernel" in leaf:
+            # already packed: idempotent only at the same width
+            qb = leaf.get("qbits")
+            want = be.bits if (be.kind != "bf16" and be.mode == "prequant") else None
+            if qb is not None and qb.bits != want:
+                raise PolicyError(
+                    f"param leaf {_dotted(path)} ({name!r}) is packed at {qb.bits} bits "
+                    f"but the policy resolves it to {be.kind}:{be.mode}; re-run "
+                    f"apply_surgery on the original float params")
+            return None
+        if be.kind == "bf16" or be.mode != "prequant":
+            return None
+        new = _prequant_leaf(leaf["kernel"], be.bits)
+        new["qbits"] = QBits(be.bits)
+        if "bias" in leaf:
+            new["bias"] = leaf["bias"]
+        return new
+
+    out = _walk(cfg, params, (), visit)
+    if policy.rules:
+        policy.validate(entries_seen)
+    _check_stack_consistency(policy, entries_seen)
+    return out

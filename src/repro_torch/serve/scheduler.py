@@ -11,12 +11,19 @@ trash page and their outputs are never read. Under pool pressure the
 youngest slot is recompute-preempted: its pages are released and it is
 requeued at the front, its generated tokens joining its prompt.
 
+Pool pressure also drives the degradation ladder (``serve/admission.py``):
+a preemption lifts it to ``preempt``, a stalled row one level per tick (up
+to ``preempt``), and from ``shrink_chunk`` up the prefill share of a tick's
+token budget halves per level; ``rc.ladder_relax_ticks`` clean ticks relax
+it one level. Every tick advances a logical ``clock``, the ladder's time.
+
 Cycle attribution (``track_energy=True``): a tick's tuGEMM cycles are split
 across scheduled rows by active-token weight ``lens[b] / sum(lens)``.
 
-This slice has plain FIFO admission. Admission classes, fault injection,
-speculative decoding, prefix caching, tracing and the dense layout are
-later slices; the knobs that select them raise ``NotImplementedError``.
+This slice has plain FIFO admission. Admission classes, shedding, fault
+injection, speculative decoding, prefix caching, tracing and the dense
+layout are later slices; the knobs that select them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..models import KVView, forward, init_caches, lm_logits
 from ..models.transformer import check_supported
 from ..quant import capture as stats_capture
 from ..quant.capture import tree_totals_by_bits
+from .admission import DegradationLadder
 from .cache import BlockManager, num_pages_for
 
 __all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "sample",
@@ -211,7 +219,9 @@ class Scheduler:
         self.tick_seconds: list[float] = []         # wall time of every step tick
         self.generated_tokens = 0
         self.ticks = 0
+        self.clock = 0                   # logical time: every tick, run or idle
         self.preemptions = 0
+        self.ladder = DegradationLadder(relax_after=rc.ladder_relax_ticks)
         self._admit_counter = 0
         self._meters_by_rid: dict[int, SlotMeter] = {}
         self._tables_dev = None          # device copy of mgr.tables ...
@@ -268,18 +278,27 @@ class Scheduler:
         self.queue.appendleft(self.slots[i].req)
         self.slots[i] = None
         self.preemptions += 1
+        self.ladder.escalate_to(self.clock, 3, "preemption")
         return True
+
+    def _note_stall(self) -> None:
+        """Rows whose page allocation failed this tick escalate the ladder
+        (allocation stalls stop at ``preempt``)."""
+        self.ladder.note_pressure(self.clock, "alloc_stall", ceil=3)
 
     # ----------------------------------------------------------------- tick
     def _plan(self):
         """Fill one tick's rows under the token budget: decode rows first,
         then prompt chunks FIFO, in a per-tick rotated slot order. Rows
-        whose page allocation fails sit this tick out."""
+        whose page allocation fails sit this tick out (counted as
+        ``stalled``). From ladder level 2 the prefill share of the budget
+        shrinks; decode rows, which release pages soonest, keep priority."""
         rows, W = self.max_batch, self.chunk
         tokens = np.zeros((rows, W), np.int32)
         pos = np.zeros(rows, np.int32)
         lens = np.zeros(rows, np.int32)
         budget = self.token_budget
+        stalled = 0
         decode_rows: list[int] = []
         prefill_rows: list[int] = []
         order = [(self._rr + k) % rows for k in range(rows)]
@@ -290,23 +309,26 @@ class Scheduler:
             pos[i] = sl.pos
             if not sl.prefilling and budget > 0:
                 if not self.mgr.extend(i, sl.pos + 1):
-                    continue  # pool exhausted — row stalls this tick
+                    stalled += 1  # pool exhausted — row stalls this tick
+                    continue
                 tokens[i, 0] = sl.last_token
                 lens[i] = 1
                 budget -= 1
                 decode_rows.append(i)
+        pbudget = min(budget, self.ladder.prefill_budget(self.token_budget, W))
         for i in order:
             sl = self.slots[i]
-            if sl is None or lens[i] or not sl.prefilling or budget <= 0:
+            if sl is None or lens[i] or not sl.prefilling or pbudget <= 0:
                 continue
-            n = min(W, len(sl.prompt) - sl.pos, budget)
+            n = min(W, len(sl.prompt) - sl.pos, pbudget)
             if not self.mgr.extend(i, sl.pos + n):
+                stalled += 1
                 continue
             tokens[i, :n] = sl.prompt[sl.pos : sl.pos + n]
             lens[i] = n
-            budget -= n
+            pbudget -= n
             prefill_rows.append(i)
-        return tokens, pos, lens, decode_rows, prefill_rows
+        return tokens, pos, lens, decode_rows, prefill_rows, stalled
 
     def _tables(self) -> torch.Tensor:
         """Device copy of the block tables, re-uploaded only when the host
@@ -329,21 +351,33 @@ class Scheduler:
             if continuing:
                 sl.meter.decode_tokens += 1
 
+    def _end_tick(self, ran: bool) -> bool:
+        """Per-tick ladder bookkeeping: relax toward healthy on a clean tick
+        (the ladder ignores it if pressure was noted at this clock)."""
+        self.ladder.note_clean(self.clock)
+        self.ladder.tick()
+        return ran
+
     def tick(self) -> bool:
         """Plan + run one mixed step. Returns False when nothing ran."""
+        self.clock += 1
         self._admit()
-        tokens, pos, lens, decode_rows, prefill_rows = self._plan()
+        tokens, pos, lens, decode_rows, prefill_rows, stalled = self._plan()
+        if stalled:
+            self._note_stall()
         # pool pressure: nothing schedulable while slots are active means
         # every row's page allocation failed — preempt until one can proceed
         while not (decode_rows or prefill_rows) and self._preempt_one():
-            tokens, pos, lens, decode_rows, prefill_rows = self._plan()
+            tokens, pos, lens, decode_rows, prefill_rows, stalled = self._plan()
+            if stalled:
+                self._note_stall()
         scheduled = decode_rows + prefill_rows
         if not scheduled:
             if any(s is not None for s in self.slots):
                 raise RuntimeError(
                     f"page pool cannot back a single active sequence "
                     f"({self.mgr.num_pages} pages of {self.rc.block_size} tokens)")
-            return False
+            return self._end_tick(False)
         t0 = time.perf_counter()
         # decode-only ticks run at width 1 instead of the full chunk width
         width = self.chunk if prefill_rows else 1
@@ -385,7 +419,7 @@ class Scheduler:
                 if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
                     self._finish(i)
         self._rr = (self._rr + 1) % self.max_batch
-        return True
+        return self._end_tick(True)
 
     def run(self, max_ticks: int = 100_000) -> list[Request]:
         """Drain the queue and all active slots; returns finished requests."""

@@ -4,6 +4,12 @@
 ``repro_torch.interop``. Greedy tokens and per-request ``cycles_by_bits``
 must be identical.
 
+The same holds for the slice's second serving path: offline-prequantized
+weights (``apply_surgery`` in both packages) served through the legacy
+unfused pipeline, and through the fused kernel on packed weights. Under
+pool pressure the port's degradation ladder takes the reference's
+transitions, so ticks, tokens and final KV lengths agree there too.
+
 Two port-only properties follow: recompute-preemption under pool pressure
 changes the schedule but not the tokens, and temperature > 0 draws are keyed
 by (seed, rid, position) so they do not depend on the schedule either. Both
@@ -21,12 +27,14 @@ import torch
 
 from repro.configs.base import RunConfig, get_config
 from repro.models import init as j_init
+from repro.quant import apply_surgery as j_apply_surgery
 from repro.serve import Request as JRequest
 from repro.serve import Scheduler as JScheduler
 from repro_torch.configs.base import RunConfig as TRunConfig
 from repro_torch.configs.base import get_config as t_get_config
 from repro_torch.interop import params_from_reference
 from repro_torch.models import init as t_init
+from repro_torch.quant import apply_surgery as t_apply_surgery
 from repro_torch.serve import Request, Scheduler
 
 torch.set_float32_matmul_precision("highest")
@@ -70,6 +78,72 @@ def test_greedy_tokens_and_cycles_match_reference():
     assert toks == ref_toks
     assert cyc == ref_cyc
     assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+    port.mgr.check_invariants()
+
+
+@pytest.mark.parametrize("policy,bits", [
+    ("attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16", {8}),
+    ("attn.*=int8,mlp.*=int2:prequant,*=bf16", {8, 2}),
+])
+def test_surgered_serving_matches_reference(policy, bits):
+    """apply_surgery -> Scheduler in both packages. The unfused prequant
+    path pushes no capture (the reference's legacy behaviour), so the slice
+    policy's cycles hold only the int8 attention GEMMs."""
+    cfg = get_config(ARCH)
+    rc = RunConfig(quant_policy=policy, **RC_KW)
+    params = j_init(cfg, rc, jax.random.PRNGKey(0))
+    prompts = _prompts(cfg.vocab_size)
+
+    ref = JScheduler(cfg, rc, j_apply_surgery(cfg, rc, params), capacity=32, max_batch=3,
+                     track_energy=True)
+    for rid, p in enumerate(prompts):
+        ref.submit(JRequest(rid=rid, prompt=list(p), max_new=3))
+    ref_toks = {r.rid: r.out for r in ref.run()}
+    ref_cyc = {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+
+    trc = TRunConfig(quant_policy=policy, **RC_KW)
+    tparams = params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+    port = Scheduler(t_get_config(ARCH), trc, t_apply_surgery(t_get_config(ARCH), trc, tparams),
+                     capacity=32, max_batch=3, track_energy=True, device="cpu")
+    for rid, p in enumerate(prompts):
+        port.submit(Request(rid=rid, prompt=list(p), max_new=3))
+    toks = {r.rid: r.out for r in port.run()}
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+
+    assert toks == ref_toks
+    assert cyc == ref_cyc
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == bits and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+
+
+def test_degradation_ladder_matches_reference_under_pool_pressure():
+    """4 rows, prompts of 12-24 tokens in chunks of 5, 10 pages of 4 tokens:
+    preemptions lift the ladder to ``preempt``, where the prefill share of a
+    tick shrinks to one chunk. Per-tensor scales, so the tokens depend on
+    the schedule as well."""
+    cfg = get_config(ARCH)
+    rc = RunConfig(quant_policy=POLICY, **RC_KW)
+    params = j_init(cfg, rc, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(12, 25))).tolist()
+               for _ in range(4)]
+    kw = dict(capacity=40, max_batch=4, num_pages=10)
+
+    ref = JScheduler(cfg, rc, params, **kw)
+    for rid, p in enumerate(prompts):
+        ref.submit(JRequest(rid=rid, prompt=list(p), max_new=4))
+    ref_toks = {r.rid: r.out for r in ref.run()}
+
+    tparams = params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+    port, toks = _run_port(tparams, prompts, max_new=4, **kw)
+    assert port.preemptions == ref.preemptions > 0
+    assert port.ladder.transitions == ref.ladder.transitions
+    assert any(t["to"] == "preempt" for t in port.ladder.transitions)
+    assert port.ladder.snapshot()["occupancy"] == ref.ladder.snapshot()["occupancy"]
+    assert (port.ticks, port.clock) == (ref.ticks, ref.clock)
+    assert toks == ref_toks
     assert port.final_kv_lens == ref.final_kv_lens
     port.mgr.check_invariants()
 
