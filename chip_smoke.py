@@ -28,7 +28,20 @@ Phases, each printing one JSON line:
    weights, then the legacy unfused pipeline (int8 GEMM, plane-packed GEMM
    and absmax kernels, no fused GEMM), whose greedy tokens must equal the
    fused-prequant serve's token for token (the two paths are bit-exact).
-7. the kernels line, then the device line last.
+7. check_c1 — the C1 validation path's kernels (``quantize_sym``,
+   ``temporal_unary_gemm``) against their plain versions, exactly, on the
+   layer-0 weights and activations of qwen3-0.6b at full width.
+8. c1_validation — the paper's C1 conformance, exactly: the gate-level
+   simulator, ``core.tugemm``, the temporal kernel, the int8 kernel with the
+   absmax kernels and the fused kernel's stats agree on outputs, per-step
+   cycles and serial/parallel totals on the 12 Table I design points and
+   the paper's corners; at full width (the seven layer-0 GEMMs, operands
+   made by ``quantize_sym``) the four non-simulator legs agree. Counts are
+   zeroed just before and read just after.
+9. quickstart — ``repro_torch.quickstart.main`` on qwen3-0.6b at full width:
+   exact ``tugemm``, the simulator, PPA, and a ``*=int8:stats`` forward on
+   the fused kernel with its energy report.
+10. the kernels line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
 device and exits non-zero without one.
@@ -69,6 +82,12 @@ GEMM_TOL = 0.0
 # value, one step of 2**-8 relative, so bf16 outputs are held to 2**-7
 # relative, f32 outputs to 1e-5 absolute + 1e-5 relative
 ATTN_TOL = {"bfloat16": (1e-6, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+# the C1 path's integer kernels (quantize_sym codes, temporal GEMM sums) are
+# held to their plain versions exactly
+C1_TOL = 0.0
+# (param name, GEMM name) of layer 0's weights, in LAYER_GEMMS order
+LAYER_WEIGHTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                 ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
 # step parity: the mixed step's only float-order difference between the two
 # paths is attention; a bf16 attention output that rounds the other way can
 # flip a quantization code downstream (int8 attn.o, int2 MLP), which moves
@@ -389,6 +408,250 @@ def check_unfused(torch, flush):
     return records
 
 
+# ------------------------------------------------------------ the C1 path
+def layer0_weights(params) -> dict:
+    """{GEMM name: layer 0's (K, N) weight} of the model's first group."""
+    blk = params["groups"][0]["k0"]
+    return {g[0]: blk[sect][w]["kernel"][0] for g, (sect, w) in zip(LAYER_GEMMS, LAYER_WEIGHTS)}
+
+
+def layer0_activations(torch, K: int, M: int = 64, dtype=None):
+    """A seeded (M, K) activation at the serve phase's batch."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5 + K + M)
+    return torch.randn(M, K, device=DEVICE, generator=gen).to(dtype or torch.bfloat16)
+
+
+def c1_operands(torch, params, bits_of=None, M: int = 64) -> list:
+    """The seven layer-0 GEMMs' int8 operands, quantized by ``ops.quantize_sym``
+    (activations per tensor, weights per column) at each GEMM's bits:
+    [(name, a (M, K), b (K, N), bits)]."""
+    from repro_torch.kernels import ops
+    from repro_torch.quant.quantize import compute_scale
+
+    ws = layer0_weights(params)
+    out = []
+    for name, _, _, bits in LAYER_GEMMS:
+        bits = bits_of or bits
+        w = ws[name]
+        x = layer0_activations(torch, w.shape[0], M)
+        a = ops.quantize_sym(x, compute_scale(x, bits), bitwidth=bits)
+        b = ops.quantize_sym(w, compute_scale(w, bits, axis=1), bitwidth=bits)
+        out.append((name, a, b, bits))
+    return out
+
+
+def check_c1(torch, flush, params):
+    """``quantize_sym`` and ``temporal_unary_gemm`` against their plain
+    versions, exactly, at the C1 path's full-width shapes."""
+    from repro_torch.kernels.quantize import quantize_sym
+    from repro_torch.kernels.temporal_unary import temporal_unary_gemm
+    from repro_torch.kernels.tugemm_int8 import tugemm_int8
+    from repro_torch.quant.quantize import compute_scale
+
+    records = []
+
+    def run(kernel, case, fn, plain, lib_ms, byts, ops, rate, **extra):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        tb, to = byts / HBM_BYTES_PER_S, ops / rate
+        rec = dict(kernel=kernel, case=case, **extra, exact=exact, max_abs_err=err,
+                   ms=median_ms(torch, fn, flush=flush),
+                   plain_ms=median_ms(torch, plain, flush=flush), library_ms=lib_ms,
+                   bytes=byts, ops=ops, bound_ms=max(tb, to) * 1e3,
+                   bound_by="bytes" if tb >= to else "operations")
+        emit({"phase": "check_c1", **rec})
+        if not exact or err > C1_TOL:
+            raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
+        records.append(rec)
+
+    # quantize_sym: no single PyTorch call computes clip(round(x * inv)) as
+    # int8, so its library time is null
+    ws = layer0_weights(params)
+    inputs = [(f"{n}.weight", ws[n], True) for n, *_ in LAYER_GEMMS]
+    inputs += [(f"{n}.act", layer0_activations(torch, ws[n].shape[0]), False)
+               for n, *_ in LAYER_GEMMS]
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    inputs.append(("ragged", torch.randn(37, 333, device=DEVICE, generator=gen) * 3, False))
+    for case, x0, per_col in inputs:
+        for dt in (torch.bfloat16, torch.float32):
+            x = x0.to(dt).contiguous()
+            M, N = x.shape
+            for bits in (2, 4, 8):
+                s = compute_scale(x, bits, axis=1 if per_col else None)
+                inv = (1.0 / s.to(torch.float32)).reshape(1, -1).expand(1, N).contiguous()
+                run("quantize_sym", case, lambda: quantize_sym(x, inv, bitwidth=bits, impl="cuda"),
+                    lambda: quantize_sym(x, inv, bitwidth=bits, impl="torch"), None,
+                    nbytes(x, inv) + M * N, M * N, F32_FLOPS_PER_S, M=M, N=N, bits=bits,
+                    dtype=str(dt).split(".")[-1], scale="column" if per_col else "tensor")
+
+    def temporal(case, a, b, bits):
+        M, K = a.shape
+        N = b.shape[1]
+        lib = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:     # cuBLASLt's int8 product
+            lib = median_ms(torch, lambda: torch._int_mm(a, b), flush=flush)
+        int8 = median_ms(torch, lambda: tugemm_int8(a, b, impl="cuda"), flush=flush)
+        run("temporal_unary_gemm", case,
+            lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="cuda"),
+            lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="torch"), lib,
+            nbytes(a, b) + 4 * M * N, 2 ** (bits - 1) * 2 * M * K * N, INT8_OPS_PER_S,
+            M=M, K=K, N=N, bits=bits, unary_steps=2 ** (bits - 1), int8_kernel_ms=int8)
+
+    for bits_of, label in ((None, "serve"), (4, "w4")):
+        for name, a, b, bits in c1_operands(torch, params, bits_of):
+            temporal(f"{name} {label}", a, b, bits)
+    name, a, b, bits = c1_operands(torch, params, M=4)[0]
+    temporal(f"{name} M=4", a, b, bits)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def i8(shape, lo=-128, hi=128):
+        t = torch.randint(lo, hi, shape, device=DEVICE, generator=gen, dtype=torch.int8)
+        t.view(-1)[0] = lo            # the most negative code is in every operand
+        return t
+
+    temporal("ragged", i8((37, 333)), i8((333, 65)), 8)
+    # saturation: A spans all of int8 but the decomposition runs at 2 bits, so
+    # it saturates |a| at 2; held against the plain GEMM of the saturated A
+    a, b = i8((64, 1024)), i8((1024, 2048), -2, 2)
+    sat = (a.to(torch.int32).sign() * a.to(torch.int32).abs().clamp_max(2)).to(torch.int8)
+    run("temporal_unary_gemm", "saturation",
+        lambda: temporal_unary_gemm(a, b, bitwidth=2, impl="cuda"),
+        lambda: temporal_unary_gemm(sat, b, bitwidth=2, impl="torch"), None,
+        nbytes(a, b) + 4 * 64 * 2048, 2 * 2 * 64 * 1024 * 2048, INT8_OPS_PER_S,
+        M=64, K=1024, N=2048, bits=2, unary_steps=2)
+    return records
+
+
+def c1_legs(torch, a, b, bits):
+    """The four device legs on int8 operands a (M, K), b (K, N), each through
+    its public entry point: (y int32, step cycles, serial, parallel) of
+    ``core.tugemm``, after checking that the temporal kernel's, the int8
+    kernel's and the fused kernel's (unit scales, f32 out) products and the
+    int8+absmax and fused stats equal it exactly."""
+    from repro_torch.core import tugemm
+    from repro_torch.kernels import ops
+
+    N = b.shape[1]
+    y, st = tugemm(a, b)
+    y_u = ops.temporal_gemm(a, b, bitwidth=bits)
+    y_i, st_i = ops.matmul_int8(a, b, collect_stats=True)
+    y_f, st_f = ops.matmul_fused(a.float(), b.float(), sx=torch.tensor(1.0, device=a.device),
+                                 sw=torch.ones(N, device=a.device), bits=bits,
+                                 collect_stats=True, out_dtype=torch.float32)
+    same = torch.equal(y_u, y) and torch.equal(y_i, y) and torch.equal(y_f, y.float())
+    for s in (st_i, st_f):
+        same &= (torch.equal(s.step_cycles, st.step_cycles)
+                 and int(s.serial_cycles) == int(st.serial_cycles)
+                 and int(s.parallel_cycles) == int(st.parallel_cycles))
+    if not same:
+        raise AssertionError(f"C1 legs disagree on a {tuple(a.shape)} x {tuple(b.shape)} "
+                             f"GEMM at {bits} bits")
+    return y, st.step_cycles, int(st.serial_cycles), int(st.parallel_cycles)
+
+
+def c1_agree(torch, case: str, A, B, bits: int, sim: str | None) -> dict:
+    """Exact agreement of the legs (and the gate-level simulator when ``sim``
+    names its variant) on numpy operands A, B; returns the phase record."""
+    import numpy as np
+
+    from repro_torch.core.cycle_sim import simulate_parallel, simulate_serial
+
+    dev = torch.device(DEVICE)
+    a = torch.from_numpy(A.astype(np.int8)).to(dev)
+    b = torch.from_numpy(B.astype(np.int8)).to(dev)
+    y0, sc0, ser0, par0 = c1_legs(torch, a, b, bits)
+    exact = A.astype(np.int64) @ B.astype(np.int64)
+    rec = {"phase": "c1_validation", "case": case, "bits": bits, "shape": list(A.shape) +
+           [B.shape[1]], "serial_cycles": ser0, "parallel_cycles": par0}
+    ok = np.array_equal(y0.cpu().numpy(), exact)
+    ok &= ser0 == int(sc0.sum()) and par0 == int(sc0.max())
+    if sim is not None:
+        t0 = time.perf_counter()
+        r = (simulate_serial if sim == "serial" else simulate_parallel)(A, B)
+        rec.update(sim=sim, sim_cycles=r.total_cycles, sim_s=time.perf_counter() - t0)
+        ok &= np.array_equal(r.Y, exact) and np.array_equal(r.step_cycles, sc0.cpu().numpy())
+        ok &= r.total_cycles == (ser0 if sim == "serial" else par0)
+    rec["agree"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"C1 conformance failed: {rec}")
+    return rec
+
+
+def c1_validation(torch, params) -> dict:
+    """The C1 conformance on the 12 Table I design points (numpy seed 0), the
+    paper's corners, and the seven full-width layer-0 GEMMs (no simulator:
+    it is a numpy loop over every cycle)."""
+    import numpy as np
+
+    from repro_torch.configs.tugemm_paper import HW_CONFIGS
+    from repro_torch.core import int_range, max_magnitude, worst_case_cycles
+
+    totals = {"serial_cycles": 0, "parallel_cycles": 0}
+    for name, hw in HW_CONFIGS.items():
+        rng = np.random.default_rng(0)
+        lo, hi = int_range(hw.bitwidth)
+        A = rng.integers(lo, hi + 1, (hw.m, hw.n))
+        B = rng.integers(lo, hi + 1, (hw.n, hw.p))
+        c1_agree(torch, name, A, B, hw.bitwidth, hw.variant)
+    for bits in (2, 4, 8):
+        rng = np.random.default_rng(20 + bits)
+        lo, hi = int_range(bits)
+        A = rng.integers(lo, hi + 1, (16, 16))
+        B = rng.integers(lo, hi + 1, (16, 16))
+        A[:, 1] = np.where(A[:, 1] == 0, 1, A[:, 1])
+        B[1, :] = 0
+        r = c1_agree(torch, f"zero B row w={bits}", A, B, bits, "serial")
+        B = rng.integers(lo, hi + 1, (16, 16))
+        A[:, 2] = 0
+        c1_agree(torch, f"zero A column w={bits}", A, B, bits, "serial")
+        m = max_magnitude(bits)
+        A = np.full((16, 16), -m)
+        B = np.full((16, 16), -m)
+        B[:, 1] = m - 1 if bits > 2 else -m
+        A[1, :] = m - 1 if bits > 2 else -m
+        r = c1_agree(torch, f"worst case w={bits}", A, B, bits, "serial")
+        if (r["serial_cycles"], r["parallel_cycles"]) != (worst_case_cycles(bits, 16, "serial"),
+                                                          worst_case_cycles(bits, 16, "parallel")):
+            raise AssertionError(f"the worst case missed worst_case_cycles: {r}")
+    for name, a, b, bits in c1_operands(torch, params):
+        _, _, ser, par = c1_legs(torch, a, b, bits)    # raises unless all four agree
+        emit({"phase": "c1_validation", "case": f"layer0 {name}", "bits": bits,
+              "shape": [a.shape[0], a.shape[1], b.shape[1]], "serial_cycles": ser,
+              "parallel_cycles": par, "agree": True})
+        totals["serial_cycles"] += ser
+        totals["parallel_cycles"] += par
+    return totals
+
+
+def run_quickstart(torch) -> dict:
+    """``repro_torch.quickstart.main`` at full width on the card."""
+    from repro_torch import quickstart
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main(arch=ARCH, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = ops.kernel_counts()
+    s4 = out["step4"]
+    emit({"phase": "quickstart", "arch": s4["arch"], "seconds": time.perf_counter() - t0,
+          "step1": out["step1"], "step3": out["step3"], "gemms": s4["gemms"],
+          "expected_max": s4["expected_max"], "serial_cycles": s4["serial_cycles"],
+          "parallel_cycles": s4["parallel_cycles"], "speedup_vs_worst": s4["speedup_vs_worst"],
+          "energy": s4["energy_render_total"], "energy_total_j": s4["energy_total_j"],
+          "kernel_counts": counts})
+    if counts["tugemm_fused"]["launches"] <= 0 or any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"the quickstart forward did not run only kernels: {counts}")
+    if s4["gemms"] != len(LAYER_GEMMS) * get_config(ARCH).num_layers:
+        raise AssertionError(f"the quickstart forward recorded {s4['gemms']} GEMMs")
+    return out
+
+
 # ------------------------------------------------------------- model phases
 def model_setup(torch):
     from repro_torch.configs.base import RunConfig, get_config
@@ -605,6 +868,28 @@ def main() -> int:
                              "the fused-prequant serve's")
     del params_unf
 
+    # the C1 validation path: its kernels against their plain versions, then
+    # the conformance run (its launches are this path's counts) and the
+    # quickstart at full width
+    from repro_torch.kernels import ops
+
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
+    c1 = check_c1(torch, flush, params)
+    del flush
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    c1_tot = c1_validation(torch, params)
+    torch.cuda.synchronize()
+    counts_c1 = ops.kernel_counts()
+    emit({"phase": "c1_totals", **c1_tot, "kernel_counts": counts_c1})
+    for name in ("quantize_sym", "temporal_unary_gemm", "tugemm_int8", "colabsmax",
+                 "rowabsmax", "tugemm_fused"):
+        c = counts_c1[name]
+        if c["launches"] <= 0 or c["plain_calls"] != 0:
+            raise AssertionError(f"the C1 path did not run only the kernel of {name}: "
+                                 f"{counts_c1}")
+    run_quickstart(torch)
+
     layer = {g[0]: g for g in LAYER_GEMMS}
     picked = [r for r in gemm if r["w_mode"] == "quant" and not r["per_token"]
               and not r["bias"] and any((r["K"], r["N"], r["bits"]) == v[1:]
@@ -666,6 +951,34 @@ def main() -> int:
             "library_ms": None if None in libs else sum(libs),
             "shape": f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under "
                      + UNFUSED_POLICY})
+    # the C1 path's kernels: one qwen3-0.6b layer's operand quantizations (7
+    # weights per column, 7 activations per tensor, bf16, at the serve policy's
+    # bits) and its 7 temporal GEMMs at M=64
+    bits_of = {n: bits for n, _, _, bits in LAYER_GEMMS}
+    q_rows = [r for r in c1 if r["kernel"] == "quantize_sym" and r["dtype"] == "bfloat16"
+              and any(r["case"] == f"{n}.weight" and r["bits"] == bits_of[n] for n in bits_of)]
+    q_rows += [r for r in c1 if r["kernel"] == "quantize_sym" and r["dtype"] == "bfloat16"
+               and any(r["case"] == f"{n}.act" and r["bits"] == bits_of[n] for n in bits_of)]
+    t_rows = [next(r for r in c1 if r["case"] == f"{n} serve") for n, *_ in LAYER_GEMMS]
+    for name, rows, src, rep, lib, shape in (
+            ("quantize_sym", q_rows, "quantize_sym.cu", "src/repro/kernels/quantize.py:28", None,
+             "one qwen3-0.6b layer's 14 operand quantizations (7 weights per column, 7 "
+             "activations (64, K) per tensor), bf16, at the bits of " + POLICY
+             + "; no single PyTorch call computes it (library_ms null)"),
+            ("temporal_unary_gemm", t_rows, "temporal_unary.cu",
+             "src/repro/kernels/temporal_unary.py:54",
+             sum(r["library_ms"] for r in t_rows),
+             "one qwen3-0.6b layer's 7 GEMMs at M=64 decomposed into 2^(w-1) unary steps at "
+             "the bits of " + POLICY + "; library: torch._int_mm of the undecomposed product")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/" + src,
+            "replaces": rep, "launches": counts_c1[name]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in c1 if r["kernel"] == name),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": lib, "shape": shape})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,11 @@
   (``csrc/tugemm_packed.cu``; replaces ``repro/kernels/tugemm_packed.py``)
 - ``unary_stats`` — column / row absmax of the tuGEMM cycle statistics
   (``csrc/unary_stats.cu``; replaces ``repro/kernels/unary_stats.py``)
+- ``quantize`` — symmetric w-bit quantization by a reciprocal scale
+  (``csrc/quantize_sym.cu``; replaces ``repro/kernels/quantize.py``)
+- ``temporal_unary`` — the thermometer-decomposed exact GEMM, the paper's
+  C1 validation path (``csrc/temporal_unary.cu``; replaces
+  ``repro/kernels/temporal_unary.py``)
 
 Sources build with ``nvcc`` at first use (``kernels/build.py``) and load
 through ``ctypes``; nothing here imports a GPU toolchain at import time.

@@ -22,7 +22,8 @@ __all__ = ["BuildError", "SOURCES", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("tugemm_fused", "flash_paged", "tugemm_int8", "tugemm_packed", "unary_stats")
+SOURCES = ("tugemm_fused", "flash_paged", "tugemm_int8", "tugemm_packed", "unary_stats",
+           "quantize_sym", "temporal_unary")
 # no --use_fast_math: the kernels depend on IEEE divide and rounding
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

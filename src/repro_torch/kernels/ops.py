@@ -24,6 +24,8 @@ import torch
 
 from ..core.tugemm import TuGemmStats
 from . import flash_paged as _flash
+from . import quantize as _quantize
+from . import temporal_unary as _temporal
 from . import tugemm_fused as _tugemm
 from . import tugemm_int8 as _int8
 from . import tugemm_packed as _packed
@@ -35,6 +37,8 @@ __all__ = [
     "matmul_int8",
     "matmul_packed",
     "unary_step_stats",
+    "temporal_gemm",
+    "quantize_sym",
     "pack_weights",
     "count_dispatch",
     "counting_dispatches",
@@ -45,7 +49,7 @@ __all__ = [
 ]
 
 _COUNTS = (_tugemm.COUNT, _flash.COUNT, _int8.COUNT, _packed.COUNT,
-           _stats.COL_COUNT, _stats.ROW_COUNT)
+           _stats.COL_COUNT, _stats.ROW_COUNT, _quantize.COUNT, _temporal.COUNT)
 _paths: Counter = Counter()
 _dispatch_log: list[str] | None = None
 
@@ -135,6 +139,36 @@ def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     (``pack_weights``' padding)."""
     count_dispatch("matmul_packed")
     return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a))
+
+
+def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
+                  impl: str = "auto") -> torch.Tensor:
+    """Thermometer-decomposed exact GEMM (the paper's C1 validation path):
+    A (M, K) · B (K, N) -> (M, N) int32 as ``2**(w-1)`` unary steps. The
+    kernel takes the operands cast to int8, as the reference's wrapper does;
+    the plain version is a plain GEMM of the operands as given."""
+    count_dispatch("temporal_gemm")
+    path = resolve_path(impl, a)
+    record_path("temporal_gemm", path)
+    if path == "cuda":
+        a, b = a.to(torch.int8).contiguous(), b.to(torch.int8).contiguous()
+    return _temporal.temporal_unary_gemm(a, b, bitwidth=bitwidth, impl=path)
+
+
+def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -> torch.Tensor:
+    """Symmetric quantization of x (M, N) by a per-tensor or per-column
+    scale: ``clip(round(x · (1/scale)))`` with the reciprocal taken in f32
+    and broadcast to (1, N), as the reference does."""
+    count_dispatch("quantize_sym")
+    path = resolve_path(impl, x)
+    record_path("quantize_sym", path)
+    N = x.shape[1]
+    inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    if inv.ndim <= 1 or tuple(inv.shape) != (1, N):
+        inv = inv.reshape(1, -1).expand(1, N)
+    if path == "cuda":
+        x = x.contiguous()
+    return _quantize.quantize_sym(x, inv.contiguous(), bitwidth=bitwidth, impl=path)
 
 
 def _assemble_stats(ca: torch.Tensor, rb: torch.Tensor) -> TuGemmStats:

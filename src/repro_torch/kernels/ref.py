@@ -11,6 +11,10 @@ name in the reference's ``repro/kernels/ref.py`` op for op:
 - ``fused_gemm_ref`` — ``tugemm_fused.py``
 - ``dequant_bias_ref`` — the unfused pipeline's epilogue (no kernel: the
   same multiply and add the fused kernel's epilogue makes)
+- ``temporal_unary_gemm_ref`` — ``temporal_unary.py`` (the thermometer
+  decomposition's oracle: a plain GEMM)
+- ``quantize_sym_ref`` — ``quantize.py`` (symmetric round-half-even
+  quantization by a reciprocal scale)
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ __all__ = [
     "unary_stats_ref",
     "dequant_bias_ref",
     "fused_gemm_ref",
+    "temporal_unary_gemm_ref",
+    "quantize_sym_ref",
 ]
 
 
@@ -149,3 +155,24 @@ def fused_gemm_ref(
     ca = xq.to(torch.int32).abs().amax(dim=0).reshape(planes, Kw)
     rb = wq.to(torch.int32).abs().amax(dim=1).reshape(planes, Kw).t().contiguous()
     return y, ca, rb
+
+
+def temporal_unary_gemm_ref(a: torch.Tensor, b: torch.Tensor, bitwidth: int,
+                            c: torch.Tensor | None = None) -> torch.Tensor:
+    """Oracle for the thermometer-decomposed GEMM: an independent plain GEMM
+    (the decomposition must be exact, so the oracle does not share its
+    structure). It takes the operands as they are: on w-bit operands it
+    equals the decomposition, which saturates ``|a|`` at ``2**(w-1)``."""
+    del bitwidth
+    return matmul_int_ref(a, b, c)
+
+
+def quantize_sym_ref(x: torch.Tensor, inv_scale: torch.Tensor, bitwidth: int) -> torch.Tensor:
+    """Symmetric round-half-even quantization to w-bit two's complement:
+    ``clip(round(x · inv_scale))`` in f32, int8 carrier. ``inv_scale``
+    broadcasts against ``x`` (per-tensor (1, 1) or per-column (1, N)).
+    The reciprocal-multiply form is this op's own (the fused GEMM divides),
+    so the two may differ by one code at ties."""
+    q = torch.round(x.to(torch.float32) * inv_scale)
+    lo, hi = -(2 ** (bitwidth - 1)), 2 ** (bitwidth - 1) - 1
+    return torch.clamp(q, lo, hi).to(torch.int8)

@@ -14,6 +14,10 @@ from __future__ import annotations
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+import numpy as np
+
+from ..core.latency import MaxValueProfile
+
 __all__ = ["GemmRecord", "StatsCollector", "collecting", "active_collector", "record_stats"]
 
 
@@ -31,7 +35,20 @@ class GemmRecord:
 
 @dataclass
 class StatsCollector:
+    bitwidth: int = 8
     records: list[GemmRecord] = field(default_factory=list)
+
+    def profile(self) -> MaxValueProfile:
+        """Histogram of the records' max |value| at ``bitwidth`` (Fig 5)."""
+        prof = MaxValueProfile.empty(self.bitwidth)
+        if self.records:
+            prof.add(np.array([r.max_abs for r in self.records]))
+        return prof
+
+    def total_cycles(self, variant: str) -> int:
+        """Sum of the records' ``serial`` or ``parallel`` cycles."""
+        key = f"{variant}_cycles"
+        return int(sum(getattr(r, key) for r in self.records))
 
 
 _collector: StatsCollector | None = None
@@ -42,10 +59,11 @@ def active_collector() -> StatsCollector | None:
 
 
 @contextmanager
-def collecting():
-    """Enable GEMM stats collection inside the block; yields the collector."""
+def collecting(bitwidth: int = 8):
+    """Enable GEMM stats collection inside the block; yields the collector,
+    whose :meth:`~StatsCollector.profile` bins max |value| at ``bitwidth``."""
     global _collector
-    prev, _collector = _collector, StatsCollector()
+    prev, _collector = _collector, StatsCollector(bitwidth=bitwidth)
     try:
         yield _collector
     finally:

@@ -109,7 +109,8 @@ def test_plain_calls_are_counted_and_launches_are_not():
     tops.matmul_packed(a, torch.zeros((2, 5), dtype=torch.int8), bits=4)
     counts = tops.kernel_counts()
     assert set(counts) == {"tugemm_fused", "flash_paged_decode", "tugemm_int8",
-                           "tugemm_packed", "colabsmax", "rowabsmax"}
+                           "tugemm_packed", "colabsmax", "rowabsmax", "quantize_sym",
+                           "temporal_unary_gemm"}
     for name in ("tugemm_int8", "tugemm_packed", "colabsmax", "rowabsmax"):
         assert counts[name] == {"launches": 0, "plain_calls": 1}, name
 
