@@ -40,8 +40,13 @@ Phases, each printing one JSON line:
    zeroed just before and read just after.
 9. quickstart — ``repro_torch.quickstart.main`` on qwen3-0.6b at full width:
    exact ``tugemm``, the simulator, PPA, and a ``*=int8:stats`` forward on
-   the fused kernel with its energy report.
-10. the kernels line, then the device line last.
+   the kernels with its energy report; the forward's cycle totals through
+   the plain versions are printed beside them.
+10. device_time — the device time of each attention and temporal-GEMM case
+   checked above and of its library yardstick, read from ``torch.profiler``
+   last, so that the profiler runs during no other timed phase; a profile
+   without device events fails the phase.
+11. the kernels line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
 device and exits non-zero without one.
@@ -117,6 +122,98 @@ def median_ms(torch, fn, reps: int = 25, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_SPIN_NAMES: set = set()
+# (check record, kernel call, library call or None) of the kernels whose
+# device time the last timing phase reads: run after every other phase, so
+# the profiler it needs is never on while another phase is timed
+DEVICE_TIMED: list = []
+
+
+def device_times(torch) -> None:
+    """device_ms of every DEVICE_TIMED kernel call and library yardstick,
+    written into its check record and emitted; the bound share is
+    bound_ms / device_ms."""
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
+    for rec, call, lib_call in DEVICE_TIMED:
+        rec["device_kernels"] = {}
+        rec["device_ms"], rec["device_ms_source"] = device_ms(
+            torch, call, flush, breakdown=rec["device_kernels"])
+        rec["library_device_ms"] = None
+        if lib_call is not None:
+            rec["library_device_ms"], lib_source = device_ms(torch, lib_call, flush)
+            if lib_source != rec["device_ms_source"]:
+                raise AssertionError(f"{rec['case']}: kernel and library device times were "
+                                     "read by different methods")
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        emit({"phase": "device_time", **{k: rec.get(k) for k in (
+            "kernel", "case", "M", "K", "N", "bits", "blocks", "splits", "ms", "device_ms",
+            "device_ms_source", "library_ms", "library_device_ms", "bound_ms", "bound_share",
+            "bound_by", "device_kernels")}})
+    del flush
+
+
+def _device_events(torch, run):
+    """Device-side events of ``run()`` under ``torch.profiler``, sorted by
+    start: [(start_us, end_us, name)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def device_ms(torch, fn, flush, reps: int = 10, breakdown: dict | None = None):
+    """(ms, source): the median over ``reps`` flushed calls of ``fn`` of the
+    device time of one call, the durations of every device-side event the
+    call launched, summed (both passes of attention, the temporal GEMM's
+    zeroing of its output); source ``"profiler"``. Each call is queued as
+    flush, a short ``torch.cuda._sleep`` (its kernel marks where a call
+    starts), the call; a call's events are those after its sleep, less the
+    next call's flush. ``breakdown``, when given, is filled with the mean
+    device ms of one call per event name. A profile without the device
+    events raises on the card; only a run with ``DEVICE = "cpu"`` (the
+    rehearsal) falls back to CUDA events around ``reps`` back-to-back calls
+    queued behind a sleep, unflushed, source ``"cuda_events"``."""
+    if not _SPIN_NAMES:
+        _SPIN_NAMES.update(n for *_, n in _device_events(torch, lambda: torch.cuda._sleep(1000)))
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(1000)
+            fn()
+
+    events = _device_events(torch, run) if _SPIN_NAMES else []
+    marks = [i for i, (*_, n) in enumerate(events) if n in _SPIN_NAMES]
+    if len(marks) == reps:
+        per_call, by_name = [], {}
+        for j, i in enumerate(marks):
+            seg = events[i + 1:marks[j + 1] - 1] if j + 1 < reps else events[i + 1:]
+            per_call.append(sum(e - s for s, e, _ in seg) / 1e3)
+            for s, e, n in seg:
+                by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / reps
+        if breakdown is not None:
+            breakdown.update({n[:60]: t for n, t in by_name.items()})
+        return statistics.median(per_call), "profiler"
+    if DEVICE != "cpu":
+        raise AssertionError(f"torch.profiler recorded {len(marks)} of {reps} call marks "
+                             "on the device: no device time")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "cuda_events"
 
 
 def nbytes(*ts) -> int:
@@ -217,38 +314,52 @@ def _attn_case(torch, gen, *, rows, sq, kv, group, part_dims, hdv, bs, MB, kv_dt
             tables, pos, kv_len)
 
 
-def _attn_bytes_ops(args, kv, bs):
-    """Bytes each input once (live pages only) + output; f32 operations."""
+def _attn_bytes_ops(args, kv, bs, window=None):
+    """Bytes each input once + output, and f32 operations, counting only what
+    this run's rows can see: per row, the pages holding its visible keys
+    (causal, window) and, per query row, 2·(hd + hdv) flops a visible key."""
     q, kparts, kscales, v, vs, tables, pos, kv_len = args
-    lens = kv_len.tolist()
-    pages = sum(-(-n // bs) for n in lens)
+    B, sq, H, hd = q.shape
+    pages, flops = 0, 0
+    hdv = v.shape[2] // kv
+    for p, n in zip(pos.tolist(), kv_len.tolist()):
+        his = [min(n, p + s + 1) for s in range(sq)]
+        los = [0 if window is None else max(0, p + s - window + 1) for s in range(sq)]
+        vis = [max(0, h - l) for h, l in zip(his, los)]
+        flops += sum(2 * H * x * (hd + hdv) for x in vis)
+        if any(vis):
+            pages += -(-max(his) // bs) - min(los) // bs
     per_tok = sum(p.shape[2] * p.element_size() for p in kparts)
     if not any(v is p for p in kparts):
         per_tok += v.shape[2] * v.element_size()
     scales = [s for s in (*kscales, vs) if s is not None]
     per_tok += 4 * len({id(s) for s in scales})
-    B, sq, H, hd = q.shape
-    hdv = v.shape[2] // kv
     out_b = B * sq * H * hdv * q.element_size()
     byts = nbytes(q, tables, pos, kv_len) + pages * bs * per_tok + out_b
-    flops = sum(2 * H * sq * n * (hd + hdv) for n in lens)
     return byts, flops
 
 
 def check_attention(torch, flush):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_paged import flash_paged_decode, flash_paged_ref, gather_pages
+    from repro_torch.kernels.flash_paged import (ROW_TILE, flash_paged_decode, flash_paged_ref,
+                                                 gather_pages, split_plan)
 
     dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     gqa = dict(kv=8, group=2, part_dims=(128,), hdv=128, bs=16, MB=128)
     mla = dict(kv=1, group=16, part_dims=(512, 64), hdv=512, bs=16, MB=128, alias_v=True)
+    serve = dict(gqa, MB=16)   # the serve phase's pool: capacity 256 in pages of 16
     # (pos, lens) per row: a long decode to 2048 tokens, a mid one, an idle
     # row (lens 0, kv_len 0: must emit exact zeros), a short one
     dec = [(2047, 1), (1000, 1), (0, 0), (16, 1)]
     pre = [(2032, 16), (500, 16), (0, 0), (0, 16)]
+    # rows whose live pages end exactly on the first and on the second split
+    # boundary of the decode plan, an idle row, and a row with kv_len 1
+    edge = split_plan(4, 8, 2, 128, sms)[1] * 16
+    edges = [(edge - 1, 1), (2 * edge - 1, 1), (0, 0), (0, 1)]
     cases = [
         ("gqa_decode_int8", gqa, dec, 1, i8, bf16, None),
         ("gqa_decode_bf16", gqa, dec, 1, bf16, bf16, None),
@@ -258,6 +369,15 @@ def check_attention(torch, flush):
         ("gqa_step16_int8_window256", gqa, pre, 16, i8, bf16, 256),
         ("mla_decode_int8", mla, dec, 1, i8, bf16, None),
         ("mla_step16_int8", mla, pre, 16, i8, bf16, None),
+        # the serve phase's own shape: 4 rows, a 16-wide step, 16 pages a row
+        ("gqa_serve_step16_int8", serve, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, i8, bf16,
+         None),
+        ("gqa_decode_split_edges_int8", gqa, edges, 1, i8, bf16, None),
+        # a window that leaves every split but the last one or two empty
+        ("gqa_decode_int8_window256", gqa, dec, 1, i8, bf16, 256),
+        # the quickstart's own shape: 2 rows of 16 tokens from position 0 in
+        # one page of 16, f32 pools and f32 q (the f32 model dtype)
+        ("gqa_quickstart_f32", dict(gqa, MB=1), [(0, 16), (0, 16)], 16, f32, f32, None),
     ]
     records = []
     for name, shape, rows, sq, kvt, qt, window in cases:
@@ -288,25 +408,35 @@ def check_attention(torch, flush):
         qpos = pos.long()[:, None] + torch.arange(sq, device=dev)
         mask = (kpos[None, None, :] < kv_len.long()[:, None, None]) & (
             kpos[None, None, :] <= qpos[:, :, None])
+        if window is not None:
+            mask = mask & (qpos[:, :, None] - kpos[None, None, :] < window)
         mask = mask[:, None]
-        ms = median_ms(torch, lambda: flash_paged_decode(*args, impl="cuda", **kw), flush=flush)
+        call = lambda args=args, kw=kw: flash_paged_decode(*args, impl="cuda", **kw)
+        lib_call = lambda qq=qq, kq=kq, vq=vq, mask=mask: F.scaled_dot_product_attention(
+            qq, kq, vq, attn_mask=mask)
+        ms = median_ms(torch, call, flush=flush)
         plain = median_ms(torch, lambda: flash_paged_ref(*args, **kw), flush=flush)
-        lib = median_ms(torch, lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask),
-                        flush=flush)
-        byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"])
+        lib = median_ms(torch, lib_call, flush=flush)
+        byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"], window)
+        rows_head = rep * sq
+        splits, per = split_plan(B, shape["kv"], rows_head, tables.shape[1], sms)
+        bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
         rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
                    kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
-                   kv_len=kv_len.tolist(), kv_dtype=str(kvt).split(".")[-1],
-                   q_dtype=str(qt).split(".")[-1], window=window, within_tol=ok,
-                   idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol], ms=ms,
-                   plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
-                   bound_ms=max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                   pages=tables.shape[1], kv_len=kv_len.tolist(),
+                   kv_dtype=str(kvt).split(".")[-1], q_dtype=str(qt).split(".")[-1],
+                   window=window, splits=splits, pages_per_split=per,
+                   blocks=B * shape["kv"] * -(-rows_head // ROW_TILE) * splits,
+                   within_tol=ok, idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol],
+                   ms=ms, plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
+                   bound_ms=bound,
                    bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
                    else "operations")
         emit({"phase": "check", **rec})
         if not (ok and zeros):
             raise AssertionError(f"flash_paged_decode disagrees with its plain version: {rec}")
         records.append(rec)
+        DEVICE_TIMED.append((rec, call, lib_call))
     return records
 
 
@@ -487,18 +617,26 @@ def check_c1(torch, flush, params):
                     dtype=str(dt).split(".")[-1], scale="column" if per_col else "tensor")
 
     def temporal(case, a, b, bits):
+        from repro_torch.kernels.temporal_unary import BM, BN, split_plan
+
         M, K = a.shape
         N = b.shape[1]
-        lib = None
+        lib = lib_call = None
         if M > 16 and K % 8 == 0 and N % 8 == 0:     # cuBLASLt's int8 product
-            lib = median_ms(torch, lambda: torch._int_mm(a, b), flush=flush)
+            lib_call = lambda: torch._int_mm(a, b)
+            lib = median_ms(torch, lib_call, flush=flush)
         int8 = median_ms(torch, lambda: tugemm_int8(a, b, impl="cuda"), flush=flush)
-        run("temporal_unary_gemm", case,
-            lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="cuda"),
+        call = lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="cuda")
+        steps = 2 ** (bits - 1)
+        _, ks, _, us = split_plan(M, N, K, steps, sms)
+        run("temporal_unary_gemm", case, call,
             lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="torch"), lib,
-            nbytes(a, b) + 4 * M * N, 2 ** (bits - 1) * 2 * M * K * N, INT8_OPS_PER_S,
-            M=M, K=K, N=N, bits=bits, unary_steps=2 ** (bits - 1), int8_kernel_ms=int8)
+            nbytes(a, b) + 4 * M * N, steps * 2 * M * K * N, INT8_OPS_PER_S,
+            M=M, K=K, N=N, bits=bits, unary_steps=steps, int8_kernel_ms=int8,
+            blocks=-(-M // BM) * -(-N // BN) * ks * us)
+        DEVICE_TIMED.append((records[-1], call, lib_call))
 
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     for bits_of, label in ((None, "serve"), (4, "w4")):
         for name, a, b, bits in c1_operands(torch, params, bits_of):
             temporal(f"{name} {label}", a, b, bits)
@@ -512,6 +650,14 @@ def check_c1(torch, flush, params):
         return t
 
     temporal("ragged", i8((37, 333)), i8((333, 65)), 8)
+    # N not a multiple of the kernel's 128 columns and K not a multiple of its
+    # K tile of 64: 16-byte loads with masked tails (1040), then byte loads
+    # (1000), at the serve batch and at decode
+    for M in (64, 4):
+        for KN in (1040, 1000):
+            temporal(f"ragged tiles {M}x{KN}x{KN}", i8((M, KN)), i8((KN, KN)), 8)
+    # one unary step: 1-bit A in [-1, 0]
+    temporal("w=1", i8((64, 1024), -1, 1), i8((1024, 2048)), 1)
     # saturation: A spans all of int8 but the decomposition runs at 2 bits, so
     # it saturates |a| at 2; held against the plain GEMM of the saturated A
     a, b = i8((64, 1024)), i8((1024, 2048), -2, 2)
@@ -627,7 +773,11 @@ def c1_validation(torch, params) -> dict:
 
 
 def run_quickstart(torch) -> dict:
-    """``repro_torch.quickstart.main`` at full width on the card."""
+    """``repro_torch.quickstart.main`` at full width on the card, then its
+    forward again through the plain versions. Attention is the one kernel
+    of that forward that sums in another order than its plain version (in
+    f32), and an int8 code downstream that rounds the other way moves the
+    cycle totals, so both pairs of totals are printed."""
     from repro_torch import quickstart
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
@@ -639,10 +789,14 @@ def run_quickstart(torch) -> dict:
     torch.cuda.synchronize()
     counts = ops.kernel_counts()
     s4 = out["step4"]
-    emit({"phase": "quickstart", "arch": s4["arch"], "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    plain = quickstart.main(arch=ARCH, device=DEVICE, impl="torch")["step4"]
+    emit({"phase": "quickstart", "arch": s4["arch"], "seconds": seconds,
           "step1": out["step1"], "step3": out["step3"], "gemms": s4["gemms"],
           "expected_max": s4["expected_max"], "serial_cycles": s4["serial_cycles"],
-          "parallel_cycles": s4["parallel_cycles"], "speedup_vs_worst": s4["speedup_vs_worst"],
+          "parallel_cycles": s4["parallel_cycles"], "plain_serial_cycles": plain["serial_cycles"],
+          "plain_parallel_cycles": plain["parallel_cycles"],
+          "speedup_vs_worst": s4["speedup_vs_worst"],
           "energy": s4["energy_render_total"], "energy_total_j": s4["energy_total_j"],
           "kernel_counts": counts})
     if counts["tugemm_fused"]["launches"] <= 0 or any(c["plain_calls"] for c in counts.values()):
@@ -889,6 +1043,7 @@ def main() -> int:
             raise AssertionError(f"the C1 path did not run only the kernel of {name}: "
                                  f"{counts_c1}")
     run_quickstart(torch)
+    device_times(torch)
 
     layer = {g[0]: g for g in LAYER_GEMMS}
     picked = [r for r in gemm if r["w_mode"] == "quant" and not r["per_token"]
@@ -916,8 +1071,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_paged.py:193",
          "launches": counts["flash_paged_decode"]["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in attn),
-         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+         "ms": dec["ms"], "device_ms": dec["device_ms"],
+         "device_ms_source": dec["device_ms_source"], "plain_ms": dec["plain_ms"],
+         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+         "library_ms": dec["library_ms"], "library_device_ms": dec["library_device_ms"],
          "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
                   f"kv_len {dec['kv_len']}"},
     ]
@@ -979,6 +1136,10 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
             "library_ms": lib, "shape": shape})
+    t_entry = kernels[-1]
+    t_entry["device_ms"] = sum(r["device_ms"] for r in t_rows)
+    t_entry["device_ms_source"] = t_rows[0]["device_ms_source"]
+    t_entry["library_device_ms"] = sum(r["library_device_ms"] for r in t_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

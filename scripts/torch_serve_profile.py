@@ -90,7 +90,7 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_events": sum(c for _, c in by_name.values()),
         "top_device": [{"name": k[:80], "ms": v[0] / 1e3, "calls": v[1],
-                        "share_of_busy": v[0] / busy_us} for k, v in top[:12]],
+                        "share_of_busy": v[0] / busy_us} for k, v in top[:20]],
         "top_host_self": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
                            "calls": e.count} for e in host[:12]],
     }), flush=True)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DTYPE_CODE", "KernelCount", "check", "ptr", "stream_ptr", "raise_on"]
+__all__ = ["DTYPE_CODE", "KernelCount", "check", "ptr", "stream_ptr", "raise_on", "sm_count"]
 
 # dtype codes of the C launchers (csrc/*.cu)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -39,6 +39,17 @@ def ptr(t: torch.Tensor | None):
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sms: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's SM count (read once per device), for the split plans."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def raise_on(rc: int, name: str) -> None:

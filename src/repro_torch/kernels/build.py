@@ -5,7 +5,9 @@ use into ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of its source and flags so an edited source
 never loads a stale library. Only sources in this repository are compiled;
 a failed build raises with the compiler's output. Independent sources are
-compiled in parallel, one ``nvcc`` each.
+compiled in parallel, one ``nvcc`` each. ``python -m
+repro_torch.kernels.build [name ...]`` prints ptxas's register, shared
+memory and spill report of each source.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "SOURCES", "build", "load"]
+__all__ = ["BuildError", "SOURCES", "build", "load", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -89,3 +91,32 @@ def load(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def ptxas_report(names=SOURCES) -> dict[str, list[str]]:
+    """Compile each named source with ``-Xptxas -v`` into a temporary
+    directory and return ptxas's resource lines (registers, shared memory,
+    spills) per source, each kernel's line after its demangled-name line."""
+    import tempfile
+
+    nvcc = _nvcc()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in names:
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(tmp) / f"{n}.so"),
+                 str(CSRC / f"{n}.cu")], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed on {n}.cu:\n{proc.stdout}{proc.stderr}")
+            out[n] = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                      if "ptxas info" in line or "spill" in line]
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    # python -m repro_torch.kernels.build [source ...]: ptxas's report
+    for name, lines in ptxas_report(tuple(sys.argv[1:]) or SOURCES).items():
+        print(f"--- {name}.cu")
+        print("\n".join(lines))

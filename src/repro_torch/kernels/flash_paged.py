@@ -1,9 +1,11 @@
 """Paged flash-decode attention: CUDA kernel + plain version.
 
 Replaces ``repro/kernels/flash_paged.py::flash_paged_decode`` (the TPU
-kernel). The CUDA source is ``csrc/flash_paged.cu``; its header says what
-bounds it on the card (reading each live K/V page once: device-memory
-bytes) and how its design answers that. ``flash_paged_decode`` launches the
+kernel). The CUDA source is ``csrc/flash_paged.cu``: a split-over-pages
+pass writing per-split (m, l, acc) partials into f32 scratch the wrapper
+allocates, and a combine pass; its header says what bounds it on the card
+and how its design answers that. ``split_plan`` picks the splits from
+shapes alone. ``flash_paged_decode`` launches the
 kernel for CUDA tensors and runs the plain version — gather the pages
 through the block tables, dequantize, then a masked softmax — for CPU
 tensors or under ``impl="torch"``. The two agree to f32 summation order.
@@ -12,20 +14,21 @@ tensors or under ``impl="torch"``. The two agree to f32 summation order.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
-from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, stream_ptr
+from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, sm_count, stream_ptr
 
-__all__ = ["flash_paged_decode", "flash_paged_ref", "gather_pages", "rows_tile", "COUNT",
-           "NEG_INF"]
+__all__ = ["flash_paged_decode", "flash_paged_ref", "gather_pages", "split_plan", "COUNT",
+           "NEG_INF", "ROW_TILE"]
 
 COUNT = KernelCount("flash_paged_decode")
 NEG_INF = -1e30           # the reference's finite mask value
-# csrc MAXACC * FT and MAX_SMEM: the launcher refuses a tile past either
-_MAX_ACC = 64 * 256       # accumulator registers per block
-_MAX_SMEM = 232448        # dynamic shared memory a Hopper block may use
+ROW_TILE = 16             # csrc RT: most query rows of one kv head per block
+MAX_SPLITS = 256          # csrc MAX_SPLITS: splits the combine pass takes
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _lib = None
 
 
@@ -35,29 +38,31 @@ def _load():
         lib = build.load("flash_paged")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_paged_launch.argtypes = [
-            vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp,
-            ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, vp,
+            vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp,
         ]
         lib.flash_paged_launch.restype = ci
         _lib = lib
     return _lib
 
 
-def _smem_bytes(rows: int, hd: int, hdv: int, bs: int) -> int:
-    return 4 * (rows * hd + bs * (hd + 1) + bs * hdv + rows * bs + 3 * rows)
+def split_plan(batch: int, kv_heads: int, rows_head: int, pages: int, sms: int):
+    """(splits, pages per split) of the page axis, from shapes alone.
 
-
-def rows_tile(rows_head: int, hd: int, hdv: int, bs: int) -> int:
-    """Query rows one block handles: all of a kv head's rows when the
-    accumulator fits in registers and Q plus one K/V page in shared memory
-    (GQA), else the largest tile that does (MLA's 16 heads x Sq rows)."""
-    r = min(rows_head, _MAX_ACC // hdv)
-    while r > 1 and _smem_bytes(r, hd, hdv, bs) > _MAX_SMEM:
-        r //= 2
-    if r < 1 or _smem_bytes(r, hd, hdv, bs) > _MAX_SMEM:
-        raise ValueError(f"flash_paged_decode: head dims {hd}/{hdv} at block size {bs} "
-                         "do not fit one block")
-    return r
+    Pass 1 launches ``batch * kv_heads * ceil(rows_head / ROW_TILE)`` row
+    tiles times ``splits`` blocks. A block is bound by the latency of its
+    chunk copies, not by bandwidth, so the plan aims at eight blocks per SM
+    (several resident on each), with at least two pages per split (one
+    chunk of 32 tokens at pages of 16) and at most MAX_SPLITS splits. It
+    cuts the ``pages`` block-table entries into contiguous runs of ``pages
+    per split`` (the last may be shorter). It reads no ``kv_len`` or
+    ``pos``: which splits hold live pages is decided on the device, so the
+    host never waits for the card."""
+    pages = max(pages, 1)
+    tiles = max(batch * kv_heads * -(-rows_head // ROW_TILE), 1)
+    want = -(-8 * sms // tiles)
+    per = max(min(2, pages), -(-pages // want), -(-pages // MAX_SPLITS))
+    return -(-pages // per), per
 
 
 def gather_pages(pool: torch.Tensor, scale: torch.Tensor | None, tables: torch.Tensor) -> torch.Tensor:
@@ -129,45 +134,73 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
                                kv_heads=kv_heads, causal=causal, window=window)
     check(q.device.type == "cuda", f"flash_paged_decode: impl={impl!r} needs CUDA tensors")
     dev = q.device
+    scales = (*k_scales, v_scale)
+    # shape and dtype checks and the split plan depend on shapes alone: cached
+    feats, hdv, bs, MB, splits, per, q_code, kv_code = _shape_plan(
+        tuple(q.shape), q.dtype, kv_heads, tuple((tuple(p.shape), p.dtype) for p in k_parts),
+        tuple(v_pool.shape), v_pool.dtype,
+        tuple(None if t is None else (tuple(t.shape), t.dtype) for t in scales),
+        tuple(tables.shape), tuple(pos.shape), tuple(kv_len.shape), sm_count(dev))
+    if tables.dtype != torch.int32:
+        tables = tables.to(torch.int32)
+    if pos.dtype != torch.int32:
+        pos = pos.to(torch.int32)
+    if kv_len.dtype != torch.int32:
+        kv_len = kv_len.to(torch.int32)
+    for t in (q, *k_parts, v_pool, *scales, tables, pos, kv_len):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("flash_paged_decode: every operand must be contiguous on q's device")
     B, sq, H, hd = q.shape
     kv = kv_heads
-    check(len(k_parts) in (1, 2) and len(k_scales) == len(k_parts), "1 or 2 K parts")
-    check(H % kv == 0, f"{H} heads over {kv} kv heads")
-    check(q.dtype in (torch.float32, torch.bfloat16), f"q dtype {q.dtype}")
-    kvt = v_pool.dtype
-    check(kvt in DTYPE_CODE and all(p.dtype == kvt for p in k_parts), "K/V pool dtypes")
-    int8 = kvt == torch.int8
-    n_rows, bs = v_pool.shape[:2]
-    feats = [p.shape[2] // kv for p in k_parts]
-    hdv = v_pool.shape[2] // kv
-    check(sum(feats) == hd, f"K parts {feats} vs hd_tot {hd}")
-    check(all(p.shape[:2] == (n_rows, bs) and p.shape[2] % kv == 0 for p in k_parts)
-          and v_pool.shape[2] % kv == 0, "pool shapes")
-    scales = [*k_scales, v_scale]
-    check(all((s is not None) == int8 for s in scales), "scales iff int8 pools")
-    check(all(s is None or (s.dtype == torch.float32 and s.shape == (n_rows, bs))
-              for s in scales), "scale shapes")
-    tables = tables.to(torch.int32)
-    pos = pos.to(torch.int32)
-    kv_len = kv_len.to(torch.int32)
-    MB = tables.shape[1]
-    check(tables.shape[0] == B and pos.shape == (B,) and kv_len.shape == (B,),
-          "tables/pos/kv_len shapes")
-    ops_ = [q, *k_parts, v_pool, *scales, tables, pos, kv_len]
-    check(all(t is None or (t.device == dev and t.is_contiguous()) for t in ops_),
-          "flash_paged_decode: every operand must be contiguous on q's device")
-    tile = rows_tile((H // kv) * sq, hd, hdv, bs)
+    # V read from K part 0's copy when it is the same pool (MLA's ckv)
+    alias = (v_pool.data_ptr() == k_parts[0].data_ptr() and v_pool.shape == k_parts[0].shape
+             and ptr(v_scale) == ptr(k_scales[0]))
     out = torch.empty((B, sq, H, hdv), dtype=q.dtype, device=dev)
     if B > 0:
-        k1 = k_parts[1] if len(k_parts) == 2 else None
-        s1 = k_scales[1] if len(k_parts) == 2 else None
+        n = B * kv * (H // kv) * sq * splits
+        scratch = torch.empty(n * (hdv + 2), dtype=torch.float32, device=dev).data_ptr()
+        two = len(k_parts) == 2
         rc = _load().flash_paged_launch(
-            ptr(q), DTYPE_CODE[q.dtype], ptr(k_parts[0]), ptr(k_scales[0]), feats[0],
-            ptr(k1), ptr(s1), feats[1] if k1 is not None else 0, ptr(v_pool), ptr(v_scale),
-            hdv, DTYPE_CODE[kvt], ptr(tables), ptr(pos), ptr(kv_len), ptr(out),
-            B, sq, H, kv, bs, MB, tile, float(1.0 / hd ** 0.5), int(causal),
-            0 if window is None else int(window), stream_ptr(dev),
+            q.data_ptr(), q_code, k_parts[0].data_ptr(), ptr(k_scales[0]), feats[0],
+            k_parts[1].data_ptr() if two else None, ptr(k_scales[1]) if two else None,
+            feats[1] if two else 0, v_pool.data_ptr(), ptr(v_scale), hdv, kv_code,
+            tables.data_ptr(), pos.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            scratch + 4 * n * hdv, scratch + 4 * n * (hdv + 1), scratch,
+            B, sq, H, kv, bs, MB, splits, per, 1.0 / hd ** 0.5, int(causal),
+            0 if window is None else int(window), int(alias), stream_ptr(dev),
         )
         raise_on(rc, "flash_paged_decode")
         COUNT.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _shape_plan(q_shape, q_dtype, kv, parts, v_shape, v_dtype, scales, t_shape, p_shape,
+                l_shape, sms):
+    """The kernel's shape checks and launch plan: (feature widths of the K
+    parts, hdv, page size, pages per row, splits, pages per split, q dtype
+    code, pool dtype code). Raises on shapes the kernel does not take."""
+    B, sq, H, hd = q_shape
+    check(len(parts) in (1, 2) and len(scales) == len(parts) + 1, "1 or 2 K parts")
+    check(H % kv == 0, f"{H} heads over {kv} kv heads")
+    check(q_dtype in (torch.float32, torch.bfloat16), f"q dtype {q_dtype}")
+    check(v_dtype in DTYPE_CODE and all(dt == v_dtype for _, dt in parts), "K/V pool dtypes")
+    int8 = v_dtype == torch.int8
+    n_rows, bs = v_shape[:2]
+    feats = [shape[2] // kv for shape, _ in parts]
+    hdv = v_shape[2] // kv
+    check(sum(feats) == hd, f"K parts {feats} vs hd_tot {hd}")
+    check(all(shape[:2] == (n_rows, bs) and shape[2] % kv == 0 for shape, _ in parts)
+          and v_shape[2] % kv == 0, "pool shapes")
+    check(all((s is not None) == int8 for s in scales), "scales iff int8 pools")
+    check(all(s is None or (s[1] == torch.float32 and s[0] == (n_rows, bs)) for s in scales),
+          "scale shapes")
+    check(len(t_shape) == 2 and t_shape[0] == B and p_shape == (B,) and l_shape == (B,),
+          "tables/pos/kv_len shapes")
+    es, qes = _ELEM_BYTES[v_dtype], _ELEM_BYTES[q_dtype]
+    check(feats[0] > 0 and all(f * es % 16 == 0 for f in feats) and hdv * es % 16 == 0
+          and hd * qes % 16 == 0 and hdv <= 512,
+          f"flash_paged_decode: head widths {feats}/{hdv} must be whole 16-byte rows, hdv <= 512")
+    MB = t_shape[1]
+    splits, per = split_plan(B, kv, (H // kv) * sq, MB, sms)
+    return feats, hdv, bs, MB, splits, per, DTYPE_CODE[q_dtype], DTYPE_CODE[v_dtype]

@@ -20,16 +20,18 @@ not; no range check is added (the reference has none).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, stream_ptr
+from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
 from .ref import temporal_unary_gemm_ref
 
-__all__ = ["temporal_unary_gemm", "COUNT"]
+__all__ = ["temporal_unary_gemm", "split_plan", "COUNT"]
 
 COUNT = KernelCount("temporal_unary_gemm")
+BM, BN, BK = 64, 128, 64   # csrc tile: output rows, output columns, K per tile
 _lib = None
 
 
@@ -38,10 +40,32 @@ def _load():
     if _lib is None:
         lib = build.load("temporal_unary")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.temporal_unary_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.temporal_unary_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.temporal_unary_launch.restype = ci
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(M: int, N: int, K: int, steps: int, sms: int):
+    """(kchunk, ksplits, uchunk, usplits): how the kernel's grid cuts the
+    work beyond its (M/BM) x (N/BN) output tiles, from shapes alone.
+
+    Block z takes K tiles ``[ks·kchunk, +kchunk)`` and unary steps
+    ``[us·uchunk, +uchunk)`` for ``ks < ksplits``, ``us < usplits``; each
+    (K tile, step) pair of every output tile falls in exactly one block.
+    K is split first (it also splits the bytes each block reads), then the
+    steps, aiming at two blocks per SM, or more where M leaves some of a
+    block's four 16-row warps without rows."""
+    cdiv = lambda x, y: -(-x // y)
+    warps = min(4, cdiv(max(M, 1), 16))
+    tiles = cdiv(M, BM) * cdiv(N, BN)
+    k_tiles = max(1, cdiv(K, BK))
+    want = cdiv(2 * sms * (4 // warps), max(tiles, 1))
+    kchunk = max(1, k_tiles // want)
+    ksplits = cdiv(k_tiles, kchunk)
+    uchunk = cdiv(steps, min(steps, cdiv(want, ksplits)))
+    return kchunk, ksplits, uchunk, cdiv(steps, uchunk)
 
 
 def temporal_unary_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
@@ -69,10 +93,15 @@ def temporal_unary_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
           f"temporal_unary_gemm: a {a.dtype}, b {b.dtype}; both must be int8")
     check(a.is_contiguous() and b.is_contiguous() and b.device == a.device,
           "temporal_unary_gemm: both operands must be contiguous on one device")
+    # the launcher zeroes y before the split grid adds its partial sums
     y = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    if M > 0 and N > 0:
-        rc = _load().temporal_unary_launch(ptr(a), ptr(b), ptr(y), M, N, K,
-                                           2 ** (bitwidth - 1), stream_ptr(a.device))
+    if K == 0:
+        y.zero_()
+    elif M > 0 and N > 0:
+        steps = 2 ** (bitwidth - 1)
+        plan = split_plan(M, N, K, steps, sm_count(a.device))
+        rc = _load().temporal_unary_launch(ptr(a), ptr(b), ptr(y), M, N, K, steps, *plan,
+                                           stream_ptr(a.device))
         raise_on(rc, "temporal_unary_gemm")
         COUNT.launches += 1
     return y

@@ -43,10 +43,10 @@ __all__ = ["main"]
 ARCH = "qwen3-0.6b_smoke"
 
 
-def _lm_step(cfg, rc: RunConfig, params: dict, tokens: torch.Tensor):
+def _lm_step(cfg, rc: RunConfig, params: dict, tokens: torch.Tensor, impl: str = "auto"):
     """One prefill forward of ``tokens`` (B, S) from position 0 under the
-    ``:stats`` collector and an energy capture; returns (hidden, collector,
-    capture)."""
+    ``:stats`` collector and an energy capture, every kernel on the ``impl``
+    path; returns (hidden, collector, capture)."""
     dev = tokens.device
     B, S = tokens.shape
     per_row = -(-S // rc.block_size)
@@ -57,15 +57,16 @@ def _lm_step(cfg, rc: RunConfig, params: dict, tokens: torch.Tensor):
                   tables=tables, block_size=rc.block_size, layout=rc.kv_layout)
     with torch.no_grad(), collecting(bitwidth=8) as col, capture_stats() as cap:
         h, _, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
-                          cache_pos=pos, kv_view=view)
+                          cache_pos=pos, kv_view=view, impl=impl)
     return h, col, cap
 
 
 def main(arch: str = ARCH, device=None, *, params: dict | None = None,
-         tokens: torch.Tensor | None = None) -> dict:
+         tokens: torch.Tensor | None = None, impl: str = "auto") -> dict:
     """Run the four steps, print their lines and return their quantities.
     ``params``/``tokens`` default to random weights and tokens from seeds 0
-    and 1 (the tests pass the reference's, carried across)."""
+    and 1 (the tests pass the reference's, carried across); ``impl`` is the
+    step-4 forward's kernel path (``auto`` | ``torch`` | ``cuda``)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     out: dict = {}
@@ -116,7 +117,7 @@ def main(arch: str = ARCH, device=None, *, params: dict | None = None,
     if tokens is None:
         tokens = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
                                generator=torch.Generator().manual_seed(1))
-    h, col, cap = _lm_step(cfg, rc, params, tokens.to(dev))
+    h, col, cap = _lm_step(cfg, rc, params, tokens.to(dev), impl)
     if not (h.shape == (*tokens.shape, cfg.d_model) and bool(torch.isfinite(h).all())):
         raise AssertionError("the forward's hidden states are not finite of shape (B, S, D)")
     prof = col.profile()

@@ -168,3 +168,126 @@ def test_cuda_path_without_a_card_raises_instead_of_falling_back():
         tops.temporal_gemm(a, a.t().contiguous(), bitwidth=4, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tops.quantize_sym(torch.zeros((2, 3)), 1.0, bitwidth=4, impl="cuda")
+
+
+# ------------------------------------- the tensor-core kernel's split grid
+from repro_torch.kernels.temporal_unary import BK, BM, BN, split_plan  # noqa: E402
+
+LAYER_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+
+
+def _blocks(M, N, K, steps, sms=132):
+    _, ks, _, us = split_plan(M, N, K, steps, sms)
+    return -(-M // BM) * -(-N // BN) * ks * us
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("mkn", [(64, 1024, 2048), (4, 3072, 1024), (37, 333, 65),
+                                 (64, 1040, 1040), (1, 5, 3), (200, 64, 128)])
+def test_split_plan_covers_every_k_tile_and_step_once(bits, mkn):
+    M, K, N = mkn
+    steps = 2 ** (bits - 1)
+    kchunk, ksplits, uchunk, usplits = split_plan(M, N, K, steps, sms=132)
+    k_tiles = -(-K // BK)
+    owner = np.zeros((k_tiles, steps), int)
+    for ks in range(ksplits):
+        for us in range(usplits):
+            owner[ks * kchunk:(ks + 1) * kchunk, us * uchunk:(us + 1) * uchunk] += 1
+    assert (owner == 1).all()
+    # no block of the grid is left without work
+    assert (ksplits - 1) * kchunk < k_tiles and (usplits - 1) * uchunk < steps
+
+
+@pytest.mark.parametrize("M", [64, 4])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("kn", LAYER_SHAPES)
+def test_split_plan_fills_the_card_at_the_layer_gemms(M, bits, kn):
+    K, N = kn
+    assert _blocks(M, N, K, 2 ** (bits - 1)) >= 132
+
+
+def test_split_plan_takes_shapes_only():
+    import inspect
+
+    assert list(inspect.signature(split_plan).parameters) == ["M", "N", "K", "steps", "sms"]
+
+
+def _split_decomposition(a, b, bits, sms=132, tile=(BM, BN)):
+    """The kernel's grid in torch (output tiles of ``tile``, K tiles of BK):
+    per output tile and (K range, step range) of the plan, the partial
+    sum_u sign(A)·1[u < |A|] @ B over that range,
+    added into a zeroed int32 output (the kernel's atomicAdd)."""
+    M, K = a.shape
+    N = b.shape[1]
+    steps = 2 ** (bits - 1)
+    kchunk, ksplits, uchunk, usplits = split_plan(M, N, K, steps, sms)
+    bm, bn = tile
+    ai, bi = a.to(torch.int64), b.to(torch.int64)
+    sign, mag = ai.sign(), ai.abs()          # |-128| = 128 in int64
+    y = torch.zeros((M, N), dtype=torch.int64)
+    for m0 in range(0, M, bm):
+        for n0 in range(0, N, bn):
+            for ks in range(ksplits):
+                k0, k1 = ks * kchunk * BK, min((ks + 1) * kchunk * BK, K)
+                for us in range(usplits):
+                    part = torch.zeros_like(y[m0:m0 + bm, n0:n0 + bn])
+                    for u in range(us * uchunk, min((us + 1) * uchunk, steps)):
+                        au = sign[m0:m0 + bm, k0:k1] * (mag[m0:m0 + bm, k0:k1] > u)
+                        part += au @ bi[k0:k1, n0:n0 + bn]
+                    y[m0:m0 + bm, n0:n0 + bn] += part
+    return y.to(torch.int32)
+
+
+@pytest.mark.parametrize("bits,mkn,sms", [(2, (13, 200, 150), 132), (4, (20, 130, 9), 132),
+                                          (8, (8, 70, 8), 4), (1, (5, 64, 130), 132)])
+def test_split_decomposition_matches_the_pallas_kernel(bits, mkn, sms):
+    """Ragged M, N, K; -2**(w-1) in A; K and steps both split."""
+    M, K, N = mkn
+    rng = np.random.default_rng(40 + bits)
+    a, b = _int(rng, (M, K), bits), _int(rng, (K, N), 8)
+    want = np.asarray(jops.temporal_gemm(jnp.asarray(a), jnp.asarray(b), bitwidth=bits,
+                                         impl="pallas_interpret"))
+    got = _split_decomposition(torch.from_numpy(a), torch.from_numpy(b), bits, sms,
+                               tile=(8, 8))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), a.astype(np.int64) @ b)
+
+
+def test_split_decomposition_saturates_like_the_pallas_kernel():
+    rng = np.random.default_rng(41)
+    a = rng.integers(-128, 128, (8, 48)).astype(np.int8)
+    a[0, 0] = -128
+    b = _int(rng, (48, 8), 2)
+    want = np.asarray(jops.temporal_gemm(jnp.asarray(a), jnp.asarray(b), bitwidth=2,
+                                         impl="pallas_interpret"))
+    got = _split_decomposition(torch.from_numpy(a), torch.from_numpy(b), 2, sms=8,
+                               tile=(8, 8))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _prmt_sign(x):
+    """prmt.b32 x, 0, 0xBA98: each byte's bit 7 replicated over the byte."""
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= np.where((x >> np.uint32(8 * i + 7)) & np.uint32(1), np.uint32(0xFF << (8 * i)),
+                        np.uint32(0))
+    return out
+
+
+def test_unary_step_bytes_are_the_thermometer_states():
+    """The kernel's word arithmetic on packed A bytes (csrc/temporal_unary.cu:
+    magnitude and sign bytes, then per step bit 7 of |a| + (127 - u)) gives
+    sign(a)·1[u < |a|] for every int8 a and every step u < 128."""
+    vals = np.arange(-128, 128, dtype=np.int64)
+    words = (vals.reshape(-1, 4) & 0xFF).astype(np.uint32)
+    raw = words[:, 0] | words[:, 1] << 8 | words[:, 2] << 16 | words[:, 3] << 24
+    neg = _prmt_sign(raw)
+    mag = (raw ^ neg) + (neg & np.uint32(0x01010101))
+    nz = ((mag + np.uint32(0x7F7F7F7F)) & np.uint32(0x80808080)) >> np.uint32(7)
+    sgn = neg | nz
+    for u in range(128):
+        au = _prmt_sign(mag + np.uint32(0x01010101 * (127 - u))) & sgn
+        got = np.stack([(au >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)], 1)
+        got = got.astype(np.int64).reshape(-1)
+        got = np.where(got > 127, got - 256, got)
+        np.testing.assert_array_equal(got, np.sign(vals) * (np.abs(vals) > u))

@@ -186,3 +186,152 @@ def test_kv_cache_read_matches_reference(int8):
     want = np.asarray(kv_cache_read(jc, "k", jnp.float32, kv_len=jv.kv_len, view=jv))
     got = t_read(tc, "k", torch.float32, view=tv).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------- split over pages + combine
+from repro_torch.kernels.flash_paged import ROW_TILE, flash_paged_ref, split_plan  # noqa: E402
+
+
+@pytest.mark.parametrize("pages", [1, 2, 15, 16, 17, 128, 1000])
+@pytest.mark.parametrize("tiles", [(1, 1, 1), (4, 8, 2), (4, 1, 256), (64, 8, 32)])
+def test_split_plan_covers_every_page_once(pages, tiles):
+    B, kv, rows_head = tiles
+    splits, per = split_plan(B, kv, rows_head, pages, sms=132)
+    owner = np.zeros(pages, int)
+    for s in range(splits):
+        owner[s * per:min((s + 1) * per, pages)] += 1
+    assert (owner == 1).all()
+    assert 1 <= splits <= min(pages, 256) and (splits - 1) * per < pages
+
+
+@pytest.mark.parametrize("case", [
+    ("gqa decode", 4, 8, 2, 128), ("gqa step16", 4, 8, 32, 128),
+    ("mla decode", 4, 1, 16, 128), ("mla step16", 4, 1, 256, 128),
+    ("serve step16", 4, 8, 32, 16)])
+def test_split_plan_fills_the_card_at_the_chip_shapes(case):
+    """At least one block per SM of an H100 (132) in pass 1."""
+    _, B, kv, rows_head, pages = case
+    splits, _ = split_plan(B, kv, rows_head, pages, sms=132)
+    assert B * kv * -(-rows_head // ROW_TILE) * splits >= 132
+
+
+def test_split_plan_takes_shapes_only():
+    import inspect
+
+    assert list(inspect.signature(split_plan).parameters) == [
+        "batch", "kv_heads", "rows_head", "pages", "sms"]
+
+
+def _split_emulation(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_len, *, kv_heads,
+                     window, sms=132, chunk=32):
+    """Pass 1 and pass 2 of csrc/flash_paged.cu in torch: each split walks the
+    tokens of its pages that its rows can see in chunks with an online
+    softmax and keeps (m, l, acc) per query row; the combine merges them."""
+    from repro_torch.kernels.flash_paged import NEG_INF, gather_pages
+
+    B, sq, H, hd = q.shape
+    kv, group = kv_heads, H // kv_heads
+    MB, bs = tables.shape[1], v_pool.shape[1]
+    k = torch.cat([gather_pages(p, s, tables).reshape(B, MB * bs, kv, -1)
+                   for p, s in zip(k_parts, k_scales)], dim=-1)
+    v = gather_pages(v_pool, v_scale, tables).reshape(B, MB * bs, kv, -1)
+    qf = q.float() * (1.0 / hd ** 0.5)
+    splits, per = split_plan(B, kv, group * sq, MB, sms)
+    out = torch.zeros(B, sq, H, v.shape[-1])
+    for b in range(B):
+        L, p0 = int(kv_len[b]), int(pos[b])
+        for h in range(H):
+            g = h // group
+            for s in range(sq):
+                qpos = p0 + s
+                parts = []
+                for sp in range(splits):
+                    lo = sp * per * bs
+                    hi = min(min((sp + 1) * per, MB) * bs, L, p0 + sq)
+                    if window is not None:
+                        lo = max(lo, p0 - window + 1)
+                    m, l, acc = NEG_INF, 0.0, torch.zeros(v.shape[-1])
+                    for c0 in range(lo, hi, chunk):
+                        ks = torch.arange(c0, c0 + chunk)
+                        vis = (ks < hi) & (ks < L) & (ks <= qpos)
+                        if window is not None:
+                            vis &= qpos - ks < window
+                        kc = ks.clamp_max(MB * bs - 1)
+                        kk = torch.where((ks < hi)[:, None], k[b, kc, g], 0.0)
+                        vv = torch.where((ks < hi)[:, None], v[b, kc, g], 0.0)
+                        sc = kk @ qf[b, s, h]
+                        mx = max(m, float(torch.where(vis, sc, NEG_INF).max()))
+                        p = torch.where(vis, torch.exp(sc - mx), 0.0)
+                        alpha = float(np.exp(np.float32(m - mx)))
+                        l = l * alpha + float(p.sum())
+                        acc = acc * alpha + p @ vv
+                        m = mx
+                    parts.append((m, l, acc))
+                big = max(m for m, _, _ in parts)
+                w = [float(np.exp(np.float32(m - big))) for m, _, _ in parts]
+                tot = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+                o = sum(wi * a for wi, (_, _, a) in zip(w, parts))
+                out[b, s, h] = o / max(tot, 1e-30)
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_combine_matches_the_plain_version(int8, window):
+    """Two pages per split (4 splits); rows: a long one, one whose live
+    pages end on a split boundary, an idle row (every split empty), kv_len
+    1; the window leaves the long row's first two splits empty."""
+    rows = [(27, 1), (7, 1), (0, 0), (0, 1)]
+    B, MB, bs, kv = len(rows), 8, 4, 2
+    P = B * MB
+    tables, pos, lens = _tables(rows, bs, MB, P, seed=5)
+    kp, ks = _pool(P, bs, (kv * 8,), int8, 11)
+    v, vs = _pool(P, bs, (kv * 8,), int8, 12)
+    q = np.random.default_rng(13).standard_normal((B, 1, kv * 3, 8)).astype(np.float32)
+    args = (tn(q), (tn(kp),), (None if ks is None else tn(ks),), tn(v),
+            None if vs is None else tn(vs), tn(tables), tn(pos), tn(pos + lens))
+    assert split_plan(B, kv, 3, MB, sms=64) == (4, 2)
+    got = _split_emulation(*args, kv_heads=kv, window=window, sms=64, chunk=4)
+    want = flash_paged_ref(*args, kv_heads=kv, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.parametrize("sq", [1, 3])
+def test_split_combine_mla_step_matches_the_plain_version(sq):
+    """Two K parts, V aliasing the first, a step of several query positions
+    (causal inside the step), splits of several pages and chunks that cross
+    page boundaries."""
+    rows = [(13, sq), (0, sq), (0, 0)]
+    B, MB, bs = len(rows), 6, 4
+    P = B * MB
+    tables, pos, lens = _tables(rows, bs, MB, P, seed=8)
+    k0, s0 = _pool(P, bs, (16,), True, 21)
+    k1, s1 = _pool(P, bs, (4,), True, 22)
+    q = np.random.default_rng(23).standard_normal((B, sq, 4, 20)).astype(np.float32)
+    args = (tn(q), (tn(k0), tn(k1)), (tn(s0), tn(s1)), tn(k0), tn(s0), tn(tables), tn(pos),
+            tn(pos + lens))
+    got = _split_emulation(*args, kv_heads=1, window=None, sms=2, chunk=3)
+    want = flash_paged_ref(*args, kv_heads=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    assert (got[2] == 0).all()
+
+
+def test_kernel_shape_plan_refuses_rows_not_whole_16_bytes():
+    """The kernel copies and reads token rows 16 bytes at a time: int8 head
+    widths must be multiples of 16, bf16 of 8, f32 of 4; the query's too."""
+    from repro_torch.kernels.flash_paged import _shape_plan
+
+    def plan(f, kv_dtype, q_dtype=torch.bfloat16):
+        scale = ((9, 16), torch.float32) if kv_dtype == torch.int8 else None
+        return _shape_plan((2, 1, 4, f), q_dtype, 2, (((9, 16, 2 * f), kv_dtype),),
+                           (9, 16, 2 * f), kv_dtype, (scale, scale), (2, 4), (2,), (2,), 132)
+
+    assert plan(16, torch.int8)[:2] == ([16], 16)
+    assert plan(8, torch.bfloat16)[:2] == ([8], 8)
+    for f, dt in ((8, torch.int8), (4, torch.bfloat16)):
+        with pytest.raises(ValueError, match="16-byte rows"):
+            plan(f, dt)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        plan(4, torch.float32)                 # f32 pools fine, bf16 q rows of 8 bytes not
+    assert plan(4, torch.float32, torch.float32)[:2] == ([4], 4)
