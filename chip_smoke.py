@@ -42,10 +42,12 @@ Phases, each printing one JSON line:
    exact ``tugemm``, the simulator, PPA, and a ``*=int8:stats`` forward on
    the kernels with its energy report; the forward's cycle totals through
    the plain versions are printed beside them.
-10. device_time — the device time of each attention and temporal-GEMM case
-   checked above and of its library yardstick, read from ``torch.profiler``
-   last, so that the profiler runs during no other timed phase; a profile
-   without device events fails the phase.
+10. device_time — the device time and device launches of each fused GEMM,
+   int8 GEMM, attention and temporal-GEMM case checked above and of its
+   library yardstick, read from ``torch.profiler`` last, so that the
+   profiler runs during no other timed phase; where the profiler loses
+   device events, all of them are read by CUDA events, and each record's
+   ``device_ms_source`` says which.
 11. the kernels line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
@@ -134,24 +136,38 @@ DEVICE_TIMED: list = []
 def device_times(torch) -> None:
     """device_ms of every DEVICE_TIMED kernel call and library yardstick,
     written into its check record and emitted; the bound share is
-    bound_ms / device_ms."""
+    bound_ms / device_ms. All calls are read by one method: profiles of
+    ``PROFILE_CHUNK`` calls each, or, where one of those lost a call mark
+    three times, CUDA events for every call (``device_ms_source`` says which)."""
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
-    for rec, call, lib_call in DEVICE_TIMED:
-        rec["device_kernels"] = {}
-        rec["device_ms"], rec["device_ms_source"] = device_ms(
-            torch, call, flush, breakdown=rec["device_kernels"])
-        rec["library_device_ms"] = None
-        if lib_call is not None:
-            rec["library_device_ms"], lib_source = device_ms(torch, lib_call, flush)
-            if lib_source != rec["device_ms_source"]:
-                raise AssertionError(f"{rec['case']}: kernel and library device times were "
-                                     "read by different methods")
+    fns = [f for _, call, lib_call in DEVICE_TIMED
+           for f in ((call,) if lib_call is None else (call, lib_call))]
+    times = device_ms_many(torch, fns, flush)
+    it = iter(times)
+    for rec, _, lib_call in DEVICE_TIMED:
+        ms, source, launches, breakdown = next(it)
+        rec["device_ms"], rec["device_ms_source"], rec["device_launches"] = ms, source, launches
+        rec["device_kernels"] = breakdown
+        rec["library_device_ms"] = None if lib_call is None else next(it)[0]
         rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         emit({"phase": "device_time", **{k: rec.get(k) for k in (
-            "kernel", "case", "M", "K", "N", "bits", "blocks", "splits", "ms", "device_ms",
-            "device_ms_source", "library_ms", "library_device_ms", "bound_ms", "bound_share",
-            "bound_by", "device_kernels")}})
+            "kernel", "case", "M", "K", "N", "bits", "w_mode", "per_token", "bias", "x_dtype",
+            "bn", "blocks", "splits", "ms", "device_ms", "device_ms_source", "device_launches",
+            "library_ms", "library_device_ms", "bound_ms", "bound_share", "bound_by",
+            "device_kernels")}})
     del flush
+
+
+def device_entry(rows: list) -> dict:
+    """The kernels line's device numbers for a kernel whose ``rows`` (one
+    layer's calls) were read by ``device_times``: summed device ms, its
+    library's, the bound share and the most device launches of one call."""
+    dev = sum(r["device_ms"] for r in rows)
+    launches = [r["device_launches"] for r in rows]   # None from CUDA events
+    return {"device_ms": dev, "device_ms_source": rows[0]["device_ms_source"],
+            "library_device_ms": sum(r["library_device_ms"] for r in rows),
+            "bound_share": sum(r["bound_ms"] for r in rows) / dev,
+            "device_launches_per_call": None if None in launches else max(launches)}
 
 
 def _device_events(torch, run):
@@ -167,53 +183,99 @@ def _device_events(torch, run):
                   if e.device_type == DeviceType.CUDA)
 
 
-def device_ms(torch, fn, flush, reps: int = 10, breakdown: dict | None = None):
-    """(ms, source): the median over ``reps`` flushed calls of ``fn`` of the
-    device time of one call, the durations of every device-side event the
-    call launched, summed (both passes of attention, the temporal GEMM's
-    zeroing of its output); source ``"profiler"``. Each call is queued as
-    flush, a short ``torch.cuda._sleep`` (its kernel marks where a call
-    starts), the call; a call's events are those after its sleep, less the
-    next call's flush. ``breakdown``, when given, is filled with the mean
-    device ms of one call per event name. A profile without the device
-    events raises on the card; only a run with ``DEVICE = "cpu"`` (the
-    rehearsal) falls back to CUDA events around ``reps`` back-to-back calls
-    queued behind a sleep, unflushed, source ``"cuda_events"``."""
+# calls read by one profile: each profiler session is a CUPTI start and stop,
+# and a process that started some two hundred of them lost every device
+# event of the later ones on the card
+PROFILE_CHUNK = 16
+
+
+def _profiled(torch, fns, flush, reps):
+    """[(ms, launches, breakdown)] of each of ``fns`` from one profile, or
+    None if it lost a call mark. Each call is queued as flush, a short
+    ``torch.cuda._sleep`` (its kernel marks where a call starts), the call;
+    a call's events are those after its sleep, less the next call's flush."""
+    def run():
+        for fn in fns:
+            for _ in range(reps):
+                flush.zero_()
+                torch.cuda._sleep(1000)
+                fn()
+
+    events = _device_events(torch, run)
+    marks = [i for i, (*_, n) in enumerate(events) if n in _SPIN_NAMES]
+    if len(marks) != reps * len(fns):
+        return None
+    out = []
+    for f in range(len(fns)):
+        per_call, by_name, counts = [], {}, []
+        for j in range(f * reps, (f + 1) * reps):
+            i = marks[j]
+            seg = events[i + 1:marks[j + 1] - 1] if j + 1 < len(marks) else events[i + 1:]
+            per_call.append(sum(e - s for s, e, _ in seg) / 1e3)
+            counts.append(len(seg))
+            for s, e, n in seg:
+                by_name[n[:60]] = by_name.get(n[:60], 0.0) + (e - s) / 1e3 / reps
+        out.append((statistics.median(per_call), statistics.median(counts), by_name))
+    return out
+
+
+def _event_ms(torch, fn, flush, reps):
+    """The median over ``reps`` flushed calls of ``fn`` of CUDA-event time;
+    a sleep after the flush keeps the host's queueing of the call off it."""
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(200_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms_many(torch, fns, flush, reps: int = 10) -> list:
+    """[(ms, source, launches, breakdown)] of each of ``fns``: the median over
+    ``reps`` flushed calls of the device time of one call, the durations of
+    every device-side event the call launched, summed (both passes of
+    attention, the temporal GEMM's zeroing of its output, the fused GEMM's
+    stats memset), source ``"profiler"``; launches, the median count of
+    those events a call; breakdown, the mean device ms of one call per
+    event name. The calls are profiled ``PROFILE_CHUNK`` at a time, and a
+    profile that lost a call mark is taken again, up to three times. If one
+    is still short, or the profiler sees no device event at all, every call
+    is timed by CUDA events instead (``_event_ms``): source
+    ``"cuda_events"``, launches None, breakdown empty; a line on standard
+    error says so."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
     if not _SPIN_NAMES:
         _SPIN_NAMES.update(n for *_, n in _device_events(torch, lambda: torch.cuda._sleep(1000)))
-    fn()
-    torch.cuda.synchronize()
+    out = []
+    for c in range(0, len(fns) if _SPIN_NAMES else 0, PROFILE_CHUNK):
+        chunk = fns[c:c + PROFILE_CHUNK]
+        got = None
+        for _ in range(3):
+            got = _profiled(torch, chunk, flush, reps)
+            if got is not None:
+                break
+        if got is None:
+            break
+        out += [(ms, "profiler", n, by_name) for ms, n, by_name in got]
+    if len(out) == len(fns):
+        return out
+    print(f"device_time: torch.profiler lost call marks after {len(out)} of {len(fns)} "
+          "calls; every call is timed by CUDA events", file=sys.stderr, flush=True)
+    return [(_event_ms(torch, fn, flush, reps), "cuda_events", None, {}) for fn in fns]
 
-    def run():
-        for _ in range(reps):
-            flush.zero_()
-            torch.cuda._sleep(1000)
-            fn()
 
-    events = _device_events(torch, run) if _SPIN_NAMES else []
-    marks = [i for i, (*_, n) in enumerate(events) if n in _SPIN_NAMES]
-    if len(marks) == reps:
-        per_call, by_name = [], {}
-        for j, i in enumerate(marks):
-            seg = events[i + 1:marks[j + 1] - 1] if j + 1 < reps else events[i + 1:]
-            per_call.append(sum(e - s for s, e, _ in seg) / 1e3)
-            for s, e, n in seg:
-                by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / reps
-        if breakdown is not None:
-            breakdown.update({n[:60]: t for n, t in by_name.items()})
-        return statistics.median(per_call), "profiler"
-    if DEVICE != "cpu":
-        raise AssertionError(f"torch.profiler recorded {len(marks)} of {reps} call marks "
-                             "on the device: no device time")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "cuda_events"
+def device_ms(torch, fn, flush, reps: int = 10):
+    """(ms, source, launches) of ``fn`` alone, as ``device_ms_many`` reads it."""
+    ms, source, launches, _ = device_ms_many(torch, [fn], flush, reps)[0]
+    return ms, source, launches
 
 
 def nbytes(*ts) -> int:
@@ -221,7 +283,35 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------ kernel checks
+def gemm_grid(M: int, N: int, Kw: int, planes: int) -> dict:
+    """The fused and int8 GEMM kernels' grid at a call's shapes: tile width,
+    K splits (the cluster size) and blocks, from ``split_plan``."""
+    import torch
+
+    from repro_torch.kernels.tugemm_fused import BM, split_plan
+
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    bn, splits, _ = split_plan(M, N, Kw, planes, sms)
+    return dict(bn=bn, splits=splits, blocks=splits * -(-N // bn) * -(-M // BM))
+
+
+def lib_int_mm(torch, a, b):
+    """torch._int_mm(a, b) as a library yardstick, or None where cuBLASLt's
+    int8 product does not take the shape (M > 16, K and N multiples of 8)."""
+    M, K = a.shape
+    if M <= 16 or K % 8 or b.shape[1] % 8:
+        return None
+    return lambda: torch._int_mm(a, b)
+
+
 def check_gemm(torch, flush):
+    """``tugemm_fused`` against its plain version, bit for bit (y, ca, rb):
+    the serve phase's shapes at M=64 (bf16 x and out, every weight mode),
+    the quickstart's (f32 x, W and out at M=32), decode (M=4), a ragged
+    case per weight mode (M=37, K=333, N=65; packed K not a plane multiple)
+    and per-token scales with a bias on packed weights. Every case's device
+    time is read by the last phase, with ``torch._int_mm`` on the int8
+    operands as its library call where cuBLASLt takes the shape."""
     from repro_torch.kernels.ops import pack_weights
     from repro_torch.kernels.packing import PLANES
     from repro_torch.kernels.tugemm_fused import tugemm_fused
@@ -229,58 +319,96 @@ def check_gemm(torch, flush):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = []
+
+    def run(case, x, wf, mode, bits, per_token, with_bias, out_dtype):
+        M, K = x.shape
+        N = wf.shape[1]
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+        sx = compute_scale(x, bits, axis=0 if per_token else None)
+        sx = sx.reshape(-1, 1) if per_token else sx.reshape(1, 1)
+        planes = PLANES[bits] if mode == "packed" else 1
+        if mode == "quant":
+            w = wf
+            sw = compute_scale(wf, bits, axis=1).reshape(1, N)
+            wq = torch.clamp(torch.round(wf.float() / sw), lo, hi).to(torch.int8)
+        else:
+            wq = torch.randint(lo, hi + 1, (K, N), device=dev, generator=gen, dtype=torch.int8)
+            w = pack_weights(wq, bits) if mode == "packed" else wq
+            sw = (torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4)
+        if planes * w.shape[0] != K:   # packed K not a plane multiple: x padded with zeros
+            x = torch.nn.functional.pad(x, (0, planes * w.shape[0] - K))
+            wq = torch.nn.functional.pad(wq, (0, 0, 0, x.shape[1] - K))
+        bias = (torch.randn(N, device=dev, generator=gen).to(out_dtype) if with_bias else None)
+        args = (x, w, sx, sw, bias)
+        kw = dict(bits=bits, w_mode=mode, collect_stats=True, out_dtype=out_dtype)
+        got = tugemm_fused(*args, impl="cuda", **kw)
+        want = tugemm_fused(*args, impl="torch", **kw)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        xq = torch.clamp(torch.round(x.float() / sx), lo, hi).to(torch.int8)
+        call = lambda: tugemm_fused(*args, impl="cuda", **kw)
+        lib_call = lib_int_mm(torch, xq, wq)
+        ms = median_ms(torch, call, flush=flush)
+        plain = median_ms(torch, lambda: tugemm_fused(*args, impl="torch", **kw), flush=flush)
+        lib = None if lib_call is None else median_ms(torch, lib_call, flush=flush)
+        byts = nbytes(x, w, sx, sw, bias, *got)
+        ops = 2 * M * K * N
+        rec = dict(kernel="tugemm_fused", case=case, M=M, K=K, N=N, w_mode=mode, bits=bits,
+                   per_token=per_token, bias=with_bias, planes=planes,
+                   x_dtype=str(x.dtype).split(".")[-1], out_dtype=str(out_dtype).split(".")[-1],
+                   **gemm_grid(M, N, w.shape[0], planes), exact=exact,
+                   max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                   bytes=byts, ops=ops,
+                   bound_ms=max(byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
+                   bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S
+                   else "operations")
+        emit({"phase": "check", **rec})
+        if not exact or err > GEMM_TOL:
+            raise AssertionError(f"tugemm_fused disagrees with its plain version: {rec}")
+        records.append(rec)
+        DEVICE_TIMED.append((rec, call, lib_call))
+
     M = 64  # max_batch * prefill_chunk of the serve phase
     shapes = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
     variants = [("quant", 8, False, False), ("quant", 8, True, False),
                 ("quant", 2, False, False), ("quant", 2, True, False),
                 ("int8", 8, False, False), ("packed", 4, False, False),
                 ("packed", 2, False, False), ("quant", 8, False, True)]
-    records = []
     for K, N in shapes:
-        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
-        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
         for mode, bits, per_token, with_bias in variants:
             if with_bias and (K, N) != (1024, 2048):
                 continue
-            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-            sx = compute_scale(x, bits, axis=0 if per_token else None)
-            sx = sx.reshape(-1, 1) if per_token else sx.reshape(1, 1)
-            if mode == "quant":
-                w = wf
-                sw = compute_scale(wf, bits, axis=1).reshape(1, N)
-                wq = torch.clamp(torch.round(wf.float() / sw), lo, hi).to(torch.int8)
-            else:
-                wq = torch.randint(lo, hi + 1, (K, N), device=dev, generator=gen,
-                                   dtype=torch.int8)
-                w = pack_weights(wq, bits) if mode == "packed" else wq
-                sw = (torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4)
-            bias = (torch.randn(N, device=dev, generator=gen).to(torch.bfloat16)
-                    if with_bias else None)
-            planes = PLANES[bits] if mode == "packed" else 1
-            args = (x, w, sx, sw, bias)
-            kw = dict(bits=bits, w_mode=mode, collect_stats=True, out_dtype=torch.bfloat16)
-            got = tugemm_fused(*args, impl="cuda", **kw)
-            want = tugemm_fused(*args, impl="torch", **kw)
-            torch.cuda.synchronize()
-            exact = all(torch.equal(a, b) for a, b in zip(got, want))
-            err = (got[0].float() - want[0].float()).abs().max().item()
-            xq = torch.clamp(torch.round(x.float() / sx), lo, hi).to(torch.int8)
-            ms = median_ms(torch, lambda: tugemm_fused(*args, impl="cuda", **kw), flush=flush)
-            plain = median_ms(torch, lambda: tugemm_fused(*args, impl="torch", **kw), flush=flush)
-            lib = median_ms(torch, lambda: torch._int_mm(xq, wq), flush=flush)
-            byts = nbytes(x, w, sx, sw, bias, *got)
-            ops = 2 * M * K * N
-            rec = dict(kernel="tugemm_fused", M=M, K=K, N=N, w_mode=mode, bits=bits,
-                       per_token=per_token, bias=with_bias, planes=planes, exact=exact,
-                       max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                       bytes=byts, ops=ops,
-                       bound_ms=max(byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
-                       bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S
-                       else "operations")
-            emit({"phase": "check", **rec})
-            if not exact or err > GEMM_TOL:
-                raise AssertionError(f"tugemm_fused disagrees with its plain version: {rec}")
-            records.append(rec)
+            run("serve", x, wf, mode, bits, per_token, with_bias, bf16)
+    for K, N in shapes:
+        # the quickstart's forward: f32 x, W and out, 2 x 16 tokens, int8 per tensor
+        x = torch.randn(32, K, device=dev, generator=gen)
+        wf = torch.randn(K, N, device=dev, generator=gen) * 0.02
+        run("quickstart f32", x, wf, "quant", 8, False, False, f32)
+        # decode: 4 rows, the serve policy's int8 attention / int2 packed MLP
+        x = torch.randn(4, K, device=dev, generator=gen).to(bf16)
+        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
+        run("decode", x, wf, "quant", 8, False, False, bf16)
+        run("decode", x, wf, "packed", 2, False, False, bf16)
+    # ragged: no dimension a multiple of any tile or 16-byte row; packed K not
+    # a plane multiple
+    x = torch.randn(37, 333, device=dev, generator=gen).to(bf16)
+    wf = (torch.randn(333, 65, device=dev, generator=gen) * 0.02).to(bf16)
+    for mode, bits in (("quant", 8), ("int8", 8), ("packed", 2)):
+        run("ragged", x, wf, mode, bits, False, False, bf16)
+    # K and N off the 32-row chunks and the column tiles, 16-byte rows: whole
+    # chunks past the edge zero-filled by the copies
+    x = torch.randn(M, 1040, device=dev, generator=gen).to(bf16)
+    wf = (torch.randn(1040, 1040, device=dev, generator=gen) * 0.02).to(bf16)
+    run("ragged tiles", x, wf, "quant", 8, False, False, bf16)
+    # per-token scales and a bias on packed int2 weights
+    x = torch.randn(M, 1024, device=dev, generator=gen).to(bf16)
+    wf = torch.zeros(1024, 3072, device=dev, dtype=bf16)
+    run("packed per-token bias", x, wf, "packed", 2, True, True, bf16)
     return records
 
 
@@ -464,12 +592,9 @@ def check_unfused(torch, flush):
         t.view(-1)[0] = lo            # the most negative code is in every operand
         return t
 
-    def lib_int_mm(a, b):
-        # cuBLASLt's int8 product takes M > 16 and K, N multiples of 8
-        M, K = a.shape
-        if M <= 16 or K % 8 or b.shape[1] % 8:
-            return None
-        return median_ms(torch, lambda: torch._int_mm(a, b), flush=flush)
+    def lib_ms(a, b):
+        call = lib_int_mm(torch, a, b)
+        return None if call is None else median_ms(torch, call, flush=flush)
 
     records = []
 
@@ -487,13 +612,23 @@ def check_unfused(torch, flush):
             raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
         records.append(rec)
 
+    def int8(case, a, b, c=None):
+        """a tugemm_int8 case, its device time read by the last phase"""
+        M, K = a.shape
+        N = b.shape[1]
+        call = lambda: tugemm_int8(a, b, c, impl="cuda")
+        lib_call = None if c is not None else lib_int_mm(torch, a, b)
+        run("tugemm_int8", case, call, lambda: tugemm_int8(a, b, c, impl="torch"),
+            None if lib_call is None else median_ms(torch, lib_call, flush=flush),
+            nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N,
+            **gemm_grid(M, N, K, 1))
+        DEVICE_TIMED.append((records[-1], call, lib_call))
+
     gemms = [("attn.q", 1024, 2048), ("attn.k/v", 1024, 1024), ("attn.o", 2048, 1024)]
     for M in (64, 4):
         for case, K, N in gemms:
             a, b = i8((M, K)), i8((K, N))
-            run("tugemm_int8", case, lambda: tugemm_int8(a, b, impl="cuda"),
-                lambda: tugemm_int8(a, b, impl="torch"), lib_int_mm(a, b),
-                nbytes(a, b) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N)
+            int8(case, a, b)
             run("colabsmax", case, lambda: colabsmax(a, impl="cuda"),
                 lambda: colabsmax(a, impl="torch"),
                 median_ms(torch, lambda: a.abs().amax(0), flush=flush),
@@ -507,29 +642,27 @@ def check_unfused(torch, flush):
             a, wq = i8((M, K)), i8((K, N), bits)
             pb = pack_weights(wq, bits)
             run("tugemm_packed", case, lambda: tugemm_packed(a, pb, bits=bits, impl="cuda"),
-                lambda: tugemm_packed(a, pb, bits=bits, impl="torch"), lib_int_mm(a, wq),
+                lambda: tugemm_packed(a, pb, bits=bits, impl="torch"), lib_ms(a, wq),
                 nbytes(a, pb) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N, bits=bits)
     M, K, N = 64, 1024, 2048
     a, b = i8((M, K)), i8((K, N))
     c = torch.randint(-(2 ** 20), 2 ** 20, (M, N), device=dev, generator=gen, dtype=torch.int32)
-    run("tugemm_int8", "attn.q with C", lambda: tugemm_int8(a, b, c, impl="cuda"),
-        lambda: tugemm_int8(a, b, c, impl="torch"), None,
-        nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N)
+    int8("attn.q with C", a, b, c)
     a, wq = i8((M, 1024)), i8((1024, 3072), 4)
     pb = pack_weights(wq, 4)
     run("tugemm_packed", "int4 1024x3072", lambda: tugemm_packed(a, pb, bits=4, impl="cuda"),
-        lambda: tugemm_packed(a, pb, bits=4, impl="torch"), lib_int_mm(a, wq),
+        lambda: tugemm_packed(a, pb, bits=4, impl="torch"), lib_ms(a, wq),
         nbytes(a, pb) + 4 * M * 3072, 2 * M * 1024 * 3072, M=M, K=1024, N=3072, bits=4)
     # ragged: no dimension a multiple of any tile; packed K not a plane multiple
     a, b = i8((37, 333)), i8((333, 65))
     c = torch.randint(-99, 99, (37, 65), device=dev, generator=gen, dtype=torch.int32)
-    run("tugemm_int8", "ragged", lambda: tugemm_int8(a, b, c, impl="cuda"),
-        lambda: tugemm_int8(a, b, c, impl="torch"), None,
-        nbytes(a, b, c) + 4 * 37 * 65, 2 * 37 * 333 * 65, M=37, K=333, N=65)
+    int8("ragged", a, b, c)
     run("colabsmax", "ragged", lambda: colabsmax(a, impl="cuda"),
         lambda: colabsmax(a, impl="torch"), None, nbytes(a) + 4 * 333, 37 * 333, M=37, K=333)
     run("rowabsmax", "ragged", lambda: rowabsmax(b, impl="cuda"),
         lambda: rowabsmax(b, impl="torch"), None, nbytes(b) + 4 * 333, 333 * 65, K=333, N=65)
+    for M in (64, 4):   # K, N off the chunks and tiles, 16-byte rows
+        int8(f"ragged tiles {M}x1040x1040", i8((M, 1040)), i8((1040, 1040)))
     a, wq = i8((5, 199)), i8((199, 70), 2)
     pb = pack_weights(wq, 2)
     run("tugemm_packed", "ragged", lambda: tugemm_packed(a, pb, bits=2, impl="cuda"),
@@ -1046,8 +1179,8 @@ def main() -> int:
     device_times(torch)
 
     layer = {g[0]: g for g in LAYER_GEMMS}
-    picked = [r for r in gemm if r["w_mode"] == "quant" and not r["per_token"]
-              and not r["bias"] and any((r["K"], r["N"], r["bits"]) == v[1:]
+    picked = [r for r in gemm if r["case"] == "serve" and r["w_mode"] == "quant"
+              and not r["per_token"] and not r["bias"] and any((r["K"], r["N"], r["bits"]) == v[1:]
                                         for v in layer.values())]
     per_layer = []
     for name, K, N, bits in LAYER_GEMMS:
@@ -1065,6 +1198,7 @@ def main() -> int:
          "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_layer)
          else "operations",
          "library_ms": sum(r["library_ms"] for r in per_layer),
+         **device_entry(per_layer),
          "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
@@ -1106,6 +1240,7 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
             "library_ms": None if None in libs else sum(libs),
+            **(device_entry(rows) if name == "tugemm_int8" else {}),
             "shape": f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under "
                      + UNFUSED_POLICY})
     # the C1 path's kernels: one qwen3-0.6b layer's operand quantizations (7

@@ -52,7 +52,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 64;       // output rows per block: 4 warps x 16
 constexpr int BN = 128;      // output columns per block: 16 n8 fragments a warp
@@ -61,31 +65,6 @@ constexpr int NT = 128;      // threads per block
 constexpr int AST = BK + 16; // row stride (bytes) of A tiles and of the transposed B tile
 constexpr int BST = BN;      // row stride (bytes) of the raw B tile [k][n]
 constexpr int NF = BN / 8;   // n8 fragments of a warp
-
-__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b, unsigned sel) {
-  unsigned d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-// 0xFF in every byte whose bit 7 is set, else 0
-__device__ __forceinline__ unsigned bit7_bytes(unsigned x) { return prmt(x, 0u, 0xBA98u); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(NT) temporal_unary_kernel(
     const int8_t* __restrict__ a, const int8_t* __restrict__ b, int* __restrict__ y, int M,
@@ -109,13 +88,13 @@ __global__ void __launch_bounds__(NT) temporal_unary_kernel(
       for (int i = 0; i < BM * BK / 16 / NT; ++i) {
         const int e = tid + i * NT, r = e >> 2, c = (e & 3) * 16;
         const bool ok = m0 + r < M && k0 + c < K;
-        cp_async16(&As[st][r * AST + c], ok ? a + (long)(m0 + r) * K + k0 + c : a, ok);
+        cp_async16(&As[st][r * AST + c], ok ? a + (long)(m0 + r) * K + k0 + c : a, ok ? 16 : 0);
       }
 #pragma unroll
       for (int i = 0; i < BK * BN / 16 / NT; ++i) {
         const int e = tid + i * NT, r = e >> 3, c = (e & 7) * 16;
         const bool ok = k0 + r < K && n0 + c < N;
-        cp_async16(&Bs[st][r * BST + c], ok ? b + (long)(k0 + r) * N + n0 + c : b, ok);
+        cp_async16(&Bs[st][r * BST + c], ok ? b + (long)(k0 + r) * N + n0 + c : b, ok ? 16 : 0);
       }
     } else {       // any shape: byte loads, zeros past the edges
       for (int e = tid; e < BM * BK; e += NT) {
@@ -159,12 +138,8 @@ __global__ void __launch_bounds__(NT) temporal_unary_kernel(
         r[q] = *reinterpret_cast<const uint4*>(&Bs[st][(tk * 4 + q) * BST + tn * 16]);
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const unsigned x0 = (&r[0].x)[w], x1 = (&r[1].x)[w], x2 = (&r[2].x)[w],
-                       x3 = (&r[3].x)[w];
-        const unsigned lo01 = prmt(x0, x1, 0x5140u), hi01 = prmt(x0, x1, 0x7362u);
-        const unsigned lo23 = prmt(x2, x3, 0x5140u), hi23 = prmt(x2, x3, 0x7362u);
-        const unsigned col[4] = {prmt(lo01, lo23, 0x5410u), prmt(lo01, lo23, 0x7632u),
-                                 prmt(hi01, hi23, 0x5410u), prmt(hi01, hi23, 0x7632u)};
+        unsigned col[4];
+        transpose4x4((&r[0].x)[w], (&r[1].x)[w], (&r[2].x)[w], (&r[3].x)[w], col);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           *reinterpret_cast<unsigned*>(&Bt[(tn * 16 + w * 4 + j) * AST + tk * 4]) = col[j];

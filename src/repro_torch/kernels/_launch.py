@@ -28,9 +28,11 @@ class KernelCount:
         return {"launches": self.launches, "plain_calls": self.plain_calls}
 
 
-def check(cond: bool, msg: str) -> None:
+def check(cond: bool, msg) -> None:
+    """Raise ValueError(msg) unless cond; ``msg`` may be a zero-argument
+    callable, so a hot wrapper formats its message only when it raises."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def ptr(t: torch.Tensor | None):
@@ -54,10 +56,11 @@ def sm_count(device: torch.device) -> int:
 
 def raise_on(rc: int, name: str) -> None:
     """Raise if a C launcher reported an error (it returns the
-    cudaGetLastError of its launch, -1 for an unsupported dtype, -2 for a tile that does not fit)."""
+    cudaGetLastError of its launch, -1 for an unsupported dtype, -2 for a tile
+    or split plan the kernel does not take)."""
     if rc == -1:
         raise ValueError(f"{name}: unsupported dtype combination")
     if rc == -2:
-        raise ValueError(f"{name}: the tile does not fit one block")
+        raise ValueError(f"{name}: the tile or split plan does not fit the kernel")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError_t {rc})")

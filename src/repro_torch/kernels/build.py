@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled on first
 use into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of its source and flags so an edited source
-never loads a stale library. Only sources in this repository are compiled;
-a failed build raises with the compiler's output. Independent sources are
-compiled in parallel, one ``nvcc`` each. ``python -m
+``.gitignore``), named by a hash of its source, of every ``csrc`` header it
+includes (``#include "..."``, followed through headers) and of the flags, so
+an edited source or header never loads a stale library. Only sources in this
+repository are compiled; a failed build raises with the compiler's output.
+Independent sources are compiled in parallel, one ``nvcc`` each. ``python -m
 repro_torch.kernels.build [name ...]`` prints ptxas's register, shared
 memory and spill report of each source.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,10 +51,24 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every file it includes by ``#include "..."`` (relative
+    to the including file), each once: {path: bytes}."""
+    path = path.resolve()
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    files = _sources(csrc / f"{name}.cu", {})
+    digest = hashlib.sha256(b"".join(files.values()) + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

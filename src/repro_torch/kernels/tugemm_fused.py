@@ -1,28 +1,34 @@
 """Fused dynamic-quant tuGEMM linear layer: CUDA kernel + plain version.
 
 Replaces ``repro/kernels/tugemm_fused.py::tugemm_fused_pallas`` (the TPU
-kernel). The CUDA source is ``csrc/tugemm_fused.cu``; its header says what
-bounds it on the card (reading W once: device-memory bytes) and how its
-design answers that. ``tugemm_fused`` launches the kernel for CUDA tensors
-and runs the plain version (``kernels/ref.py::fused_gemm_ref``) for CPU
-tensors or under ``impl="torch"``; the two agree bit for bit, outputs and
-stats.
+kernel). The CUDA source is ``csrc/tugemm_fused.cu`` (its mainloop,
+``csrc/tugemm_mainloop.cuh``, is shared with ``csrc/tugemm_int8.cu``); its
+header says what bounds it on the card (reading W once: device-memory
+bytes) and how its design answers that. ``tugemm_fused`` launches the kernel
+for CUDA tensors and runs the plain version (``kernels/ref.py::
+fused_gemm_ref``) for CPU tensors or under ``impl="torch"``; the two agree
+bit for bit, outputs and stats. ``split_plan`` cuts K across the blocks of
+a thread block cluster, from the shapes alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
-from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, stream_ptr
+from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, sm_count, stream_ptr
 from .packing import PLANES
 from .ref import fused_gemm_ref
 
-__all__ = ["tugemm_fused", "COUNT"]
+__all__ = ["tugemm_fused", "split_plan", "COUNT"]
 
 COUNT = KernelCount("tugemm_fused")
+# csrc/tugemm_mainloop.cuh: rows of a block tile, W rows a K chunk, the tile
+# widths it takes (widest first) and its largest cluster
+BM, KC, BNS, MAX_SPLITS = 64, 64, (128, 64, 32), 16
 _W_MODES = {"quant": 0, "int8": 1, "packed": 2}
 _lib = None
 
@@ -33,12 +39,44 @@ def _load():
         lib = build.load("tugemm_fused")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tugemm_fused_launch.argtypes = [
-            vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, ci, vp, vp,
-            ci, ci, ci, ci, ci, ci, vp,
+            vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.tugemm_fused_launch.restype = ci
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(M: int, N: int, Kw: int, planes: int, sms: int):
+    """(bn, splits, chunks): how the kernel's grid cuts the work, from shapes
+    alone. The grid is (splits, ceil(N/bn), ceil(M/64)); the ``splits``
+    blocks of one output tile form a thread block cluster, block s taking
+    the W rows of chunks ``[s·chunks, (s+1)·chunks)`` (chunks of 64 rows,
+    each row feeding all ``planes``), so every (K chunk, N tile) of every M
+    tile falls in exactly one block.
+
+    Measured on the H100 (``scripts/tugemm_plan_sweep.py``, PERF.md),
+    a block's time grows with its chunks and its fixed cost (copies,
+    barriers, the cluster reduction) outweighs the warps more blocks add,
+    while each narrower tile quantizes X again. So: the widest tile, then
+    two chunks a block (one where two leave fewer than half the SMs a block
+    of 8 warps), and as few splits as that needs; K longer than 16 splits
+    of two chunks takes more chunks a block. A shape too small for half the
+    SMs takes the most blocks the kernel can make."""
+    del planes   # a packed row feeds every plane: the chunks are W rows
+    cdiv = lambda x, y: -(-x // y)
+    m_tiles = cdiv(max(M, 1), BM)
+    k_chunks = max(1, cdiv(Kw, KC))
+    least = cdiv(k_chunks, MAX_SPLITS)   # chunks a block at 16 splits
+    want = cdiv(sms, 2)
+    for bn in BNS:
+        tiles = m_tiles * cdiv(max(N, 1), bn)
+        for chunks in ((min(2, k_chunks), 1) if least == 1 else (least,)):
+            splits = cdiv(k_chunks, chunks)
+            if tiles * splits >= want:
+                return bn, splits, chunks
+    return BNS[-1], cdiv(k_chunks, least), least
 
 
 def tugemm_fused(
@@ -71,41 +109,52 @@ def tugemm_fused(
         COUNT.plain_calls += 1
         return fused_gemm_ref(x, w, sx, sw, bias, bits=bits, w_mode=w_mode,
                               collect_stats=collect_stats, out_dtype=out_dtype)
-    check(x.device.type == "cuda", f"tugemm_fused: impl={impl!r} needs CUDA tensors")
+    check(x.device.type == "cuda",
+          lambda: f"tugemm_fused: impl={impl!r} needs CUDA tensors")
     planes = PLANES[bits] if w_mode == "packed" else 1
     M, Kx = x.shape
     Kw, N = w.shape
     dev = x.device
-    check(w_mode in _W_MODES, f"unknown w_mode {w_mode!r}")
+    check(w_mode in _W_MODES, lambda: f"unknown w_mode {w_mode!r}")
     check(bits in (2, 4, 8) and (w_mode != "packed" or bits < 8),
-          f"bits={bits} with w_mode={w_mode!r}")
-    check(Kx == planes * Kw, f"x {tuple(x.shape)} vs w {tuple(w.shape)} ({w_mode}, {bits}-bit)")
-    check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")
+          lambda: f"bits={bits} with w_mode={w_mode!r}")
+    check(Kx == planes * Kw,
+          lambda: f"x {tuple(x.shape)} vs w {tuple(w.shape)} ({w_mode}, {bits}-bit)")
+    check(x.dtype in (torch.float32, torch.bfloat16), lambda: f"x dtype {x.dtype}")
     check((w.dtype == torch.int8) == (w_mode != "quant") and w.dtype in DTYPE_CODE,
-          f"w dtype {w.dtype} with w_mode={w_mode!r}")
-    check(out_dtype in (torch.float32, torch.bfloat16), f"out dtype {out_dtype}")
+          lambda: f"w dtype {w.dtype} with w_mode={w_mode!r}")
+    check(out_dtype in (torch.float32, torch.bfloat16), lambda: f"out dtype {out_dtype}")
     sx = sx.reshape(-1)
     sw = sw.reshape(-1)
-    check(sx.dtype == torch.float32 and sx.numel() in (1, M), f"sx {tuple(sx.shape)} {sx.dtype}")
-    check(sw.dtype == torch.float32 and sw.numel() == N, f"sw {tuple(sw.shape)} {sw.dtype}")
+    check(sx.dtype == torch.float32 and sx.numel() in (1, M),
+          lambda: f"sx {tuple(sx.shape)} {sx.dtype}")
+    check(sw.dtype == torch.float32 and sw.numel() == N,
+          lambda: f"sw {tuple(sw.shape)} {sw.dtype}")
     per_token = sx.numel() == M and M > 1
     if bias is not None:
         bias = bias.reshape(-1).to(out_dtype).contiguous()
-        check(bias.numel() == N, f"bias {tuple(bias.shape)}")
+        check(bias.numel() == N, lambda: f"bias {tuple(bias.shape)}")
     for t in (x, w, sx, sw, bias):
         check(t is None or (t.device == dev and t.is_contiguous()),
               "tugemm_fused: every operand must be contiguous on x's device")
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
-    ca = rb = None
+    stats = None
     if collect_stats:
-        ca = torch.zeros((planes, Kw), dtype=torch.int32, device=dev)
-        rb = torch.zeros((Kw, planes), dtype=torch.int32, device=dev)
+        # ca then rb in one buffer: the launcher zeroes it (one memset), the
+        # kernel merges its maxima into it by atomicMax
+        stats = torch.empty(2 * planes * Kw, dtype=torch.int32, device=dev)
     if M > 0 and N > 0:
+        plan = split_plan(M, N, Kw, planes, sm_count(dev))
         rc = _load().tugemm_fused_launch(
             ptr(x), DTYPE_CODE[x.dtype], ptr(w), _W_MODES[w_mode], DTYPE_CODE[w.dtype],
             ptr(sx), int(per_token), ptr(sw), ptr(bias), ptr(y), DTYPE_CODE[out_dtype],
-            ptr(ca), ptr(rb), M, N, Kw, planes, bits, int(collect_stats), stream_ptr(dev),
+            ptr(stats), M, N, Kw, planes, bits, int(collect_stats), *plan,
+            stream_ptr(dev),
         )
         raise_on(rc, "tugemm_fused")
         COUNT.launches += 1
-    return (y, ca, rb) if collect_stats else y
+    elif stats is not None:
+        stats.zero_()
+    if not collect_stats:
+        return y
+    return y, stats[:planes * Kw].view(planes, Kw), stats[planes * Kw:].view(Kw, planes)

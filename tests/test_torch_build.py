@@ -1,0 +1,48 @@
+"""The port's CUDA build cache (``repro_torch.kernels.build``), on the CPU:
+a library is named by a digest of its source, every header it includes and
+the flags, so an edited source or shared header never loads a stale build.
+Nothing here compiles (there is no ``nvcc`` on the CPU)."""
+
+import shutil
+
+from repro_torch.kernels import build
+
+
+def _copy(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    return csrc
+
+
+def test_digest_follows_an_included_headers_bytes(tmp_path):
+    csrc = _copy(tmp_path)
+    before = {n: build._target(n, csrc) for n in build.SOURCES}
+    assert before == {n: build._target(n) for n in build.SOURCES}
+    header = csrc / "hopper_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: build._target(n, csrc) for n in build.SOURCES}
+    users = {n for n in build.SOURCES
+             if csrc / "hopper_common.cuh" in build._sources(csrc / f"{n}.cu", {})}
+    assert users == {"tugemm_fused", "tugemm_int8", "temporal_unary"}
+    for n in build.SOURCES:
+        assert (after[n] != before[n]) == (n in users), n
+
+
+def test_digest_follows_headers_included_by_headers(tmp_path):
+    csrc = _copy(tmp_path)
+    before = build._target("tugemm_int8", csrc)
+    # tugemm_int8.cu includes tugemm_mainloop.cuh, which includes hopper_common.cuh
+    assert "hopper_common.cuh" not in (csrc / "tugemm_int8.cu").read_text()
+    header = csrc / "hopper_common.cuh"
+    header.write_bytes(header.read_bytes().replace(b"namespace hopper", b"namespace  hopper"))
+    assert build._target("tugemm_int8", csrc) != before
+
+
+def test_digest_follows_the_source_and_ignores_unincluded_files(tmp_path):
+    csrc = _copy(tmp_path)
+    before = build._target("flash_paged", csrc)
+    (csrc / "unused.cuh").write_text("// not included by anything\n")
+    assert build._target("flash_paged", csrc) == before
+    src = csrc / "flash_paged.cu"
+    src.write_bytes(src.read_bytes() + b" ")
+    assert build._target("flash_paged", csrc) != before

@@ -164,3 +164,151 @@ def test_raw_stats_vectors_exact(mode, bits):
                         bits=bits, w_mode=mode, collect_stats=True)
     np.testing.assert_array_equal(np.asarray(jca), tca.reshape(-1).numpy())
     np.testing.assert_array_equal(np.asarray(jrb), trb.t().reshape(-1).numpy())
+
+
+# ------------------------------------- the kernel's split-K cluster grid
+from repro_torch.kernels.packing import unpack_plane  # noqa: E402
+from repro_torch.kernels.ref import _dequant_bias, _quant  # noqa: E402
+from repro_torch.kernels.tugemm_fused import BM, KC, MAX_SPLITS, split_plan  # noqa: E402
+
+# (K, N) of qwen3-0.6b's layer GEMMs: q, k/v, o, gate/up, down
+LAYER_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+
+
+def _blocks(M, N, Kw, planes, sms=132):
+    bn, splits, _ = split_plan(M, N, Kw, planes, sms)
+    return splits * -(-N // bn) * -(-M // BM)
+
+
+@pytest.mark.parametrize("planes", [1, 2, 4])
+@pytest.mark.parametrize("mnk", [(64, 2048, 1024), (4, 1024, 768), (37, 65, 333), (1, 3, 5),
+                                 (200, 128, 64), (64, 1040, 1040), (64, 1024, 96)])
+def test_split_plan_covers_every_chunk_and_tile_once(planes, mnk):
+    M, N, Kw = mnk
+    bn, splits, chunks = split_plan(M, N, Kw, planes, sms=132)
+    assert bn in (32, 64, 128) and 1 <= splits <= MAX_SPLITS
+    k_chunks = -(-Kw // KC)
+    owner = np.zeros((k_chunks, -(-N // bn)), int)
+    for s in range(splits):
+        owner[s * chunks:(s + 1) * chunks] += 1
+    assert (owner == 1).all()
+    # no block of the grid is left without work
+    assert (splits - 1) * chunks < k_chunks
+
+
+@pytest.mark.parametrize("M", [64, 32, 4])
+@pytest.mark.parametrize("kn,planes", [(kn, 1) for kn in LAYER_SHAPES]
+                         + [(kn, 4) for kn in LAYER_SHAPES[3:]])
+def test_split_plan_fills_the_card_at_the_layer_gemms(M, kn, planes):
+    """Quant or int8 weights (Kw = K) at every layer GEMM, and the MLP's
+    int2 packed ones (Kw = K / 4) of the serve's prequant policy: at least
+    half the 132 SMs get a block of 8 warps, each block walks at most two
+    64-row chunks where 16 splits allow it, and a narrower tile is taken
+    only where the wider one cannot reach half the SMs."""
+    K, N = kn
+    Kw = K // planes
+    bn, splits, chunks = split_plan(M, N, Kw, planes, 132)
+    assert _blocks(M, N, Kw, planes) >= 66
+    k_chunks = -(-Kw // KC)
+    assert chunks <= max(2, -(-k_chunks // MAX_SPLITS))
+    if bn < 128:
+        assert -(-N // (2 * bn)) * min(MAX_SPLITS, k_chunks) < 66
+
+
+def test_split_plan_takes_shapes_only():
+    import inspect
+
+    assert list(inspect.signature(split_plan).parameters) == ["M", "N", "Kw", "planes", "sms"]
+
+
+def _split_emulation(x, w, sx, sw, bias, *, bits, w_mode, out_dtype, sms):
+    """The kernel's grid in torch: for each (M tile, N tile) of ``split_plan``
+    the int32 partial product of every K slice (its chunks of 32 W rows, all
+    planes), summed, then the one epilogue; ca and rb as the max of per-block
+    maxima (ca from the first N tile's blocks, rb from the first M tile's)."""
+    planes = PLANES[bits] if w_mode == "packed" else 1
+    M = x.shape[0]
+    Kw, N = w.shape
+    bn, splits, chunks = split_plan(M, N, Kw, planes, sms)
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    xq = _quant(x, sx, lo, hi).to(torch.int64)
+    if w_mode == "packed":
+        wq = [unpack_plane(w, bits, p).to(torch.int64) for p in range(planes)]
+    else:
+        wq = [(_quant(w, sw, lo, hi) if w_mode == "quant" else w).to(torch.int64)]
+    acc = torch.zeros((M, N), dtype=torch.int64)
+    ca = torch.zeros((planes, Kw), dtype=torch.int64)
+    rb = torch.zeros((Kw, planes), dtype=torch.int64)
+    for m0 in range(0, M, BM):
+        for n0 in range(0, N, bn):
+            for s in range(splits):
+                k0, k1 = s * chunks * KC, min((s + 1) * chunks * KC, Kw)
+                part = torch.zeros_like(acc[m0:m0 + BM, n0:n0 + bn])
+                for p in range(planes):
+                    xa = xq[m0:m0 + BM, p * Kw + k0:p * Kw + k1]
+                    wb = wq[p][k0:k1, n0:n0 + bn]
+                    part += xa @ wb
+                    if n0 == 0 and k1 > k0:
+                        ca[p, k0:k1] = torch.maximum(ca[p, k0:k1], xa.abs().amax(0))
+                    if m0 == 0 and k1 > k0:
+                        rb[k0:k1, p] = torch.maximum(rb[k0:k1, p], wb.abs().amax(1))
+                acc[m0:m0 + BM, n0:n0 + bn] += part
+    y = _dequant_bias(acc.to(torch.int32), sx, sw, bias, out_dtype)
+    return y, ca.to(torch.int32), rb.to(torch.int32)
+
+
+@pytest.mark.parametrize("per_token,dtype,bias", [(False, "float32", False),
+                                                  (True, "bfloat16", True)])
+@pytest.mark.parametrize("mode,bits", MODES)
+@pytest.mark.parametrize("shape,sms", [((37, 333, 65), 4), ((70, 600, 40), 2)])
+def test_split_emulation_matches_the_pallas_kernel(shape, sms, mode, bits, per_token, dtype,
+                                                   bias):
+    """Ragged M, N, K (and a K not a plane multiple), K split across up to 6
+    blocks, two M tiles; outputs bit-exact against the reference's Pallas
+    kernel in interpret mode, stats exact against it and raw ca / rb against
+    the plain version."""
+    M, K, N = shape
+    jx, jw, sx, sw, wq = _inputs(M, K, N, mode, bits, per_token, seed=M + K, dtype=dtype)
+    b = np.random.default_rng(K).standard_normal(N).astype(np.float32) if bias else None
+    jb = None if b is None else jnp.asarray(b, dtype)
+    jy, jst = jops.matmul_fused(jx, jw, sx=jnp.asarray(sx), sw=jnp.asarray(sw), bias=jb,
+                                bits=bits, w_quantized=wq, collect_stats=True,
+                                impl="pallas_interpret")
+    tx, tw = tensor_from_numpy(np.asarray(jx)), tensor_from_numpy(np.asarray(jw))
+    planes = PLANES[bits] if mode == "packed" else 1
+    tx = torch.nn.functional.pad(tx, (0, planes * tw.shape[0] - K))
+    tsx = tensor_from_numpy(np.asarray(sx)).reshape(-1, 1 if per_token else 1)
+    tsx = tsx if per_token else tsx.reshape(1, 1)
+    tsw = tensor_from_numpy(np.asarray(sw)).reshape(1, N)
+    tb = None if jb is None else tensor_from_numpy(np.asarray(jb))
+    out_dtype = tx.dtype
+    y, ca, rb = _split_emulation(tx, tw, tsx, tsw, tb, bits=bits, w_mode=mode,
+                                 out_dtype=out_dtype, sms=sms)
+    assert split_plan(M, N, tw.shape[0], planes, sms)[1] > 1
+    np.testing.assert_array_equal(np.asarray(jy.astype(jnp.float32)), y.float().numpy())
+    _assert_stats(jst, tops._assemble_stats(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K]))
+    from repro_torch.kernels.ref import fused_gemm_ref
+
+    want = fused_gemm_ref(tx, tw, tsx, tsw, tb, bits=bits, w_mode=mode, collect_stats=True,
+                          out_dtype=out_dtype)
+    for got, ref in zip((y, ca, rb), want):
+        assert torch.equal(got, ref)
+
+
+def test_packed_plane_decode_bytes_are_the_plain_unpack():
+    """csrc/tugemm_mainloop.cuh decode_plane on packed words: every byte,
+    every plane of int4 and int2, equals unpack_plane (the shift-up,
+    arithmetic-shift-down decode) with no carry between bytes."""
+    vals = np.arange(256, dtype=np.uint32)
+    words = vals.reshape(-1, 4)
+    raw = words[:, 0] | words[:, 1] << 8 | words[:, 2] << 16 | words[:, 3] << 24
+    packed = torch.from_numpy(vals.astype(np.uint8).view(np.int8))
+    for bits, planes in ((4, 2), (2, 4)):
+        s = np.uint32(1 << (bits - 1))
+        mask = np.uint32(0x01010101 * ((1 << bits) - 1))
+        for p in range(planes):
+            f = ((raw >> np.uint32(p * bits)) & mask) ^ (np.uint32(0x01010101) * s)
+            d = (f + np.uint32(0x01010101) * (np.uint32(0x80) - s)) ^ np.uint32(0x80808080)
+            got = np.stack([(d >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)], 1)
+            got = got.reshape(-1).astype(np.uint8).view(np.int8)
+            np.testing.assert_array_equal(got, unpack_plane(packed, bits, p).numpy())

@@ -127,3 +127,42 @@ def test_dispatch_names_match_reference():
         tops.matmul_packed(torch.from_numpy(a),
                            tops.pack_weights(torch.from_numpy(b // 64), 2), bits=2)
     assert tlog == jlog == ["matmul_int8", "absmax_a", "absmax_b", "matmul_packed"]
+
+
+# ------------------------------------- the int8 kernel's split-K cluster grid
+from repro_torch.kernels.tugemm_fused import BM, KC, split_plan  # noqa: E402
+
+
+def _int8_split_emulation(a, b, c, sms):
+    """``csrc/tugemm_int8.cu``'s grid in torch: per (M tile, N tile) of
+    ``split_plan`` (one plane) the int32 partial product of every K slice,
+    summed, with C added once by the reducing rank, not by every slice."""
+    M, K = a.shape
+    N = b.shape[1]
+    bn, splits, chunks = split_plan(M, N, K, 1, sms)
+    y = torch.zeros((M, N), dtype=torch.int64)
+    ai, bi = a.to(torch.int64), b.to(torch.int64)
+    for m0 in range(0, M, BM):
+        for n0 in range(0, N, bn):
+            for s in range(splits):
+                k0, k1 = s * chunks * KC, min((s + 1) * chunks * KC, K)
+                y[m0:m0 + BM, n0:n0 + bn] += ai[m0:m0 + BM, k0:k1] @ bi[k0:k1, n0:n0 + bn]
+    if c is not None:
+        y += c.to(torch.int64)
+    return y.to(torch.int32)   # int32 wraps as the kernel's sums do
+
+
+@pytest.mark.parametrize("with_c", [False, True])
+@pytest.mark.parametrize("shape,sms", [((37, 333, 65), 4), ((70, 130, 40), 2),
+                                       ((4, 1024, 96), 132), ((64, 200, 300), 132)])
+def test_int8_split_emulation_matches_the_pallas_kernel(shape, sms, with_c):
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    a, b = _int8(rng, (M, K)), _int8(rng, (K, N))
+    c = rng.integers(-(2 ** 20), 2 ** 20, (M, N)).astype(np.int32) if with_c else None
+    assert split_plan(M, N, K, 1, sms)[1] > 1
+    want = jops.matmul_int8(jnp.asarray(a), jnp.asarray(b),
+                            None if c is None else jnp.asarray(c), impl="pallas_interpret")
+    got = _int8_split_emulation(torch.from_numpy(a), torch.from_numpy(b),
+                                None if c is None else torch.from_numpy(c), sms)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
