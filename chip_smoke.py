@@ -43,8 +43,10 @@ Phases, each printing one JSON line:
    the kernels with its energy report; the forward's cycle totals through
    the plain versions are printed beside them.
 10. device_time — the device time and device launches of each fused GEMM,
-   int8 GEMM, attention and temporal-GEMM case checked above and of its
-   library yardstick, read from ``torch.profiler`` last, so that the
+   int8 GEMM, attention and temporal-GEMM case checked above, of the
+   unfused path's M=64 packed-GEMM and absmax cases and of the C1 path's
+   serve-policy ``quantize_sym`` cases, and of each one's library
+   yardstick, read from ``torch.profiler`` last, so that the
    profiler runs during no other timed phase; where the profiler loses
    device events, all of them are read by CUDA events, and each record's
    ``device_ms_source`` says which.
@@ -151,8 +153,8 @@ def device_times(torch) -> None:
         rec["library_device_ms"] = None if lib_call is None else next(it)[0]
         rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         emit({"phase": "device_time", **{k: rec.get(k) for k in (
-            "kernel", "case", "M", "K", "N", "bits", "w_mode", "per_token", "bias", "x_dtype",
-            "bn", "blocks", "splits", "ms", "device_ms", "device_ms_source", "device_launches",
+            "kernel", "case", "M", "K", "N", "Kp", "bits", "w_mode", "per_token", "bias", "x_dtype",
+            "bn", "blocks", "splits", "chunks", "ms", "device_ms", "device_ms_source", "device_launches",
             "library_ms", "library_device_ms", "bound_ms", "bound_share", "bound_by",
             "device_kernels")}})
     del flush
@@ -161,11 +163,13 @@ def device_times(torch) -> None:
 def device_entry(rows: list) -> dict:
     """The kernels line's device numbers for a kernel whose ``rows`` (one
     layer's calls) were read by ``device_times``: summed device ms, its
-    library's, the bound share and the most device launches of one call."""
+    library's (None where a call has no library yardstick), the bound share
+    and the most device launches of one call."""
     dev = sum(r["device_ms"] for r in rows)
     launches = [r["device_launches"] for r in rows]   # None from CUDA events
+    libs = [r["library_device_ms"] for r in rows]
     return {"device_ms": dev, "device_ms_source": rows[0]["device_ms_source"],
-            "library_device_ms": sum(r["library_device_ms"] for r in rows),
+            "library_device_ms": None if None in libs else sum(libs),
             "bound_share": sum(r["bound_ms"] for r in rows) / dev,
             "device_launches_per_call": None if None in launches else max(launches)}
 
@@ -283,16 +287,17 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------ kernel checks
-def gemm_grid(M: int, N: int, Kw: int, planes: int) -> dict:
-    """The fused and int8 GEMM kernels' grid at a call's shapes: tile width,
-    K splits (the cluster size) and blocks, from ``split_plan``."""
+def gemm_grid(M: int, N: int, Kw: int, planes: int, xbytes: int = 1) -> dict:
+    """The grid of the GEMM kernels on the split-K mainloop (fused, int8 and
+    packed) at a call's shapes: tile width, K splits (the cluster size) and
+    blocks, from ``split_plan``."""
     import torch
 
     from repro_torch.kernels.tugemm_fused import BM, split_plan
 
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
-    bn, splits, _ = split_plan(M, N, Kw, planes, sms)
-    return dict(bn=bn, splits=splits, blocks=splits * -(-N // bn) * -(-M // BM))
+    bn, splits, chunks = split_plan(M, N, Kw, planes, sms, xbytes)
+    return dict(bn=bn, splits=splits, chunks=chunks, blocks=splits * -(-N // bn) * -(-M // BM))
 
 
 def lib_int_mm(torch, a, b):
@@ -359,7 +364,7 @@ def check_gemm(torch, flush):
         rec = dict(kernel="tugemm_fused", case=case, M=M, K=K, N=N, w_mode=mode, bits=bits,
                    per_token=per_token, bias=with_bias, planes=planes,
                    x_dtype=str(x.dtype).split(".")[-1], out_dtype=str(out_dtype).split(".")[-1],
-                   **gemm_grid(M, N, w.shape[0], planes), exact=exact,
+                   **gemm_grid(M, N, w.shape[0], planes, x.element_size()), exact=exact,
                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                    bytes=byts, ops=ops,
                    bound_ms=max(byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
@@ -400,7 +405,7 @@ def check_gemm(torch, flush):
     wf = (torch.randn(333, 65, device=dev, generator=gen) * 0.02).to(bf16)
     for mode, bits in (("quant", 8), ("int8", 8), ("packed", 2)):
         run("ragged", x, wf, mode, bits, False, False, bf16)
-    # K and N off the 32-row chunks and the column tiles, 16-byte rows: whole
+    # K and N off the 64-row chunks and the column tiles, 16-byte rows: whole
     # chunks past the edge zero-filled by the copies
     x = torch.randn(M, 1040, device=dev, generator=gen).to(bf16)
     wf = (torch.randn(1040, 1040, device=dev, generator=gen) * 0.02).to(bf16)
@@ -577,8 +582,12 @@ def _bound(byts: int, ops: int) -> dict:
 def check_unfused(torch, flush):
     """The unfused pipeline's kernels against their plain versions, exactly,
     at the shapes of qwen3-0.6b's unfused serving path: M=64 (4 rows x chunk
-    16) and M=4 (decode), plus one ragged case per kernel."""
+    16) and M=4 (decode), plus ragged cases: for the packed GEMM, A narrower
+    than its planes (K < planes*Kp) on the 16-byte and the plain-load copy
+    paths, and packed rows that are not 16-byte multiples (Kp % 16 != 0).
+    The M=64 calls' device time is read by the last phase."""
     from repro_torch.kernels.ops import pack_weights
+    from repro_torch.kernels.packing import BITS_TO_PLANES
     from repro_torch.kernels.tugemm_int8 import tugemm_int8
     from repro_torch.kernels.tugemm_packed import tugemm_packed
     from repro_torch.kernels.unary_stats import colabsmax, rowabsmax
@@ -592,13 +601,11 @@ def check_unfused(torch, flush):
         t.view(-1)[0] = lo            # the most negative code is in every operand
         return t
 
-    def lib_ms(a, b):
-        call = lib_int_mm(torch, a, b)
-        return None if call is None else median_ms(torch, call, flush=flush)
-
     records = []
 
-    def run(kernel, case, fn, plain, lib_ms, byts, ops, **shape):
+    def run(kernel, case, fn, plain, lib_ms, byts, ops, lib_call=None, timed=False, **shape):
+        """one case held exactly against its plain version; ``timed``: its
+        device time (and ``lib_call``'s) is read by the last phase"""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         exact = torch.equal(got, want)
@@ -611,6 +618,8 @@ def check_unfused(torch, flush):
         if not exact or err > GEMM_TOL:
             raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
         records.append(rec)
+        if timed:
+            DEVICE_TIMED.append((rec, fn, lib_call))
 
     def int8(case, a, b, c=None):
         """a tugemm_int8 case, its device time read by the last phase"""
@@ -620,39 +629,43 @@ def check_unfused(torch, flush):
         lib_call = None if c is not None else lib_int_mm(torch, a, b)
         run("tugemm_int8", case, call, lambda: tugemm_int8(a, b, c, impl="torch"),
             None if lib_call is None else median_ms(torch, lib_call, flush=flush),
-            nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N,
+            nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, lib_call, True, M=M, K=K, N=N,
             **gemm_grid(M, N, K, 1))
-        DEVICE_TIMED.append((records[-1], call, lib_call))
+
+    def packed(case, M, K, N, bits, rows=None):
+        """a tugemm_packed case: A (M, K) against B of ``rows`` >= K logical
+        rows (default: K) packed at ``bits``; the library call is
+        torch._int_mm on B's first K rows, unpacked"""
+        a, wq = i8((M, K)), i8((rows or K, N), bits)
+        pb = pack_weights(wq, bits)
+        call = lambda: tugemm_packed(a, pb, bits=bits, impl="cuda")
+        lib_call = lib_int_mm(torch, a, wq[:K].contiguous())
+        run("tugemm_packed", case, call, lambda: tugemm_packed(a, pb, bits=bits, impl="torch"),
+            None if lib_call is None else median_ms(torch, lib_call, flush=flush),
+            nbytes(a, pb) + 4 * M * N, 2 * M * K * N, lib_call, M == 64, M=M, K=K, N=N,
+            bits=bits, Kp=pb.shape[0], **gemm_grid(M, N, pb.shape[0], BITS_TO_PLANES[bits]))
 
     gemms = [("attn.q", 1024, 2048), ("attn.k/v", 1024, 1024), ("attn.o", 2048, 1024)]
     for M in (64, 4):
         for case, K, N in gemms:
             a, b = i8((M, K)), i8((K, N))
             int8(case, a, b)
-            run("colabsmax", case, lambda: colabsmax(a, impl="cuda"),
-                lambda: colabsmax(a, impl="torch"),
-                median_ms(torch, lambda: a.abs().amax(0), flush=flush),
-                nbytes(a) + 4 * K, M * K, M=M, K=K)
+            col_lib = lambda a=a: a.abs().amax(0)
+            run("colabsmax", case, lambda a=a: colabsmax(a, impl="cuda"),
+                lambda: colabsmax(a, impl="torch"), median_ms(torch, col_lib, flush=flush),
+                nbytes(a) + 4 * K, M * K, col_lib, M == 64, M=M, K=K)
             if M == 64:
-                run("rowabsmax", case, lambda: rowabsmax(b, impl="cuda"),
-                    lambda: rowabsmax(b, impl="torch"),
-                    median_ms(torch, lambda: b.abs().amax(1), flush=flush),
-                    nbytes(b) + 4 * K, K * N, K=K, N=N)
-        for case, K, N, bits in [("mlp.gate/up", 1024, 3072, 2), ("mlp.down", 3072, 1024, 2)]:
-            a, wq = i8((M, K)), i8((K, N), bits)
-            pb = pack_weights(wq, bits)
-            run("tugemm_packed", case, lambda: tugemm_packed(a, pb, bits=bits, impl="cuda"),
-                lambda: tugemm_packed(a, pb, bits=bits, impl="torch"), lib_ms(a, wq),
-                nbytes(a, pb) + 4 * M * N, 2 * M * K * N, M=M, K=K, N=N, bits=bits)
+                row_lib = lambda b=b: b.abs().amax(1)
+                run("rowabsmax", case, lambda b=b: rowabsmax(b, impl="cuda"),
+                    lambda: rowabsmax(b, impl="torch"), median_ms(torch, row_lib, flush=flush),
+                    nbytes(b) + 4 * K, K * N, row_lib, True, K=K, N=N)
+        packed("mlp.gate/up", M, 1024, 3072, 2)
+        packed("mlp.down", M, 3072, 1024, 2)
+        packed("int4 1024x3072", M, 1024, 3072, 4)
     M, K, N = 64, 1024, 2048
     a, b = i8((M, K)), i8((K, N))
     c = torch.randint(-(2 ** 20), 2 ** 20, (M, N), device=dev, generator=gen, dtype=torch.int32)
     int8("attn.q with C", a, b, c)
-    a, wq = i8((M, 1024)), i8((1024, 3072), 4)
-    pb = pack_weights(wq, 4)
-    run("tugemm_packed", "int4 1024x3072", lambda: tugemm_packed(a, pb, bits=4, impl="cuda"),
-        lambda: tugemm_packed(a, pb, bits=4, impl="torch"), lib_ms(a, wq),
-        nbytes(a, pb) + 4 * M * 3072, 2 * M * 1024 * 3072, M=M, K=1024, N=3072, bits=4)
     # ragged: no dimension a multiple of any tile; packed K not a plane multiple
     a, b = i8((37, 333)), i8((333, 65))
     c = torch.randint(-99, 99, (37, 65), device=dev, generator=gen, dtype=torch.int32)
@@ -663,11 +676,14 @@ def check_unfused(torch, flush):
         lambda: rowabsmax(b, impl="torch"), None, nbytes(b) + 4 * 333, 333 * 65, K=333, N=65)
     for M in (64, 4):   # K, N off the chunks and tiles, 16-byte rows
         int8(f"ragged tiles {M}x1040x1040", i8((M, 1040)), i8((1040, 1040)))
-    a, wq = i8((5, 199)), i8((199, 70), 2)
-    pb = pack_weights(wq, 2)
-    run("tugemm_packed", "ragged", lambda: tugemm_packed(a, pb, bits=2, impl="cuda"),
-        lambda: tugemm_packed(a, pb, bits=2, impl="torch"), None,
-        nbytes(a, pb) + 4 * 5 * 70, 2 * 5 * 199 * 70, M=5, K=199, N=70, bits=2)
+    # the packed GEMM's ragged edges: no dimension a multiple of any tile, K
+    # not a plane multiple; A narrower than B's planes (K < planes*Kp) with
+    # 16-byte rows (the last plane's copies cut at K) and with K % 16 != 0
+    # (plain loads of A); packed rows that are not 16-byte multiples
+    packed("ragged", 5, 199, 70, 2)
+    packed("K < planes*Kp, 16-byte rows", 64, 1008, 3072, 2, rows=1024)
+    packed("K < planes*Kp, K % 16 != 0", 64, 1022, 3072, 2, rows=1024)
+    packed("Kp % 16 != 0", 64, 1000, 1040, 4)
     return records
 
 
@@ -730,7 +746,9 @@ def check_c1(torch, flush, params):
         records.append(rec)
 
     # quantize_sym: no single PyTorch call computes clip(round(x * inv)) as
-    # int8, so its library time is null
+    # int8, so its library time is null; the device time of the serve
+    # policy's operands (bf16, each GEMM's bits) is read by the last phase
+    bits_of = {n: bits for n, _, _, bits in LAYER_GEMMS}
     ws = layer0_weights(params)
     inputs = [(f"{n}.weight", ws[n], True) for n, *_ in LAYER_GEMMS]
     inputs += [(f"{n}.act", layer0_activations(torch, ws[n].shape[0]), False)
@@ -744,10 +762,14 @@ def check_c1(torch, flush, params):
             for bits in (2, 4, 8):
                 s = compute_scale(x, bits, axis=1 if per_col else None)
                 inv = (1.0 / s.to(torch.float32)).reshape(1, -1).expand(1, N).contiguous()
-                run("quantize_sym", case, lambda: quantize_sym(x, inv, bitwidth=bits, impl="cuda"),
+                call = lambda x=x, inv=inv, bits=bits: quantize_sym(x, inv, bitwidth=bits,
+                                                                    impl="cuda")
+                run("quantize_sym", case, call,
                     lambda: quantize_sym(x, inv, bitwidth=bits, impl="torch"), None,
                     nbytes(x, inv) + M * N, M * N, F32_FLOPS_PER_S, M=M, N=N, bits=bits,
                     dtype=str(dt).split(".")[-1], scale="column" if per_col else "tensor")
+                if dt == torch.bfloat16 and bits == bits_of.get(case.rsplit(".", 1)[0]):
+                    DEVICE_TIMED.append((records[-1], call, None))
 
     def temporal(case, a, b, bits):
         from repro_torch.kernels.temporal_unary import BM, BN, split_plan
@@ -1240,7 +1262,7 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
             "library_ms": None if None in libs else sum(libs),
-            **(device_entry(rows) if name == "tugemm_int8" else {}),
+            **device_entry(rows),
             "shape": f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under "
                      + UNFUSED_POLICY})
     # the C1 path's kernels: one qwen3-0.6b layer's operand quantizations (7
@@ -1270,11 +1292,7 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
-            "library_ms": lib, "shape": shape})
-    t_entry = kernels[-1]
-    t_entry["device_ms"] = sum(r["device_ms"] for r in t_rows)
-    t_entry["device_ms_source"] = t_rows[0]["device_ms_source"]
-    t_entry["library_device_ms"] = sum(r["library_device_ms"] for r in t_rows)
+            "library_ms": lib, **device_entry(rows), "shape": shape})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Device time of the fused and int8 tuGEMM kernels under other split plans
-than ``kernels/tugemm_fused.py::split_plan`` picks: for each case, every
-plan of a list (tile width, K splits) with and without the cycle stats,
-read from ``torch.profiler`` as ``chip_smoke.py``'s device_time phase reads
-it (median of 10 flushed calls, the summed device events of one call).
-Prints one JSON line per (case, plan); outputs are checked bit for bit
-against the plain version once per case.
+"""Device time of the tuGEMM kernels on the shared split-K mainloop (the
+fused, int8 and plane-packed GEMMs) under other split plans than
+``kernels/tugemm_fused.py::split_plan`` picks: for each case, every plan of
+a list (tile width, K splits), the fused GEMM with and without the cycle
+stats, read from ``torch.profiler`` as ``chip_smoke.py``'s device_time
+phase reads it (median of 10 flushed calls, the summed device events of one
+call; one profile holds up to 16 calls). Prints one JSON line per (case,
+plan), outputs checked bit for bit against the plain version under every
+plan, then one ``summary`` line per case: the picked plan's time against
+the fastest plan's (the fused GEMM's with stats, as the serve runs it).
 
     python3 scripts/tugemm_plan_sweep.py
 """
@@ -42,6 +45,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import tugemm_fused as fused_mod
     from repro_torch.kernels import tugemm_int8 as int8_mod
+    from repro_torch.kernels import tugemm_packed as packed_mod
     from repro_torch.kernels.ops import pack_weights
     from repro_torch.quant.quantize import compute_scale
 
@@ -57,6 +61,10 @@ def main() -> int:
     bf16 = torch.bfloat16
     picked = fused_mod.split_plan
 
+    def i8(shape, bits=8):
+        lo = -(2 ** (bits - 1))
+        return torch.randint(lo, -lo, shape, device=dev, generator=gen, dtype=torch.int8)
+
     def fused_case(name, M, K, N, mode, bits):
         x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
         sx = compute_scale(x, bits).reshape(1, 1)
@@ -64,12 +72,31 @@ def main() -> int:
             w = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
             sw = compute_scale(w, bits, axis=1).reshape(1, N)
         else:
-            lo = -(2 ** (bits - 1))
-            wq = torch.randint(lo, -lo, (K, N), device=dev, generator=gen, dtype=torch.int8)
-            w = pack_weights(wq, bits)
+            w = pack_weights(i8((K, N), bits), bits)
             sw = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
         planes = K // w.shape[0]
-        return name, (x, w, sx, sw, None), dict(bits=bits, w_mode=mode, out_dtype=bf16), planes
+        kw = dict(bits=bits, w_mode=mode, out_dtype=bf16)
+        want = fused_mod.tugemm_fused(x, w, sx, sw, None, impl="torch", collect_stats=True, **kw)
+        calls = {collect: (lambda collect=collect: fused_mod.tugemm_fused(
+            x, w, sx, sw, None, impl="cuda", collect_stats=collect, **kw))
+            for collect in (True, False)}
+        return (name, "tugemm_fused", fused_mod, M, N, w.shape[0], planes, x.element_size(), calls,
+                lambda got: all(torch.equal(g, h) for g, h in zip(got, want)))
+
+    def int8_case(name, M, K, N):
+        a, b = i8((M, K)), i8((K, N))
+        want = int8_mod.tugemm_int8(a, b, impl="torch")
+        return (name, "tugemm_int8", int8_mod, M, N, K, 1, 1,
+                {None: lambda: int8_mod.tugemm_int8(a, b, impl="cuda")},
+                lambda got: torch.equal(got, want))
+
+    def packed_case(name, M, K, N, bits):
+        a = i8((M, K))
+        pb = pack_weights(i8((K, N), bits), bits)
+        want = packed_mod.tugemm_packed(a, pb, bits=bits, impl="torch")
+        return (name, "tugemm_packed", packed_mod, M, N, pb.shape[0], 8 // bits, 1,
+                {None: lambda: packed_mod.tugemm_packed(a, pb, bits=bits, impl="cuda")},
+                lambda got: torch.equal(got, want))
 
     cases = [fused_case("one block 4x64x32 quant8", 4, 64, 32, "quant", 8),
              fused_case("q 64x1024x2048 quant8", 64, 1024, 2048, "quant", 8),
@@ -79,42 +106,55 @@ def main() -> int:
              fused_case("down 64x3072x1024 quant2", 64, 3072, 1024, "quant", 2),
              fused_case("gate 64x1024x3072 packed2", 64, 1024, 3072, "packed", 2),
              fused_case("down 64x3072x1024 packed2", 64, 3072, 1024, "packed", 2),
-             fused_case("k 4x1024x1024 packed2", 4, 1024, 1024, "packed", 2)]
-    for name, args, kw, planes in cases:
-        x, w = args[0], args[1]
-        M, N, Kw = x.shape[0], w.shape[1], w.shape[0]
-        want = fused_mod.tugemm_fused(*args, impl="torch", collect_stats=True, **kw)
-        for plan in plans(Kw, picked(M, N, Kw, planes, sms)):
-            fused_mod.split_plan = lambda *a, plan=plan: plan
-            got = fused_mod.tugemm_fused(*args, impl="cuda", collect_stats=True, **kw)
-            torch.cuda.synchronize()
-            exact = all(torch.equal(a, b) for a, b in zip(got, want))
-            for collect in (True, False):
-                ms, source, launches = chip_smoke.device_ms(
-                    torch, lambda: fused_mod.tugemm_fused(*args, impl="cuda",
-                                                          collect_stats=collect, **kw), flush)
-                print(json.dumps({"kernel": "tugemm_fused", "case": name, "bn": plan[0],
-                                  "splits": plan[1], "chunks": plan[2], "collect": collect,
-                                  "blocks": plan[1] * -(-N // plan[0]) * -(-M // 64),
-                                  "picked": plan == picked(M, N, Kw, planes, sms),
-                                  "exact": exact, "device_ms": ms, "source": source,
-                                  "launches": launches}), flush=True)
-        fused_mod.split_plan = picked
+             fused_case("gate 64x1024x3072 packed4", 64, 1024, 3072, "packed", 4),
+             fused_case("down 64x3072x1024 packed4", 64, 3072, 1024, "packed", 4),
+             fused_case("gate 4x1024x3072 packed2", 4, 1024, 3072, "packed", 2),
+             fused_case("down 4x3072x1024 packed2", 4, 3072, 1024, "packed", 2),
+             fused_case("k 4x1024x1024 packed2", 4, 1024, 1024, "packed", 2),
+             fused_case("q 64x1024x2048 packed2", 64, 1024, 2048, "packed", 2),
+             fused_case("q 64x1024x2048 packed4", 64, 1024, 2048, "packed", 4),
+             fused_case("k 64x1024x1024 packed4", 64, 1024, 1024, "packed", 4),
+             fused_case("o 64x2048x1024 packed2", 64, 2048, 1024, "packed", 2),
+             fused_case("o 4x2048x1024 packed2", 4, 2048, 1024, "packed", 2),
+             int8_case("q 64x1024x2048", 64, 1024, 2048)]
+    for M in (64, 4):
+        cases += [packed_case(f"gate {M}x1024x3072 int2", M, 1024, 3072, 2),
+                  packed_case(f"down {M}x3072x1024 int2", M, 3072, 1024, 2),
+                  packed_case(f"gate {M}x1024x3072 int4", M, 1024, 3072, 4),
+                  packed_case(f"down {M}x3072x1024 int4", M, 3072, 1024, 4)]
 
-    a = torch.randint(-128, 128, (64, 1024), device=dev, generator=gen, dtype=torch.int8)
-    b = torch.randint(-128, 128, (1024, 2048), device=dev, generator=gen, dtype=torch.int8)
-    want = int8_mod.tugemm_int8(a, b, impl="torch")
-    for plan in plans(1024, picked(64, 2048, 1024, 1, sms)):
-        int8_mod.split_plan = lambda *a_, plan=plan: plan
-        exact = torch.equal(int8_mod.tugemm_int8(a, b, impl="cuda"), want)
-        ms, source, launches = chip_smoke.device_ms(
-            torch, lambda: int8_mod.tugemm_int8(a, b, impl="cuda"), flush)
-        print(json.dumps({"kernel": "tugemm_int8", "case": "q 64x1024x2048", "bn": plan[0],
-                          "splits": plan[1], "chunks": plan[2],
-                          "blocks": plan[1] * -(-2048 // plan[0]),
-                          "picked": plan == picked(64, 2048, 1024, 1, sms), "exact": exact,
-                          "device_ms": ms, "source": source, "launches": launches}), flush=True)
-    int8_mod.split_plan = picked
+    for name, kernel, mod, M, N, Kw, planes, xbytes, calls, exact_of in cases:
+        chosen = picked(M, N, Kw, planes, sms, xbytes)
+        grid, fns = [], []
+        for plan in plans(Kw, chosen):
+            def set_plan(*_, plan=plan):
+                return plan
+            mod.split_plan = set_plan
+            exact = exact_of(next(iter(calls.values()))())   # with stats, where it has them
+            for collect, call in calls.items():
+                def fn(call=call, set_plan=set_plan):
+                    mod.split_plan = set_plan
+                    return call()
+                grid.append((plan, collect, exact))
+                fns.append(fn)
+        times = chip_smoke.device_ms_many(torch, fns, flush)
+        mod.split_plan = picked
+        best = {}
+        for (plan, collect, exact), (ms, source, launches, _) in zip(grid, times):
+            print(json.dumps({"kernel": kernel, "case": name, "bn": plan[0], "splits": plan[1],
+                              "chunks": plan[2], "collect": collect,
+                              "blocks": plan[1] * -(-N // plan[0]) * -(-M // 64),
+                              "picked": plan == chosen, "exact": exact, "device_ms": ms,
+                              "source": source, "launches": launches}), flush=True)
+            if not exact:
+                raise AssertionError(f"{kernel} {name} under plan {plan} is not exact")
+            if collect is not False:
+                best[plan] = ms
+        fastest = min(best, key=best.get)
+        print(json.dumps({"summary": name, "kernel": kernel, "planes": planes,
+                          "picked": chosen, "picked_ms": best[chosen], "best": fastest,
+                          "best_ms": best[fastest], "miss": best[chosen] / best[fastest] - 1}),
+              flush=True)
     return 0
 
 

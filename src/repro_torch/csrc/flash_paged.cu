@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_attrs.cuh"
+
 namespace {
 
 constexpr int NT = 128;              // threads per block of pass 1
@@ -554,9 +556,9 @@ int launch_rows(const void* q, const void* k0, const float* ks0, int f0, const v
   const size_t smem =
       (size_t)Layout(f0, f1, hdv, es, alias, nst, pages_per_split, ROWS).total;
   auto kern = flash_split_kernel<QT, KVT, ROWS>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > 48 * 1024) {   // set again only on a new device or a larger size
+    static launch_attrs::Cache attrs;   // per instantiation, per device
+    const cudaError_t err = launch_attrs::allow(attrs, kern, (int)smem, false);
     if (err != cudaSuccess) return (int)err;
   }
   const int rows_head = (H / kv) * sq;

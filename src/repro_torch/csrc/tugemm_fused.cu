@@ -28,8 +28,8 @@
 //    rank sums 1/S of the tile over all S partials through distributed shared
 //    memory (cluster.map_shared_rank) and applies the epilogue. No atomics on
 //    y, no workspace, one launch. The plan (bn, S, K slice) is a host
-//    function of the shapes (kernels/tugemm_fused.py::split_plan): the widest
-//    tile, then the fewest splits, that give two blocks per SM.
+//    function of the shapes (kernels/tugemm_fused.py::split_plan, which
+//    says how it was chosen for one plane and for packed W).
 // 3. A block's whole K slice goes in flight at once: 16-byte cp.async copies
 //    of 64-row chunks (adjacent threads, adjacent bytes; 16-byte pieces past
 //    a ragged edge are zero-filled) into a ring that holds every chunk of the
@@ -95,7 +95,7 @@ extern "C" int tugemm_fused_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = {};
   p.x = x; p.w = w; p.sx = sx; p.sw = sw; p.bias = bias; p.c = nullptr; p.y = y;
-  p.M = M; p.N = N; p.Kw = Kw; p.planes = planes; p.bits = bits;
+  p.M = M; p.N = N; p.Kw = Kw; p.planes = planes; p.bits = bits; p.Kx = planes * Kw;
   p.per_token = per_token; p.collect = collect; p.bn = bn; p.chunks = chunks;
   if (collect) {
     p.ca = stats;

@@ -38,6 +38,6 @@ extern "C" int tugemm_int8_launch(const void* a, const void* b, const void* c, v
   using namespace tugemm;
   Params p = {};
   p.x = a; p.w = b; p.c = static_cast<const int*>(c); p.y = y;
-  p.M = M; p.N = N; p.Kw = K; p.planes = 1; p.bn = bn; p.chunks = chunks;
+  p.M = M; p.N = N; p.Kw = K; p.Kx = K; p.planes = 1; p.bn = bn; p.chunks = chunks;
   return launch<int8_t, W_INT8, int8_t, int>(p, splits, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // The split-K s8 tensor-core GEMM mainloop shared by tugemm_fused.cu (the
-// fused quantize -> GEMM -> dequant kernel) and tugemm_int8.cu (the exact
-// int8 GEMM), for Hopper (sm_90a). See tugemm_fused.cu for the design and
+// fused quantize -> GEMM -> dequant kernel), tugemm_int8.cu (the exact int8
+// GEMM) and tugemm_packed.cu (the exact int8 x plane-packed GEMM), for
+// Hopper (sm_90a). See tugemm_fused.cu for the design and
 // kernels/tugemm_fused.py::split_plan for the grid.
 //
 // One block (256 threads) owns all rows of a 64-row tile (M tiles over grid
@@ -21,6 +22,7 @@
 #include <type_traits>
 
 #include "hopper_common.cuh"
+#include "launch_attrs.cuh"
 
 namespace tugemm {
 
@@ -43,7 +45,7 @@ constexpr int SMEM_MAX = 227 * 1024;
 enum { W_QUANT = 0, W_INT8 = 1, W_PACKED = 2 };
 
 struct Params {
-  const void* x;        // (M, planes*Kw) XT
+  const void* x;        // (M, Kx) XT: plane p's columns are [p*Kw, (p+1)*Kw)
   const void* w;        // (Kw, N) WT
   const float* sx;      // (1,) or (M,) (fused only)
   const float* sw;      // (N,) (fused only)
@@ -53,6 +55,7 @@ struct Params {
   int* ca;              // (planes, Kw), zeroed by the caller (fused, collect)
   int* rb;              // (Kw, planes), zeroed by the caller (fused, collect)
   int M, N, Kw, planes, bits, per_token, collect;
+  int Kx;               // X's row length (<= planes*Kw); columns past it read as 0
   int bn, chunks;       // the split plan: tile columns, chunks a K slice
   int ring;             // raw stages (ring_depth)
   int vx, vw;           // 16-byte copies of X rows / W rows allowed
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int bn = p.bn, planes = p.planes, R = p.ring;
   const int M = p.M, N = p.N, Kw = p.Kw;
   const int n0 = blockIdx.y * bn, m0 = blockIdx.z * BM;
-  const long Kx = (long)planes * Kw;
+  const int Kx = p.Kx;
   const int mrows = min(BM, M - m0);
   const int mfr = (mrows + 15) >> 4;        // m16 fragments holding rows
   const int rows = mfr * 16;                // X rows copied and quantized
@@ -194,7 +197,8 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int xsh = __ffs(xch) - 1, wsh = __ffs(wch) - 1, bsh = __ffs(bn) - 1;
 
   // chunk i of this slice into raw stage st, one commit group; ragged edges
-  // are zero-filled (cp.async reads only the valid bytes of a chunk)
+  // (rows past M, W rows past Kw, X columns past Kx) are zero-filled
+  // (cp.async reads only the valid bytes of a chunk)
   auto load_chunk = [&](int i, int st) {
     const int k0 = (kc0 + i) * KC;
     uint8_t* xs = smem + st * L.stage;
@@ -203,18 +207,18 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
       for (int e = tid; e < rows * xch; e += NT) {
         const int r = e >> xsh, c = e & (xch - 1);
         const int pl = c / (KC / XE), kk = k0 + (c - pl * (KC / XE)) * XE;
-        const int nv = m0 + r < M ? max(0, min(XE, Kw - kk)) : 0;
-        cp_async16(xs + e * 16, nv ? X + (long)(m0 + r) * Kx + (long)pl * Kw + kk : X,
-                   nv * (int)sizeof(XT));
+        const int col = pl * Kw + kk;
+        const int nv = m0 + r < M ? max(0, min(min(XE, Kw - kk), Kx - col)) : 0;
+        cp_async16(xs + e * 16, nv ? X + (long)(m0 + r) * Kx + col : X, nv * (int)sizeof(XT));
       }
     } else {
       XT* xd = reinterpret_cast<XT*>(xs);
       const int rw = planes * KC;
       for (int e = tid; e < rows * rw; e += NT) {
         const int r = e / rw, c = e - r * rw;
-        const int pl = c / KC, kk = k0 + c - pl * KC;
-        xd[e] = (m0 + r < M && kk < Kw) ? X[(long)(m0 + r) * Kx + (long)pl * Kw + kk]
-                                        : zero_of<XT>();
+        const int pl = c / KC, kk = k0 + c - pl * KC, col = pl * Kw + kk;
+        xd[e] = (m0 + r < M && kk < Kw && col < Kx) ? X[(long)(m0 + r) * Kx + col]
+                                                    : zero_of<XT>();
       }
     }
     if (p.vw) {
@@ -478,23 +482,19 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
 template <typename XT, int WMODE, typename WT, typename OT>
 int launch(Params p, int splits, cudaStream_t stream) {
   if (!(p.bn == 32 || p.bn == 64 || p.bn == 128) || splits < 1 || splits > MAX_SPLITS ||
-      p.chunks < 1 || p.planes < 1 || p.planes > 4)
+      p.chunks < 1 || p.planes < 1 || p.planes > 4 || p.Kx < 0 || p.Kx > p.planes * p.Kw)
     return -2;
   p.ring = ring_depth(p.planes, p.bn, p.chunks, (int)sizeof(XT), (int)sizeof(WT));
   const Layout L = layout(p.planes, p.bn, p.ring, (int)sizeof(XT), (int)sizeof(WT));
   if (L.total > SMEM_MAX) return -2;
-  p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0;
+  // 16-byte X copies: every plane's start and every row's start on 16 bytes
+  p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0 &&
+         ((long)p.Kx * sizeof(XT)) % 16 == 0;
   p.vw = (uintptr_t)p.w % 16 == 0 && ((long)p.N * sizeof(WT)) % 16 == 0;
   auto kern = gemm_kernel<XT, WMODE, WT, OT>;
-  static bool configured = false;   // per instantiation
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_MAX);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static launch_attrs::Cache attrs;   // per instantiation, per device
+  cudaError_t e = launch_attrs::allow(attrs, kern, SMEM_MAX, true);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (p.N + p.bn - 1) / p.bn, (p.M + BM - 1) / BM);
   cfg.blockDim = dim3(NT);
@@ -507,7 +507,7 @@ int launch(Params p, int splits, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, p);
+  e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

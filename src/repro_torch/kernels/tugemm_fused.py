@@ -29,6 +29,13 @@ COUNT = KernelCount("tugemm_fused")
 # csrc/tugemm_mainloop.cuh: rows of a block tile, W rows a K chunk, the tile
 # widths it takes (widest first) and its largest cluster
 BM, KC, BNS, MAX_SPLITS = 64, 64, (128, 64, 32), 16
+# ... and its shared-memory layout (``layout``, ``ring_depth``): the int8
+# operand rows' byte stride, the raw ring's budget and deepest ring, the
+# partial tile's row padding, warps a block, the most dynamic shared memory
+# a block may take; an H100 SM's shared memory, the part each resident block
+# reserves, and the blocks an SM holds at most (``__launch_bounds__``)
+QST, RING_BUDGET, RMAX, PPAD, NWARP, SMEM_MAX = 80, 96 * 1024, 8, 8, 8, 227 * 1024
+SM_SMEM, BLOCK_RESERVED, MAX_RESIDENT = 228 * 1024, 1024, 2
 _W_MODES = {"quant": 0, "int8": 1, "packed": 2}
 _lib = None
 
@@ -47,27 +54,54 @@ def _load():
     return _lib
 
 
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+def _smem(planes: int, bn: int, chunks: int, xbytes: int) -> int:
+    """Dynamic shared memory of one block: ``layout(...).total`` of
+    ``csrc/tugemm_mainloop.cuh`` for int8 (or packed) W."""
+    stage = BM * planes * KC * xbytes + KC * bn
+    ring = min(chunks, max(1, min(RMAX, RING_BUDGET // stage)))
+    xq = max(ring * stage, BM * (bn + PPAD) * 4)
+    return xq + 2 * planes * (BM + bn) * QST + NWARP * planes * (KC // 4) * 4
+
+
 @functools.lru_cache(maxsize=256)
-def split_plan(M: int, N: int, Kw: int, planes: int, sms: int):
+def split_plan(M: int, N: int, Kw: int, planes: int, sms: int, xbytes: int = 1):
     """(bn, splits, chunks): how the kernel's grid cuts the work, from shapes
     alone. The grid is (splits, ceil(N/bn), ceil(M/64)); the ``splits``
     blocks of one output tile form a thread block cluster, block s taking
     the W rows of chunks ``[s·chunks, (s+1)·chunks)`` (chunks of 64 rows,
     each row feeding all ``planes``), so every (K chunk, N tile) of every M
-    tile falls in exactly one block.
+    tile falls in exactly one block. ``xbytes``: bytes of an X element (1
+    for int8 X; the fused kernel's f32 / bf16 X 4 / 2); only packed W
+    (``planes > 1``) reads it.
 
     Measured on the H100 (``scripts/tugemm_plan_sweep.py``, PERF.md),
     a block's time grows with its chunks and its fixed cost (copies,
     barriers, the cluster reduction) outweighs the warps more blocks add,
-    while each narrower tile quantizes X again. So: the widest tile, then
-    two chunks a block (one where two leave fewer than half the SMs a block
-    of 8 warps), and as few splits as that needs; K longer than 16 splits
-    of two chunks takes more chunks a block. A shape too small for half the
-    SMs takes the most blocks the kernel can make."""
-    del planes   # a packed row feeds every plane: the chunks are W rows
-    cdiv = lambda x, y: -(-x // y)
+    while each narrower tile quantizes X again. So, for one plane: the
+    widest tile, then two chunks a block (one where two leave fewer than
+    half the SMs a block of 8 warps), and as few splits as that needs; K
+    longer than 16 splits of two chunks takes more chunks a block. A shape
+    too small for half the SMs takes the most blocks the kernel can make.
+
+    A packed chunk carries ``planes`` slices of X, so its blocks are
+    costlier and larger (one or two an SM by shared memory), and a plan
+    whose blocks do not all fit on the card at once runs in waves (the
+    sweep: 12-block clusters of one-block SMs, or more blocks than the SMs
+    hold, took up to twice as long). So, for ``planes > 1``: the fewest
+    waves times chunks a block, then the fewest waves; then, at one chunk
+    a block, the widest tile that reaches a quarter of the SMs (each tile
+    copies, and the fused kernel quantizes, X again), and otherwise the
+    most blocks. A cluster above the portable 8 blocks counts as filling twice
+    its SMs where one block fills an SM."""
+    cdiv = _cdiv
     m_tiles = cdiv(max(M, 1), BM)
     k_chunks = max(1, cdiv(Kw, KC))
+    if planes > 1:
+        return _packed_plan(m_tiles, N, k_chunks, planes, sms, xbytes)
     least = cdiv(k_chunks, MAX_SPLITS)   # chunks a block at 16 splits
     want = cdiv(sms, 2)
     for bn in BNS:
@@ -77,6 +111,28 @@ def split_plan(M: int, N: int, Kw: int, planes: int, sms: int):
             if tiles * splits >= want:
                 return bn, splits, chunks
     return BNS[-1], cdiv(k_chunks, least), least
+
+
+def _packed_plan(m_tiles: int, N: int, k_chunks: int, planes: int, sms: int, xbytes: int):
+    """``split_plan`` for packed W: see there."""
+    best = None
+    for bn in BNS:
+        for splits in range(1, min(MAX_SPLITS, k_chunks) + 1):
+            chunks = _cdiv(k_chunks, splits)
+            if _cdiv(k_chunks, chunks) != splits:   # a block would be left idle
+                continue
+            smem = _smem(planes, bn, chunks, xbytes)
+            per_sm = min(MAX_RESIDENT, SM_SMEM // (smem + BLOCK_RESERVED))
+            if smem > SMEM_MAX or per_sm == 0:
+                continue
+            blocks = m_tiles * _cdiv(max(N, 1), bn) * splits
+            room = sms * per_sm if splits <= 8 or per_sm > 1 else sms // 2
+            waves = _cdiv(blocks, room)
+            wide = chunks == 1 and 4 * blocks >= sms
+            key = (waves * chunks, waves, not wide, -bn if wide else -blocks)
+            if best is None or key < best[0]:
+                best = (key, (bn, splits, chunks))
+    return best[1]
 
 
 def tugemm_fused(
@@ -144,7 +200,7 @@ def tugemm_fused(
         # kernel merges its maxima into it by atomicMax
         stats = torch.empty(2 * planes * Kw, dtype=torch.int32, device=dev)
     if M > 0 and N > 0:
-        plan = split_plan(M, N, Kw, planes, sm_count(dev))
+        plan = split_plan(M, N, Kw, planes, sm_count(dev), x.element_size())
         rc = _load().tugemm_fused_launch(
             ptr(x), DTYPE_CODE[x.dtype], ptr(w), _W_MODES[w_mode], DTYPE_CODE[w.dtype],
             ptr(sx), int(per_token), ptr(sw), ptr(bias), ptr(y), DTYPE_CODE[out_dtype],

@@ -1,7 +1,9 @@
 """Exact int8 x plane-packed int4/int2 GEMM: CUDA kernel + plain version.
 
 Replaces ``repro/kernels/tugemm_packed.py::matmul_packed_pallas`` (the TPU
-kernel). The CUDA source is ``csrc/tugemm_packed.cu``; its header says what
+kernel). The CUDA source is ``csrc/tugemm_packed.cu``, on the fused and int8
+kernels' mainloop (``csrc/tugemm_mainloop.cuh``) and split plan
+(``tugemm_fused.split_plan`` with ``planes = 8/bits``); its header says what
 bounds it on the card (reading the packed weight once: device-memory bytes)
 and how its design answers that. ``tugemm_packed`` launches the kernel for
 CUDA tensors and runs the plain version (zero-extend A, unpack the planes,
@@ -16,9 +18,10 @@ import ctypes
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, stream_ptr
+from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
 from .packing import BITS_TO_PLANES
 from .ref import packed_matmul_ref
+from .tugemm_fused import split_plan
 
 __all__ = ["tugemm_packed", "COUNT"]
 
@@ -31,7 +34,7 @@ def _load():
     if _lib is None:
         lib = build.load("tugemm_packed")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tugemm_packed_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.tugemm_packed_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.tugemm_packed_launch.restype = ci
         _lib = lib
     return _lib
@@ -50,27 +53,28 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     ``cuda`` insists on the kernel."""
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
-    check(bits in BITS_TO_PLANES, f"tugemm_packed: bits={bits}; packed weights are 4 or 2 bits")
+    check(bits in BITS_TO_PLANES, lambda: f"tugemm_packed: bits={bits}; packed weights are 4 or 2 bits")
     planes = BITS_TO_PLANES[bits]
     M, K = a.shape
     Kp, N = packed_b.shape
     check(K <= planes * Kp,
-          f"tugemm_packed: a {tuple(a.shape)} has more columns than packed b "
+          lambda: f"tugemm_packed: a {tuple(a.shape)} has more columns than packed b "
           f"{tuple(packed_b.shape)} holds at {bits} bits")
     if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
         COUNT.plain_calls += 1
         return packed_matmul_ref(torch.nn.functional.pad(a, (0, planes * Kp - K)),
                                  packed_b, bits)
-    check(a.device.type == "cuda", f"tugemm_packed: impl={impl!r} needs CUDA tensors")
+    check(a.device.type == "cuda", lambda: f"tugemm_packed: impl={impl!r} needs CUDA tensors")
     check(a.dtype == torch.int8 and packed_b.dtype == torch.int8,
-          f"tugemm_packed: a {a.dtype}, packed b {packed_b.dtype}; both must be int8")
+          lambda: f"tugemm_packed: a {a.dtype}, packed b {packed_b.dtype}; both must be int8")
     for t in (a, packed_b):
         check(t.device == a.device and t.is_contiguous(),
               "tugemm_packed: every operand must be contiguous on a's device")
     y = torch.empty((M, N), dtype=torch.int32, device=a.device)
     if M > 0 and N > 0:
+        plan = split_plan(M, N, Kp, planes, sm_count(a.device))
         rc = _load().tugemm_packed_launch(ptr(a), ptr(packed_b), ptr(y), M, N, K, Kp, bits,
-                                          stream_ptr(a.device))
+                                          *plan, stream_ptr(a.device))
         raise_on(rc, "tugemm_packed")
         COUNT.launches += 1
     return y

@@ -23,7 +23,7 @@ def test_digest_follows_an_included_headers_bytes(tmp_path):
     after = {n: build._target(n, csrc) for n in build.SOURCES}
     users = {n for n in build.SOURCES
              if csrc / "hopper_common.cuh" in build._sources(csrc / f"{n}.cu", {})}
-    assert users == {"tugemm_fused", "tugemm_int8", "temporal_unary"}
+    assert users == {"tugemm_fused", "tugemm_int8", "tugemm_packed", "temporal_unary"}
     for n in build.SOURCES:
         assert (after[n] != before[n]) == (n in users), n
 
@@ -46,3 +46,29 @@ def test_digest_follows_the_source_and_ignores_unincluded_files(tmp_path):
     src = csrc / "flash_paged.cu"
     src.write_bytes(src.read_bytes() + b" ")
     assert build._target("flash_paged", csrc) != before
+
+
+def test_packed_gemm_digest_follows_the_mainloop_and_its_headers(tmp_path):
+    """tugemm_packed.cu is a launcher of tugemm_mainloop.cuh, which includes
+    hopper_common.cuh and launch_attrs.cuh: an edit to any of them renames
+    its library."""
+    csrc = _copy(tmp_path)
+    assert "hopper_common.cuh" not in (csrc / "tugemm_packed.cu").read_text()
+    for header in ("tugemm_mainloop.cuh", "hopper_common.cuh", "launch_attrs.cuh"):
+        before = build._target("tugemm_packed", csrc)
+        path = csrc / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        assert build._target("tugemm_packed", csrc) != before, header
+
+
+def test_launch_attribute_header_is_hashed_into_its_users(tmp_path):
+    """launch_attrs.cuh (per-device function attributes) is included by the
+    mainloop's three GEMMs and by flash_paged.cu, and by nothing else."""
+    csrc = _copy(tmp_path)
+    header = csrc / "launch_attrs.cuh"
+    users = {n for n in build.SOURCES if header in build._sources(csrc / f"{n}.cu", {})}
+    assert users == {"tugemm_fused", "tugemm_int8", "tugemm_packed", "flash_paged"}
+    before = {n: build._target(n, csrc) for n in build.SOURCES}
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    for n in build.SOURCES:
+        assert (build._target(n, csrc) != before[n]) == (n in users), n

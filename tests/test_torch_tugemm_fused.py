@@ -169,14 +169,15 @@ def test_raw_stats_vectors_exact(mode, bits):
 # ------------------------------------- the kernel's split-K cluster grid
 from repro_torch.kernels.packing import unpack_plane  # noqa: E402
 from repro_torch.kernels.ref import _dequant_bias, _quant  # noqa: E402
-from repro_torch.kernels.tugemm_fused import BM, KC, MAX_SPLITS, split_plan  # noqa: E402
+from repro_torch.kernels.tugemm_fused import (BLOCK_RESERVED, BM, KC, MAX_RESIDENT,  # noqa: E402
+                                              MAX_SPLITS, SM_SMEM, _smem, split_plan)
 
 # (K, N) of qwen3-0.6b's layer GEMMs: q, k/v, o, gate/up, down
 LAYER_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
 
 
-def _blocks(M, N, Kw, planes, sms=132):
-    bn, splits, _ = split_plan(M, N, Kw, planes, sms)
+def _blocks(M, N, Kw, planes, sms=132, xbytes=1):
+    bn, splits, _ = split_plan(M, N, Kw, planes, sms, xbytes)
     return splits * -(-N // bn) * -(-M // BM)
 
 
@@ -201,24 +202,34 @@ def test_split_plan_covers_every_chunk_and_tile_once(planes, mnk):
                          + [(kn, 4) for kn in LAYER_SHAPES[3:]])
 def test_split_plan_fills_the_card_at_the_layer_gemms(M, kn, planes):
     """Quant or int8 weights (Kw = K) at every layer GEMM, and the MLP's
-    int2 packed ones (Kw = K / 4) of the serve's prequant policy: at least
-    half the 132 SMs get a block of 8 warps, each block walks at most two
-    64-row chunks where 16 splits allow it, and a narrower tile is taken
-    only where the wider one cannot reach half the SMs."""
+    int2 packed ones (Kw = K / 4, bf16 X) of the serve's prequant policy: at
+    least half the 132 SMs get a block of 8 warps and each block walks at
+    most two 64-row chunks where 16 splits allow it. One plane: a narrower
+    tile is taken only where the wider one cannot reach half the SMs.
+    Packed: every block is resident at once (one or two an SM by the
+    mainloop's shared memory), and no cluster above 8 blocks where one block
+    fills an SM."""
     K, N = kn
     Kw = K // planes
-    bn, splits, chunks = split_plan(M, N, Kw, planes, 132)
-    assert _blocks(M, N, Kw, planes) >= 66
+    xbytes = 2 if planes > 1 else 1
+    bn, splits, chunks = split_plan(M, N, Kw, planes, 132, xbytes)
+    blocks = _blocks(M, N, Kw, planes, xbytes=xbytes)
+    assert blocks >= 66
     k_chunks = -(-Kw // KC)
     assert chunks <= max(2, -(-k_chunks // MAX_SPLITS))
-    if bn < 128:
+    if planes == 1 and bn < 128:
         assert -(-N // (2 * bn)) * min(MAX_SPLITS, k_chunks) < 66
+    if planes > 1:
+        per_sm = min(MAX_RESIDENT, SM_SMEM // (_smem(planes, bn, chunks, xbytes) + BLOCK_RESERVED))
+        assert blocks <= 132 * per_sm
+        assert splits <= 8 or per_sm > 1
 
 
 def test_split_plan_takes_shapes_only():
     import inspect
 
-    assert list(inspect.signature(split_plan).parameters) == ["M", "N", "Kw", "planes", "sms"]
+    assert list(inspect.signature(split_plan).parameters) == ["M", "N", "Kw", "planes", "sms",
+                                                              "xbytes"]
 
 
 def _split_emulation(x, w, sx, sw, bias, *, bits, w_mode, out_dtype, sms):
