@@ -17,7 +17,17 @@ Phases, each printing one JSON line:
    (``torch._int_mm`` for the GEMMs, ``scaled_dot_product_attention`` for
    attention, ``abs().amax`` for the absmax reductions), and each call's
    bound on an H100 SXM (3.35 TB/s HBM3, 1979 dense int8 TOP/s, 67 f32
-   TFLOP/s outside the tensor cores).
+   TFLOP/s outside the tensor cores). The int8 GEMM also with its cycle
+   statistics (``collect_stats``), bit for bit, in every int8 case.
+3b. check_stats — the cycle-statistics routes, bit for bit, dtypes
+   included: the assembly kernel ``tugemm_stats`` on real fused-GEMM maxima
+   at the seven layer shapes (dynamic, int8 prequant, packed int2 and int4),
+   ``ops.matmul_fused`` and ``ops.matmul_int8`` with stats (the GEMM
+   routes), and the standalone ``unary_step_stats`` (both maxima in one
+   launch, then the assembly); each route's device time and device
+   operations a call are read by the last phase beside the composition
+   they replace (the GEMM, then ``colabsmax``, ``rowabsmax`` and the eight
+   PyTorch ops of ``kernels/ref.py::assemble_stats_ref``).
 4. step parity — one prefill tick and one decode tick of the mixed step at
    full width through the kernels and through the plain versions.
 5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
@@ -25,15 +35,16 @@ Phases, each printing one JSON line:
    kernels' launch counters are zeroed just before and read just after.
 6. serve_prequant / step parity / serve_unfused — the same requests on the
    same weights after ``apply_surgery``: fused GEMMs on offline-packed MLP
-   weights, then the legacy unfused pipeline (int8 GEMM, plane-packed GEMM
-   and absmax kernels, no fused GEMM), whose greedy tokens must equal the
+   weights, then the legacy unfused pipeline (int8 GEMM with its stats
+   assembled by ``tugemm_stats``, plane-packed GEMM; no fused GEMM and no
+   ``colabsmax`` / ``rowabsmax`` launch), whose greedy tokens must equal the
    fused-prequant serve's token for token (the two paths are bit-exact).
 7. check_c1 — the C1 validation path's kernels (``quantize_sym``,
    ``temporal_unary_gemm``) against their plain versions, exactly, on the
    layer-0 weights and activations of qwen3-0.6b at full width.
 8. c1_validation — the paper's C1 conformance, exactly: the gate-level
-   simulator, ``core.tugemm``, the temporal kernel, the int8 kernel with the
-   absmax kernels and the fused kernel's stats agree on outputs, per-step
+   simulator, ``core.tugemm``, the temporal kernel, the int8 kernel with its
+   own stats and the fused kernel's stats agree on outputs, per-step
    cycles and serial/parallel totals on the 12 Table I design points and
    the paper's corners; at full width (the seven layer-0 GEMMs, operands
    made by ``quantize_sym``) the four non-simulator legs agree. Counts are
@@ -44,7 +55,8 @@ Phases, each printing one JSON line:
    the plain versions are printed beside them.
 10. device_time — the device time and device launches of each fused GEMM,
    int8 GEMM, attention and temporal-GEMM case checked above, of the
-   unfused path's M=64 packed-GEMM and absmax cases and of the C1 path's
+   unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
+   (and of the compositions they replace), of the C1 path's
    serve-policy ``quantize_sym`` cases, and of each one's library
    yardstick, read from ``torch.profiler`` last, so that the
    profiler runs during no other timed phase; where the profiler loses
@@ -129,34 +141,42 @@ def median_ms(torch, fn, reps: int = 25, flush=None) -> float:
 
 
 _SPIN_NAMES: set = set()
-# (check record, kernel call, library call or None) of the kernels whose
-# device time the last timing phase reads: run after every other phase, so
-# the profiler it needs is never on while another phase is timed
+# (check record, kernel call, library call or None[, {name: other call}]) of
+# the kernels whose device time the last timing phase reads: run after every
+# other phase, so the profiler it needs is never on while another phase is
+# timed. Another call (a composition the kernel replaces, the GEMM without
+# its stats) is read the same way into ``<name>_device_ms`` and
+# ``<name>_device_launches``.
 DEVICE_TIMED: list = []
 
 
 def device_times(torch) -> None:
-    """device_ms of every DEVICE_TIMED kernel call and library yardstick,
-    written into its check record and emitted; the bound share is
-    bound_ms / device_ms. All calls are read by one method: profiles of
+    """device_ms of every DEVICE_TIMED kernel call, library yardstick and
+    other call, written into its check record and emitted; the bound share
+    is bound_ms / device_ms. All calls are read by one method: profiles of
     ``PROFILE_CHUNK`` calls each, or, where one of those lost a call mark
     three times, CUDA events for every call (``device_ms_source`` says which)."""
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
-    fns = [f for _, call, lib_call in DEVICE_TIMED
-           for f in ((call,) if lib_call is None else (call, lib_call))]
+    entries = [(rec, call, lib_call, others[0] if others else {})
+               for rec, call, lib_call, *others in DEVICE_TIMED]
+    fns = [f for _, call, lib_call, others in entries
+           for f in ((call,) + (() if lib_call is None else (lib_call,)) + tuple(others.values()))]
     times = device_ms_many(torch, fns, flush)
     it = iter(times)
-    for rec, _, lib_call in DEVICE_TIMED:
+    for rec, _, lib_call, others in entries:
         ms, source, launches, breakdown = next(it)
         rec["device_ms"], rec["device_ms_source"], rec["device_launches"] = ms, source, launches
         rec["device_kernels"] = breakdown
         rec["library_device_ms"] = None if lib_call is None else next(it)[0]
+        for name in others:
+            rec[f"{name}_device_ms"], _, rec[f"{name}_device_launches"], _ = next(it)
         rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         emit({"phase": "device_time", **{k: rec.get(k) for k in (
             "kernel", "case", "M", "K", "N", "Kp", "bits", "w_mode", "per_token", "bias", "x_dtype",
-            "bn", "blocks", "splits", "chunks", "ms", "device_ms", "device_ms_source", "device_launches",
-            "library_ms", "library_device_ms", "bound_ms", "bound_share", "bound_by",
-            "device_kernels")}})
+            "bn", "blocks", "splits", "chunks", "stats", "ms", "device_ms", "device_ms_source",
+            "device_launches", "library_ms", "library_device_ms", "bound_ms", "bound_share",
+            "bound_by", "device_kernels")},
+            **{k: v for n in others for k, v in rec.items() if k.startswith(n + "_")}})
     del flush
 
 
@@ -319,6 +339,7 @@ def check_gemm(torch, flush):
     operands as its library call where cuBLASLt takes the shape."""
     from repro_torch.kernels.ops import pack_weights
     from repro_torch.kernels.packing import PLANES
+    from repro_torch.kernels.ref import assemble_stats_ref
     from repro_torch.kernels.tugemm_fused import tugemm_fused
     from repro_torch.quant.quantize import compute_scale
 
@@ -579,6 +600,23 @@ def _bound(byts: int, ops: int) -> dict:
                 bound_by="bytes" if tb >= to else "operations")
 
 
+def _flat(out) -> tuple:
+    """A kernel's result as a flat tuple of tensors (a tensor, a tuple of
+    tensors, or (y, TuGemmStats))."""
+    return tuple(t for x in out for t in _flat(x)) if isinstance(out, tuple) else (out,)
+
+
+def _exact(got, want):
+    """(bit for bit with equal dtypes and shapes, max abs difference) of two
+    results, each a tensor or a (nested) tuple of tensors."""
+    gs, ws = _flat(got), _flat(want)
+    exact = len(gs) == len(ws) and all(
+        g.dtype == w.dtype and g.shape == w.shape and bool((g == w).all()) for g, w in zip(gs, ws))
+    err = max(((g.double() - w.double()).abs().max().item() for g, w in zip(gs, ws)
+               if g.shape == w.shape and g.numel()), default=0.0)
+    return exact, err
+
+
 def check_unfused(torch, flush):
     """The unfused pipeline's kernels against their plain versions, exactly,
     at the shapes of qwen3-0.6b's unfused serving path: M=64 (4 rows x chunk
@@ -603,13 +641,14 @@ def check_unfused(torch, flush):
 
     records = []
 
-    def run(kernel, case, fn, plain, lib_ms, byts, ops, lib_call=None, timed=False, **shape):
-        """one case held exactly against its plain version; ``timed``: its
-        device time (and ``lib_call``'s) is read by the last phase"""
+    def run(kernel, case, fn, plain, lib_ms, byts, ops, lib_call=None, timed=False,
+            others=None, **shape):
+        """one case held exactly against its plain version (a tensor or a
+        tuple of them, dtypes included); ``timed``: its device time (and
+        ``lib_call``'s and ``others``') is read by the last phase"""
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        exact = torch.equal(got, want)
-        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        exact, err = _exact(got, want)
         rec = dict(kernel=kernel, case=case, **shape, exact=exact, max_abs_err=err,
                    ms=median_ms(torch, fn, flush=flush),
                    plain_ms=median_ms(torch, plain, flush=flush), library_ms=lib_ms,
@@ -619,10 +658,13 @@ def check_unfused(torch, flush):
             raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
         records.append(rec)
         if timed:
-            DEVICE_TIMED.append((rec, fn, lib_call))
+            DEVICE_TIMED.append((rec, fn, lib_call, others or {}))
 
     def int8(case, a, b, c=None):
-        """a tugemm_int8 case, its device time read by the last phase"""
+        """a tugemm_int8 case, its device time read by the last phase; then
+        the same GEMM with its cycle statistics, (y, ca, rb) against the
+        plain GEMM with ``colabsmax_ref`` / ``rowabsmax_ref``, its device
+        time (and the GEMM's without them) read at M=64 without C"""
         M, K = a.shape
         N = b.shape[1]
         call = lambda: tugemm_int8(a, b, c, impl="cuda")
@@ -631,6 +673,10 @@ def check_unfused(torch, flush):
             None if lib_call is None else median_ms(torch, lib_call, flush=flush),
             nbytes(a, b, c) + 4 * M * N, 2 * M * K * N, lib_call, True, M=M, K=K, N=N,
             **gemm_grid(M, N, K, 1))
+        run("tugemm_int8", case, lambda: tugemm_int8(a, b, c, collect_stats=True, impl="cuda"),
+            lambda: tugemm_int8(a, b, c, collect_stats=True, impl="torch"), None,
+            nbytes(a, b, c) + 4 * M * N + 8 * K, 2 * M * K * N, None, M == 64 and c is None,
+            {"no_stats": call}, stats=True, M=M, K=K, N=N, **gemm_grid(M, N, K, 1))
 
     def packed(case, M, K, N, bits, rows=None):
         """a tugemm_packed case: A (M, K) against B of ``rows`` >= K logical
@@ -676,6 +722,7 @@ def check_unfused(torch, flush):
         lambda: rowabsmax(b, impl="torch"), None, nbytes(b) + 4 * 333, 333 * 65, K=333, N=65)
     for M in (64, 4):   # K, N off the chunks and tiles, 16-byte rows
         int8(f"ragged tiles {M}x1040x1040", i8((M, 1040)), i8((1040, 1040)))
+    int8("M=70: two M tiles", i8((70, 1024)), i8((1024, 2048)))
     # the packed GEMM's ragged edges: no dimension a multiple of any tile, K
     # not a plane multiple; A narrower than B's planes (K < planes*Kp) with
     # 16-byte rows (the last plane's copies cut at K) and with K % 16 != 0
@@ -684,6 +731,139 @@ def check_unfused(torch, flush):
     packed("K < planes*Kp, 16-byte rows", 64, 1008, 3072, 2, rows=1024)
     packed("K < planes*Kp, K % 16 != 0", 64, 1022, 3072, 2, rows=1024)
     packed("Kp % 16 != 0", 64, 1000, 1040, 4)
+    return records
+
+
+def check_stats(torch, flush):
+    """The cycle-statistics routes against their plain versions, bit for bit
+    with equal dtypes: ``tugemm_stats`` on the maxima of real fused GEMMs
+    at the seven layer shapes (M=64: dynamic at the policy's bits, int8
+    prequant, packed int2 and int4); ``ops.matmul_fused`` and
+    ``ops.matmul_int8`` with stats (maxima from the GEMM's tiles, one
+    assembly launch); the standalone ``unary_step_stats`` (two launches) at
+    the attention shapes (M=64 and 4), ragged and at M=70. The last phase
+    reads the device time and device operations a call of each route at
+    M=64 beside the composition it replaces as PyTorch ops (the GEMM with
+    its maxima, then the eight ops of ``assemble_stats_ref``; for the int8 GEMM and the
+    standalone route, ``colabsmax`` and ``rowabsmax`` first) and the GEMM
+    without stats. No single PyTorch call computes the stats (library null)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.packing import PLANES
+    from repro_torch.kernels.ref import assemble_stats_ref
+    from repro_torch.kernels.tugemm_fused import tugemm_fused
+    from repro_torch.kernels.tugemm_int8 import tugemm_int8
+    from repro_torch.kernels.unary_stats import (HDR, colabsmax, rowabsmax, tugemm_stats,
+                                                 unary_step_stats)
+    from repro_torch.quant.quantize import compute_scale
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    records = []
+
+    def i8(shape, lo=-128, hi=128):
+        t = torch.randint(lo, hi, shape, device=dev, generator=gen, dtype=torch.int8)
+        t.view(-1)[0] = lo            # the most negative code is in every operand
+        return t
+
+    def run(kernel, case, fn, plain, byts, ops_, others=None, **extra):
+        """one case bit for bit against its plain version; ``others``: its
+        device time and the others' are read by the last phase"""
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        exact, err = _exact(got, want)
+        rec = dict(kernel=kernel, case=case, **extra, exact=exact, max_abs_err=err,
+                   ms=median_ms(torch, fn, flush=flush),
+                   plain_ms=median_ms(torch, plain, flush=flush), library_ms=None,
+                   **_bound(byts, ops_))
+        emit({"phase": "check_stats", **rec})
+        if not exact:
+            raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
+        records.append(rec)
+        if others is not None:
+            DEVICE_TIMED.append((rec, fn, None, others))
+
+    def stats_bytes(K, planes=1, Kw=None):
+        return 4 * (2 * planes * (Kw or K) + HDR + K)
+
+    # the assembly on real fused maxima, and the fused GEMM route
+    M = 64
+    for name, K, N, bits in LAYER_GEMMS:
+        x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
+        sx = compute_scale(x, bits).reshape(1, 1)
+        for mode, mbits in (("quant", bits), ("int8", 8), ("packed", 2), ("packed", 4)):
+            planes = PLANES[mbits] if mode == "packed" else 1
+            if mode == "quant":
+                w, sw = wf, compute_scale(wf, mbits, axis=1).reshape(1, N)
+            else:
+                lo, hi = -(2 ** (mbits - 1)), 2 ** (mbits - 1)
+                wq = i8((K, N), lo, hi)
+                w = ops.pack_weights(wq, mbits) if mode == "packed" else wq
+                sw = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
+            kw = dict(bits=mbits, w_mode=mode, collect_stats=True, out_dtype=bf16)
+            y, ca, rb = tugemm_fused(x, w, sx, sw, None, impl="cuda", **kw)
+            label = f"{name} {'dynamic' if mode == 'quant' else mode} w={mbits}"
+            run("tugemm_stats", label, lambda ca=ca, rb=rb, K=K: tugemm_stats(ca, rb, K,
+                                                                               impl="cuda"),
+                lambda ca=ca, rb=rb, K=K: tugemm_stats(ca, rb, K, impl="torch"),
+                stats_bytes(K, planes, w.shape[0]), 2 * K,
+                {} if mode == "quant" else None, M=M, K=K, N=N, bits=mbits, w_mode=mode,
+                planes=planes)
+            if mode == "int8" or (mode == "packed" and (mbits, bits) != (2, 2)):
+                continue
+            # the route as the serve runs it: matmul_fused with stats (dynamic,
+            # and the prequant serve's packed int2 MLP); what it replaces is
+            # the GEMM's launch, then the eight ops (and rb's copy when packed)
+            wr = wf if mode == "quant" else w
+            fused = lambda x=x, wr=wr, sx=sx, sw=sw, mbits=mbits, q=mode != "quant", \
+                impl="cuda": ops.matmul_fused(x, wr, sx=sx, sw=sw.reshape(-1), bits=mbits,
+                                              w_quantized=q, collect_stats=True,
+                                              out_dtype=bf16, impl=impl)
+            args = (x, w, sx, sw, None)
+
+            def composition(args=args, kw=kw, K=K):
+                y, ca, rb = tugemm_fused(*args, impl="cuda", **kw)
+                return y, assemble_stats_ref(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K])
+
+            nostats = dict(kw, collect_stats=False)
+            run("stats_route", f"fused {label}", fused, lambda f=fused: f(impl="torch"),
+                nbytes(x, w, sx, sw) + 2 * M * N + stats_bytes(K, planes, w.shape[0]),
+                2 * M * K * N,
+                {"composition": composition,
+                 "no_stats": lambda args=args, nostats=nostats: tugemm_fused(
+                     *args, impl="cuda", **nostats)},
+                route="fused", M=M, K=K, N=N, bits=mbits, w_mode=mode)
+    # the int8 GEMM route and the standalone route
+    for M in (64, 4):
+        for case, K, N in (("attn.q", 1024, 2048), ("attn.k/v", 1024, 1024),
+                           ("attn.o", 2048, 1024)):
+            a, b = i8((M, K)), i8((K, N))
+            timed = M == 64
+            route = lambda a=a, b=b, impl="cuda": ops.matmul_int8(a, b, collect_stats=True,
+                                                                  impl=impl)
+            run("stats_route", f"int8 {case}", route, lambda r=route: r(impl="torch"),
+                nbytes(a, b) + 4 * M * N + stats_bytes(K), 2 * M * K * N,
+                {"composition": lambda a=a, b=b: (tugemm_int8(a, b), assemble_stats_ref(
+                    colabsmax(a), rowabsmax(b))),
+                 "no_stats": lambda a=a, b=b: tugemm_int8(a, b)} if timed else None,
+                route="int8", M=M, K=K, N=N)
+            run("unary_step_stats", case, lambda a=a, b=b: unary_step_stats(a, b, impl="cuda"),
+                lambda a=a, b=b: unary_step_stats(a, b, impl="torch"),
+                nbytes(a, b) + 4 * (HDR + K), M * K + K * N,
+                {"composition": lambda a=a, b=b: assemble_stats_ref(colabsmax(a),
+                                                                    rowabsmax(b))}
+                if timed else None, M=M, K=K, N=N)
+    for case, (M, K, N) in (("ragged", (37, 333, 65)), ("M=70", (70, 1024, 2048))):
+        a, b = i8((M, K)), i8((K, N))
+        b.view(-1)[-1] = -128
+        run("unary_step_stats", case, lambda a=a, b=b: unary_step_stats(a, b, impl="cuda"),
+            lambda a=a, b=b: unary_step_stats(a, b, impl="torch"),
+            nbytes(a, b) + 4 * (HDR + K), M * K + K * N, M=M, K=K, N=N)
+        route = lambda a=a, b=b, impl="cuda": ops.matmul_int8(a, b, collect_stats=True, impl=impl)
+        run("stats_route", f"int8 {case}", route, lambda r=route: r(impl="torch"),
+            nbytes(a, b) + 4 * M * N + stats_bytes(K), 2 * M * K * N, route="int8",
+            M=M, K=K, N=N)
     return records
 
 
@@ -830,7 +1010,7 @@ def c1_legs(torch, a, b, bits):
     its public entry point: (y int32, step cycles, serial, parallel) of
     ``core.tugemm``, after checking that the temporal kernel's, the int8
     kernel's and the fused kernel's (unit scales, f32 out) products and the
-    int8+absmax and fused stats equal it exactly."""
+    int8 kernel's and the fused kernel's stats equal it exactly."""
     from repro_torch.core import tugemm
     from repro_torch.kernels import ops
 
@@ -1118,6 +1298,7 @@ def main() -> int:
     gemm = check_gemm(torch, flush)
     attn = check_attention(torch, flush)
     unf = check_unfused(torch, flush)
+    st = check_stats(torch, flush)
     del flush
 
     cfg, rc, params, init_s = model_setup(torch)
@@ -1127,7 +1308,8 @@ def main() -> int:
 
     sched, done, wall, counts, prompts = serve(torch, cfg, rc, params, "auto")
     outs = check_served(cfg, sched, done, prompts, {8, 2})
-    fused_kernels = ("tugemm_fused", "flash_paged_decode")
+    # every fused GEMM collects stats (track_energy): tugemm_stats assembles them
+    fused_kernels = ("tugemm_fused", "flash_paged_decode", "tugemm_stats")
     for name, c in counts.items():
         ran = c["launches"] > 0 if name in fused_kernels else c["launches"] == 0
         if not ran or c["plain_calls"] != 0:
@@ -1160,14 +1342,17 @@ def main() -> int:
     # the unfused prequant MLPs record no cycles (the reference's behaviour)
     outs_unf = check_served(cfg, sched_unf, done_unf, prompts, {8})
     emit(serve_record("serve_unfused", sched_unf, done_unf, wall_unf, counts_unf, prompts))
-    unfused_kernels = ("tugemm_int8", "tugemm_packed", "colabsmax", "rowabsmax")
+    # the int8 GEMMs' stats come out of their own launches and tugemm_stats:
+    # no absmax kernel runs
+    unfused_kernels = ("tugemm_int8", "tugemm_packed", "tugemm_stats")
     for name in (*unfused_kernels, "flash_paged_decode"):
         c = counts_unf[name]
         if c["launches"] <= 0 or c["plain_calls"] != 0:
             raise AssertionError(f"unfused serve did not run only the kernel of {name}: "
                                  f"{counts_unf}")
-    if counts_unf["tugemm_fused"] != {"launches": 0, "plain_calls": 0}:
-        raise AssertionError(f"unfused serve ran the fused GEMM: {counts_unf}")
+    for name in ("tugemm_fused", "colabsmax", "rowabsmax", "unary_step_stats"):
+        if counts_unf[name] != {"launches": 0, "plain_calls": 0}:
+            raise AssertionError(f"unfused serve ran {name}: {counts_unf}")
     same = sum(a == b for r in outs_pq for a, b in zip(outs_pq[r], outs_unf[r]))
     cyc8 = (sched_unf.cycles_by_bits[8], sched_pq.cycles_by_bits[8])
     emit({"phase": "unfused_vs_prequant", "tokens_equal": same, "tokens": gen,
@@ -1191,8 +1376,8 @@ def main() -> int:
     torch.cuda.synchronize()
     counts_c1 = ops.kernel_counts()
     emit({"phase": "c1_totals", **c1_tot, "kernel_counts": counts_c1})
-    for name in ("quantize_sym", "temporal_unary_gemm", "tugemm_int8", "colabsmax",
-                 "rowabsmax", "tugemm_fused"):
+    for name in ("quantize_sym", "temporal_unary_gemm", "tugemm_int8", "tugemm_stats",
+                 "tugemm_fused"):
         c = counts_c1[name]
         if c["launches"] <= 0 or c["plain_calls"] != 0:
             raise AssertionError(f"the C1 path did not run only the kernel of {name}: "
@@ -1248,14 +1433,13 @@ def main() -> int:
                 "rowabsmax": "src/repro/kernels/unary_stats.py:66"}
     for name, cases in per_layer.items():
         rows = [next(r for r in unf if r["kernel"] == name and r["case"] == c
-                     and r.get("M", 64) == 64) for c in cases]
+                     and r.get("M", 64) == 64 and not r.get("stats")) for c in cases]
         libs = [r["library_ms"] for r in rows]
+        absmax = "absmax" in name
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/" + ("unary_stats.cu" if "absmax" in name
-                                                 else f"{name}.cu"),
-            "replaces": replaces[name],
-            "launches": counts_unf[name]["launches"],
+            "source": "src/repro_torch/csrc/" + ("unary_stats.cu" if absmax else f"{name}.cu"),
+            "replaces": replaces[name], "launches": counts_unf[name]["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in unf if r["kernel"] == name),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
@@ -1263,8 +1447,46 @@ def main() -> int:
             else "operations",
             "library_ms": None if None in libs else sum(libs),
             **device_entry(rows),
-            "shape": f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under "
-                     + UNFUSED_POLICY})
+            "shape": (f"absmax_kernel on one operand, one qwen3-0.6b layer's {len(rows)} "
+                      "attention operands (M=64); the unfused serve takes these maxima from "
+                      "its int8 GEMMs' tiles (the tugemm_stats entry) and launches this "
+                      "kernel no time") if absmax else
+            f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under " + UNFUSED_POLICY})
+    # rows 5-6 as the unfused serve runs them: each int8 GEMM takes both
+    # maxima from its own tiles (memset + the stats instantiation) and
+    # tugemm_stats assembles them. Its work: the GEMM with stats over the
+    # GEMM without (call and device time); its plain version and bound:
+    # the stats of the same operands (unary_step_stats, reading A and B once)
+    pair = [next(r for r in st if r["kernel"] == "unary_step_stats" and r["case"] == c
+                 and r["M"] == 64) for c in per_layer["colabsmax"]]
+    route = [next(r for r in st if r["kernel"] == "stats_route" and r["case"] == "int8 " + c
+                  and r["M"] == 64) for c in per_layer["colabsmax"]]
+    gemm8 = [next(r for r in unf if r["kernel"] == "tugemm_int8" and r["case"] == c
+                  and r["M"] == 64 and not r.get("stats")) for c in per_layer["colabsmax"]]
+    dev = sum(r["device_ms"] - r["no_stats_device_ms"] for r in route)
+    bound = sum(r["bound_ms"] for r in pair)
+    kernels.append({
+        "name": "tugemm_stats", "route": "cuda",
+        "source": "src/repro_torch/csrc/unary_stats.cu",
+        "replaces": replaces["colabsmax"], "replaces_also": replaces["rowabsmax"],
+        "launches": counts_unf["tugemm_stats"]["launches"],
+        "launches_by_path": {"serve": counts["tugemm_stats"]["launches"],
+                             "serve_prequant": counts_pq["tugemm_stats"]["launches"],
+                             "serve_unfused": counts_unf["tugemm_stats"]["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),
+        "ms": sum(r["ms"] for r in route) - sum(r["ms"] for r in gemm8),
+        "plain_ms": sum(r["plain_ms"] for r in pair), "bound_ms": bound,
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in pair) else "operations",
+        "library_ms": None, "device_ms": dev, "device_ms_source": route[0]["device_ms_source"],
+        "library_device_ms": None, "bound_share": bound / dev,
+        "route_device_launches_per_call": None if any(r["device_launches"] is None
+                                                      for r in route)
+        else max(r["device_launches"] for r in route),
+        "shape": "the stats of one qwen3-0.6b layer's 4 attention int8 GEMMs (M=64) under "
+                 + UNFUSED_POLICY + ": ops.matmul_int8 with stats less the GEMM without "
+                 "(memset, the maxima in the GEMM's tiles, the tugemm_stats launch); plain "
+                 "and bound: the stats from A and B; launches: the unfused serve's, one a "
+                 "GEMM; no single PyTorch call computes them (library_ms null)"})
     # the C1 path's kernels: one qwen3-0.6b layer's operand quantizations (7
     # weights per column, 7 activations per tensor, bf16, at the serve policy's
     # bits) and its 7 temporal GEMMs at M=64

@@ -10,8 +10,10 @@ CPU and CUDA activities, and prints one JSON line: wall time (profiled, and
 the warm-up's without the profiler), the device's busy time (the union of
 the intervals of device-side activity: kernels, memcpy and memset; the host
 ops that launched them are not counted again), the device's idle share of
-the profiled wall, kernel launches per tick, and the top device activities
-and host ops by time.
+the profiled wall, kernel launches and memsets per tick, the serve's
+``cycles_by_bits``, and the top device activities and host ops by time.
+``--policy`` may be given several times: the policies are profiled in
+turn in one process, on the same weights, one line each.
 
     python3 scripts/torch_serve_profile.py          # chip_smoke.POLICY
     python3 scripts/torch_serve_profile.py --policy 'attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16'
@@ -48,20 +50,28 @@ def device_activity(events, cuda_type):
 
 def main(argv=None) -> int:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--policy", default=chip_smoke.POLICY,
-                    help="QuantPolicy grammar (default: %(default)s)")
+    ap.add_argument("--policy", action="append",
+                    help=f"QuantPolicy grammar, repeatable (default: {chip_smoke.POLICY})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
-    cfg, rc, params, _ = chip_smoke.model_setup(torch)
-    rc, params = chip_smoke.surgered(cfg, rc, params, args.policy)
+    cfg, rc0, params0, _ = chip_smoke.model_setup(torch)
+    for policy in args.policy or [chip_smoke.POLICY]:
+        rc, params = chip_smoke.surgered(cfg, rc0, params0, policy)
+        profile_one(torch, chip_smoke, cfg, rc, params, policy)
+        del params
+    return 0
+
+
+def profile_one(torch, chip_smoke, cfg, rc, params, policy: str) -> None:
+    """Serve once to warm up, once under the profiler; print the line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def serve():
         s, _ = chip_smoke.serving_scheduler(cfg, rc, params, "auto")
@@ -81,11 +91,14 @@ def main(argv=None) -> int:
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
     launches = sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                       "cudaLaunchKernelExC"))
+    memsets = sum(e.count for e in host if e.key == "cudaMemsetAsync")
     print(json.dumps({
-        "phase": "serve_profile", "policy": args.policy, "wall_s": wall,
+        "phase": "serve_profile", "policy": policy, "wall_s": wall,
         "wall_unprofiled_s": wall_unprofiled, "ticks": sched.ticks,
         "median_tick_ms": 1e3 * sorted(sched.tick_seconds)[len(sched.tick_seconds) // 2],
         "launches_per_tick": launches / sched.ticks,
+        "memsets_per_tick": memsets / sched.ticks,
+        "cycles_by_bits": {str(b): d for b, d in sorted(sched.cycles_by_bits.items())},
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_events": sum(c for _, c in by_name.values()),
@@ -94,7 +107,6 @@ def main(argv=None) -> int:
         "top_host_self": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
                            "calls": e.count} for e in host[:12]],
     }), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 // Device helpers shared by the port's s8 tensor-core kernels (sm_90a):
 // byte permutes, 16-byte cp.async copies, the m16n8k32 s8 mma and byte-wise
-// absolute values. Included by temporal_unary.cu and by tugemm_mainloop.cuh
-// (tugemm_fused.cu, tugemm_int8.cu); kernels/build.py hashes this header into
-// the library name of every source that includes it.
+// absolute values. Included by temporal_unary.cu, unary_stats.cu and
+// tugemm_mainloop.cuh (tugemm_fused.cu, tugemm_int8.cu, tugemm_packed.cu);
+// kernels/build.py hashes this header into the library name of every source
+// that includes it.
 
 #pragma once
 

@@ -52,7 +52,8 @@
 //    and each block issues one atomicMax per (plane, k) of its slice: ca only
 //    from the blocks of the first N tile, rb only from those of the first M
 //    tile. ca and rb are one buffer that the launcher zeroes first (one
-//    cudaMemsetAsync, the call's only other device operation).
+//    cudaMemsetAsync, the call's only other device operation);
+//    unary_stats.cu's tugemm_stats launch assembles TuGemmStats from them.
 //
 // Exactness: the plain PyTorch version (kernels/ref.py::fused_gemm_ref) and
 // this kernel agree bit for bit. Quantization is IEEE x / s (__fdiv_rn),

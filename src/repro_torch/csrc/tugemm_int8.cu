@@ -26,18 +26,36 @@
 // never by every K slice. Ragged M, N and K are zero-filled on load and
 // masked on store (byte rows that are not 16-byte multiples go through
 // plain loads), so the caller pads nothing.
+//
+// Cycle statistics (collect): the tuGEMM step maxima ca[k] = max_m |A[m,k]|
+// and rb[k] = max_n |B[k,n]| (the TPU kernels repro/kernels/unary_stats.py::
+// colabsmax_pallas and ::rowabsmax_pallas) come out of the same launch, from
+// the A and B tiles already in shared memory: byte-wise maxima in registers,
+// one atomicMax per k and block, ca only from the blocks of N tile 0, rb
+// only from those of M tile 0 (the mainloop's stats, as in the fused
+// kernel). The operands are not read again; unary_stats.cu's tugemm_stats
+// launch turns the two vectors into TuGemmStats.
 
 #include "tugemm_mainloop.cuh"
 
-// Returns 0 on success, -2 for a plan outside the kernel's range, else the
-// cudaError_t of the launch. c may be null. The plan (bn, splits, chunks)
-// comes from kernels/tugemm_fused.py::split_plan.
+// stats (collect) is one int32 buffer, ca (K,) then rb (K,), zeroed here (one
+// cudaMemsetAsync on the stream) before the kernel merges its maxima into
+// it; null without collect. Returns 0 on success, -2 for a plan outside the
+// kernel's range, else the cudaError_t of the launch. c may be null. The
+// plan (bn, splits, chunks) comes from kernels/tugemm_fused.py::split_plan.
 extern "C" int tugemm_int8_launch(const void* a, const void* b, const void* c, void* y,
-                                  int M, int N, int K, int bn, int splits, int chunks,
-                                  void* stream) {
+                                  int* stats, int M, int N, int K, int collect, int bn,
+                                  int splits, int chunks, void* stream) {
   using namespace tugemm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = {};
   p.x = a; p.w = b; p.c = static_cast<const int*>(c); p.y = y;
   p.M = M; p.N = N; p.Kw = K; p.Kx = K; p.planes = 1; p.bn = bn; p.chunks = chunks;
-  return launch<int8_t, W_INT8, int8_t, int>(p, splits, static_cast<cudaStream_t>(stream));
+  if (!collect) return launch<int8_t, W_INT8, int8_t, int, false>(p, splits, s);
+  p.collect = 1;
+  p.ca = stats;
+  p.rb = stats + K;
+  const cudaError_t e = cudaMemsetAsync(stats, 0, 2 * (size_t)K * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  return launch<int8_t, W_INT8, int8_t, int, true>(p, splits, s);
 }

@@ -11,6 +11,15 @@
 // barrier every rank reduces 1/S of the tile's elements over all S partials
 // (distributed shared memory) and applies the epilogue. Integer sums do not
 // depend on order, so the result is exact and deterministic.
+//
+// Cycle statistics (STATS instantiations, p.collect): ca[p, k] = max_m |X|
+// from the X tiles, only in the blocks of N tile 0, and rb[k, p] = max_n |W|
+// from the W tiles, only in the blocks of M tile 0, each merged by atomicMax
+// into a buffer the launcher zeroed; the order of the merges does not
+// matter. The fused kernel compiles them in (collect chosen at run time);
+// the int8 GEMM has one instantiation with and one without them, so the
+// GEMM without stats carries none of their code; the packed GEMM never
+// collects.
 
 #pragma once
 
@@ -52,8 +61,8 @@ struct Params {
   const void* bias;     // (N,) OT or null (fused only)
   const int* c;         // (M, N) int32 or null (int8 GEMM only)
   void* y;              // (M, N) OT
-  int* ca;              // (planes, Kw), zeroed by the caller (fused, collect)
-  int* rb;              // (Kw, planes), zeroed by the caller (fused, collect)
+  int* ca;              // (planes, Kw), zeroed by the caller (STATS, collect)
+  int* rb;              // (Kw, planes), zeroed by the caller (STATS, collect)
   int M, N, Kw, planes, bits, per_token, collect;
   int Kx;               // X's row length (<= planes*Kw); columns past it read as 0
   int bn, chunks;       // the split plan: tile columns, chunks a K slice
@@ -160,7 +169,7 @@ __device__ __forceinline__ unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-template <typename XT, int WMODE, typename WT, typename OT>
+template <typename XT, int WMODE, typename WT, typename OT, bool STATS>
 __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr bool INT_GEMM = std::is_same<XT, int8_t>::value;   // X taken as stored
@@ -182,8 +191,8 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int nch = max(0, min(p.chunks, (Kw + KC - 1) / KC - kc0));
   const int lo = INT_GEMM ? 0 : -(1 << (p.bits - 1));
   const int hi = INT_GEMM ? 0 : (1 << (p.bits - 1)) - 1;
-  const bool do_ca = !INT_GEMM && p.collect && blockIdx.y == 0;
-  const bool do_rb = !INT_GEMM && p.collect && blockIdx.z == 0;
+  const bool do_ca = STATS && p.collect && blockIdx.y == 0;
+  const bool do_rb = STATS && p.collect && blockIdx.z == 0;
   const float sx0 = (INT_GEMM || p.per_token) ? 0.f : p.sx[0];
 
   const Layout L = layout(planes, bn, R, (int)sizeof(XT), (int)sizeof(WT));
@@ -479,7 +488,10 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
 
 // Launches gemm_kernel on the plan (p.bn, p.chunks; splits = cluster size).
 // Returns 0, -2 for a plan outside the kernel's range, or the cudaError_t.
-template <typename XT, int WMODE, typename WT, typename OT>
+// STATS: the statistics code is compiled in (taken where p.collect is set);
+// by default for the quantizing kernel, not for int8 X taken as stored.
+template <typename XT, int WMODE, typename WT, typename OT,
+          bool STATS = !std::is_same<XT, int8_t>::value>
 int launch(Params p, int splits, cudaStream_t stream) {
   if (!(p.bn == 32 || p.bn == 64 || p.bn == 128) || splits < 1 || splits > MAX_SPLITS ||
       p.chunks < 1 || p.planes < 1 || p.planes > 4 || p.Kx < 0 || p.Kx > p.planes * p.Kw)
@@ -491,7 +503,7 @@ int launch(Params p, int splits, cudaStream_t stream) {
   p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0 &&
          ((long)p.Kx * sizeof(XT)) % 16 == 0;
   p.vw = (uintptr_t)p.w % 16 == 0 && ((long)p.N * sizeof(WT)) % 16 == 0;
-  auto kern = gemm_kernel<XT, WMODE, WT, OT>;
+  auto kern = gemm_kernel<XT, WMODE, WT, OT, STATS>;
   static launch_attrs::Cache attrs;   // per instantiation, per device
   cudaError_t e = launch_attrs::allow(attrs, kern, SMEM_MAX, true);
   if (e != cudaSuccess) return (int)e;

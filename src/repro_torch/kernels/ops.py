@@ -8,11 +8,20 @@ raises — there is no fallback.
 
 Three kinds of counters answer "which path did the work take":
 ``kernel_counts()`` reads each kernel's launch counter and its plain
-version's call counter; ``record_path``/``path_counts`` count, per GEMM or
-attention call-site name, how many calls went down each path; and
+version's call counter (one entry per kernel wrapper: the eight TPU
+kernels' counterparts, then ``tugemm_stats`` and ``unary_step_stats``);
+``record_path``/``path_counts`` count, per GEMM or attention call-site
+name, how many calls went down each path; and
 ``counting_dispatches`` lists, under the reference's names, the
 operand-sized passes a GEMM pipeline makes (the fused pipeline's two
 against the unfused one's six or more).
+
+A GEMM's cycle statistics on the card: ``matmul_fused`` and
+``matmul_int8(collect_stats=True)`` take the step maxima from the GEMM's own
+tiles (one launch, after one memset) and ``unary_stats.tugemm_stats``
+assembles ``TuGemmStats`` in one more launch; ``unary_step_stats`` takes
+both operands' maxima in one launch and assembles them the same way. The
+plain path takes the same route through each wrapper's plain version.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ __all__ = [
 ]
 
 _COUNTS = (_tugemm.COUNT, _flash.COUNT, _int8.COUNT, _packed.COUNT,
-           _stats.COL_COUNT, _stats.ROW_COUNT, _quantize.COUNT, _temporal.COUNT)
+           _stats.COL_COUNT, _stats.ROW_COUNT, _quantize.COUNT, _temporal.COUNT,
+           _stats.FINISH_COUNT, _stats.PAIR_COUNT)
 _paths: Counter = Counter()
 _dispatch_log: list[str] | None = None
 
@@ -116,20 +126,25 @@ def pack_weights(w: torch.Tensor, bits: int) -> torch.Tensor:
 def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
                 collect_stats: bool = False, impl: str = "auto"):
     """Exact int8 GEMM (the tuGEMM contract): A (M, K) · B (K, N) [+ C] ->
-    (M, N) int32, or (y, TuGemmStats) when ``collect_stats``."""
+    (M, N) int32, or (y, TuGemmStats) when ``collect_stats``: the maxima
+    come out of the GEMM (on the card, from its own tiles) and
+    ``tugemm_stats`` assembles them. The reference's dispatch names are those
+    of the GEMM then ``unary_step_stats``."""
     count_dispatch("matmul_int8")
-    y = _int8.tugemm_int8(a, b, c, impl=resolve_path(impl, a))
+    path = resolve_path(impl, a)
     if not collect_stats:
-        return y
-    return y, unary_step_stats(a, b, impl=impl)
+        return _int8.tugemm_int8(a, b, c, impl=path)
+    count_dispatch("absmax_a")
+    count_dispatch("absmax_b")
+    y, ca, rb = _int8.tugemm_int8(a, b, c, collect_stats=True, impl=path)
+    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, a.shape[1], impl=path))
 
 
 def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") -> TuGemmStats:
     """tuGEMM data-dependent cycle statistics for A (M, K) @ B (K, N)."""
     count_dispatch("absmax_a")
     count_dispatch("absmax_b")
-    path = resolve_path(impl, a)
-    return _assemble_stats(_stats.colabsmax(a, impl=path), _stats.rowabsmax(b, impl=path))
+    return TuGemmStats(*_stats.unary_step_stats(a, b, impl=resolve_path(impl, a)))
 
 
 def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
@@ -169,18 +184,6 @@ def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -
     if path == "cuda":
         x = x.contiguous()
     return _quantize.quantize_sym(x, inv.contiguous(), bitwidth=bitwidth, impl=path)
-
-
-def _assemble_stats(ca: torch.Tensor, rb: torch.Tensor) -> TuGemmStats:
-    """TuGemmStats from the two logical-K absmax vectors (core cycle model)."""
-    sc = ca * rb.clamp_min(1)
-    return TuGemmStats(
-        step_cycles=sc,
-        serial_cycles=sc.sum(),
-        parallel_cycles=sc.max(),
-        max_abs=torch.maximum(ca.max(), rb.max()),
-        act_max=ca.max(),
-    )
 
 
 def matmul_fused(
@@ -230,5 +233,5 @@ def matmul_fused(
     if not collect_stats:
         return out
     y, ca, rb = out
-    # plane-major -> logical K order: plane p holds logical rows [p·Kw, (p+1)·Kw)
-    return y, _assemble_stats(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K])
+    # plane-major maxima; plane p holds the logical rows [p·Kw, (p+1)·Kw)
+    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, K, impl=path))

@@ -7,7 +7,10 @@ name in the reference's ``repro/kernels/ref.py`` op for op:
 - ``matmul_int_ref`` — ``tugemm_int8.py`` (exact int8 GEMM [+ C])
 - ``packed_matmul_ref`` — ``tugemm_packed.py`` (int8 x plane-packed int4/int2)
 - ``colabsmax_ref``, ``rowabsmax_ref`` — ``unary_stats.py``;
-  ``unary_stats_ref`` bundles both with the step cycles
+  ``unary_stats_ref`` bundles both with the step cycles;
+  ``assemble_stats_ref`` / ``finish_stats_ref`` turn the two maxima into
+  the TuGemmStats fields (the reference's ``ops._assemble_stats``; the
+  assembly of ``csrc/unary_stats.cu``)
 - ``fused_gemm_ref`` — ``tugemm_fused.py``
 - ``dequant_bias_ref`` — the unfused pipeline's epilogue (no kernel: the
   same multiply and add the fused kernel's epilogue makes)
@@ -30,6 +33,8 @@ __all__ = [
     "colabsmax_ref",
     "rowabsmax_ref",
     "unary_stats_ref",
+    "assemble_stats_ref",
+    "finish_stats_ref",
     "dequant_bias_ref",
     "fused_gemm_ref",
     "temporal_unary_gemm_ref",
@@ -84,6 +89,21 @@ def unary_stats_ref(a: torch.Tensor, b: torch.Tensor):
     ``colmax_a[k] * max(rowmax_b[k], 1)``."""
     ca, rb = colabsmax_ref(a), rowabsmax_ref(b)
     return ca, rb, ca * rb.clamp_min(1)
+
+
+def assemble_stats_ref(ca: torch.Tensor, rb: torch.Tensor):
+    """The TuGemmStats fields from the two logical-K maxima: ``(step_cycles
+    (K,) int32, serial_cycles int64 (the sum of int32), parallel_cycles,
+    max_abs, act_max)``, the last three int32 (the core cycle model)."""
+    sc = ca * rb.clamp_min(1)
+    return sc, sc.sum(), sc.max(), torch.maximum(ca.max(), rb.max()), ca.max()
+
+
+def finish_stats_ref(ca: torch.Tensor, rb: torch.Tensor, K: int):
+    """``assemble_stats_ref`` on a GEMM's plane-major maxima, ca (planes,
+    Kw) and rb (Kw, planes): plane p holds the logical steps ``[p·Kw,
+    (p+1)·Kw)``, of which the first K count."""
+    return assemble_stats_ref(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K])
 
 
 def dequant_bias_ref(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,

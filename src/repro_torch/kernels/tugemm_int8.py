@@ -5,9 +5,12 @@ kernel, both its plain and its C-seeded body). The CUDA source is
 ``csrc/tugemm_int8.cu``, on the fused kernel's mainloop
 (``csrc/tugemm_mainloop.cuh``) and split plan (``tugemm_fused.split_plan``
 with one plane); its header says what bounds it on the card (reading B
-once: device-memory bytes) and how its design answers that.
-``tugemm_int8`` launches the kernel for CUDA tensors and runs the plain
-version (``kernels/ref.py::matmul_int_ref``) for CPU tensors or under
+once: device-memory bytes) and how its design answers that. With
+``collect_stats`` the same launch also takes the tuGEMM step maxima of A
+and B from its tiles (the TPU kernels ``colabsmax_pallas`` and
+``rowabsmax_pallas``). ``tugemm_int8`` launches the kernel for CUDA tensors
+and runs the plain version (``kernels/ref.py::matmul_int_ref``, with the
+plain ``unary_stats.colabsmax`` / ``rowabsmax``) for CPU tensors or under
 ``impl="torch"``; both are exact, so they agree bit for bit.
 """
 
@@ -21,6 +24,7 @@ from . import build
 from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
 from .ref import matmul_int_ref
 from .tugemm_fused import split_plan
+from .unary_stats import colabsmax, rowabsmax
 
 __all__ = ["tugemm_int8", "COUNT"]
 
@@ -33,25 +37,38 @@ def _load():
     if _lib is None:
         lib = build.load("tugemm_int8")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tugemm_int8_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.tugemm_int8_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.tugemm_int8_launch.restype = ci
         _lib = lib
     return _lib
 
 
 def tugemm_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None, *,
-                impl: str = "auto") -> torch.Tensor:
+                collect_stats: bool = False, impl: str = "auto"):
     """A (M, K) int8 · B (K, N) int8 [+ C (M, N) int32] -> (M, N) int32,
-    exact. Any M, N, K: the kernel masks its ragged edges.
+    exact. Any M, N, K: the kernel masks its ragged edges. With
+    ``collect_stats`` (M, N, K > 0), (y, ca (1, K), rb (K, 1)) int32:
+    ``ca[0, k] = max_m |A[m, k]|`` and ``rb[k, 0] = max_n |B[k, n]|``, the mainloop's
+    plane-major stats layout at one plane (``unary_stats.tugemm_stats``
+    assembles them).
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
     ``cuda`` insists on the kernel."""
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
+    # the maxima over an empty M or N have no value (the plain reduction and
+    # the reference's raise); the kernel would leave its zeroed buffer
+    check(not collect_stats or (a.numel() > 0 and b.numel() > 0),
+          lambda: f"tugemm_int8: stats of a {tuple(a.shape)} by b {tuple(b.shape)} need "
+                  "M, N, K > 0")
     if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
         COUNT.plain_calls += 1
-        return matmul_int_ref(a, b, c)
+        y = matmul_int_ref(a, b, c)
+        if not collect_stats:
+            return y
+        return (y, colabsmax(a, impl="torch").reshape(1, -1),
+                rowabsmax(b, impl="torch").reshape(-1, 1))
     check(a.device.type == "cuda",
           lambda: f"tugemm_int8: impl={impl!r} needs CUDA tensors")
     M, K = a.shape
@@ -66,10 +83,15 @@ def tugemm_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
         check(t is None or (t.device == a.device and t.is_contiguous()),
               "tugemm_int8: every operand must be contiguous on a's device")
     y = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    # ca then rb in one buffer: the launcher zeroes it (one memset), the
+    # kernel merges its maxima into it by atomicMax
+    stats = torch.empty(2 * K, dtype=torch.int32, device=a.device) if collect_stats else None
     if M > 0 and N > 0:
         plan = split_plan(M, N, K, 1, sm_count(a.device))
-        rc = _load().tugemm_int8_launch(ptr(a), ptr(b), ptr(c), ptr(y), M, N, K, *plan,
-                                        stream_ptr(a.device))
+        rc = _load().tugemm_int8_launch(ptr(a), ptr(b), ptr(c), ptr(y), ptr(stats), M, N, K,
+                                        int(collect_stats), *plan, stream_ptr(a.device))
         raise_on(rc, "tugemm_int8")
         COUNT.launches += 1
-    return y
+    if not collect_stats:
+        return y
+    return y, stats[:K].view(1, K), stats[K:].view(K, 1)

@@ -1,13 +1,16 @@
-"""tuGEMM cycle-statistics reductions: CUDA kernels + plain versions.
+"""tuGEMM cycle statistics: CUDA kernels + plain versions.
 
 Replaces ``repro/kernels/unary_stats.py::colabsmax_pallas`` and
-``::rowabsmax_pallas`` (the TPU kernels). The CUDA source is
-``csrc/unary_stats.cu``; its header says what bounds them on the card (one
-read of the operand: device-memory bytes, near the launch cost at serving
-sizes) and how the design answers that. ``colabsmax`` and ``rowabsmax``
-launch their kernels for CUDA tensors and run the plain versions
-(``kernels/ref.py::colabsmax_ref`` / ``rowabsmax_ref``) for CPU tensors or
-under ``impl="torch"``; the maxima are exact, so the two agree bit for bit.
+``::rowabsmax_pallas`` (the TPU kernels) and the assembly of their maxima
+into ``TuGemmStats``. The CUDA source is ``csrc/unary_stats.cu``; its header
+says what bounds them on the card (one read of the operands, less than a
+launch at serving sizes) and how the design answers that: a GEMM's maxima
+come out of the GEMM's own tiles and ``tugemm_stats`` assembles them in one
+launch; ``unary_step_stats`` takes both operands' maxima in one launch
+of the absmax kernel and assembles them in ``tugemm_stats``; ``colabsmax``
+and ``rowabsmax`` launch the absmax kernel on one operand. Each launches its kernel for CUDA tensors and runs its plain
+version (``kernels/ref.py``) for CPU tensors or under ``impl="torch"``;
+everything is integer, so the two agree bit for bit, dtypes included.
 """
 
 from __future__ import annotations
@@ -18,12 +21,18 @@ import torch
 
 from . import build
 from ._launch import KernelCount, check, ptr, raise_on, stream_ptr
-from .ref import colabsmax_ref, rowabsmax_ref
+from .ref import colabsmax_ref, finish_stats_ref, rowabsmax_ref
 
-__all__ = ["colabsmax", "rowabsmax", "COL_COUNT", "ROW_COUNT"]
+__all__ = ["colabsmax", "rowabsmax", "unary_step_stats", "tugemm_stats", "stats_fields", "HDR",
+           "COL_COUNT", "ROW_COUNT", "PAIR_COUNT", "FINISH_COUNT"]
 
 COL_COUNT = KernelCount("colabsmax")
 ROW_COUNT = KernelCount("rowabsmax")
+PAIR_COUNT = KernelCount("unary_step_stats")
+FINISH_COUNT = KernelCount("tugemm_stats")
+# csrc/unary_stats.cu: int32 words of a stats output before step_cycles
+# (serial_cycles as int64 in words 0-1, then parallel, max_abs, act_max)
+HDR = 6
 _lib = None
 
 
@@ -32,23 +41,35 @@ def _load():
     if _lib is None:
         lib = build.load("unary_stats")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.colabsmax_launch.argtypes = [vp, vp, ci, ci, vp]
-        lib.colabsmax_launch.restype = ci
-        lib.rowabsmax_launch.argtypes = [vp, vp, ci, ci, ci, vp]
-        lib.rowabsmax_launch.restype = ci
+        lib.absmax_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.absmax_launch.restype = ci
+        lib.tugemm_stats_launch.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        lib.tugemm_stats_launch.restype = ci
         _lib = lib
     return _lib
 
 
-def _plain(x: torch.Tensor, impl: str) -> bool:
+def _plain(x: torch.Tensor, impl: str, dtype: torch.dtype = torch.int8) -> bool:
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "torch" or (impl == "auto" and x.device.type == "cpu"):
         return True
     check(x.device.type == "cuda", f"unary_stats: impl={impl!r} needs a CUDA tensor")
-    check(x.dtype == torch.int8 and x.ndim == 2 and x.is_contiguous(),
-          f"unary_stats: needs a contiguous 2-D int8 tensor, got {x.dtype} {tuple(x.shape)}")
+    _operand(x, dtype)
     return False
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> None:
+    check(x.dtype == dtype and x.ndim == 2 and x.is_contiguous(),
+          lambda: f"unary_stats: needs a contiguous 2-D {dtype} tensor, "
+                  f"got {x.dtype} {tuple(x.shape)}")
+
+
+def stats_fields(out: torch.Tensor, K: int):
+    """The five TuGemmStats fields, as views of one kernel output (HDR + K
+    int32): step_cycles, serial_cycles (int64), parallel_cycles, max_abs,
+    act_max."""
+    return out[HDR:HDR + K], out[0:2].view(torch.int64)[0], out[2], out[3], out[4]
 
 
 def colabsmax(a: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -59,8 +80,8 @@ def colabsmax(a: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     M, K = a.shape
     out = torch.empty(K, dtype=torch.int32, device=a.device)
     if K > 0:
-        raise_on(_load().colabsmax_launch(ptr(a), ptr(out), M, K, stream_ptr(a.device)),
-                 "colabsmax")
+        raise_on(_load().absmax_launch(ptr(a), None, ptr(out), None, M, 0, K,
+                                       stream_ptr(a.device)), "colabsmax")
         COL_COUNT.launches += 1
     return out
 
@@ -73,8 +94,49 @@ def rowabsmax(b: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     K, N = b.shape
     out = torch.empty(K, dtype=torch.int32, device=b.device)
     if K > 0:
-        vec16 = int(N % 16 == 0 and b.data_ptr() % 16 == 0)
-        raise_on(_load().rowabsmax_launch(ptr(b), ptr(out), K, N, vec16,
-                                          stream_ptr(b.device)), "rowabsmax")
+        raise_on(_load().absmax_launch(None, ptr(b), None, ptr(out), 0, N, K,
+                                       stream_ptr(b.device)), "rowabsmax")
         ROW_COUNT.launches += 1
     return out
+
+
+def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"):
+    """The TuGemmStats fields of A (M, K) @ B (K, N), int8, M, N, K > 0, from
+    the operands: ``(step_cycles (K,) int32, serial_cycles int64,
+    parallel_cycles, max_abs, act_max int32)``. Two launches: both maxima,
+    then ``tugemm_stats``."""
+    check(a.ndim == b.ndim == 2 and a.shape[1] == b.shape[0] and a.numel() and b.numel(),
+          lambda: f"unary_step_stats: a {tuple(a.shape)}, b {tuple(b.shape)}: needs "
+                  "A (M, K) and B (K, N) with M, N, K > 0")
+    K = a.shape[1]
+    if _plain(a, impl):
+        PAIR_COUNT.plain_calls += 1
+        ca, rb = colabsmax(a, impl="torch"), rowabsmax(b, impl="torch")
+    else:
+        _operand(b, torch.int8)
+        check(b.device == a.device, "unary_step_stats: a and b must share a device")
+        ca, rb = torch.empty((2, K), dtype=torch.int32, device=a.device).unbind()
+        raise_on(_load().absmax_launch(ptr(a), ptr(b), ptr(ca), ptr(rb), a.shape[0],
+                                       b.shape[1], K, stream_ptr(a.device)), "unary_step_stats")
+        PAIR_COUNT.launches += 1
+    return tugemm_stats(ca.view(1, K), rb.view(K, 1), K, impl=impl)
+
+
+def tugemm_stats(ca: torch.Tensor, rb: torch.Tensor, K: int, *, impl: str = "auto"):
+    """The TuGemmStats fields of a GEMM from its plane-major maxima, ca
+    (planes, Kw) and rb (Kw, planes) int32 (``tugemm_fused`` /
+    ``tugemm_int8`` with stats), over the logical steps ``k = p·Kw + kk <
+    K``: as ``unary_step_stats`` returns them. One launch."""
+    if _plain(ca, impl, torch.int32):
+        FINISH_COUNT.plain_calls += 1
+        return finish_stats_ref(ca, rb, K)
+    _operand(rb, torch.int32)
+    planes, Kw = ca.shape
+    check(tuple(rb.shape) == (Kw, planes) and 0 < K <= planes * Kw
+          and rb.device == ca.device,
+          lambda: f"tugemm_stats: ca {tuple(ca.shape)}, rb {tuple(rb.shape)}, K={K}")
+    out = torch.empty(HDR + K, dtype=torch.int32, device=ca.device)
+    raise_on(_load().tugemm_stats_launch(ptr(ca), ptr(rb), Kw, planes, K, ptr(out),
+                                         stream_ptr(ca.device)), "tugemm_stats")
+    FINISH_COUNT.launches += 1
+    return stats_fields(out, K)

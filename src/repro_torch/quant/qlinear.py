@@ -18,9 +18,10 @@ pass that quantizes on load, accumulates exactly in int32, applies the
 dequant epilogue and bias, and — when stats are wanted — emits the tuGEMM
 cycle statistics from the same pass. ``GemmBackend(fused=False)`` (policy
 flag ``unfused``) keeps the legacy composition of separate passes — scales,
-quantize X and W, ``ops.matmul_int8`` or ``ops.matmul_packed``, the two
-absmax sweeps of ``ops.unary_step_stats``, the dequant epilogue — bit-exact
-against the fused path in outputs and stats.
+quantize X and W, ``ops.matmul_int8`` (with its stats when wanted: on the
+card they come out of the int8 GEMM's own launch plus one assembly launch)
+or ``ops.matmul_packed``, the dequant epilogue — bit-exact against the
+fused path in outputs and stats.
 """
 
 from __future__ import annotations
@@ -157,10 +158,10 @@ def gemm(
     wq = quantize(w, sw.reshape(1, -1), bits)
     ops.count_dispatch("quantize_x")
     ops.count_dispatch("quantize_w")
-    y_int = ops.matmul_int8(xq, wq, impl=path)
-    stats = None
-    if _want_stats(backend, return_stats):
-        stats = ops.unary_step_stats(xq, wq, impl=path)
+    want = _want_stats(backend, return_stats)
+    out = ops.matmul_int8(xq, wq, collect_stats=want, impl=path)
+    y_int, stats = out if want else (out, None)
+    if want:
         # the stats come from the int8 operands; the record carries x's shape
         _sink_stats(stats, x2, w.shape[1], backend, name, return_stats)
     y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)

@@ -23,7 +23,8 @@ def test_digest_follows_an_included_headers_bytes(tmp_path):
     after = {n: build._target(n, csrc) for n in build.SOURCES}
     users = {n for n in build.SOURCES
              if csrc / "hopper_common.cuh" in build._sources(csrc / f"{n}.cu", {})}
-    assert users == {"tugemm_fused", "tugemm_int8", "tugemm_packed", "temporal_unary"}
+    assert users == {"tugemm_fused", "tugemm_int8", "tugemm_packed", "temporal_unary",
+                     "unary_stats"}
     for n in build.SOURCES:
         assert (after[n] != before[n]) == (n in users), n
 

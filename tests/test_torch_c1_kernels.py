@@ -157,7 +157,7 @@ def test_dispatch_names_paths_and_plain_counts_match_reference():
     assert tlog == jlog == ["quantize_sym", "temporal_gemm"]
     assert tops.path_counts() == {"quantize_sym": {"torch": 1}, "temporal_gemm": {"torch": 1}}
     counts = tops.kernel_counts()
-    assert len(counts) == 8
+    assert len(counts) == 10
     assert counts["quantize_sym"] == {"launches": 0, "plain_calls": 1}
     assert counts["temporal_unary_gemm"] == {"launches": 0, "plain_calls": 1}
 

@@ -167,8 +167,9 @@ def test_raw_stats_vectors_exact(mode, bits):
 
 
 # ------------------------------------- the kernel's split-K cluster grid
+from repro_torch.core.tugemm import TuGemmStats  # noqa: E402
 from repro_torch.kernels.packing import unpack_plane  # noqa: E402
-from repro_torch.kernels.ref import _dequant_bias, _quant  # noqa: E402
+from repro_torch.kernels.ref import _dequant_bias, _quant, assemble_stats_ref  # noqa: E402
 from repro_torch.kernels.tugemm_fused import (BLOCK_RESERVED, BM, KC, MAX_RESIDENT,  # noqa: E402
                                               MAX_SPLITS, SM_SMEM, _smem, split_plan)
 
@@ -297,7 +298,8 @@ def test_split_emulation_matches_the_pallas_kernel(shape, sms, mode, bits, per_t
                                  out_dtype=out_dtype, sms=sms)
     assert split_plan(M, N, tw.shape[0], planes, sms)[1] > 1
     np.testing.assert_array_equal(np.asarray(jy.astype(jnp.float32)), y.float().numpy())
-    _assert_stats(jst, tops._assemble_stats(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K]))
+    _assert_stats(jst, TuGemmStats(*assemble_stats_ref(ca.reshape(-1)[:K],
+                                                       rb.t().reshape(-1)[:K])))
     from repro_torch.kernels.ref import fused_gemm_ref
 
     want = fused_gemm_ref(tx, tw, tsx, tsw, tb, bits=bits, w_mode=mode, collect_stats=True,

@@ -110,7 +110,7 @@ def test_plain_calls_are_counted_and_launches_are_not():
     counts = tops.kernel_counts()
     assert set(counts) == {"tugemm_fused", "flash_paged_decode", "tugemm_int8",
                            "tugemm_packed", "colabsmax", "rowabsmax", "quantize_sym",
-                           "temporal_unary_gemm"}
+                           "temporal_unary_gemm", "tugemm_stats", "unary_step_stats"}
     for name in ("tugemm_int8", "tugemm_packed", "colabsmax", "rowabsmax"):
         assert counts[name] == {"launches": 0, "plain_calls": 1}, name
 
