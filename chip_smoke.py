@@ -41,7 +41,10 @@ Phases, each printing one JSON line:
    fused-prequant serve's token for token (the two paths are bit-exact).
 7. check_c1 — the C1 validation path's kernels (``quantize_sym``,
    ``temporal_unary_gemm``) against their plain versions, exactly, on the
-   layer-0 weights and activations of qwen3-0.6b at full width.
+   layer-0 weights and activations of qwen3-0.6b at full width;
+   ``quantize_sym`` also on a ragged x and on x off 16-byte alignment, and
+   through ``ops.quantize_sym`` with each scale form (a float, 0-d, (N,),
+   (1, N)) against that op's plain route.
 8. c1_validation — the paper's C1 conformance, exactly: the gate-level
    simulator, ``core.tugemm``, the temporal kernel, the int8 kernel with its
    own stats and the fused kernel's stats agree on outputs, per-step
@@ -57,7 +60,9 @@ Phases, each printing one JSON line:
    int8 GEMM, attention and temporal-GEMM case checked above, of the
    unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
    (and of the compositions they replace), of the C1 path's
-   serve-policy ``quantize_sym`` cases, and of each one's library
+   serve-policy ``quantize_sym`` operands (through ``ops.quantize_sym`` as
+   ``c1_operands`` calls it: one device operation a call), its ragged and
+   misaligned cases, and of each one's library
    yardstick, read from ``torch.profiler`` last, so that the
    profiler runs during no other timed phase; where the profiler loses
    device events, all of them are read by CUDA events, and each record's
@@ -175,7 +180,7 @@ def device_times(torch) -> None:
             "kernel", "case", "M", "K", "N", "Kp", "bits", "w_mode", "per_token", "bias", "x_dtype",
             "bn", "blocks", "splits", "chunks", "stats", "ms", "device_ms", "device_ms_source",
             "device_launches", "library_ms", "library_device_ms", "bound_ms", "bound_share",
-            "bound_by", "device_kernels")},
+            "bound_by", "scale_form", "device_kernels")},
             **{k: v for n in others for k, v in rec.items() if k.startswith(n + "_")}})
     del flush
 
@@ -902,6 +907,7 @@ def c1_operands(torch, params, bits_of=None, M: int = 64) -> list:
 def check_c1(torch, flush, params):
     """``quantize_sym`` and ``temporal_unary_gemm`` against their plain
     versions, exactly, at the C1 path's full-width shapes."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.quantize import quantize_sym
     from repro_torch.kernels.temporal_unary import temporal_unary_gemm
     from repro_torch.kernels.tugemm_int8 import tugemm_int8
@@ -909,16 +915,16 @@ def check_c1(torch, flush, params):
 
     records = []
 
-    def run(kernel, case, fn, plain, lib_ms, byts, ops, rate, **extra):
+    def run(kernel, case, fn, plain, lib_ms, byts, n_ops, rate, **extra):
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        exact = torch.equal(got, want)
+        exact = got.dtype == want.dtype and torch.equal(got, want)
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
-        tb, to = byts / HBM_BYTES_PER_S, ops / rate
+        tb, to = byts / HBM_BYTES_PER_S, n_ops / rate
         rec = dict(kernel=kernel, case=case, **extra, exact=exact, max_abs_err=err,
                    ms=median_ms(torch, fn, flush=flush),
                    plain_ms=median_ms(torch, plain, flush=flush), library_ms=lib_ms,
-                   bytes=byts, ops=ops, bound_ms=max(tb, to) * 1e3,
+                   bytes=byts, ops=n_ops, bound_ms=max(tb, to) * 1e3,
                    bound_by="bytes" if tb >= to else "operations")
         emit({"phase": "check_c1", **rec})
         if not exact or err > C1_TOL:
@@ -926,30 +932,76 @@ def check_c1(torch, flush, params):
         records.append(rec)
 
     # quantize_sym: no single PyTorch call computes clip(round(x * inv)) as
-    # int8, so its library time is null; the device time of the serve
-    # policy's operands (bf16, each GEMM's bits) is read by the last phase
+    # int8, so its library time is null. The kernel takes the scale as
+    # given (its reciprocal in the launch), held against the plain version
+    # given inv = 1/scale in f32; a bound counts x, q and the scale as given
+    # (4 bytes per tensor or per number, 4N per column). The last phase
+    # reads the device time of the serve policy's 14 operands (bf16, each
+    # GEMM's bits) through ops.quantize_sym as c1_operands calls it, and of
+    # the ragged and misaligned cases
     bits_of = {n: bits for n, _, _, bits in LAYER_GEMMS}
     ws = layer0_weights(params)
     inputs = [(f"{n}.weight", ws[n], True) for n, *_ in LAYER_GEMMS]
     inputs += [(f"{n}.act", layer0_activations(torch, ws[n].shape[0]), False)
                for n, *_ in LAYER_GEMMS]
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    inputs.append(("ragged", torch.randn(37, 333, device=DEVICE, generator=gen) * 3, False))
+    ragged = torch.randn(37, 333, device=DEVICE, generator=gen) * 3
+    inputs.append(("ragged", ragged, False))
+
+    def misaligned(x0, dt):
+        """x0 as dt, one element into an odd-sized buffer: its data pointer
+        is off 16-byte alignment."""
+        buf = torch.empty(x0.numel() + 1, dtype=dt, device=DEVICE)
+        x = buf[1:].view(x0.shape)
+        x.copy_(x0)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+        return x
+
+    def quant(case, x, scale, bits, form, via=quantize_sym, timed=False, serve=False):
+        M, N = x.shape
+        s_bytes = 4 if form == "float" else nbytes(scale)
+        call = lambda: via(x, scale, bitwidth=bits, impl="cuda")
+        run("quantize_sym", case, call, lambda: via(x, scale, bitwidth=bits, impl="torch"),
+            None, nbytes(x) + s_bytes + M * N, M * N, F32_FLOPS_PER_S, M=M, N=N, bits=bits,
+            dtype=str(x.dtype).split(".")[-1], scale_form=form, scale_bytes=s_bytes,
+            via=via.__module__.rsplit(".", 1)[-1] + ".quantize_sym", serve=serve)
+        if timed:
+            DEVICE_TIMED.append((records[-1], call, None))
+
+    def scale_of(x, bits, per_col):
+        s = compute_scale(x, bits, axis=1 if per_col else None)
+        return s, "(N,)" if per_col else "0-d"
+
+    # the kernel wrapper: every operand in bf16 and f32 at 2, 4 and 8 bits,
+    # the scale as c1_operands gives it (0-d per tensor, (N,) per column)
     for case, x0, per_col in inputs:
         for dt in (torch.bfloat16, torch.float32):
             x = x0.to(dt).contiguous()
-            M, N = x.shape
             for bits in (2, 4, 8):
-                s = compute_scale(x, bits, axis=1 if per_col else None)
-                inv = (1.0 / s.to(torch.float32)).reshape(1, -1).expand(1, N).contiguous()
-                call = lambda x=x, inv=inv, bits=bits: quantize_sym(x, inv, bitwidth=bits,
-                                                                    impl="cuda")
-                run("quantize_sym", case, call,
-                    lambda: quantize_sym(x, inv, bitwidth=bits, impl="torch"), None,
-                    nbytes(x, inv) + M * N, M * N, F32_FLOPS_PER_S, M=M, N=N, bits=bits,
-                    dtype=str(dt).split(".")[-1], scale="column" if per_col else "tensor")
-                if dt == torch.bfloat16 and bits == bits_of.get(case.rsplit(".", 1)[0]):
-                    DEVICE_TIMED.append((records[-1], call, None))
+                s, form = scale_of(x, bits, per_col)
+                quant(case, x, s, bits, form, timed=case == "ragged" and bits == 8)
+    for case, x0 in (("misaligned attn.q.weight", ws["attn.q"]), ("misaligned ragged", ragged)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = misaligned(x0, dt)
+            for per_col in (True, False):
+                s, form = scale_of(x, 8, per_col)
+                quant(case, x, s, 8, form, timed=dt == torch.bfloat16 and per_col)
+
+    # ops.quantize_sym with each scale form on every serve operand in bf16
+    # at its GEMM's bits, and on the ragged x per tensor and per column; the
+    # form c1_operands passes (0-d, (N,)) is the serve operand's timed call
+    for case, x0, per_col in inputs:
+        bits = bits_of.get(case.rsplit(".", 1)[0], 8)
+        x = x0.to(torch.bfloat16).contiguous()
+        s = compute_scale(x, bits, axis=1 if per_col else None)
+        forms = [("(N,)", s), ("(1, N)", s.reshape(1, -1))] if per_col else \
+            [("0-d", s), ("float", s.item())]
+        if case == "ragged":
+            sc = compute_scale(x, bits, axis=1)
+            forms += [("(N,)", sc), ("(1, N)", sc.reshape(1, -1))]
+        for i, (form, scale) in enumerate(forms):
+            first = i == 0 and case != "ragged"
+            quant(case, x, scale, bits, form, via=ops.quantize_sym, timed=first, serve=first)
 
     def temporal(case, a, b, bits):
         from repro_torch.kernels.temporal_unary import BM, BN, split_plan
@@ -1491,16 +1543,19 @@ def main() -> int:
     # weights per column, 7 activations per tensor, bf16, at the serve policy's
     # bits) and its 7 temporal GEMMs at M=64
     bits_of = {n: bits for n, _, _, bits in LAYER_GEMMS}
-    q_rows = [r for r in c1 if r["kernel"] == "quantize_sym" and r["dtype"] == "bfloat16"
-              and any(r["case"] == f"{n}.weight" and r["bits"] == bits_of[n] for n in bits_of)]
-    q_rows += [r for r in c1 if r["kernel"] == "quantize_sym" and r["dtype"] == "bfloat16"
-               and any(r["case"] == f"{n}.act" and r["bits"] == bits_of[n] for n in bits_of)]
+    q_rows = [r for r in c1 if r["kernel"] == "quantize_sym" and r["serve"]]
     t_rows = [next(r for r in c1 if r["case"] == f"{n} serve") for n, *_ in LAYER_GEMMS]
+    q_launches = [r["device_launches"] for r in q_rows]   # None from CUDA events
+    if any(n is not None and n != 1 for n in q_launches):
+        raise AssertionError(f"ops.quantize_sym is not one device operation a call: "
+                             f"{q_launches}")
     for name, rows, src, rep, lib, shape in (
             ("quantize_sym", q_rows, "quantize_sym.cu", "src/repro/kernels/quantize.py:28", None,
-             "one qwen3-0.6b layer's 14 operand quantizations (7 weights per column, 7 "
-             "activations (64, K) per tensor), bf16, at the bits of " + POLICY
-             + "; no single PyTorch call computes it (library_ms null)"),
+             "one qwen3-0.6b layer's 14 operand quantizations through ops.quantize_sym as "
+             "c1_operands calls it (7 weights per column, (N,) scale; 7 activations (64, K) "
+             "per tensor, 0-d scale), bf16, at the bits of " + POLICY + "; bound: x, q and "
+             "the scale as given (4N bytes per column, 4 per tensor); no single PyTorch call "
+             "computes it (library_ms null)"),
             ("temporal_unary_gemm", t_rows, "temporal_unary.cu",
              "src/repro/kernels/temporal_unary.py:54",
              sum(r["library_ms"] for r in t_rows),

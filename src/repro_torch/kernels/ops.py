@@ -172,18 +172,16 @@ def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
 
 def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -> torch.Tensor:
     """Symmetric quantization of x (M, N) by a per-tensor or per-column
-    scale: ``clip(round(x · (1/scale)))`` with the reciprocal taken in f32
-    and broadcast to (1, N), as the reference does."""
+    scale (a number, or a tensor of 1 or N values in any shape):
+    ``clip(round(x · (1/scale)))`` with the reciprocal taken in f32, as the
+    reference does. On the card the call is one launch: the scale goes to
+    the kernel as given (a number as its f32 reciprocal, taken on the host)."""
     count_dispatch("quantize_sym")
     path = resolve_path(impl, x)
     record_path("quantize_sym", path)
-    N = x.shape[1]
-    inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    if inv.ndim <= 1 or tuple(inv.shape) != (1, N):
-        inv = inv.reshape(1, -1).expand(1, N)
     if path == "cuda":
         x = x.contiguous()
-    return _quantize.quantize_sym(x, inv.contiguous(), bitwidth=bitwidth, impl=path)
+    return _quantize.quantize_sym(x, scale, bitwidth=bitwidth, impl=path)
 
 
 def matmul_fused(

@@ -15,7 +15,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import temporal_unary_gemm_ref
+from repro_torch.kernels.quantize import quantize_sym as quantize_kernel
+from repro_torch.kernels.ref import quantize_sym_ref, temporal_unary_gemm_ref
 
 torch.set_float32_matmul_precision("highest")
 IMPLS = ["xla", "pallas_interpret"]
@@ -140,6 +141,47 @@ def test_quantize_sym_scale_shapes_match_reference(scale_shape):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     got_f = tops.quantize_sym(torch.from_numpy(x), 0.25, bitwidth=4)
     np.testing.assert_array_equal(got_f.numpy(), got.numpy())
+    got_k = quantize_kernel(torch.from_numpy(x), torch.from_numpy(scale), bitwidth=4)
+    np.testing.assert_array_equal(got_k.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("form", ["float", "0-d", "(N,)", "(1, N)"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_sym_scale_forms_match_reference(form, dtype):
+    """The four forms ``ops.quantize_sym`` hands to the kernel as they are:
+    a Python float and a 0-d tensor per tensor, (N,) and (1, N) per column
+    (values near the smallest scale ``amax_to_scale`` gives included); each
+    gives the reference's codes, and the kernel wrapper given the scale as
+    it is equals the plain version given inv = 1/scale in f32."""
+    rng = np.random.default_rng(13)
+    M, N = 9, 37
+    x = rng.normal(0, 2.0, (M, N)).astype(np.float32)
+    per_col = (rng.uniform(0.01, 2.0, N) * rng.choice([1.0, 1e-8 / 127], N)).astype(np.float32)
+    scale = {"float": 0.37, "0-d": np.float32(0.37), "(N,)": per_col,
+             "(1, N)": per_col.reshape(1, N)}[form]
+    xt = torch.from_numpy(x).to(dtype)
+    want = jops.quantize_sym(jnp.asarray(xt.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
+        jnp.asarray(scale), bitwidth=8, impl="xla")
+    arg = scale if form == "float" else torch.from_numpy(np.asarray(scale))
+    got = tops.quantize_sym(xt, arg, bitwidth=8)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    inv = (1.0 / torch.as_tensor(np.asarray(scale, np.float32))).reshape(1, -1)
+    np.testing.assert_array_equal(quantize_sym_ref(xt, inv, 8).numpy(), got.numpy())
+    np.testing.assert_array_equal(quantize_kernel(xt, arg, bitwidth=8).numpy(), got.numpy())
+
+
+def test_quantize_sym_wrapper_takes_one_scale_form():
+    """The kernel wrapper takes the scale as given, and only one of 1 or N
+    values: not its reciprocal under another name, nor another width."""
+    x = torch.zeros((2, 3))
+    with pytest.raises(TypeError):
+        quantize_kernel(x, inv_scale=torch.ones((1, 3)), bitwidth=4)
+    for bad in (torch.ones(2), torch.ones((2, 3)), np.ones(4, np.float32)):
+        with pytest.raises(ValueError, match="neither per tensor nor per column"):
+            quantize_kernel(x, bad, bitwidth=4)
+        with pytest.raises(ValueError, match="neither per tensor nor per column"):
+            tops.quantize_sym(x, bad, bitwidth=4)
 
 
 # ---------------------------------------------------------- paths and counts
