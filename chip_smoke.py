@@ -28,6 +28,14 @@ Phases, each printing one JSON line:
    operations a call are read by the last phase beside the composition
    they replace (the GEMM, then ``colabsmax``, ``rowabsmax`` and the eight
    PyTorch ops of ``kernels/ref.py::assemble_stats_ref``).
+3c. check_moe_gemm — the fused GEMM's expert axis: ``ops.matmul_fused``
+   with stats over deepseek-v2-lite's 64 experts at M=16 (gate/up
+   2048->1408, down 1408->2048; int2 quantized on load and packed), bit for
+   bit against its plain version, one GEMM launch and one ``tugemm_stats``
+   launch a call (asserted; the last phase asserts 3 device operations,
+   the memset included), ``torch.bmm`` on the bf16 operands as the
+   library; then the model's 2-D GEMMs of widths the dense path never ran
+   (N=576, K=10944, 2816) at M=64 and 4.
 4. step parity — one prefill tick and one decode tick of the mixed step at
    full width through the kernels and through the plain versions.
 5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
@@ -56,6 +64,16 @@ Phases, each printing one JSON line:
    exact ``tugemm``, the simulator, PPA, and a ``*=int8:stats`` forward on
    the kernels with its energy report; the forward's cycle totals through
    the plain versions are printed beside them.
+9b. the MLA + MoE slice on deepseek-v2-lite at full width (27 layers, or the
+   printed ``MOE_LAYERS`` cut; bf16 weights drawn on the card from a CUDA
+   generator seeded 0): ``step_parity_moe`` (kernels against the plain
+   GEMM and stats versions with attention on its kernel: logits and every
+   MoE layer's router choices identical; against all plain versions, read
+   only), then ``serve_moe`` (``mla.*=int8,moe.*=int2,mlp.*=int2,*=bf16``)
+   and ``serve_moe_prequant`` (after ``apply_surgery``, the experts from
+   packed int2 planes): the same 8 requests, only the fused GEMM, the
+   stats assembly and attention launching, every call site on the cuda
+   route; tokens/s, tick ms, launches and MoE drops a tick.
 10. device_time — the device time and device launches of each fused GEMM,
    int8 GEMM, attention and temporal-GEMM case checked above, of the
    unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
@@ -90,6 +108,12 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 ARCH = "qwen3-0.6b"
 DEVICE = "cuda"
+# the MLA + MoE slice: deepseek-v2-lite at full width, all 27 layers (a cut,
+# never below 4, is printed on its phases' lines as "layers")
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_LAYERS = None
+MOE_POLICY = "mla.*=int8,moe.*=int2,mlp.*=int2,*=bf16"
+MOE_PREQUANT_POLICY = "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16"
 POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
 # offline-packed int2 MLPs served by the fused kernel, and by the legacy
 # unfused pipeline (int8 attention quantized per call, packed MLP GEMMs)
@@ -312,7 +336,7 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------ kernel checks
-def gemm_grid(M: int, N: int, Kw: int, planes: int, xbytes: int = 1) -> dict:
+def gemm_grid(M: int, N: int, Kw: int, planes: int, xbytes: int = 1, experts: int = 1) -> dict:
     """The grid of the GEMM kernels on the split-K mainloop (fused, int8 and
     packed) at a call's shapes: tile width, K splits (the cluster size) and
     blocks, from ``split_plan``."""
@@ -321,8 +345,9 @@ def gemm_grid(M: int, N: int, Kw: int, planes: int, xbytes: int = 1) -> dict:
     from repro_torch.kernels.tugemm_fused import BM, split_plan
 
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
-    bn, splits, chunks = split_plan(M, N, Kw, planes, sms, xbytes)
-    return dict(bn=bn, splits=splits, chunks=chunks, blocks=splits * -(-N // bn) * -(-M // BM))
+    bn, splits, chunks = split_plan(M, N, Kw, planes, sms, xbytes, experts)
+    return dict(bn=bn, splits=splits, chunks=chunks,
+                blocks=splits * -(-N // bn) * experts * -(-M // BM))
 
 
 def lib_int_mm(torch, a, b):
@@ -511,6 +536,7 @@ def check_attention(torch, flush):
     gqa = dict(kv=8, group=2, part_dims=(128,), hdv=128, bs=16, MB=128)
     mla = dict(kv=1, group=16, part_dims=(512, 64), hdv=512, bs=16, MB=128, alias_v=True)
     serve = dict(gqa, MB=16)   # the serve phase's pool: capacity 256 in pages of 16
+    mla_serve = dict(mla, MB=16)
     # (pos, lens) per row: a long decode to 2048 tokens, a mid one, an idle
     # row (lens 0, kv_len 0: must emit exact zeros), a short one
     dec = [(2047, 1), (1000, 1), (0, 0), (16, 1)]
@@ -530,6 +556,12 @@ def check_attention(torch, flush):
         ("mla_step16_int8", mla, pre, 16, i8, bf16, None),
         # the serve phase's own shape: 4 rows, a 16-wide step, 16 pages a row
         ("gqa_serve_step16_int8", serve, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, i8, bf16,
+         None),
+        # the MoE serve's MLA shapes: its mixed ticks (16 wide) and its
+        # decode-only ticks (1 wide)
+        ("mla_serve_step16_int8", mla_serve, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, i8,
+         bf16, None),
+        ("mla_serve_decode_int8", mla_serve, [(200, 1), (143, 1), (0, 0), (60, 1)], 1, i8, bf16,
          None),
         ("gqa_decode_split_edges_int8", gqa, edges, 1, i8, bf16, None),
         # a window that leaves every split but the last one or two empty
@@ -872,6 +904,96 @@ def check_stats(torch, flush):
     return records
 
 
+# (name, K, N, bits) of deepseek-v2-lite's GEMMs under MOE_POLICY that the
+# dense path never ran: ragged N (dkv 576), K % 128 = 64 (the dense layer's
+# down, 10944), and the shared experts' width 2816
+DS_GEMMS = [("mla.q", 2048, 3072, 8), ("mla.dkv", 2048, 576, 8), ("mla.o", 2048, 2048, 8),
+            ("mlp.gate/up", 2048, 10944, 2), ("mlp.down", 10944, 2048, 2),
+            ("moe.shared.gate/up", 2048, 2816, 2), ("moe.shared.down", 2816, 2048, 2)]
+# (name, K, N) of one MoE layer's expert GEMMs: 64 experts, M = 4 rows x cap 4
+MOE_EXPERTS, MOE_M = 64, 16
+MOE_GEMMS = [("moe.gate/up", 2048, 1408), ("moe.down", 1408, 2048)]
+
+
+def check_moe_gemm(torch, flush):
+    """The expert axis of ``tugemm_fused``: ``ops.matmul_fused`` with stats
+    over all 64 experts of deepseek-v2-lite at M=16 (4 rows x capacity 4),
+    gate/up 2048->1408 and down 1408->2048, int2 quantized on load (the
+    fused dynamic policy) and from packed planes (prequant), held to its
+    plain version bit for bit (y and every TuGemmStats field, each with a
+    leading (64,) axis). Some experts get no token and every expert has
+    empty slots, as the dispatch leaves them. One call is one GEMM launch
+    and one ``tugemm_stats`` launch (the counters; the last phase reads 3
+    device operations, the memset included, and raises otherwise). Library:
+    ``torch.bmm`` on the bf16 operands. Then the model's 2-D GEMMs whose
+    widths the dense path never ran (M=64 and 4), bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.unary_stats import HDR
+    from repro_torch.quant.quantize import act_scale, fused_scales
+    from repro_torch.quant.surgery import _prequant_leaf
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+    E, M = MOE_EXPERTS, MOE_M
+    records = []
+
+    def run(case, x, w, sx, sw, bits, packed, lib_call, **extra):
+        call = lambda impl="cuda": ops.matmul_fused(
+            x, w, sx=sx, sw=sw, bits=bits, w_quantized=packed, collect_stats=True,
+            out_dtype=bf16, impl=impl, name="check_moe")
+        before = ops.kernel_counts()
+        got = call()
+        after = ops.kernel_counts()
+        want = call("torch")
+        torch.cuda.synchronize()
+        launches = {k: after[k]["launches"] - before[k]["launches"] for k in after}
+        exact, err = _exact(got, want)
+        lead = x.shape[:-2]
+        Mx, K = x.shape[-2:]
+        N = sw.shape[-1]
+        n_e = lead[0] if lead else 1
+        byts = nbytes(x, w, sx, sw, got[0]) + 4 * n_e * (2 * K + HDR + K)   # ca, rb, stats
+        rec = dict(kernel="tugemm_fused", case=case, experts=n_e, M=Mx, K=K, N=N, bits=bits,
+                   w_mode="packed" if packed else "quant", stats=True, **extra,
+                   **gemm_grid(Mx, N, w.shape[-2], 4 if packed else 1, 2, n_e),
+                   exact=exact, max_abs_err=err, launches_a_call=launches,
+                   ms=median_ms(torch, call, flush=flush),
+                   plain_ms=median_ms(torch, lambda: call("torch"), flush=flush),
+                   library_ms=None if lib_call is None else median_ms(torch, lib_call,
+                                                                     flush=flush),
+                   **_bound(byts, 2 * n_e * Mx * K * N))
+        emit({"phase": "check_moe_gemm", **rec})
+        if not exact:
+            raise AssertionError(f"tugemm_fused over experts disagrees with its plain "
+                                 f"version: {rec}")
+        ran = {k: n for k, n in launches.items() if n}
+        if ran != {"tugemm_fused": 1, "tugemm_stats": 1}:
+            raise AssertionError(f"matmul_fused with stats is not one GEMM launch and one "
+                                 f"tugemm_stats launch: {rec}")
+        records.append(rec)
+        DEVICE_TIMED.append((rec, call, lib_call))
+
+    for name, K, N in MOE_GEMMS:
+        x = torch.randn(E, M, K, device=dev, generator=gen).to(bf16)
+        x[:, 12:] = 0                     # every expert's empty slots
+        x[::7] = 0                        # experts that received no token
+        wf = (torch.randn(E, K, N, device=dev, generator=gen) * 0.02).to(bf16)
+        lib = lambda x=x, wf=wf: torch.bmm(x, wf)
+        sx, sw = fused_scales(x, wf, 2)
+        run(f"{name} dynamic", x, wf, sx, sw, 2, False, lib)
+        leaf = _prequant_leaf(wf, 2)
+        run(f"{name} packed", x, leaf["qkernel"], act_scale(x, 2), leaf["qscale"], 2,
+            True, lib)
+    for M2 in (64, 4):
+        for name, K, N, bits in DS_GEMMS:
+            x = torch.randn(M2, K, device=dev, generator=gen).to(bf16)
+            wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
+            sx, sw = fused_scales(x, wf, bits)
+            run(f"{name} dynamic", x, wf, sx, sw, bits, False, None)
+    return records
+
+
 # ------------------------------------------------------------ the C1 path
 def layer0_weights(params) -> dict:
     """{GEMM name: layer 0's (K, N) weight} of the model's first group."""
@@ -1208,6 +1330,25 @@ def model_setup(torch):
     return cfg, rc, params, time.perf_counter() - t0
 
 
+def model_setup_moe(torch):
+    """deepseek-v2-lite at full width (``MOE_LAYERS`` layers, 27 uncut), bf16
+    weights drawn on the card from a CUDA ``torch.Generator`` seeded 0, under
+    the fused dynamic MoE policy."""
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.models import init
+
+    cfg = get_config(MOE_ARCH)
+    if MOE_LAYERS is not None:
+        cfg = cfg.replace(num_layers=MOE_LAYERS)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=MOE_POLICY,
+                   kv_cache_dtype="int8", kv_layout="paged", block_size=16,
+                   prefill_chunk=16)
+    t0 = time.perf_counter()
+    params = init(cfg, rc, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    return cfg, rc, params, time.perf_counter() - t0
+
+
 def surgered(cfg, rc, params, policy: str):
     """The RunConfig under ``policy`` and the params after its surgery
     (prequant leaves packed offline; the float tree is left as it is)."""
@@ -1219,8 +1360,13 @@ def surgered(cfg, rc, params, policy: str):
     return rc, apply_surgery(cfg, rc, params)
 
 
-def step_parity(torch, cfg, rc, params, phase: str = "step_parity"):
-    from repro_torch.models import init_caches
+def _mixed_ticks(torch, cfg, rc, params, impl: str, forced: list | None = None):
+    """One prefill tick (rows of 16, 16, 9 and 0 tokens) and one decode tick
+    of the mixed step through ``impl``; ``forced`` routes each MoE call by
+    another run's expert choices (``moe.routing``). Returns (prefill logits,
+    decode logits, live rows, each MoE call's top-k expert ids in call
+    order)."""
+    from repro_torch.models import init_caches, moe
     from repro_torch.serve.cache import BlockManager
     from repro_torch.serve.scheduler import build_mixed_step
 
@@ -1233,32 +1379,105 @@ def step_parity(torch, cfg, rc, params, phase: str = "step_parity"):
     for b in range(B):
         mgr.extend(b, int(lens[b]) + 1)          # room for the decode tick too
     tables = torch.from_numpy(mgr.tables.copy()).to(dev)
-    out = {}
-    for impl in ("cuda", "torch"):
+    with moe.routing(forced) as routed:
         caches = init_caches(cfg, rc, B, cap, num_pages=mgr.num_pages, device=dev)
         step = build_mixed_step(cfg, rc, with_stats=True, impl=impl)
         pos = torch.zeros(B, dtype=torch.int32)
-        caches, l1, cap1 = step(params, caches, tokens.to(dev), pos.to(dev), lens.to(dev), tables)
+        caches, l1, _ = step(params, caches, tokens.to(dev), pos.to(dev), lens.to(dev), tables)
         dec = torch.zeros((B, 1), dtype=torch.int32)
         dec[:, 0] = torch.tensor([11, 22, 33, 0])
         dlens = (lens > 0).to(torch.int32)
-        caches, l2, cap2 = step(params, caches, dec.to(dev), lens.to(dev), dlens.to(dev), tables)
-        out[impl] = (l1.float(), l2.float())
-    rec = {"phase": phase, "policy": rc.quant_policy, "tol_rel_l2": STEP_REL_TOL}
-    for t, name in enumerate(("prefill", "decode")):
-        a, b = out["cuda"][t], out["torch"][t]
-        live = (lens > 0).nonzero().flatten().tolist()
-        a, b = a[live], b[live]
-        if not (torch.isfinite(a).all() and a.shape == (len(live), cfg.vocab_size)):
+        caches, l2, _ = step(params, caches, dec.to(dev), lens.to(dev), dlens.to(dev), tables)
+    live = (lens > 0).nonzero().flatten().tolist()
+    return l1.float()[live], l2.float()[live], live, routed
+
+
+def _logit_parity(cfg, got, want, rec: dict, prefix: str = "") -> None:
+    """rel L2, max abs and argmax agreement of two paths' (prefill, decode)
+    logits into ``rec``; raises unless ``got`` is finite of shape (rows, vocab)."""
+    for name, a, b in (("prefill", got[0], want[0]), ("decode", got[1], want[1])):
+        if not (a.isfinite().all() and a.shape == (len(got[2]), cfg.vocab_size)):
             raise AssertionError(f"{name} logits are not finite of shape (rows, vocab)")
-        rel = ((a - b).norm() / b.norm()).item()
-        rec[f"{name}_rel_l2"] = rel
-        rec[f"{name}_max_abs"] = (a - b).abs().max().item()
-        rec[f"{name}_argmax_agree"] = int((a.argmax(-1) == b.argmax(-1)).sum())
-        rec[f"{name}_rows"] = len(live)
+        rec[f"{prefix}{name}_rel_l2"] = ((a - b).norm() / b.norm()).item()
+        rec[f"{prefix}{name}_max_abs"] = (a - b).abs().max().item()
+        rec[f"{prefix}{name}_argmax_agree"] = int((a.argmax(-1) == b.argmax(-1)).sum())
+        rec[f"{prefix}{name}_rows"] = len(got[2])
+
+
+def step_parity(torch, cfg, rc, params, phase: str = "step_parity"):
+    """One prefill and one decode tick through the kernels and through the
+    plain versions, logits within ``STEP_REL_TOL`` relative L2."""
+    got = _mixed_ticks(torch, cfg, rc, params, "cuda")
+    want = _mixed_ticks(torch, cfg, rc, params, "torch")
+    rec = {"phase": phase, "policy": rc.quant_policy, "tol_rel_l2": STEP_REL_TOL,
+           "layers": cfg.num_layers}
+    _logit_parity(cfg, got, want, rec)
     emit(rec)
     if rec["prefill_rel_l2"] > STEP_REL_TOL or rec["decode_rel_l2"] > STEP_REL_TOL:
         raise AssertionError(f"mixed step: kernels vs plain versions beyond tolerance: {rec}")
+
+
+def _pinned(rc, impl: str):
+    """``rc`` with every quantized rule of its policy pinned to ``impl``
+    (a rule's own impl overrides the step's)."""
+    import dataclasses
+
+    rules = [r if r.endswith("=bf16") else f"{r}:{impl}" for r in rc.quant_policy.split(",")]
+    return dataclasses.replace(rc, quant_policy=",".join(rules))
+
+
+def step_parity_moe(torch, cfg, rc, params, phase: str = "step_parity_moe"):
+    """The MoE model's mixed step through the kernels, held against the
+    plain versions in two gated parts that together cover every kernel of
+    the step: (a) every GEMM and stats kernel's plain version with attention
+    on its kernel (its rules pinned to ``torch``): router choices identical
+    and logits within ``STEP_REL_TOL`` (the fused GEMMs hold their plain
+    versions bit for bit, so both are exact); (b) under ``*=bf16`` (no
+    quantized GEMM), attention's kernel against its plain version at full
+    depth, the plain run routed by the kernel run's expert choices
+    (``moe.routing``): logits within ``STEP_REL_TOL``. The policy's all-plain
+    step, routed by the kernel run's choices and freely, is printed only:
+    its int2 GEMMs turn attention's one-ulp summation-order differences into
+    a 14-58% logit distance at 27 layers, as far as random one-ulp nudges of
+    the plain attention do (``scripts/moe_parity_probe.py``)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    got = _mixed_ticks(torch, cfg, rc, params, "cuda")
+    ops.reset_counts()
+    want = _mixed_ticks(torch, cfg, _pinned(rc, "torch"), params, "cuda")
+    pinned_paths = ops.path_counts()
+    rc16 = dataclasses.replace(rc, quant_policy="*=bf16")
+    got16 = _mixed_ticks(torch, cfg, rc16, params, "cuda")
+    ops.reset_counts()
+    plain16 = _mixed_ticks(torch, cfg, rc16, params, "torch", forced=got16[3])
+    forced = _mixed_ticks(torch, cfg, rc, params, "torch", forced=got[3])
+    plain_paths = ops.path_counts()
+    free = _mixed_ticks(torch, cfg, rc, params, "torch")
+    rec = {"phase": phase, "policy": rc.quant_policy, "tol_rel_l2": STEP_REL_TOL,
+           "layers": cfg.num_layers, "router_calls": len(got[3]),
+           "router_identical": len(got[3]) == len(want[3]) and all(
+               torch.equal(a, b) for a, b in zip(got[3], want[3]))}
+    _logit_parity(cfg, got, want, rec)
+    _logit_parity(cfg, got16, plain16, rec, "bf16_attention_")
+    _logit_parity(cfg, got, forced, rec, "all_plain_forced_")
+    _logit_parity(cfg, got, free, rec, "all_plain_free_")
+    rec["pinned_paths"], rec["plain_paths"] = pinned_paths, plain_paths
+    rec["all_plain_free_router_tokens_same_choices"] = [
+        int((a == b).all(-1).sum()) for a, b in zip(got[3], free[3])]
+    rec["router_tokens"] = [int(a.shape[0] * a.shape[1]) for a in got[3]]
+    emit(rec)
+    if any(set(p) != {"torch"} for p in plain_paths.values()) or any(
+            set(p) != {"cuda" if n.endswith(".paged") else "torch"}
+            for n, p in pinned_paths.items()):
+        raise AssertionError(f"the plain MoE steps ran the wrong routes: {pinned_paths} "
+                             f"{plain_paths}")
+    worst = max(rec[f"{pre}{t}_rel_l2"] for pre in ("", "bf16_attention_")
+                for t in ("prefill", "decode"))
+    if not rec["router_identical"] or worst > STEP_REL_TOL:
+        raise AssertionError(f"MoE mixed step: kernels vs plain versions beyond tolerance or "
+                             f"router choices differ: {rec}")
 
 
 def serving_scheduler(cfg, rc, params, impl: str):
@@ -1318,7 +1537,94 @@ def serve_record(phase, sched, done, wall, counts, prompts) -> dict:
             "kernel_launches_per_tick": launches / sched.ticks,
             "preemptions": sched.preemptions, "kernel_counts": counts,
             "paths": ops.path_counts(), "cycles_by_bits": {
-                str(b): d for b, d in sorted(sched.cycles_by_bits.items())}}
+                str(b): d for b, d in sorted(sched.cycles_by_bits.items())},
+            "layers": sched.cfg.num_layers,
+            **({"dropped_tokens_per_tick": statistics.mean(sched.tick_dropped_tokens),
+                "dropped_tokens": sum(sched.tick_dropped_tokens),
+                "health_moe_dropped_tokens": sched.health()["moe_dropped_tokens"]}
+               if sched.tick_dropped_tokens else {})}
+
+
+def serve_moe_phases(torch) -> dict:
+    """The MLA + MoE slice on deepseek-v2-lite at full width: step parity
+    (kernels against plain versions, and the router's choices on both
+    paths), then the serve under the fused dynamic policy and, after
+    ``apply_surgery``, under the prequant one. Each serve's kernel counts are
+    zeroed just before it and read just after; only the fused GEMM, the
+    stats assembly and attention may launch, every call site on the
+    ``cuda`` route, no plain call. Returns {phase: (sched, counts)}."""
+    from repro_torch.kernels import ops
+
+    cfg, rc, params, init_s = model_setup_moe(torch)
+    emit({"phase": "init_moe", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "experts": cfg.num_experts, "seconds": init_s,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "device_bytes": torch.cuda.memory_allocated()})
+    step_parity_moe(torch, cfg, rc, params)
+    fused_kernels = {"tugemm_fused", "flash_paged_decode", "tugemm_stats"}
+    out = {}
+    for phase, policy in (("serve_moe", MOE_POLICY), ("serve_moe_prequant", MOE_PREQUANT_POLICY)):
+        rc_p, params_p = surgered(cfg, rc, params, policy)
+        sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto")
+        check_served(cfg, sched, done, prompts, {8, 2})
+        rec = serve_record(phase, sched, done, wall, counts, prompts)
+        w_bytes = expert_w_bytes(params_p)
+        rec.update(expert_w_bytes_per_tick=w_bytes,
+                   expert_w_bound_ms_per_tick=w_bytes / HBM_BYTES_PER_S * 1e3)
+        emit(rec)
+        ran = {k for k, c in counts.items() if c["launches"] > 0}
+        routes = {path for p in rec["paths"].values() for path in p}
+        if ran != fused_kernels or any(c["plain_calls"] for c in counts.values()) \
+                or routes != {"cuda"}:
+            raise AssertionError(f"{phase} did not run only the fused kernels on the cuda "
+                                 f"route: {counts} {rec['paths']}")
+        out[phase] = (sched, counts)
+        del params_p
+    return out
+
+
+def expert_entry(moe_gemm: list, moe_serves: dict) -> dict:
+    """The kernels line's expert-axis numbers of ``tugemm_fused``: one MoE
+    layer's three expert GEMMs (gate, up, down: 64 experts, M=16, int2) per
+    weight form, each one launch over all experts; library ``torch.bmm``."""
+    out = {}
+    for form in ("dynamic", "packed"):
+        rows = [next(r for r in moe_gemm if r["case"] == f"{n} {form}")
+                for n in ("moe.gate/up", "moe.gate/up", "moe.down")]
+        out[form] = {
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": sum(r["library_ms"] for r in rows), **device_entry(rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches_a_call": rows[0]["launches_a_call"]["tugemm_fused"]}
+    out["shape"] = ("one deepseek-v2-lite MoE layer's 3 expert GEMMs (gate, up 2048->1408, "
+                    "down 1408->2048) over 64 experts at M=16, int2, with stats; dynamic: W "
+                    "bf16 quantized on load; packed: int2 planes")
+    return out
+
+
+def expert_w_bytes(params) -> int:
+    """Bytes of expert weights one tick reads (every MoE layer's three expert
+    GEMMs run every tick, whatever the tokens): a float stack twice (the
+    per-column scale reduction in ``fused_scales``, then the kernel's
+    quantize on load), a packed one once (planes and scales)."""
+    total = 0
+    for group in params["groups"]:
+        for block in group.values():
+            for w in block["ffn"].get("experts", {}).values():
+                total += (nbytes(w["qkernel"], w["qscale"]) if isinstance(w, dict)
+                          else 2 * nbytes(w))
+    return total
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if hasattr(tree, "numel") else []
 
 
 def main() -> int:
@@ -1351,6 +1657,7 @@ def main() -> int:
     attn = check_attention(torch, flush)
     unf = check_unfused(torch, flush)
     st = check_stats(torch, flush)
+    moe_gemm = check_moe_gemm(torch, flush)
     del flush
 
     cfg, rc, params, init_s = model_setup(torch)
@@ -1435,7 +1742,14 @@ def main() -> int:
             raise AssertionError(f"the C1 path did not run only the kernel of {name}: "
                                  f"{counts_c1}")
     run_quickstart(torch)
+    del params
+
+    moe_serves = serve_moe_phases(torch)
     device_times(torch)
+    for r in moe_gemm:
+        if r["device_launches"] is not None and r["device_launches"] != 3:
+            raise AssertionError(f"an expert GEMM call is not 3 device operations (memset, "
+                                 f"GEMM, tugemm_stats): {r}")
 
     layer = {g[0]: g for g in LAYER_GEMMS}
     picked = [r for r in gemm if r["case"] == "serve" and r["w_mode"] == "quant"
@@ -1458,7 +1772,12 @@ def main() -> int:
          else "operations",
          "library_ms": sum(r["library_ms"] for r in per_layer),
          **device_entry(per_layer),
-         "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY},
+         "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY,
+         "launches_by_path": {"serve": counts["tugemm_fused"]["launches"], **{
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in moe_serves.items()}},
+         "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
+                                       for ph, (sc, c) in moe_serves.items()},
+         "experts": expert_entry(moe_gemm, moe_serves)},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
          "replaces": "src/repro/kernels/flash_paged.py:193",
@@ -1469,7 +1788,13 @@ def main() -> int:
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
          "library_ms": dec["library_ms"], "library_device_ms": dec["library_device_ms"],
          "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
-                  f"kv_len {dec['kv_len']}"},
+                  f"kv_len {dec['kv_len']}",
+         "launches_by_path": {"serve": counts["flash_paged_decode"]["launches"], **{
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in moe_serves.items()}},
+         "mla_serve": {r["case"]: {k: r[k] for k in (
+             "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms")}
+             for r in attn if r["case"].startswith("mla_serve_")}},
     ]
     # the unfused path's kernels: one qwen3-0.6b layer's calls at M=64
     # (k and v share a shape, as gate and up do)
@@ -1524,7 +1849,11 @@ def main() -> int:
         "launches": counts_unf["tugemm_stats"]["launches"],
         "launches_by_path": {"serve": counts["tugemm_stats"]["launches"],
                              "serve_prequant": counts_pq["tugemm_stats"]["launches"],
-                             "serve_unfused": counts_unf["tugemm_stats"]["launches"]},
+                             "serve_unfused": counts_unf["tugemm_stats"]["launches"],
+                             **{ph: c["tugemm_stats"]["launches"]
+                                for ph, (_, c) in moe_serves.items()}},
+        "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
+                                        if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),
         "ms": sum(r["ms"] for r in route) - sum(r["ms"] for r in gemm8),
         "plain_ms": sum(r["plain_ms"] for r in pair), "bound_ms": bound,

@@ -13,10 +13,14 @@ ops that launched them are not counted again), the device's idle share of
 the profiled wall, kernel launches and memsets per tick, the serve's
 ``cycles_by_bits``, and the top device activities and host ops by time.
 ``--policy`` may be given several times: the policies are profiled in
-turn in one process, on the same weights, one line each.
+turn in one process, on the same weights, one line each. ``--moe`` serves
+the same workload on deepseek-v2-lite at full width instead
+(``chip_smoke.model_setup_moe``), by default under chip_smoke's fused
+dynamic and prequant MoE policies.
 
     python3 scripts/torch_serve_profile.py          # chip_smoke.POLICY
     python3 scripts/torch_serve_profile.py --policy 'attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16'
+    python3 scripts/torch_serve_profile.py --moe
 """
 
 from __future__ import annotations
@@ -56,12 +60,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--policy", action="append",
                     help=f"QuantPolicy grammar, repeatable (default: {chip_smoke.POLICY})")
+    ap.add_argument("--moe", action="store_true",
+                    help="deepseek-v2-lite at full width (default policies: "
+                         f"{chip_smoke.MOE_POLICY} and {chip_smoke.MOE_PREQUANT_POLICY})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
-    cfg, rc0, params0, _ = chip_smoke.model_setup(torch)
-    for policy in args.policy or [chip_smoke.POLICY]:
+    if args.moe:
+        cfg, rc0, params0, _ = chip_smoke.model_setup_moe(torch)
+        default = [chip_smoke.MOE_POLICY, chip_smoke.MOE_PREQUANT_POLICY]
+    else:
+        cfg, rc0, params0, _ = chip_smoke.model_setup(torch)
+        default = [chip_smoke.POLICY]
+    for policy in args.policy or default:
         rc, params = chip_smoke.surgered(cfg, rc0, params0, policy)
         profile_one(torch, chip_smoke, cfg, rc, params, policy)
         del params
@@ -93,7 +105,8 @@ def profile_one(torch, chip_smoke, cfg, rc, params, policy: str) -> None:
                                                       "cudaLaunchKernelExC"))
     memsets = sum(e.count for e in host if e.key == "cudaMemsetAsync")
     print(json.dumps({
-        "phase": "serve_profile", "policy": policy, "wall_s": wall,
+        "phase": "serve_profile", "arch": cfg.name, "layers": cfg.num_layers,
+        "policy": policy, "wall_s": wall,
         "wall_unprofiled_s": wall_unprofiled, "ticks": sched.ticks,
         "median_tick_ms": 1e3 * sorted(sched.tick_seconds)[len(sched.tick_seconds) // 2],
         "launches_per_tick": launches / sched.ticks,

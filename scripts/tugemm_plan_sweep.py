@@ -9,8 +9,11 @@ call; one profile holds up to 16 calls). Prints one JSON line per (case,
 plan), outputs checked bit for bit against the plain version under every
 plan, then one ``summary`` line per case: the picked plan's time against
 the fastest plan's (the fused GEMM's with stats, as the serve runs it).
+``--experts`` sweeps the fused GEMM over deepseek-v2-lite's 64 experts
+instead (one launch, x (64, 16, K), int2 quantized on load and packed):
+each plan then also tries one split.
 
-    python3 scripts/tugemm_plan_sweep.py
+    python3 scripts/tugemm_plan_sweep.py [--experts]
 """
 
 from __future__ import annotations
@@ -23,15 +26,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def plans(Kw: int, picked):
-    """(bn, splits, chunks) for every tile width and split count of 2, 4, 6,
-    8, 12 or 16 blocks, and the picked plan."""
+def plans(Kw: int, picked, splits=(2, 4, 6, 8, 12, 16)):
+    """(bn, splits, chunks) for every tile width and split count of
+    ``splits`` blocks, and the picked plan."""
     from repro_torch.kernels.tugemm_fused import KC
 
     k_chunks = -(-Kw // KC)
     out = [picked]
     for bn in (32, 64, 128):
-        for s in (2, 4, 6, 8, 12, 16):
+        for s in splits:
             chunks = -(-k_chunks // s)
             plan = (bn, -(-k_chunks // chunks), chunks)
             if plan not in out:
@@ -47,7 +50,7 @@ def main() -> int:
     from repro_torch.kernels import tugemm_int8 as int8_mod
     from repro_torch.kernels import tugemm_packed as packed_mod
     from repro_torch.kernels.ops import pack_weights
-    from repro_torch.quant.quantize import compute_scale
+    from repro_torch.quant.quantize import fused_scales
 
     if not torch.cuda.is_available():
         print("tugemm_plan_sweep: needs a GPU", file=sys.stderr)
@@ -65,30 +68,32 @@ def main() -> int:
         lo = -(2 ** (bits - 1))
         return torch.randint(lo, -lo, shape, device=dev, generator=gen, dtype=torch.int8)
 
-    def fused_case(name, M, K, N, mode, bits):
-        x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
-        sx = compute_scale(x, bits).reshape(1, 1)
+    def fused_case(name, M, K, N, mode, bits, E=None):
+        lead = () if E is None else (E,)
+        x = torch.randn(*lead, M, K, device=dev, generator=gen).to(bf16)
         if mode == "quant":
-            w = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
-            sw = compute_scale(w, bits, axis=1).reshape(1, N)
+            w = (torch.randn(*lead, K, N, device=dev, generator=gen) * 0.02).to(bf16)
+            sx, sw = fused_scales(x, w, bits)
         else:
-            w = pack_weights(i8((K, N), bits), bits)
-            sw = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
-        planes = K // w.shape[0]
+            w = pack_weights(i8((K, N), bits), bits).expand(*lead, -1, -1).contiguous()
+            sx = fused_scales(x, torch.ones(*lead, K, N, device=dev), bits)[0]
+            sw = torch.rand(*lead, N, device=dev, generator=gen) * 1e-3 + 1e-4
+        sx, sw = sx.reshape(lead + (1, 1)), sw.reshape(lead + (1, N))
+        planes = K // w.shape[-2]
         kw = dict(bits=bits, w_mode=mode, out_dtype=bf16)
         want = fused_mod.tugemm_fused(x, w, sx, sw, None, impl="torch", collect_stats=True, **kw)
         calls = {collect: (lambda collect=collect: fused_mod.tugemm_fused(
             x, w, sx, sw, None, impl="cuda", collect_stats=collect, **kw))
             for collect in (True, False)}
-        return (name, "tugemm_fused", fused_mod, M, N, w.shape[0], planes, x.element_size(), calls,
-                lambda got: all(torch.equal(g, h) for g, h in zip(got, want)))
+        return (name, "tugemm_fused", fused_mod, M, N, w.shape[-2], planes, x.element_size(),
+                calls, lambda got: all(torch.equal(g, h) for g, h in zip(got, want)), E or 1)
 
     def int8_case(name, M, K, N):
         a, b = i8((M, K)), i8((K, N))
         want = int8_mod.tugemm_int8(a, b, impl="torch")
         return (name, "tugemm_int8", int8_mod, M, N, K, 1, 1,
                 {None: lambda: int8_mod.tugemm_int8(a, b, impl="cuda")},
-                lambda got: torch.equal(got, want))
+                lambda got: torch.equal(got, want), 1)
 
     def packed_case(name, M, K, N, bits):
         a = i8((M, K))
@@ -96,7 +101,7 @@ def main() -> int:
         want = packed_mod.tugemm_packed(a, pb, bits=bits, impl="torch")
         return (name, "tugemm_packed", packed_mod, M, N, pb.shape[0], 8 // bits, 1,
                 {None: lambda: packed_mod.tugemm_packed(a, pb, bits=bits, impl="cuda")},
-                lambda got: torch.equal(got, want))
+                lambda got: torch.equal(got, want), 1)
 
     cases = [fused_case("one block 4x64x32 quant8", 4, 64, 32, "quant", 8),
              fused_case("q 64x1024x2048 quant8", 64, 1024, 2048, "quant", 8),
@@ -122,11 +127,17 @@ def main() -> int:
                   packed_case(f"down {M}x3072x1024 int2", M, 3072, 1024, 2),
                   packed_case(f"gate {M}x1024x3072 int4", M, 1024, 3072, 4),
                   packed_case(f"down {M}x3072x1024 int4", M, 3072, 1024, 4)]
+    splits = (2, 4, 6, 8, 12, 16)
+    if "--experts" in sys.argv[1:]:
+        E, M = chip_smoke.MOE_EXPERTS, chip_smoke.MOE_M
+        cases = [fused_case(f"experts {n} {E}x{M}x{K}x{N} {mode}2", M, K, N, mode, 2, E)
+                 for n, K, N in chip_smoke.MOE_GEMMS for mode in ("quant", "packed")]
+        splits = (1, 2, 4, 8, 16)
 
-    for name, kernel, mod, M, N, Kw, planes, xbytes, calls, exact_of in cases:
-        chosen = picked(M, N, Kw, planes, sms, xbytes)
+    for name, kernel, mod, M, N, Kw, planes, xbytes, calls, exact_of, E in cases:
+        chosen = picked(M, N, Kw, planes, sms, xbytes, E)
         grid, fns = [], []
-        for plan in plans(Kw, chosen):
+        for plan in plans(Kw, chosen, splits):
             def set_plan(*_, plan=plan):
                 return plan
             mod.split_plan = set_plan
@@ -143,7 +154,7 @@ def main() -> int:
         for (plan, collect, exact), (ms, source, launches, _) in zip(grid, times):
             print(json.dumps({"kernel": kernel, "case": name, "bn": plan[0], "splits": plan[1],
                               "chunks": plan[2], "collect": collect,
-                              "blocks": plan[1] * -(-N // plan[0]) * -(-M // 64),
+                              "blocks": plan[1] * -(-N // plan[0]) * E * -(-M // 64),
                               "picked": plan == chosen, "exact": exact, "device_ms": ms,
                               "source": source, "launches": launches}), flush=True)
             if not exact:

@@ -8,6 +8,9 @@
 // with Wq quantized on load from float W ("quant"), read as stored int8
 // ("int8"), or unpacked from int4/int2 planes by shifts ("packed"), plus the
 // tuGEMM cycle-model statistics ca[p, k] = max_m |Xq| and rb[k, p] = max_n |Wq|.
+// With E > 1 the same launch computes E independent GEMMs of one shape, one
+// per MoE expert, Y[e] = clip(round(X[e] / sx[e])) @ Wq[e] * (sx[e] * sw[e, n]),
+// each with its own stats: the expert is folded into grid z (see the mainloop).
 //
 // What bounds it on this card: on the serving path M is small (max_batch x
 // step width, 4..64 rows), so the work is reading W once: 0.5-6 MiB per call,
@@ -82,8 +85,8 @@ int dispatch_w(int w_mode, int w_dtype, const Params& p, int splits, cudaStream_
 
 }  // namespace
 
-// stats (collect) is one int32 buffer, ca (planes, Kw) then rb (Kw, planes),
-// zeroed here (one cudaMemsetAsync on the stream) before the kernel merges
+// stats (collect) is one int32 buffer, ca (E, planes, Kw) then rb (E, Kw,
+// planes), zeroed here (one cudaMemsetAsync on the stream) before the kernel merges
 // its maxima into it. Returns 0 on success, -1 for an unsupported dtype
 // combination, -2 for a plan outside the kernel's range, else the
 // cudaError_t of the launch. The plan (bn, splits, chunks) comes from
@@ -91,17 +94,18 @@ int dispatch_w(int w_mode, int w_dtype, const Params& p, int splits, cudaStream_
 extern "C" int tugemm_fused_launch(
     const void* x, int x_dtype, const void* w, int w_mode, int w_dtype,
     const float* sx, int per_token, const float* sw, const void* bias,
-    void* y, int out_dtype, int* stats, int M, int N, int Kw,
+    void* y, int out_dtype, int* stats, int E, int M, int N, int Kw,
     int planes, int bits, int collect, int bn, int splits, int chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = {};
   p.x = x; p.w = w; p.sx = sx; p.sw = sw; p.bias = bias; p.c = nullptr; p.y = y;
-  p.M = M; p.N = N; p.Kw = Kw; p.planes = planes; p.bits = bits; p.Kx = planes * Kw;
+  p.E = E; p.M = M; p.N = N; p.Kw = Kw; p.planes = planes; p.bits = bits; p.Kx = planes * Kw;
   p.per_token = per_token; p.collect = collect; p.bn = bn; p.chunks = chunks;
   if (collect) {
     p.ca = stats;
-    p.rb = stats + (long)planes * Kw;
-    const cudaError_t e = cudaMemsetAsync(stats, 0, 2 * (size_t)planes * Kw * sizeof(int), s);
+    p.rb = stats + (long)E * planes * Kw;
+    const cudaError_t e =
+        cudaMemsetAsync(stats, 0, 2 * (size_t)E * planes * Kw * sizeof(int), s);
     if (e != cudaSuccess) return (int)e;
   }
   if (x_dtype == F32 && out_dtype == F32)

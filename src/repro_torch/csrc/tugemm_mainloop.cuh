@@ -4,9 +4,15 @@
 // Hopper (sm_90a). See tugemm_fused.cu for the design and
 // kernels/tugemm_fused.py::split_plan for the grid.
 //
-// One block (256 threads) owns all rows of a 64-row tile (M tiles over grid
-// z), bn output columns (grid y) and one K slice of `chunks` chunks of KC = 64
-// rows of W (grid x). The S blocks of one (M tile, N tile) form a thread block cluster; each
+// One block (256 threads) owns all rows of a 64-row tile of one expert (grid
+// z = expert * M tiles + M tile), bn output columns (grid y) and one K slice
+// of `chunks` chunks of KC = 64 rows of W (grid x). A call over E experts
+// (the MoE expert GEMMs) is one launch: expert e reads its own X (M, Kx),
+// W, scales and bias, and writes its own Y and stats, each at e times the
+// operand's size past the base pointer. Only the quantizing kernel takes
+// E > 1, through its EXPERTS instantiations; a plain GEMM (E = 1) runs one
+// compiled without the expert index and offsets. The S blocks of one (M
+// tile, N tile) form a thread block cluster; each
 // writes its int32 partial tile to its own shared memory, and after a cluster
 // barrier every rank reduces 1/S of the tile's elements over all S partials
 // (distributed shared memory) and applies the epilogue. Integer sums do not
@@ -14,7 +20,7 @@
 //
 // Cycle statistics (STATS instantiations, p.collect): ca[p, k] = max_m |X|
 // from the X tiles, only in the blocks of N tile 0, and rb[k, p] = max_n |W|
-// from the W tiles, only in the blocks of M tile 0, each merged by atomicMax
+// from the W tiles, only in the blocks of M tile 0 (per expert), each merged by atomicMax
 // into a buffer the launcher zeroed; the order of the merges does not
 // matter. The fused kernel compiles them in (collect chosen at run time);
 // the int8 GEMM has one instantiation with and one without them, so the
@@ -54,15 +60,16 @@ constexpr int SMEM_MAX = 227 * 1024;
 enum { W_QUANT = 0, W_INT8 = 1, W_PACKED = 2 };
 
 struct Params {
-  const void* x;        // (M, Kx) XT: plane p's columns are [p*Kw, (p+1)*Kw)
-  const void* w;        // (Kw, N) WT
-  const float* sx;      // (1,) or (M,) (fused only)
-  const float* sw;      // (N,) (fused only)
-  const void* bias;     // (N,) OT or null (fused only)
-  const int* c;         // (M, N) int32 or null (int8 GEMM only)
-  void* y;              // (M, N) OT
-  int* ca;              // (planes, Kw), zeroed by the caller (STATS, collect)
-  int* rb;              // (Kw, planes), zeroed by the caller (STATS, collect)
+  const void* x;        // (E, M, Kx) XT: plane p's columns are [p*Kw, (p+1)*Kw)
+  const void* w;        // (E, Kw, N) WT
+  const float* sx;      // (E, 1) or (E, M) (fused only)
+  const float* sw;      // (E, N) (fused only)
+  const void* bias;     // (E, N) OT or null (fused only)
+  const int* c;         // (M, N) int32 or null (int8 GEMM only, E = 1)
+  void* y;              // (E, M, N) OT
+  int* ca;              // (E, planes, Kw), zeroed by the caller (STATS, collect)
+  int* rb;              // (E, Kw, planes), zeroed by the caller (STATS, collect)
+  int E;                // experts (0 is taken as 1; > 1 only without INT_GEMM)
   int M, N, Kw, planes, bits, per_token, collect;
   int Kx;               // X's row length (<= planes*Kw); columns past it read as 0
   int bn, chunks;       // the split plan: tile columns, chunks a K slice
@@ -169,7 +176,7 @@ __device__ __forceinline__ unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-template <typename XT, int WMODE, typename WT, typename OT, bool STATS>
+template <typename XT, int WMODE, typename WT, typename OT, bool STATS, bool EXPERTS>
 __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr bool INT_GEMM = std::is_same<XT, int8_t>::value;   // X taken as stored
@@ -182,8 +189,16 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int slice = blockIdx.x, S = gridDim.x;   // cluster rank, cluster size
   const int bn = p.bn, planes = p.planes, R = p.ring;
   const int M = p.M, N = p.N, Kw = p.Kw;
-  const int n0 = blockIdx.y * bn, m0 = blockIdx.z * BM;
   const int Kx = p.Kx;
+  // the expert (0 unless EXPERTS: every offset below folds away)
+  const int ex = EXPERTS ? (int)blockIdx.z / ((M + BM - 1) / BM) : 0;
+  const int mtile = EXPERTS ? (int)blockIdx.z - ex * ((M + BM - 1) / BM) : (int)blockIdx.z;
+  const int n0 = blockIdx.y * bn, m0 = mtile * BM;
+  // this expert's operands: X and W as pointers; the scales and stats as
+  // int offsets into the kernel parameters' pointers (fewer registers)
+  const XT* X = static_cast<const XT*>(p.x) + (long)ex * M * Kx;
+  const WT* W = static_cast<const WT*>(p.w) + (long)ex * Kw * N;
+  const int sxo = ex * (p.per_token ? M : 1), swo = ex * N, so = ex * planes * Kw;
   const int mrows = min(BM, M - m0);
   const int mfr = (mrows + 15) >> 4;        // m16 fragments holding rows
   const int rows = mfr * 16;                // X rows copied and quantized
@@ -192,15 +207,13 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int lo = INT_GEMM ? 0 : -(1 << (p.bits - 1));
   const int hi = INT_GEMM ? 0 : (1 << (p.bits - 1)) - 1;
   const bool do_ca = STATS && p.collect && blockIdx.y == 0;
-  const bool do_rb = STATS && p.collect && blockIdx.z == 0;
-  const float sx0 = (INT_GEMM || p.per_token) ? 0.f : p.sx[0];
+  const bool do_rb = STATS && p.collect && mtile == 0;
+  const float sx0 = (INT_GEMM || p.per_token) ? 0.f : p.sx[sxo];
 
   const Layout L = layout(planes, bn, R, (int)sizeof(XT), (int)sizeof(WT));
   int8_t* xq = reinterpret_cast<int8_t*>(smem + L.xq);
   int8_t* wq = reinterpret_cast<int8_t*>(smem + L.wq);
   unsigned* scratch = reinterpret_cast<unsigned*>(smem + L.scratch);
-  const XT* X = static_cast<const XT*>(p.x);
-  const WT* W = static_cast<const WT*>(p.w);
   const int xch = planes * KC / XE;   // 16-byte chunks of a raw X row (a power of 2)
   const int wch = bn / WE;            // 16-byte chunks of a raw W row (a power of 2)
   const int xsh = __ffs(xch) - 1, wsh = __ffs(wch) - 1, bsh = __ffs(bn) - 1;
@@ -292,7 +305,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
       if constexpr (INT_GEMM) {
         q[0] = raw.x; q[1] = raw.y; q[2] = raw.z; q[3] = raw.w;
       } else {
-        const float s = p.per_token ? (m0 + r < M ? p.sx[m0 + r] : 1.f) : sx0;
+        const float s = p.per_token ? (m0 + r < M ? p.sx[sxo + m0 + r] : 1.f) : sx0;
         quant_chunk(XT(), raw, s, lo, hi, q);   // padding quantizes to 0
       }
       int8_t* dst = xqb + (xpl * BM + r) * QST + xkb;
@@ -339,7 +352,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
             const int n = n0 + ng * 4 + j;
             col[j] = 0;
             if (n < N) {
-              const float s = p.sw[n];
+              const float s = p.sw[swo + n];
               col[j] = pack4(quant(v[0][j], s, lo, hi), quant(v[1][j], s, lo, hi),
                              quant(v[2][j], s, lo, hi), quant(v[3][j], s, lo, hi));
             }
@@ -366,7 +379,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
             for (int b = 0; b < 4; ++b) {
               const int k = k0 + kg * 4 + b;
               const int v = (int)((m >> (8 * b)) & 0xFFu);
-              if (v && k < Kw) atomicMax(&p.rb[(long)k * planes + pl], v);
+              if (v && k < Kw) atomicMax(&p.rb[so + (long)k * planes + pl], v);
             }
           }
         }
@@ -386,7 +399,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
         for (int b = 0; b < 4; ++b) {
           const int col = t * 4 + b, pl = col / KC, k = k0 + col % KC;
           const int v = (int)((m >> (8 * b)) & 0xFFu);
-          if (v && k < Kw) atomicMax(&p.ca[(long)pl * Kw + k], v);
+          if (v && k < Kw) atomicMax(&p.ca[so + (long)pl * Kw + k], v);
         }
       }
     }
@@ -448,7 +461,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
   const int upr = (ncols + 3) >> 2;
   const int U = mrows * upr;
   const int u0 = (int)((long)U * slice / S), u1 = (int)((long)U * (slice + 1) / S);
-  OT* Y = static_cast<OT*>(p.y);
+  OT* Y = static_cast<OT*>(p.y) + (long)ex * M * N;
   for (int u = u0 + tid; u < u1; u += NT) {
     const int r = u / upr, c = (u - r * upr) * 4;
     int s4[4] = {0, 0, 0, 0};
@@ -461,21 +474,21 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
     const int m = m0 + r;
     if constexpr (INT_GEMM) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + c + e;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + c + j;
         if (n < N) {
           const long o = (long)m * N + n;
-          Y[o] = p.c != nullptr ? s4[e] + p.c[o] : s4[e];
+          Y[o] = p.c != nullptr ? s4[j] + p.c[o] : s4[j];
         }
       }
     } else {
-      const float s_m = p.per_token ? p.sx[m] : sx0;
-      const OT* B = static_cast<const OT*>(p.bias);
+      const float s_m = p.per_token ? p.sx[sxo + m] : sx0;
+      const OT* B = p.bias == nullptr ? nullptr : static_cast<const OT*>(p.bias) + swo;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + c + e;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + c + j;
         if (n < N) {
-          const float v = __fmul_rn(__int2float_rn(s4[e]), __fmul_rn(s_m, p.sw[n]));
+          const float v = __fmul_rn(__int2float_rn(s4[j]), __fmul_rn(s_m, p.sw[swo + n]));
           OT o = from_f32<OT>(v);
           if (B != nullptr) o = add_out(o, B[n]);
           Y[(long)m * N + n] = o;
@@ -488,29 +501,19 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
 
 // Launches gemm_kernel on the plan (p.bn, p.chunks; splits = cluster size).
 // Returns 0, -2 for a plan outside the kernel's range, or the cudaError_t.
-// STATS: the statistics code is compiled in (taken where p.collect is set);
-// by default for the quantizing kernel, not for int8 X taken as stored.
-template <typename XT, int WMODE, typename WT, typename OT,
-          bool STATS = !std::is_same<XT, int8_t>::value>
-int launch(Params p, int splits, cudaStream_t stream) {
-  if (!(p.bn == 32 || p.bn == 64 || p.bn == 128) || splits < 1 || splits > MAX_SPLITS ||
-      p.chunks < 1 || p.planes < 1 || p.planes > 4 || p.Kx < 0 || p.Kx > p.planes * p.Kw)
-    return -2;
-  p.ring = ring_depth(p.planes, p.bn, p.chunks, (int)sizeof(XT), (int)sizeof(WT));
-  const Layout L = layout(p.planes, p.bn, p.ring, (int)sizeof(XT), (int)sizeof(WT));
-  if (L.total > SMEM_MAX) return -2;
-  // 16-byte X copies: every plane's start and every row's start on 16 bytes
-  p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0 &&
-         ((long)p.Kx * sizeof(XT)) % 16 == 0;
-  p.vw = (uintptr_t)p.w % 16 == 0 && ((long)p.N * sizeof(WT)) % 16 == 0;
-  auto kern = gemm_kernel<XT, WMODE, WT, OT, STATS>;
+// One launch of the gemm_kernel instantiation: grid (splits, N tiles, z)
+// with the cluster over x, and its shared-memory attributes set once per
+// device.
+template <typename XT, int WMODE, typename WT, typename OT, bool STATS, bool EXPERTS>
+int launch_kernel(const Params& p, int splits, unsigned zdim, int smem, cudaStream_t stream) {
+  auto kern = gemm_kernel<XT, WMODE, WT, OT, STATS, EXPERTS>;
   static launch_attrs::Cache attrs;   // per instantiation, per device
   cudaError_t e = launch_attrs::allow(attrs, kern, SMEM_MAX, true);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (p.N + p.bn - 1) / p.bn, (p.M + BM - 1) / BM);
+  cfg.gridDim = dim3(splits, (p.N + p.bn - 1) / p.bn, zdim);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = L.total;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -522,6 +525,35 @@ int launch(Params p, int splits, cudaStream_t stream) {
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// STATS: the statistics code is compiled in (taken where p.collect is set);
+// by default for the quantizing kernel, not for int8 X taken as stored.
+// E > 1 (the quantizing kernel only) runs the EXPERTS instantiation.
+template <typename XT, int WMODE, typename WT, typename OT,
+          bool STATS = !std::is_same<XT, int8_t>::value>
+int launch(Params p, int splits, cudaStream_t stream) {
+  constexpr bool INT_GEMM = std::is_same<XT, int8_t>::value;
+  if (p.E < 1) p.E = 1;
+  const long zdim = (long)p.E * ((p.M + BM - 1) / BM);
+  if (!(p.bn == 32 || p.bn == 64 || p.bn == 128) || splits < 1 || splits > MAX_SPLITS ||
+      p.chunks < 1 || p.planes < 1 || p.planes > 4 || p.Kx < 0 || p.Kx > p.planes * p.Kw ||
+      zdim > 65535 || (INT_GEMM && p.E > 1))
+    return -2;
+  p.ring = ring_depth(p.planes, p.bn, p.chunks, (int)sizeof(XT), (int)sizeof(WT));
+  const Layout L = layout(p.planes, p.bn, p.ring, (int)sizeof(XT), (int)sizeof(WT));
+  if (L.total > SMEM_MAX) return -2;
+  // 16-byte X copies: every plane's start and every row's start on 16 bytes
+  p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0 &&
+         ((long)p.Kx * sizeof(XT)) % 16 == 0;
+  p.vw = (uintptr_t)p.w % 16 == 0 && ((long)p.N * sizeof(WT)) % 16 == 0;
+  if constexpr (!INT_GEMM) {
+    if (p.E > 1)
+      return launch_kernel<XT, WMODE, WT, OT, STATS, true>(p, splits, (unsigned)zdim, L.total,
+                                                           stream);
+  }
+  return launch_kernel<XT, WMODE, WT, OT, STATS, false>(p, splits, (unsigned)zdim, L.total,
+                                                        stream);
 }
 
 }  // namespace tugemm

@@ -22,7 +22,8 @@
 //    the tiles they already hold (tugemm_mainloop.cuh), plane-major: ca
 //    (planes, Kw), rb (Kw, planes). finish_kernel, one block, turns them into
 //    the five fields for the logical steps k = p*Kw + kk < K: a GEMM's stats
-//    cost its zeroing memset and this one launch.
+//    cost its zeroing memset and this one launch. The E GEMMs of one launch
+//    over MoE experts are assembled by one launch too, a block an expert.
 // 2. The standalone route (ops.unary_step_stats, and the colabsmax /
 //    rowabsmax entry points). absmax_kernel reads each operand once, each
 //    maximum with one writer, so nothing is zeroed: A's blocks hold 32
@@ -57,10 +58,19 @@ constexpr int RW = 8;       // absmax_kernel, B blocks: rows (a warp each)
 
 // The stats of one GEMM from its maxima, by one block: ca is read in logical
 // order (plane-major (planes, Kw) is), rb as (Kw, planes), FU steps a thread
-// in flight at once.
+// in flight at once. With BATCH, block e takes GEMM e of a batch: its maxima
+// at e times their size past ca and rb, its output at e * ostride words past
+// out; one GEMM (E = 1) runs the instantiation without those offsets.
+template <bool BATCH>
 __global__ void __launch_bounds__(FT) finish_kernel(const int* __restrict__ ca,
                                                     const int* __restrict__ rb, int Kw,
-                                                    int planes, int K, int* __restrict__ out) {
+                                                    int planes, int K, int ostride,
+                                                    int* __restrict__ out) {
+  if constexpr (BATCH) {
+    ca += (long)blockIdx.x * planes * Kw;
+    rb += (long)blockIdx.x * planes * Kw;
+    out += (long)blockIdx.x * ostride;
+  }
   __shared__ long long s_sum[32];
   __shared__ int s_par[32], s_a[32], s_b[32];
   int* step = out + HDR;
@@ -172,12 +182,14 @@ __global__ void __launch_bounds__(CW * CR) absmax_kernel(const AbsArgs p) {
 // Both return 0 on success, else the cudaError_t of the launch
 // (cudaGetLastError right after it). Every launch runs on `stream`.
 
-// The assembly: ca (planes, Kw) and rb (Kw, planes) int32 -> out (HDR + K
-// int32) for the logical steps k < K <= planes * Kw.
-extern "C" int tugemm_stats_launch(const void* ca, const void* rb, int Kw, int planes, int K,
-                                   void* out, void* stream) {
-  finish_kernel<<<1, FT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ca), static_cast<const int*>(rb), Kw, planes, K,
+// The assembly of E GEMMs' stats: ca (E, planes, Kw) and rb (E, Kw, planes)
+// int32 -> out (E, ostride) int32, HDR + K words of each row used, for the
+// logical steps k < K <= planes * Kw; ostride is even (the int64 sum).
+extern "C" int tugemm_stats_launch(const void* ca, const void* rb, int E, int Kw, int planes,
+                                   int K, int ostride, void* out, void* stream) {
+  auto kernel = E > 1 ? finish_kernel<true> : finish_kernel<false>;
+  kernel<<<E, FT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ca), static_cast<const int*>(rb), Kw, planes, K, ostride,
       static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

@@ -205,26 +205,33 @@ def matmul_fused(
 
     sx: per-tensor scalar or per-token (M,) vector; sw: per-column (N,).
     Returns y (M, N) ``out_dtype`` (default x.dtype), or (y, TuGemmStats)
-    when ``collect_stats`` — the stats come out of the same pass."""
+    when ``collect_stats`` — the stats come out of the same pass.
+
+    A leading expert axis (the MoE expert GEMMs) batches E GEMMs of one shape
+    into one kernel launch: x (E, M, K), w (E, K|Kp, N), sx (E,) or (E, M),
+    sw (E, N), bias (E, N); y (E, M, N) and TuGemmStats fields with a leading
+    (E,) axis. It is recorded as one call of ``name``."""
     count_dispatch("matmul_fused")
     path = resolve_path(impl, x)
     record_path(name, path)
     sx = torch.as_tensor(sx, dtype=torch.float32, device=x.device)
-    per_token = sx.numel() > 1
+    lead = tuple(x.shape[:-2])
+    E = lead[0] if lead else 1
+    per_token = sx.numel() > E
     packed = w_quantized and bits < 8
     planes = PLANES[bits] if packed else 1
     w_mode = "packed" if packed else ("int8" if w_quantized else "quant")
-    M, K = x.shape
-    Kw, N = w.shape
+    M, K = x.shape[-2:]
+    Kw, N = w.shape[-2:]
     Klog = planes * Kw
-    if (K > Klog) if packed else (K != Kw):
+    if ((K > Klog) if packed else (K != Kw)) or tuple(w.shape[:-2]) != lead:
         raise ValueError(f"x {tuple(x.shape)} does not match w {tuple(w.shape)} at {bits} bits")
     if packed and K < Klog:
         x = torch.nn.functional.pad(x, (0, Klog - K))
     out = _tugemm.tugemm_fused(
         x.contiguous(), w.contiguous(),
-        sx.reshape(-1, 1) if per_token else sx.reshape(1, 1),
-        sw.to(torch.float32).reshape(1, N), bias,
+        sx.reshape(lead + ((-1, 1) if per_token else (1, 1))),
+        sw.to(torch.float32).reshape(lead + (1, N)), bias,
         bits=bits, w_mode=w_mode, collect_stats=collect_stats,
         out_dtype=out_dtype if out_dtype is not None else x.dtype, impl=path,
     )

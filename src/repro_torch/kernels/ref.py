@@ -94,16 +94,20 @@ def unary_stats_ref(a: torch.Tensor, b: torch.Tensor):
 def assemble_stats_ref(ca: torch.Tensor, rb: torch.Tensor):
     """The TuGemmStats fields from the two logical-K maxima: ``(step_cycles
     (K,) int32, serial_cycles int64 (the sum of int32), parallel_cycles,
-    max_abs, act_max)``, the last three int32 (the core cycle model)."""
+    max_abs, act_max)``, the last three int32 (the core cycle model).
+    Leading axes (E GEMMs' maxima, (E, K)) carry into every field."""
     sc = ca * rb.clamp_min(1)
-    return sc, sc.sum(), sc.max(), torch.maximum(ca.max(), rb.max()), ca.max()
+    return (sc, sc.sum(-1), sc.amax(-1), torch.maximum(ca.amax(-1), rb.amax(-1)),
+            ca.amax(-1))
 
 
 def finish_stats_ref(ca: torch.Tensor, rb: torch.Tensor, K: int):
     """``assemble_stats_ref`` on a GEMM's plane-major maxima, ca (planes,
     Kw) and rb (Kw, planes): plane p holds the logical steps ``[p·Kw,
-    (p+1)·Kw)``, of which the first K count."""
-    return assemble_stats_ref(ca.reshape(-1)[:K], rb.t().reshape(-1)[:K])
+    (p+1)·Kw)``, of which the first K count (leading axes batch GEMMs)."""
+    lead = tuple(ca.shape[:-2])
+    return assemble_stats_ref(ca.reshape(lead + (-1,))[..., :K],
+                              rb.transpose(-1, -2).reshape(lead + (-1,))[..., :K])
 
 
 def dequant_bias_ref(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
@@ -122,7 +126,7 @@ def _dequant_bias(acc, sx, sw, bias, out_dtype):
     bias added in the out dtype (separate multiply and add, never an FMA)."""
     y = (acc.to(torch.float32) * (sx * sw)).to(out_dtype)
     if bias is not None:
-        y = y + bias.reshape(1, -1).to(out_dtype)
+        y = y + bias.unsqueeze(-2).to(out_dtype)
     return y
 
 
@@ -149,16 +153,21 @@ def fused_gemm_ref(
     sw (1, N) f32. W by ``w_mode``: ``quant`` (Kw, N) float quantized with
     sw, ``int8`` (Kw, N) stored int8, ``packed`` (Kw, N) plane-packed
     int4/int2 whose plane p multiplies x columns ``[p·Kw, (p+1)·Kw)``.
+    Leading axes batch independent GEMMs (the MoE experts: x (E, M, Kx),
+    w (E, Kw, N), sx (E, 1|M, 1), sw (E, 1, N), bias (E, N)); every op is
+    elementwise or per slice, so a batched call equals its slices' calls.
 
     Returns y (M, N) ``out_dtype``, or (y, ca (planes, Kw), rb (Kw, planes))
     with ``ca[p, k] = max_m |Xq[m, p·Kw + k]|`` and
-    ``rb[k, p] = max_n |Wq_p[k, n]|`` — the kernel's stats layout."""
+    ``rb[k, p] = max_n |Wq_p[k, n]|`` — the kernel's stats layout (with
+    the leading axes in front)."""
     lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-    Kw = w.shape[0]
+    Kw = w.shape[-2]
+    lead = tuple(w.shape[:-2])
     xq = _quant(x, sx, lo, hi)
     if w_mode == "packed":
         planes = BITS_TO_PLANES[bits]
-        wq = torch.cat([unpack_plane(w, bits, p) for p in range(planes)], dim=0)
+        wq = torch.cat([unpack_plane(w, bits, p) for p in range(planes)], dim=-2)
     elif w_mode == "quant":
         planes = 1
         wq = _quant(w, sw, lo, hi)
@@ -167,14 +176,14 @@ def fused_gemm_ref(
         wq = w
     else:
         raise ValueError(f"unknown w_mode {w_mode!r}")
-    if xq.shape[1] != wq.shape[0]:
+    if xq.shape[-1] != wq.shape[-2]:
         raise ValueError(f"x {tuple(x.shape)} does not match w {tuple(w.shape)} ({w_mode})")
     y = _dequant_bias(int_matmul(xq, wq), sx, sw, bias, out_dtype)
     if not collect_stats:
         return y
-    ca = xq.to(torch.int32).abs().amax(dim=0).reshape(planes, Kw)
-    rb = wq.to(torch.int32).abs().amax(dim=1).reshape(planes, Kw).t().contiguous()
-    return y, ca, rb
+    ca = xq.to(torch.int32).abs().amax(dim=-2).reshape(lead + (planes, Kw))
+    rb = wq.to(torch.int32).abs().amax(dim=-1).reshape(lead + (planes, Kw))
+    return y, ca, rb.transpose(-1, -2).contiguous()
 
 
 def temporal_unary_gemm_ref(a: torch.Tensor, b: torch.Tensor, bitwidth: int,

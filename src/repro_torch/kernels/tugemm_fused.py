@@ -8,7 +8,9 @@ bytes) and how its design answers that. ``tugemm_fused`` launches the kernel
 for CUDA tensors and runs the plain version (``kernels/ref.py::
 fused_gemm_ref``) for CPU tensors or under ``impl="torch"``; the two agree
 bit for bit, outputs and stats. ``split_plan`` cuts K across the blocks of
-a thread block cluster, from the shapes alone.
+a thread block cluster, from the shapes alone. A leading expert axis (the
+MoE expert GEMMs: x (E, M, Kx), w (E, Kw, N)) runs all E GEMMs in one
+launch, the expert folded into the grid's z axis.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tugemm_fused_launch.argtypes = [
             vp, ci, vp, ci, ci, vp, ci, vp, vp, vp, ci, vp,
-            ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.tugemm_fused_launch.restype = ci
         _lib = lib
@@ -68,9 +70,10 @@ def _smem(planes: int, bn: int, chunks: int, xbytes: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(M: int, N: int, Kw: int, planes: int, sms: int, xbytes: int = 1):
+def split_plan(M: int, N: int, Kw: int, planes: int, sms: int, xbytes: int = 1,
+               experts: int = 1):
     """(bn, splits, chunks): how the kernel's grid cuts the work, from shapes
-    alone. The grid is (splits, ceil(N/bn), ceil(M/64)); the ``splits``
+    alone. The grid is (splits, ceil(N/bn), experts·ceil(M/64)); the ``splits``
     blocks of one output tile form a thread block cluster, block s taking
     the W rows of chunks ``[s·chunks, (s+1)·chunks)`` (chunks of 64 rows,
     each row feeding all ``planes``), so every (K chunk, N tile) of every M
@@ -96,10 +99,28 @@ def split_plan(M: int, N: int, Kw: int, planes: int, sms: int, xbytes: int = 1):
     a block, the widest tile that reaches a quarter of the SMs (each tile
     copies, and the fused kernel quantizes, X again), and otherwise the
     most blocks. A cluster above the portable 8 blocks counts as filling twice
-    its SMs where one block fills an SM."""
+    its SMs where one block fills an SM.
+
+    ``experts`` > 1 (one launch over the MoE experts) multiplies the output
+    tiles, which at the expert shapes fill the card several times over. The
+    sweep at deepseek-v2-lite's (64 experts, M=16, K/N 2048/1408) found the
+    widest tile best in every form; for one plane, two or three chunks a
+    block in a cluster of a power of two (16 splits at K=2048, 8 at 1408;
+    one split, each block walking its whole K, took 30-35% longer, 11 or 12
+    splits up to 30%); for packed W, the fewest splits whose blocks fill
+    every SM once (one split here: within 5% of the fastest, where the
+    single-GEMM model's plan took 30-90% longer)."""
     cdiv = _cdiv
-    m_tiles = cdiv(max(M, 1), BM)
+    m_tiles = experts * cdiv(max(M, 1), BM)
     k_chunks = max(1, cdiv(Kw, KC))
+    if experts > 1:
+        tiles = m_tiles * cdiv(max(N, 1), BNS[0])
+        if planes > 1:
+            splits = min(MAX_SPLITS, k_chunks, cdiv(sms, tiles))
+        else:
+            splits = 1 << (min(MAX_SPLITS, max(1, k_chunks // 2)).bit_length() - 1)
+        chunks = cdiv(k_chunks, splits)
+        return BNS[0], cdiv(k_chunks, chunks), chunks
     if planes > 1:
         return _packed_plan(m_tiles, N, k_chunks, planes, sms, xbytes)
     least = cdiv(k_chunks, MAX_SPLITS)   # chunks a block at 16 splits
@@ -156,6 +177,11 @@ def tugemm_fused(
     sw (1, N) f32; bias (N,) or None. Returns y (M, N) ``out_dtype``, or
     (y, ca (planes, Kw), rb (Kw, planes)) int32 with ``collect_stats``.
 
+    With a leading expert axis every operand and result gains it: x (E, M,
+    Kx), w (E, Kw, N), sx (E, 1, 1) or (E, M, 1), sw (E, 1, N), bias (E, N);
+    y (E, M, N), ca (E, planes, Kw), rb (E, Kw, planes). One launch (and one
+    memset with stats) computes all E GEMMs.
+
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
     ``cuda`` insists on the kernel."""
@@ -168,8 +194,12 @@ def tugemm_fused(
     check(x.device.type == "cuda",
           lambda: f"tugemm_fused: impl={impl!r} needs CUDA tensors")
     planes = PLANES[bits] if w_mode == "packed" else 1
-    M, Kx = x.shape
-    Kw, N = w.shape
+    batched = x.ndim == 3
+    check(x.ndim == w.ndim and x.ndim in (2, 3) and (not batched or x.shape[0] == w.shape[0]),
+          lambda: f"x {tuple(x.shape)} vs w {tuple(w.shape)}: 2-D, or 3-D with one expert axis")
+    E = x.shape[0] if batched else 1
+    M, Kx = x.shape[-2:]
+    Kw, N = w.shape[-2:]
     dev = x.device
     check(w_mode in _W_MODES, lambda: f"unknown w_mode {w_mode!r}")
     check(bits in (2, 4, 8) and (w_mode != "packed" or bits < 8),
@@ -182,29 +212,29 @@ def tugemm_fused(
     check(out_dtype in (torch.float32, torch.bfloat16), lambda: f"out dtype {out_dtype}")
     sx = sx.reshape(-1)
     sw = sw.reshape(-1)
-    check(sx.dtype == torch.float32 and sx.numel() in (1, M),
+    check(sx.dtype == torch.float32 and sx.numel() in (E, E * M),
           lambda: f"sx {tuple(sx.shape)} {sx.dtype}")
-    check(sw.dtype == torch.float32 and sw.numel() == N,
+    check(sw.dtype == torch.float32 and sw.numel() == E * N,
           lambda: f"sw {tuple(sw.shape)} {sw.dtype}")
-    per_token = sx.numel() == M and M > 1
+    per_token = sx.numel() == E * M and M > 1
     if bias is not None:
-        bias = bias.reshape(-1).to(out_dtype).contiguous()
-        check(bias.numel() == N, lambda: f"bias {tuple(bias.shape)}")
+        bias = bias.to(out_dtype).expand(E, N).contiguous().reshape(-1)
     for t in (x, w, sx, sw, bias):
         check(t is None or (t.device == dev and t.is_contiguous()),
               "tugemm_fused: every operand must be contiguous on x's device")
-    y = torch.empty((M, N), dtype=out_dtype, device=dev)
+    lead = (E,) if batched else ()
+    y = torch.empty(lead + (M, N), dtype=out_dtype, device=dev)
     stats = None
     if collect_stats:
         # ca then rb in one buffer: the launcher zeroes it (one memset), the
         # kernel merges its maxima into it by atomicMax
-        stats = torch.empty(2 * planes * Kw, dtype=torch.int32, device=dev)
-    if M > 0 and N > 0:
-        plan = split_plan(M, N, Kw, planes, sm_count(dev), x.element_size())
+        stats = torch.empty(2 * E * planes * Kw, dtype=torch.int32, device=dev)
+    if M > 0 and N > 0 and E > 0:
+        plan = split_plan(M, N, Kw, planes, sm_count(dev), x.element_size(), E)
         rc = _load().tugemm_fused_launch(
             ptr(x), DTYPE_CODE[x.dtype], ptr(w), _W_MODES[w_mode], DTYPE_CODE[w.dtype],
             ptr(sx), int(per_token), ptr(sw), ptr(bias), ptr(y), DTYPE_CODE[out_dtype],
-            ptr(stats), M, N, Kw, planes, bits, int(collect_stats), *plan,
+            ptr(stats), E, M, N, Kw, planes, bits, int(collect_stats), *plan,
             stream_ptr(dev),
         )
         raise_on(rc, "tugemm_fused")
@@ -213,4 +243,6 @@ def tugemm_fused(
         stats.zero_()
     if not collect_stats:
         return y
-    return y, stats[:planes * Kw].view(planes, Kw), stats[planes * Kw:].view(Kw, planes)
+    half = E * planes * Kw
+    return (y, stats[:half].view(lead + (planes, Kw)),
+            stats[half:].view(lead + (Kw, planes)))

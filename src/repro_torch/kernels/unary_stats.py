@@ -43,33 +43,35 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.absmax_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         lib.absmax_launch.restype = ci
-        lib.tugemm_stats_launch.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        lib.tugemm_stats_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp]
         lib.tugemm_stats_launch.restype = ci
         _lib = lib
     return _lib
 
 
-def _plain(x: torch.Tensor, impl: str, dtype: torch.dtype = torch.int8) -> bool:
+def _plain(x: torch.Tensor, impl: str, dtype: torch.dtype = torch.int8,
+           ndim: tuple = (2,)) -> bool:
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "torch" or (impl == "auto" and x.device.type == "cpu"):
         return True
     check(x.device.type == "cuda", f"unary_stats: impl={impl!r} needs a CUDA tensor")
-    _operand(x, dtype)
+    _operand(x, dtype, ndim)
     return False
 
 
-def _operand(x: torch.Tensor, dtype: torch.dtype) -> None:
-    check(x.dtype == dtype and x.ndim == 2 and x.is_contiguous(),
-          lambda: f"unary_stats: needs a contiguous 2-D {dtype} tensor, "
-                  f"got {x.dtype} {tuple(x.shape)}")
+def _operand(x: torch.Tensor, dtype: torch.dtype, ndim: tuple = (2,)) -> None:
+    check(x.dtype == dtype and x.ndim in ndim and x.is_contiguous(),
+          lambda: f"unary_stats: needs a contiguous {'/'.join(map(str, ndim))}-D {dtype} "
+                  f"tensor, got {x.dtype} {tuple(x.shape)}")
 
 
 def stats_fields(out: torch.Tensor, K: int):
     """The five TuGemmStats fields, as views of one kernel output (HDR + K
-    int32): step_cycles, serial_cycles (int64), parallel_cycles, max_abs,
-    act_max."""
-    return out[HDR:HDR + K], out[0:2].view(torch.int64)[0], out[2], out[3], out[4]
+    int32, or (E, even stride) rows of it for E GEMMs): step_cycles,
+    serial_cycles (int64), parallel_cycles, max_abs, act_max."""
+    return (out[..., HDR:HDR + K], out[..., 0:2].view(torch.int64)[..., 0], out[..., 2],
+            out[..., 3], out[..., 4])
 
 
 def colabsmax(a: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
@@ -126,17 +128,22 @@ def tugemm_stats(ca: torch.Tensor, rb: torch.Tensor, K: int, *, impl: str = "aut
     """The TuGemmStats fields of a GEMM from its plane-major maxima, ca
     (planes, Kw) and rb (Kw, planes) int32 (``tugemm_fused`` /
     ``tugemm_int8`` with stats), over the logical steps ``k = p·Kw + kk <
-    K``: as ``unary_step_stats`` returns them. One launch."""
-    if _plain(ca, impl, torch.int32):
+    K``: as ``unary_step_stats`` returns them. One launch. A leading expert
+    axis (ca (E, planes, Kw), rb (E, Kw, planes): ``tugemm_fused`` over the
+    MoE experts) gives every field a leading (E,) axis, still one launch."""
+    if _plain(ca, impl, torch.int32, (2, 3)):
         FINISH_COUNT.plain_calls += 1
         return finish_stats_ref(ca, rb, K)
-    _operand(rb, torch.int32)
-    planes, Kw = ca.shape
-    check(tuple(rb.shape) == (Kw, planes) and 0 < K <= planes * Kw
-          and rb.device == ca.device,
+    _operand(rb, torch.int32, (ca.ndim,))
+    lead = tuple(ca.shape[:-2])
+    E = ca.shape[0] if lead else 1
+    planes, Kw = ca.shape[-2:]
+    check(tuple(rb.shape) == lead + (Kw, planes) and 0 < K <= planes * Kw
+          and rb.device == ca.device and E > 0,
           lambda: f"tugemm_stats: ca {tuple(ca.shape)}, rb {tuple(rb.shape)}, K={K}")
-    out = torch.empty(HDR + K, dtype=torch.int32, device=ca.device)
-    raise_on(_load().tugemm_stats_launch(ptr(ca), ptr(rb), Kw, planes, K, ptr(out),
-                                         stream_ptr(ca.device)), "tugemm_stats")
+    stride = HDR + K + (K % 2 if lead else 0)   # rows keep the int64 sum aligned
+    out = torch.empty(lead + (stride,), dtype=torch.int32, device=ca.device)
+    raise_on(_load().tugemm_stats_launch(ptr(ca), ptr(rb), E, Kw, planes, K, stride,
+                                         ptr(out), stream_ptr(ca.device)), "tugemm_stats")
     FINISH_COUNT.launches += 1
     return stats_fields(out, K)

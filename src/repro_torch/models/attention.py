@@ -1,11 +1,15 @@
-"""GQA attention (+qk_norm, RoPE) over the paged KV pool.
+"""GQA attention (+qk_norm, RoPE) and MLA (DeepSeek-V2) over the paged KV
+pool.
 
 The pool is a fixed set of ``block_size``-token pages shared by all slots
 and addressed through per-slot block tables (a :class:`KVView`), so one
 step mixes prefill chunks and decode rows. int8 pools store per-(page,
 token) scales (``_quantize_kv``). Writes are eager in-place scatters into
 the pool; padded step columns land on the trailing trash page, which is
-never read. The dense per-slot layout and MLA are later slices.
+never read. MLA caches the compressed kv latent (``ckv``) and the shared
+rope key (``kr``), each with its own per-token scale, and attends in the
+absorbed form: one kv head whose K is ``[ckv ; kr]`` and whose V is
+``ckv``. The dense per-slot layout is a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ __all__ = [
     "kv_cache_write",
     "kv_cache_read",
     "gqa_attention",
+    "mla_attention",
 ]
 
 
@@ -51,15 +56,22 @@ class KVView:
 
 def init_kv_cache(cfg: ModelConfig, rows: int, width: int, dtype, device) -> dict:
     """One layer's k/v buffers (rows, width, kv, hd) — a paged pool passes
-    rows = pages + 1, width = block_size — plus (rows, width) f32 scales for
-    int8."""
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    cache = {
-        "k": torch.zeros((rows, width, kv, hd), dtype=dtype, device=device),
-        "v": torch.zeros((rows, width, kv, hd), dtype=dtype, device=device),
-    }
+    rows = pages + 1, width = block_size — or, for MLA, its ckv (rows, width,
+    kv_lora_rank) and kr (rows, width, rope) pools; plus a (rows, width) f32
+    scale per pool for int8."""
+    if cfg.attn_type == "mla":
+        cache = {
+            "ckv": torch.zeros((rows, width, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "kr": torch.zeros((rows, width, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+        }
+    else:
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        cache = {
+            "k": torch.zeros((rows, width, kv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((rows, width, kv, hd), dtype=dtype, device=device),
+        }
     if dtype == torch.int8:
-        for n in ("k", "v"):
+        for n in list(cache):
             cache[n + "_scale"] = torch.zeros((rows, width), dtype=torch.float32, device=device)
     return cache
 
@@ -157,3 +169,52 @@ def gqa_attention(
         window=window, impl=impl, name="attn.paged",
     )
     return dense(p["wo"], out.reshape(B, S, h * hd), backend=backend, name="attn.o", impl=impl)
+
+
+def mla_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,                # (B, S, D)
+    positions: torch.Tensor,        # (B, S)
+    *,
+    backend,
+    cache: dict,
+    kv_view: KVView,
+    impl: str = "auto",
+    **_unused,
+) -> torch.Tensor:
+    """One MLA layer of a paged mixed step in the absorbed form: q and the
+    compressed kv latent, RoPE on their rope parts, the in-place write of
+    ``ckv`` / ``kr``, ``q_nope`` absorbed into the latent space through
+    ``w_uk`` (an f32 einsum, outside the hardware boundary as in the
+    reference), paged attention over one kv head with K = ``[ckv ; kr]``
+    and V = ``ckv``, then ``w_uv`` and the output projection."""
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
+    scale_dim = nope + rope_d
+
+    q = dense(p["wq"], x, backend=backend, name="mla.q", impl=impl).reshape(B, S, h, scale_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = dense(p["w_dkv"], x, backend=backend, name="mla.dkv", impl=impl)
+    ckv, k_rope = dkv[..., :lora], dkv[..., lora:]
+    ckv = rms_norm(p["kv_norm"], ckv, cfg.rms_eps)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    # absorbed form: q_abs[b,s,h,:] = q_nope · W_uk[:,h,:]^T (in latent space)
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.to(torch.float32),
+                         p["w_uk"]["kernel"].to(torch.float32)).to(x.dtype)
+    q_eff = torch.cat([q_abs, q_rope], dim=-1)                  # (B, S, h, lora+rope)
+    # the kernel scales scores by 1/sqrt(lora+rope); MLA's is 1/sqrt(nope+rope)
+    comp = ((lora + rope_d) ** 0.5) / (scale_dim ** 0.5)
+
+    kv_cache_write(cache, ("ckv", "kr"), (ckv, k_rope), view=kv_view)
+    ctx = paged_decode_attention(
+        q_eff * comp, cache, ("ckv", "kr"), "ckv", kv_view, kv_heads=1,
+        causal=cfg.causal, impl=impl, name="mla.paged",
+    )                                                           # (B, S, h, lora)
+    out = torch.einsum("bshl,lhv->bshv", ctx.to(torch.float32),
+                       p["w_uv"]["kernel"].to(torch.float32)).to(x.dtype)
+    return dense(p["wo"], out.reshape(B, S, h * vd), backend=backend, name="mla.o", impl=impl)

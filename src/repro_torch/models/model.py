@@ -6,69 +6,119 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
-from .transformer import check_supported, plan_groups, torch_dtype
+from .transformer import LayerKind, check_supported, plan_groups, torch_dtype
 
 __all__ = ["init"]
 
 
-def _block_shapes(cfg: ModelConfig) -> dict:
-    """One dense GQA block's parameter shapes and init ("normal" at std 0.02,
-    "ones" for norms) — the reference's ``block_spec``."""
-    d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.resolved_head_dim, cfg.d_ff)
-    attn = {
-        "wq": {"kernel": ((d, h * hd), "normal")},
-        "wk": {"kernel": ((d, kv * hd), "normal")},
-        "wv": {"kernel": ((d, kv * hd), "normal")},
-        "wo": {"kernel": ((h * hd, d), "normal")},
-    }
+def _linear(d_in: int, d_out: int, scale: float = 0.02) -> dict:
+    return {"kernel": ((d_in, d_out), "normal", scale)}
+
+
+def _norm(dim: int) -> dict:
+    return {"scale": ((dim,), "ones")}
+
+
+def _mlp(d: int, ff: int) -> dict:
+    return {"w_gate": _linear(d, ff), "w_up": _linear(d, ff), "w_down": _linear(ff, d)}
+
+
+def _gqa_shapes(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    attn = {"wq": _linear(d, h * hd), "wk": _linear(d, kv * hd), "wv": _linear(d, kv * hd),
+            "wo": _linear(h * hd, d)}
     if cfg.qk_norm:
-        attn["q_norm"] = {"scale": ((hd,), "ones")}
-        attn["k_norm"] = {"scale": ((hd,), "ones")}
+        attn["q_norm"] = _norm(hd)
+        attn["k_norm"] = _norm(hd)
+    return attn
+
+
+def _mla_shapes(cfg: ModelConfig) -> dict:
+    """The reference's ``mla_spec``: w_uk / w_uv are 3-D einsum factors."""
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
     return {
-        "norm1": {"scale": ((d,), "ones")},
-        "attn": attn,
-        "norm2": {"scale": ((d,), "ones")},
-        "ffn": {
-            "w_gate": {"kernel": ((d, ff), "normal")},
-            "w_up": {"kernel": ((d, ff), "normal")},
-            "w_down": {"kernel": ((ff, d), "normal")},
+        "wq": _linear(d, h * (nope + rope_d)),
+        "w_dkv": _linear(d, lora + rope_d),
+        "kv_norm": _norm(lora),
+        "w_uk": {"kernel": ((lora, h, nope), "normal", 0.02)},
+        "w_uv": {"kernel": ((lora, h, vd), "normal", 0.02)},
+        "wo": _linear(h * vd, d),
+    }
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    """The reference's ``moe_spec``: a router at std 0.02/sqrt(d), raw
+    (E, K, N) expert stacks, and the shared experts as one wide MLP."""
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    spec = {
+        "router": _linear(d, e, scale=0.02 / d ** 0.5),
+        "experts": {
+            "w_gate": ((e, d, ff), "normal", 0.02),
+            "w_up": ((e, d, ff), "normal", 0.02),
+            "w_down": ((e, ff, d), "normal", 0.02),
         },
+    }
+    if cfg.num_shared_experts:
+        spec["shared"] = _mlp(d, ff * cfg.num_shared_experts)
+    return spec
+
+
+def _block_shapes(cfg: ModelConfig, kind: LayerKind) -> dict:
+    """One block's parameter shapes and init ("normal" at its std, "ones"
+    for norms) — the reference's ``block_spec``."""
+    d = cfg.d_model
+    return {
+        "norm1": _norm(d),
+        "attn": _mla_shapes(cfg) if kind.mixer == "mla" else _gqa_shapes(cfg),
+        "norm2": _norm(d),
+        "ffn": _moe_shapes(cfg) if kind.moe else _mlp(d, cfg.d_ff),
     }
 
 
 def _materialize(spec, lead: tuple, gen, dtype, device):
+    """Draw one tree of leaves, leaf by leaf. A CPU generator draws in f32
+    and casts (these values are fixed: tests and the card's qwen3-0.6b
+    weights depend on them); a generator on the card draws each leaf there
+    in ``dtype``, so a 16 B-parameter model never passes through the host."""
     if isinstance(spec, dict):
         return {k: _materialize(v, lead, gen, dtype, device) for k, v in spec.items()}
-    shape, how = spec
+    shape, how, *scale = spec
     shape = lead + tuple(shape)
+    if gen.device.type == "cpu":
+        if how == "ones":
+            t = torch.ones(shape, dtype=torch.float32)
+        else:
+            t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale[0]
+        return t.to(dtype=dtype, device=device)
     if how == "ones":
-        t = torch.ones(shape, dtype=torch.float32)
+        t = torch.ones(shape, dtype=dtype, device=gen.device)
     else:
-        t = torch.randn(shape, generator=gen, dtype=torch.float32) * 0.02
-    return t.to(dtype=dtype, device=device)
+        t = torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).mul_(scale[0])
+    return t.to(device=device)
 
 
 def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = None,
          device=None) -> dict:
     """Random parameters in the reference's tree layout (``embed``,
-    stacked ``groups``, ``final_norm`` [, ``head``]), drawn on the CPU from
+    stacked ``groups``, ``final_norm`` [, ``head``]), drawn from
     ``generator`` (a fresh ``torch.Generator().manual_seed(0)`` when None)
-    and placed on ``device`` (default ``cuda``)."""
+    on its own device, leaf by leaf, and placed on ``device`` (default
+    ``cuda``)."""
     check_supported(cfg, rc)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = torch_dtype(rc.param_dtype)
-    params = {"embed": _materialize({"embedding": ((cfg.vocab_size, cfg.d_model), "normal")},
+    params = {"embed": _materialize({"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)},
                                     (), gen, dtype, dev)}
     params["groups"] = tuple(
-        {f"k{j}": _materialize(_block_shapes(cfg), (g.repeats,), gen, dtype, dev)
-         for j in range(len(g.kinds))}
+        {f"k{j}": _materialize(_block_shapes(cfg, kind), (g.repeats,), gen, dtype, dev)
+         for j, kind in enumerate(g.kinds)}
         for g in plan_groups(cfg)
     )
-    params["final_norm"] = _materialize({"scale": ((cfg.d_model,), "ones")}, (), gen, dtype, dev)
+    params["final_norm"] = _materialize(_norm(cfg.d_model), (), gen, dtype, dev)
     if not cfg.tie_embeddings:
-        params["head"] = _materialize({"kernel": ((cfg.d_model, cfg.vocab_size), "normal")},
-                                      (), gen, dtype, dev)
+        params["head"] = _materialize(_linear(cfg.d_model, cfg.vocab_size), (), gen, dtype, dev)
     return params
 

@@ -1,0 +1,162 @@
+"""Mixture-of-Experts FFN: top-k router + capacity-bounded grouped dispatch.
+
+The reference's ``repro/models/moe.py`` on one device. Tokens are grouped by
+batch row; each group computes every (token, choice) pair's slot within its
+expert by a cumsum, drops the pairs past ``capacity`` to a trash slot
+(``E·cap``) and gathers its token rows into a local ``(E·cap, D)`` buffer
+through the slot -> token inverse map (only that int map is scattered). In a
+mixed serving step every row has the step's full width: a row's padding
+columns and idle rows are routed and take capacity exactly as the
+reference's do.
+
+The three expert GEMMs run through ``quant.qlinear.dense`` on the expert
+stacks: each is **one** fused launch over all experts (``ops.matmul_fused``
+with a leading expert axis), not a loop; their stats carry a leading (E,)
+axis, pushed once per GEMM as the reference re-pushes them after its
+``vmap``. The router is a bf16 ``dense`` named ``moe.router`` (outside the
+hardware boundary); shared experts run as an always-on MLP named
+``moe.shared.*``. The drop count rides the capture as ``moe.dropped_tokens``.
+
+``routing()`` is a hook on the router's choices: within it every
+``moe_ffn`` call records its top-k expert ids, or, given the ids another
+run recorded, routes by them instead (teacher forcing: two numerically
+different paths then dispatch the same tokens to the same experts).
+
+The reference's mesh branches (sequence-sharded dispatch groups and expert
+parallelism over a tensor-parallel axis) wait for the dp×tp slice; on one
+device they are dead code and are left out.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..quant import capture as stats_capture
+from ..quant.qlinear import GemmBackend, dense
+from .layers import mlp
+
+__all__ = ["moe_ffn", "moe_capacity", "router_probs", "routing"]
+
+# the active routing() hook: (the ids recorded so far, the ids to route by | None)
+_ROUTING: tuple[list, list | None] | None = None
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    cap = int(cfg.capacity_factor * cfg.num_experts_per_tok * tokens_per_group / cfg.num_experts)
+    return max(4, min(cap, tokens_per_group))
+
+
+def router_probs(logits: torch.Tensor) -> torch.Tensor:
+    """f32 softmax over the experts in the form XLA lowers
+    ``jax.nn.softmax`` to: ``exp(x - max)`` divided by its sum."""
+    lf = logits.to(torch.float32)
+    e = torch.exp(lf - lf.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+@contextlib.contextmanager
+def routing(forced: list | None = None):
+    """Record the top-k expert ids (B, S, k) of every ``moe_ffn`` call in
+    the block, in call order, into the list it yields. Given ``forced``
+    (such a list from another run), call i routes by ``forced[i]`` instead
+    of its own top-k: its gates are its own probabilities at those experts,
+    renormalised, and the list records the ids it routed by."""
+    global _ROUTING
+    prev, _ROUTING = _ROUTING, ([], forced)
+    try:
+        yield _ROUTING[0]
+    finally:
+        _ROUTING = prev
+
+
+def _route(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k (gate values, expert ids) of (B, S, E) probs, or the ids the
+    active ``routing`` hook forces with the probs' values at them."""
+    if _ROUTING is None:
+        return torch.topk(probs, k, dim=-1)
+    seen, forced = _ROUTING
+    if forced is None:
+        vals, idx = torch.topk(probs, k, dim=-1)
+    else:
+        idx = forced[len(seen)].to(probs.device)
+        vals = torch.gather(probs, -1, idx)
+    seen.append(idx)
+    return vals, idx
+
+
+def _dispatch_group(xg: torch.Tensor, idx: torch.Tensor, E: int, cap: int):
+    """Every group's dispatch at once, gather-formulated (the reference
+    vmaps its one-group function over the groups).
+
+    xg: (G, gs, D) tokens; idx: (G, gs, k) expert ids. Returns (xin (G,
+    E·cap, D), dest (G, gs·k)), ``dest == E·cap`` marking a dropped pair.
+    Token-major order: pair j = token j // k, choice j % k. Only the int
+    slot -> pair map is scattered; the token rows move by a gather."""
+    G, gs, k = idx.shape
+    D = xg.shape[-1]
+    flat_e = idx.reshape(G, gs * k)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)                   # (G, gs*k, E)
+    slot = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1       # slot within expert
+    dest = torch.where(slot < cap, flat_e * cap + slot, E * cap)    # E*cap = trash slot
+    inv = torch.full((G, E * cap + 1), gs * k, dtype=torch.int64, device=xg.device)
+    pairs = torch.arange(gs * k, device=xg.device).expand(G, gs * k)
+    inv.scatter_(1, dest, pairs)                                     # slot -> pair
+    x_rep = torch.repeat_interleave(xg, k, dim=1)                    # (G, gs*k, D)
+    xpad = torch.cat([x_rep, x_rep.new_zeros((G, 1, D))], 1)
+    xin = torch.gather(xpad, 1, inv[:, : E * cap, None].expand(G, E * cap, D))
+    return xin, dest                                                 # empty slot -> 0
+
+
+def _expert_mm(w, xs: torch.Tensor, backend, name: str, impl: str) -> torch.Tensor:
+    """The batched expert GEMM ``xs (E, G·cap, K) · w[e]``: a raw stacked
+    kernel (E, K, N) or its surgered ``{"qkernel", "qscale", "qbits"}``
+    leaf, in one fused launch. Under an active capture the (E,)-leading
+    stats are pushed with M = G·cap, empty slots included."""
+    leaf = w if isinstance(w, dict) else {"kernel": w}
+    return dense(leaf, xs, backend=backend, name=name, impl=impl)
+
+
+def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
+            impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (output (B, S, D), Switch aux load-balance loss)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+
+    logits = dense(p["router"], x, backend=GemmBackend("bf16"), name="moe.router", impl=impl)
+    probs = router_probs(logits)                                    # (B, S, E)
+    gate_vals, gate_idx = _route(probs, k)                          # (B, S, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # Switch aux loss: E * sum_e (token fraction)_e * (mean prob)_e
+    me = probs.mean((0, 1))
+    ce = F.one_hot(gate_idx[..., 0], E).to(torch.float32).mean((0, 1))
+    aux = E * torch.sum(me * ce)
+
+    # one dispatch group per batch row
+    cap = moe_capacity(cfg, S)
+    xin, dest = _dispatch_group(x, gate_idx, E, cap)                # (B, E*cap, D), (B, S*k)
+    if stats_capture.stats_wanted():
+        stats_capture.push_scalar("moe.dropped_tokens",
+                                  (dest == E * cap).sum().to(torch.int32))
+
+    # groups -> experts: (E, B*cap, D)
+    xin = xin.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
+    ex = p["experts"]
+    g = _expert_mm(ex["w_gate"], xin, backend, "moe.gate", impl)
+    u = _expert_mm(ex["w_up"], xin, backend, "moe.up", impl)
+    h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    yout = _expert_mm(ex["w_down"], h, backend, "moe.down", impl)   # (E, B*cap, D)
+
+    # experts -> groups, then each group's gate-weighted combine
+    yg = yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)
+    ypad = torch.cat([yg, yg.new_zeros((B, 1, D))], dim=1)          # dropped -> 0
+    got = torch.gather(ypad, 1, dest.long().unsqueeze(-1).expand(B, S * k, D))
+    got = got.reshape(B, S, k, D) * gate_vals[..., None].to(yg.dtype)
+    y = got.sum(2)
+    if cfg.num_shared_experts:
+        y = y + mlp(p["shared"], x, backend=backend, name="moe.shared", impl=impl)
+    return y, aux

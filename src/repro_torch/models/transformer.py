@@ -1,4 +1,4 @@
-"""Dense decoder backbone over stacked layer groups.
+"""Decoder backbone over stacked layer groups: dense GQA and MLA + MoE.
 
 Layers are partitioned into groups exactly as the reference plans them
 (``plan_groups``), and each group's parameters and caches are stacked along
@@ -8,9 +8,10 @@ across by a plain tree map. Where the reference scans a group with
 runs a Python loop over the stacked weights and updates the cache pools in
 place.
 
-Block layout (pre-norm, residual): ``x += attn(norm(x)); x += mlp(norm(x))``.
-This slice serves dense GQA stacks on the paged KV layout, with float or
-offline-packed (``quant.surgery.apply_surgery``) linear weights.
+Block layout (pre-norm, residual): ``x += attn(norm(x)); x += mlp|moe(norm(x))``.
+The port serves GQA and MLA attention with dense MLP or MoE FFNs on the
+paged KV layout, with float or offline-packed
+(``quant.surgery.apply_surgery``) linear weights.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..quant.policy import QuantPolicy, effective_policy
 from ..quant.surgery import _check_stack_consistency, gemm_name_targets
-from .attention import KVView, gqa_attention, init_kv_cache
+from ..quant.qlinear import refuse_unfused_experts
+from .attention import KVView, gqa_attention, init_kv_cache, mla_attention
 from .layers import embed_lookup, mlp, rms_norm
+from .moe import moe_ffn
 
 __all__ = [
     "LayerKind",
@@ -89,18 +92,29 @@ def plan_groups(cfg: ModelConfig) -> tuple[Group, ...]:
     return tuple(groups)
 
 
+_MOE_GEMMS = ("moe.gate", "moe.up", "moe.down")
+
+
 def check_supported(cfg: ModelConfig, rc: RunConfig) -> None:
-    """Raise for what this slice of the port does not serve yet."""
+    """Raise for what the port does not serve yet: SSM and hybrid mixers,
+    frontends and encoders, the dense KV layout, and an ``unfused`` rule on
+    a quantized MoE expert GEMM."""
+    moe = False
     for g in plan_groups(cfg):
         for kind in g.kinds:
-            if kind.mixer != "gqa" or kind.moe:
+            if kind.mixer not in ("gqa", "mla"):
                 raise NotImplementedError(
-                    f"{cfg.name}: {kind.mixer}{' + MoE' if kind.moe else ''} layers are "
-                    "not ported yet (this slice serves dense GQA stacks)")
+                    f"{cfg.name}: {kind.mixer} layers are not ported yet (the port serves "
+                    "GQA and MLA attention with dense or MoE FFNs)")
+            moe = moe or kind.moe
     if cfg.frontend is not None or cfg.is_encoder:
         raise NotImplementedError(f"{cfg.name}: frontends/encoders are not ported yet")
     if rc.kv_layout != "paged":
         raise NotImplementedError("dense KV layout is not ported yet; use kv_layout='paged'")
+    if moe:
+        resolved = effective_policy(rc).resolved()
+        for name in _MOE_GEMMS:
+            refuse_unfused_experts(resolved.for_gemm(name), f"{cfg.name}: {name}")
 
 
 # ------------------------------------------------------------ policy check
@@ -158,11 +172,16 @@ def _select(tree, i: int):
 
 
 def _apply_block(cfg, kind, p, x, positions, *, backend, cache, kv_view, impl):
+    """One block: returns (x, the block's aux loss)."""
     h = rms_norm(p["norm1"], x, cfg.rms_eps)
-    x = x + gqa_attention(cfg, p["attn"], h, positions, backend=backend, cache=cache,
-                          kv_view=kv_view, is_global=kind.is_global, impl=impl)
+    attn = mla_attention if kind.mixer == "mla" else gqa_attention
+    x = x + attn(cfg, p["attn"], h, positions, backend=backend, cache=cache,
+                 kv_view=kv_view, is_global=kind.is_global, impl=impl)
     h2 = rms_norm(p["norm2"], x, cfg.rms_eps)
-    return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl)
+    if kind.moe:
+        y2, aux = moe_ffn(cfg, p["ffn"], h2, backend=backend, impl=impl)
+        return x + y2, aux
+    return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl), None
 
 
 def forward(
@@ -191,15 +210,18 @@ def forward(
     x = embed_lookup(params["embed"], batch["tokens"], torch_dtype(rc.dtype))
     B, S = x.shape[:2]
     positions = cache_pos.long()[:, None] + torch.arange(S, device=x.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, g in enumerate(plan_groups(cfg)):
         gp, gc = params["groups"][gi], caches[gi]
         for i in range(g.repeats):
             p_i, c_i = _select(gp, i), _select(gc, i)
             for j, kind in enumerate(g.kinds):
-                x = _apply_block(cfg, kind, p_i[f"k{j}"], x, positions, backend=backend,
-                                 cache=c_i[f"k{j}"], kv_view=kv_view, impl=impl)
+                x, aux = _apply_block(cfg, kind, p_i[f"k{j}"], x, positions, backend=backend,
+                                      cache=c_i[f"k{j}"], kv_view=kv_view, impl=impl)
+                if aux is not None:
+                    aux_total = aux_total + aux
     x = rms_norm(params["final_norm"], x, cfg.rms_eps)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux_total
 
 
 def lm_logits(cfg: ModelConfig, rc: RunConfig, params: dict, h: torch.Tensor,

@@ -6,6 +6,13 @@ plain list: while a :func:`capture_stats` context is active, ``qlinear``
 appends every quantized GEMM's :class:`CapturedGemm` (one per executed
 GEMM, layer by layer), and :func:`tree_totals_by_bits` sums the cycle
 counts per bitwidth on the host — one device sync per bitwidth.
+
+Leading axes on a GEMM's stats mean sequentially executed instances (the
+MoE experts of one launch): the totals sum ``serial_cycles`` *and*
+``parallel_cycles`` over them, as the reference does — distinct GEMMs
+time-multiplex one unit even in the parallel micro-architecture. Named
+scalars that are not GEMMs (``moe.dropped_tokens``) ride along as
+:class:`CapturedScalar` entries.
 """
 
 from __future__ import annotations
@@ -19,10 +26,13 @@ from ..core.tugemm import TuGemmStats
 
 __all__ = [
     "CapturedGemm",
+    "CapturedScalar",
     "Capture",
     "capture_stats",
     "stats_wanted",
     "push",
+    "push_scalar",
+    "scalar_totals",
     "tree_totals_by_bits",
 ]
 
@@ -40,8 +50,17 @@ class CapturedGemm:
 
 
 @dataclass
+class CapturedScalar:
+    """One named non-GEMM counter (a device scalar)."""
+
+    name: str
+    value: torch.Tensor
+
+
+@dataclass
 class Capture:
     entries: list[CapturedGemm] = field(default_factory=list)
+    scalars: list[CapturedScalar] = field(default_factory=list)
 
 
 _ACTIVE: list[Capture] = []
@@ -55,6 +74,13 @@ def push(name: str, M: int, K: int, N: int, stats: TuGemmStats, bits: int = 8) -
     """Record one GEMM in the innermost capture (no-op when not capturing)."""
     if _ACTIVE:
         _ACTIVE[-1].entries.append(CapturedGemm(name, int(M), int(K), int(N), stats, int(bits)))
+
+
+def push_scalar(name: str, value: torch.Tensor) -> None:
+    """Record one named scalar in the innermost capture (no-op when not
+    capturing)."""
+    if _ACTIVE:
+        _ACTIVE[-1].scalars.append(CapturedScalar(name, value))
 
 
 @contextmanager
@@ -79,8 +105,16 @@ def tree_totals_by_bits(cap: Capture) -> dict[int, dict[str, int]]:
     out: dict[int, dict[str, int]] = {}
     for bits, es in by.items():
         both = torch.stack([
-            torch.stack([e.stats.serial_cycles.to(torch.int64),
-                         e.stats.parallel_cycles.to(torch.int64)]) for e in es
+            torch.stack([e.stats.serial_cycles.to(torch.int64).sum(),
+                         e.stats.parallel_cycles.to(torch.int64).sum()]) for e in es
         ]).sum(dim=0).cpu()
         out[bits] = {"serial_cycles": int(both[0]), "parallel_cycles": int(both[1])}
     return out
+
+
+def scalar_totals(cap: Capture) -> dict[str, int]:
+    """{name: sum over the capture's scalars of that name}, on the host."""
+    names: dict[str, list[torch.Tensor]] = {}
+    for sc in cap.scalars:
+        names.setdefault(sc.name, []).append(sc.value.to(torch.int64).reshape(()))
+    return {n: int(torch.stack(v).sum()) for n, v in names.items()}

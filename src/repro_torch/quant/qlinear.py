@@ -22,6 +22,13 @@ quantize X and W, ``ops.matmul_int8`` (with its stats when wanted: on the
 card they come out of the int8 GEMM's own launch plus one assembly launch)
 or ``ops.matmul_packed``, the dequant epilogue — bit-exact against the
 fused path in outputs and stats.
+
+An expert stack (a raw ``(E, K, N)`` kernel or its packed ``(E, Kp, N)``
+leaf: the MoE expert GEMMs) takes x ``(E, M, K)`` and runs the same fused
+pipeline over all E experts in one ``ops.matmul_fused`` call, each expert
+with its own scales, as the reference's ``vmap`` of ``dense`` runs them.
+The unfused pipeline does not take an expert stack yet
+(``refuse_unfused_experts``).
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ import torch
 from ..kernels import ops
 from ..kernels.ref import dequant_bias_ref
 from . import capture
-from .quantize import compute_scale, fused_scales, quantize
+from .quantize import act_scale, compute_scale, fused_scales, quantize
 from .stats import record_stats
 
-__all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree"]
+__all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree",
+           "refuse_unfused_experts"]
 
 
 @dataclass(frozen=True)
@@ -84,18 +92,21 @@ def _want_stats(backend: GemmBackend, return_stats: bool) -> bool:
 
 
 def _sink_stats(stats, x2, N, backend: GemmBackend, name: str, return_stats: bool):
-    """Route one GEMM's stats to the debug collector and/or the capture
+    """Route one GEMM's stats to the debug collector (one record a GEMM: an
+    expert stack's stats carry a leading (E,) axis) and/or the capture
     (``return_stats=True``: the caller owns them, nothing is pushed)."""
+    M, K = x2.shape[-2:]
     if backend.collect_stats:
-        record_stats(name, x2.shape[0], x2.shape[1], N, stats.act_max,
-                     stats.serial_cycles, stats.parallel_cycles, bits=backend.bits)
+        for a, s, p in zip(stats.act_max.reshape(-1), stats.serial_cycles.reshape(-1),
+                           stats.parallel_cycles.reshape(-1)):
+            record_stats(name, M, K, N, a, s, p, bits=backend.bits)
     if not return_stats:
-        capture.push(name, x2.shape[0], x2.shape[1], N, stats, bits=backend.bits)
+        capture.push(name, M, K, N, stats, bits=backend.bits)
 
 
 def _emit_fused(x2, w, sx, sw, bias, backend: GemmBackend, name: str, *,
                 w_quantized: bool, return_stats: bool, impl: str):
-    """One fused dispatch plus stats routing; returns (y 2-D, stats|None)."""
+    """One fused dispatch plus stats routing; returns (y, stats|None)."""
     want = _want_stats(backend, return_stats)
     out = ops.matmul_fused(
         x2, w, sx=sx, sw=sw, bias=bias, bits=backend.bits, w_quantized=w_quantized,
@@ -104,15 +115,27 @@ def _emit_fused(x2, w, sx, sw, bias, backend: GemmBackend, name: str, *,
     if not want:
         return out, None
     y, stats = out
-    _sink_stats(stats, x2, sw.reshape(-1).shape[0], backend, name, return_stats)
+    _sink_stats(stats, x2, w.shape[-1], backend, name, return_stats)
     return y, stats
 
 
 def _bf16_gemm(x, w, bias):
     y = torch.matmul(x, w.to(x.dtype))
     if bias is not None:
-        y = y + bias.to(y.dtype)
+        y = y + (bias if w.ndim == 2 else bias.unsqueeze(-2)).to(y.dtype)
     return y
+
+
+# the ROADMAP item that ports the unfused expert path
+UNFUSED_EXPERTS = "ROADMAP A2: the unfused expert path (rows 3-4 over the experts)"
+
+
+def refuse_unfused_experts(backend: GemmBackend, name: str) -> None:
+    """Raise ``NotImplementedError`` where ``backend`` would run an expert
+    stack through the unfused pipeline, which is not ported yet."""
+    if backend.kind != "bf16" and not backend.fused:
+        raise NotImplementedError(f"{name}: an unfused rule on an expert GEMM is not ported "
+                                  f"yet ({UNFUSED_EXPERTS})")
 
 
 def gemm(
@@ -125,7 +148,8 @@ def gemm(
     return_stats: bool = False,
     impl: str = "auto",
 ):
-    """x (..., K) · w (K, N) [+ bias (N,)] -> (..., N), in x.dtype.
+    """x (..., K) · w (K, N) [+ bias (N,)] -> (..., N), in x.dtype; an
+    expert stack x (E, M, K) · w (E, K, N) [+ bias (E, N)] -> (E, M, N).
 
     ``impl`` is the caller's kernel path; a backend whose own ``impl`` is
     not ``auto`` overrides it. ``return_stats=True`` returns
@@ -139,14 +163,16 @@ def gemm(
     bits = backend.bits
     per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
     if backend.fused:
         sx, sw = fused_scales(x2, w, bits, per_token)
         ops.count_dispatch("fused_scales")
         y, stats = _emit_fused(x2, w, sx, sw, bias, backend, name, w_quantized=False,
                                return_stats=return_stats, impl=impl)
-        y = y.reshape(*lead, w.shape[1])
+        y = y.reshape(*lead, w.shape[-1])
         return (y, stats) if return_stats else y
+    if w.ndim == 3:
+        refuse_unfused_experts(backend, name)
 
     # ------------------------------------------------ legacy unfused pipeline
     path = _impl(backend, impl)
@@ -199,11 +225,14 @@ def _gemm_prequant(
     bits = backend.bits
     per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    sx = compute_scale(x2, bits, axis=0 if per_token else None)
+    experts = leaf["qkernel"].ndim == 3
+    if experts:
+        refuse_unfused_experts(backend, name)
+    x2 = x if experts else x.reshape(-1, x.shape[-1])
+    sx = act_scale(x2, bits, per_token)
     ops.count_dispatch("scale_x")
     sw = leaf["qscale"]
-    N = sw.shape[0]
+    N = sw.shape[-1]
     if backend.fused:
         # the plane decode runs inside the fused kernel, and real cycle
         # stats come out of the same pass
@@ -242,7 +271,13 @@ def dense(
 ):
     """Linear layer over a param leaf dict ``{'kernel': (K, N) [, 'bias']}``
     or its prequantized form ``{'qkernel', 'qscale' [, 'qbits'] [, 'bias']}``.
-    ``return_stats=True`` -> ``(y, TuGemmStats | None)``."""
+    ``return_stats=True`` -> ``(y, TuGemmStats | None)``.
+
+    An expert stack — ``{'kernel': (E, K, N)}`` or a packed ``{'qkernel':
+    (E, Kp, N), 'qscale': (E, N), 'qbits'}`` leaf — takes x (E, M, K) and
+    runs all E GEMMs in one fused launch (stats fields with a leading (E,)
+    axis); a rule that resolves such a GEMM to ``unfused`` raises
+    ``NotImplementedError``."""
     backend = backend.for_gemm(name)
     bias = params.get("bias")
     if "qkernel" in params:

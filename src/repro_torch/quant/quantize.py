@@ -14,15 +14,19 @@ import torch
 from ..core.encoding import int_range
 
 __all__ = ["int_range", "compute_scale", "raw_amax", "amax_to_scale", "fused_scales",
-           "quantize", "dequantize"]
+           "act_scale", "quantize", "dequantize"]
 
 
-def raw_amax(x: torch.Tensor, *, axis: int | None = None) -> torch.Tensor:
-    """max |x| over everything (axis=None) or over every dim but ``axis``,
-    as f32. One reduction in x's own dtype (the inf-norm): |x| and max are
-    exact in any float format, so widening the result afterwards equals
-    the reference's widen-then-reduce without an f32 copy of x."""
-    dims = None if axis is None else tuple(i for i in range(x.ndim) if i != axis)
+def raw_amax(x: torch.Tensor, *, axis: int | tuple | None = None) -> torch.Tensor:
+    """max |x| over everything (axis=None) or over every dim but ``axis``
+    (one kept dim, or a tuple of them), as f32. One reduction in x's own
+    dtype (the inf-norm): |x| and max are exact in any float format, so
+    widening the result afterwards equals the reference's
+    widen-then-reduce without an f32 copy of x."""
+    keep = () if axis is None else (axis,) if isinstance(axis, int) else tuple(axis)
+    dims = tuple(i for i in range(x.ndim) if i not in keep)
+    if not dims:
+        return x.abs().to(torch.float32)
     return torch.linalg.vector_norm(x, ord=float("inf"), dim=dims).to(torch.float32)
 
 
@@ -33,18 +37,32 @@ def amax_to_scale(amax: torch.Tensor, bits: int) -> torch.Tensor:
     return amax.clamp_min(1e-8) * (1.0 / hi)
 
 
-def compute_scale(x: torch.Tensor, bits: int, *, axis: int | None = None) -> torch.Tensor:
+def compute_scale(x: torch.Tensor, bits: int, *, axis: int | tuple | None = None
+                  ) -> torch.Tensor:
     """Absmax scale: per-tensor scalar (axis=None) or one per slice along
-    ``axis``."""
+    ``axis`` (a tuple: along each of those axes)."""
     return amax_to_scale(raw_amax(x, axis=axis), bits)
 
 
 def fused_scales(x: torch.Tensor, w: torch.Tensor, bits: int,
                  per_token: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Activation scale (scalar, or per-row (M,) with ``per_token``) and the
-    per-out-channel weight scale (N,) of a dynamic-quant linear layer."""
-    sx = compute_scale(x, bits, axis=0 if per_token else None)
-    return sx, compute_scale(w, bits, axis=1)
+    per-out-channel weight scale (N,) of a dynamic-quant linear layer.
+
+    With a leading expert axis (x (E, M, K), w (E, K, N): the MoE expert
+    GEMMs) each expert gets its own scales, as the reference's vmapped
+    ``dense`` computes them: sx (E,) over that expert's whole dispatch
+    buffer, zero-filled empty slots included (an expert that received no
+    token has amax 0, which ``amax_to_scale`` clamps), or (E, M) per token;
+    sw (E, N)."""
+    return act_scale(x, bits, per_token), compute_scale(w, bits, axis=(*range(w.ndim - 2),
+                                                                         w.ndim - 1))
+
+
+def act_scale(x: torch.Tensor, bits: int, per_token: bool = False) -> torch.Tensor:
+    """The activation scale of x (M, K): a scalar, or (M,) per token; of an
+    expert stack x (E, M, K): (E,), or (E, M) per token."""
+    return compute_scale(x, bits, axis=tuple(range(x.ndim - 2 + per_token)))
 
 
 def quantize(x: torch.Tensor, scale, bits: int) -> torch.Tensor:

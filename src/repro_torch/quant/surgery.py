@@ -14,9 +14,12 @@
 - :func:`validate_runtime_policy` gives the runtime entry points the same
   policy checks on live (possibly surgered) params.
 
-This slice covers the dense GQA stacks the port serves (attention, MLP and
-an untied head); the reference's SSM, MoE-expert and frontend leaves come
-with the slices that port those layers.
+It covers the stacks the port serves: GQA and MLA attention, dense MLPs,
+MoE expert stacks (raw ``(L, E, K, N)`` kernels, packed to ``(L, E, Kp,
+N)`` leaves) and their shared experts, and an untied head; the reference's
+SSM and frontend leaves come with the slices that port those layers. MLA's
+3-D ``w_uk`` / ``w_uv`` factors and the MoE router stay outside the tuGEMM
+hardware boundary and are never rewritten.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ __all__ = [
 
 # param-tree key -> runtime GEMM name, per enclosing module; every other
 # key (norms, embeddings) is outside the tuGEMM hardware boundary
-_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o"}
+_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o", "w_dkv": "dkv"}
 _MLP = {"w_gate": "gate", "w_up": "up", "w_down": "down"}
 _TOP = {"head": "lm_head"}
 
@@ -53,8 +56,13 @@ def _gemm_name(cfg: ModelConfig, path: tuple) -> str | None:
     if key in _TOP and len(path) == 1:
         return _TOP[key]
     if "attn" in path and key in _ATTN:
-        return f"attn.{_ATTN[key]}"
+        prefix = "mla" if cfg.attn_type == "mla" else "attn"
+        return f"{prefix}.{_ATTN[key]}"
     if "ffn" in path and key in _MLP:
+        if "experts" in path:
+            return f"moe.{_MLP[key]}"
+        if "shared" in path:
+            return f"moe.shared.{_MLP[key]}"
         return f"mlp.{_MLP[key]}"
     return None
 
@@ -120,9 +128,10 @@ def _check_stack_consistency(policy: QuantPolicy, targets, packed: set | None = 
 
 
 def _walk(cfg: ModelConfig, node, path: tuple, visit):
-    """Visit every qlinear-executed linear (``{'kernel'}`` leaf-dicts and
-    their surgered ``{'qkernel'}`` form). ``visit(path, leaf, name)``
-    returns a replacement leaf-dict or None to keep it."""
+    """Visit every qlinear-executed linear (``{'kernel'}`` leaf-dicts, their
+    surgered ``{'qkernel'}`` form, and raw MoE expert kernel stacks, which
+    visit as ``{'kernel': stack}``). ``visit(path, leaf, name)`` returns a
+    replacement for the entry or None to keep it."""
     if isinstance(node, dict):
         if "qkernel" in node or ("kernel" in node and getattr(node["kernel"], "ndim", 0) >= 2):
             name = _gemm_name(cfg, path)
@@ -130,7 +139,15 @@ def _walk(cfg: ModelConfig, node, path: tuple, visit):
                 return node
             rep = visit(path, node, name)
             return node if rep is None else rep
-        return {k: _walk(cfg, v, path + (k,), visit) for k, v in node.items()}
+        out = {}
+        for k, v in node.items():
+            if path and path[-1] == "experts" and k in _MLP and getattr(v, "ndim", 0) >= 2:
+                # raw expert kernel stack (L, E, K, N)
+                rep = visit(path + (k,), {"kernel": v}, _gemm_name(cfg, path + (k,)))
+                out[k] = v if rep is None else rep
+            else:
+                out[k] = _walk(cfg, v, path + (k,), visit)
+        return out
     if isinstance(node, (tuple, list)):
         return type(node)(_walk(cfg, v, path + (i,), visit) for i, v in enumerate(node))
     return node

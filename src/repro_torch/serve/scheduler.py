@@ -18,7 +18,11 @@ token budget halves per level; ``rc.ladder_relax_ticks`` clean ticks relax
 it one level. Every tick advances a logical ``clock``, the ladder's time.
 
 Cycle attribution (``track_energy=True``): a tick's tuGEMM cycles are split
-across scheduled rows by active-token weight ``lens[b] / sum(lens)``.
+across scheduled rows by active-token weight ``lens[b] / sum(lens)``, and
+each tick's MoE capacity drops (the capture's ``moe.dropped_tokens``) are
+kept in ``tick_dropped_tokens``. ``health()`` reports
+``moe_dropped_tokens``, which counts drops on the expert-parallel mesh path
+only and stays 0 on one device, as the reference's does.
 
 This slice has plain FIFO admission. Admission classes, shedding, fault
 injection, speculative decoding, prefix caching, tracing and the dense
@@ -41,7 +45,7 @@ from ..core.report import slot_energy
 from ..models import KVView, forward, init_caches, lm_logits
 from ..models.transformer import check_supported
 from ..quant import capture as stats_capture
-from ..quant.capture import tree_totals_by_bits
+from ..quant.capture import scalar_totals, tree_totals_by_bits
 from .admission import DegradationLadder
 from .cache import BlockManager, num_pages_for
 
@@ -216,6 +220,8 @@ class Scheduler:
         self.finished_meters: list[SlotMeter] = []
         self.final_kv_lens: dict[int, int] = {}     # rid -> live KV at finish
         self.cycles_by_bits: dict = {}              # bits -> exact int cycle totals
+        self.moe_dropped_tokens = 0                 # expert-parallel drops (0 on one device)
+        self.tick_dropped_tokens: list[int] = []    # capture's MoE drops a tick (track_energy)
         self.tick_seconds: list[float] = []         # wall time of every step tick
         self.generated_tokens = 0
         self.ticks = 0
@@ -392,6 +398,9 @@ class Scheduler:
         if self.track_energy:
             self.caches, logits, cap = out
             step_by_bits = tree_totals_by_bits(cap)
+            if cap.scalars:
+                self.tick_dropped_tokens.append(
+                    scalar_totals(cap).get("moe.dropped_tokens", 0))
         else:
             self.caches, logits = out
         for b, d in step_by_bits.items():
@@ -429,6 +438,23 @@ class Scheduler:
             if not self.tick() and not self.queue:
                 break
         return self.finished
+
+    def health(self) -> dict:
+        """Host-side snapshot: ladder state, slot and queue occupancy, the
+        counters of this engine, and ``moe_dropped_tokens`` (router
+        capacity drops on the mesh path; 0 on one device)."""
+        return {
+            "clock": self.clock,
+            "ticks": self.ticks,
+            "ladder": self.ladder.snapshot(),
+            "active_slots": sum(1 for s in self.slots if s is not None),
+            "max_batch": self.max_batch,
+            "queued": len(self.queue),
+            "completed": len(self.finished),
+            "preemptions": self.preemptions,
+            "pages_in_use": self.mgr.pages_in_use,
+            "moe_dropped_tokens": self.moe_dropped_tokens,
+        }
 
     def energy_summary(self, variant: str = "serial") -> list[dict]:
         """Per-request {rid, tokens, cycles, cycles_by_bits, latency_s,

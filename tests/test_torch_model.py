@@ -92,3 +92,72 @@ def test_mixed_step_logits_match_reference(policy):
             np.testing.assert_array_equal(jk[name][:, :-1], tk[name][:, :-1], err_msg=name)
         for name in ("k_scale", "v_scale"):
             np.testing.assert_allclose(tk[name][:, :-1], jk[name][:, :-1], rtol=1e-6, atol=0)
+
+
+def _old_draws(cfg, dtype):
+    """The CPU draws as the port made them before leaves were drawn on their
+    generator's device: one seeded CPU generator, each linear leaf an f32
+    ``randn * 0.02`` cast to ``dtype``, norms ones, in tree order."""
+    from repro_torch.models.transformer import plan_groups
+
+    gen = torch.Generator().manual_seed(0)
+    d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                        cfg.d_ff)
+    draw = lambda *s: (torch.randn(s, generator=gen, dtype=torch.float32) * 0.02).to(dtype)  # noqa
+    out = {"embed.embedding": draw(cfg.vocab_size, d)}
+    for gi, g in enumerate(plan_groups(cfg)):
+        L = g.repeats
+        for j in range(len(g.kinds)):
+            pre = f"groups.{gi}.k{j}."
+            for n, shape in (("attn.wq", (d, h * hd)), ("attn.wk", (d, kv * hd)),
+                             ("attn.wv", (d, kv * hd)), ("attn.wo", (h * hd, d)),
+                             ("ffn.w_gate", (d, ff)), ("ffn.w_up", (d, ff)),
+                             ("ffn.w_down", (ff, d))):
+                out[pre + n + ".kernel"] = draw(L, *shape)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_cpu_generator_keeps_its_values(dtype):
+    """A CPU generator draws every leaf as before, bit for bit (the CPU
+    tests' and qwen3-0.6b's card weights depend on them)."""
+    from repro_torch.interop import flat_leaves
+    from repro_torch.models import init
+
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg = t_get_config(ARCH)
+    got = flat_leaves(init(cfg, TRunConfig(dtype=name, param_dtype=name, kv_layout="paged"),
+                           torch.Generator().manual_seed(0), device="cpu"))
+    want = {k: v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+            for k, v in _old_draws(cfg, dtype).items()}
+    kernels = {k for k in got if k.endswith(".kernel") or k.endswith(".embedding")}
+    assert kernels == set(want)
+    for k in kernels:
+        np.testing.assert_array_equal(got[k], want[k].numpy(), err_msg=k)
+    norms = [k for k in got if k.endswith(".scale")]
+    assert norms and all((got[k] == (16256 if dtype == torch.bfloat16 else 1.0)).all()
+                         for k in norms)
+
+
+def test_init_mla_moe_tree_matches_reference_layout():
+    """deepseek-v2-lite-16b_smoke: the port's init gives the reference's
+    paths and shapes, and each leaf's init: norms ones, linears std 0.02,
+    the router std 0.02/sqrt(d_model)."""
+    from repro_torch.interop import flat_leaves
+    from repro_torch.models import init
+
+    arch = "deepseek-v2-lite-16b_smoke"
+    cfg = get_config(arch)
+    rc = RunConfig(dtype="float32", param_dtype="float32", kv_layout="paged")
+    want = flat_leaves(jax.tree.map(np.asarray, j_init(cfg, rc, jax.random.PRNGKey(0))))
+    got = flat_leaves(init(t_get_config(arch), TRunConfig(dtype="float32",
+                                                          param_dtype="float32",
+                                                          kv_layout="paged"), device="cpu"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+        if k.endswith(".scale"):
+            assert (got[k] == 1).all(), k
+        elif got[k].size > 1000:
+            std = 0.02 / cfg.d_model ** 0.5 if ".router." in k else 0.02
+            assert abs(got[k].std() / std - 1) < 0.1, (k, got[k].std())

@@ -185,6 +185,73 @@ def test_unported_features_raise(port_params):
         rc = dataclasses.replace(TRunConfig(**RC_KW), **kw)
         with pytest.raises(NotImplementedError):
             Scheduler(cfg, rc, port_params, capacity=32, max_batch=2, device="cpu")
+    # still unported: SSM layers, and the unfused expert GEMMs of an MoE model
     with pytest.raises(NotImplementedError):
-        Scheduler(t_get_config("qwen3-0.6b_smoke").replace(attn_type="mla"),
+        Scheduler(t_get_config("qwen3-0.6b_smoke").replace(family="ssm"),
                   TRunConfig(**RC_KW), port_params, capacity=32, max_batch=2, device="cpu")
+    ds = t_get_config("deepseek-v2-lite-16b_smoke")
+    rc = TRunConfig(**dict(RC_KW, quant_policy="mla.*=int8,moe.*=int2:unfused,*=bf16"))
+    with pytest.raises(NotImplementedError, match="unfused expert path"):
+        Scheduler(ds, rc, port_params, capacity=32, max_batch=2, device="cpu")
+
+
+# ------------------------------------------------------- the MLA + MoE slice
+DS_ARCH = "deepseek-v2-lite-16b_smoke"
+
+
+def _serve_both(policy, surgery: bool):
+    """The reference's and the port's Scheduler on deepseek-v2-lite-16b_smoke
+    (paged, pages of 4, chunks of 5), the same weights and prompts."""
+    cfg = get_config(DS_ARCH)
+    rc = RunConfig(quant_policy=policy, **RC_KW)
+    params = j_init(cfg, rc, jax.random.PRNGKey(0))
+    prompts = _prompts(cfg.vocab_size)
+    ref = JScheduler(cfg, rc, j_apply_surgery(cfg, rc, params) if surgery else params,
+                     capacity=32, max_batch=3, track_energy=True)
+    for rid, p in enumerate(prompts):
+        ref.submit(JRequest(rid=rid, prompt=list(p), max_new=3))
+    ref_toks = {r.rid: r.out for r in ref.run()}
+
+    tcfg, trc = t_get_config(DS_ARCH), TRunConfig(quant_policy=policy, **RC_KW)
+    tparams = params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+    if surgery:
+        tparams = t_apply_surgery(tcfg, trc, tparams)
+    port = Scheduler(tcfg, trc, tparams, capacity=32, max_batch=3, track_energy=True,
+                     device="cpu")
+    for rid, p in enumerate(prompts):
+        port.submit(Request(rid=rid, prompt=list(p), max_new=3))
+    toks = {r.rid: r.out for r in port.run()}
+    return ref, ref_toks, port, toks
+
+
+@pytest.mark.parametrize("policy", ["mla.*=int8,*=int2",
+                                    "mla.*=int8,moe.*=int2,mlp.*=int2,*=bf16"])
+def test_mla_moe_greedy_tokens_and_cycles_match_reference(policy):
+    """The slice's acceptance gate: greedy tokens and per-slot
+    cycles_by_bits identical to the reference's scheduler."""
+    ref, ref_toks, port, toks = _serve_both(policy, surgery=False)
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+    assert toks == ref_toks
+    assert cyc == {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+    # capacity drops reach the capture every tick; health() counts only the
+    # mesh path's, 0 on one device as in the reference
+    assert len(port.tick_dropped_tokens) == port.ticks and sum(port.tick_dropped_tokens) > 0
+    assert port.health()["moe_dropped_tokens"] == ref.moe_dropped_tokens == 0
+    port.mgr.check_invariants()
+
+
+@pytest.mark.parametrize("policy", ["mla.*=int8,*=int2:prequant",
+                                    "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16"])
+def test_mla_moe_surgered_serving_matches_reference(policy):
+    """The same gate after apply_surgery in both packages: the expert stacks
+    served from packed (L, E, Kp, N) planes by the fused kernel."""
+    ref, ref_toks, port, toks = _serve_both(policy, surgery=True)
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+    assert toks == ref_toks
+    assert cyc == {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens

@@ -144,3 +144,65 @@ def test_surgered_reference_tree_carries_across(ref_params):
     assert all((a[k] == b[k]) if isinstance(a[k], QBits) else np.array_equal(a[k], b[k])
                for k in a)
     assert torch.equal(_forward(cfg, rc, carried), _forward(cfg, rc, own))
+
+
+# ------------------------------------------------------- the MLA + MoE slice
+DS_ARCH = "deepseek-v2-lite-16b_smoke"
+DS_POLICIES = [
+    "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16",
+    "mla.*=int8:prequant,moe.shared.*=int4:prequant,moe.*=int2:prequant,*=int8:prequant",
+]
+
+
+@pytest.fixture(scope="module")
+def ds_params():
+    return j_init(get_config(DS_ARCH), RunConfig(**RC_KW), jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("policy", DS_POLICIES)
+def test_mla_moe_surgered_tree_is_the_reference_tree(ds_params, policy):
+    """Byte-identical surgered trees on deepseek-v2-lite-16b_smoke, the
+    expert stacks packed to (L, E, Kp, N) with (L, E, N) scales; MLA's w_uk
+    / w_uv and the router stay float."""
+    rc = RunConfig(quant_policy=policy, **RC_KW)
+    ref_tree = jax.tree.map(np.asarray, j_apply_surgery(get_config(DS_ARCH), rc, ds_params))
+    want = flat_leaves(ref_tree)
+    got = flat_leaves(apply_surgery(t_get_config(DS_ARCH), TRunConfig(quant_policy=policy,
+                                                                      **RC_KW),
+                                    _port(ds_params)))
+    # the reference's surgered tree carried across by interop is the same tree
+    carried = flat_leaves(params_from_reference(ref_tree, device="cpu"))
+    assert got.keys() == want.keys() == carried.keys()
+    for k, v in want.items():
+        if isinstance(v, QBits):
+            assert got[k] == v and carried[k] == v, k
+        else:
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+            np.testing.assert_array_equal(carried[k], v, err_msg=k)
+    cfg = get_config(DS_ARCH)
+    for g in ("w_gate", "w_up", "w_down"):
+        qk = got[f"groups.0.k1.ffn.experts.{g}.qkernel"]
+        assert qk.ndim == 4 and qk.shape[:2] == (1, cfg.num_experts)
+        assert got[f"groups.0.k1.ffn.experts.{g}.qscale"].shape[:2] == (1, cfg.num_experts)
+    for k in ("w_uk.kernel", "w_uv.kernel"):
+        assert f"groups.0.k0.attn.{k}" in got
+    assert "groups.0.k1.ffn.router.kernel" in got
+
+
+def test_mla_moe_gemm_names_match_reference(ds_params):
+    """plan_surgery names every linear as the reference does: mla.q / dkv /
+    o, moe.gate / up / down on the expert stacks, moe.shared.*, mlp.* on the
+    dense layer, lm_head; w_uk, w_uv and the router are not GEMMs here."""
+    policy = "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16"
+    rc = RunConfig(quant_policy=policy, **RC_KW)
+    want = j_plan_surgery(get_config(DS_ARCH), rc, ds_params)
+    got = plan_surgery(t_get_config(DS_ARCH), TRunConfig(quant_policy=policy, **RC_KW),
+                       _port(ds_params))
+    fields = ("path", "gemm_name", "selected", "shape", "bits", "mode")
+    assert ([tuple(getattr(e, f) for f in fields) for e in got.entries]
+            == [tuple(getattr(e, f) for f in fields) for e in want.entries])
+    names = {e.gemm_name for e in got.entries}
+    assert names == {"mla.q", "mla.dkv", "mla.o", "mlp.gate", "mlp.up", "mlp.down",
+                     "moe.gate", "moe.up", "moe.down", "moe.shared.gate", "moe.shared.up",
+                     "moe.shared.down", "lm_head"}

@@ -230,7 +230,7 @@ def test_split_plan_takes_shapes_only():
     import inspect
 
     assert list(inspect.signature(split_plan).parameters) == ["M", "N", "Kw", "planes", "sms",
-                                                              "xbytes"]
+                                                              "xbytes", "experts"]
 
 
 def _split_emulation(x, w, sx, sw, bias, *, bits, w_mode, out_dtype, sms):
