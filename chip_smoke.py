@@ -41,6 +41,16 @@ Phases, each printing one JSON line:
 5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
    width (random weights from a seed) under the fused dynamic policy; the
    kernels' launch counters are zeroed just before and read just after.
+5b. serve_chaos / serve_fallback / serve_overload — the serving
+   robustness layer on the same model. ``serve_chaos``: per-token scales
+   (``ROBUST_POLICY``), fault-free and then under a generated ``FaultPlan``
+   (allocation failures, preemption storms, transient NaN logits): the same
+   greedy tokens, no page leaked. ``serve_fallback``: a persistent NaN on
+   one row escalates it to the ``*=bf16`` fallback step, which runs on the
+   card (attention's kernel, no GEMM kernel); the other rows' tokens are
+   unchanged. ``serve_overload``: bounded class queues, TTLs and tenant
+   budgets under a burst: every request done or structurally rejected, the
+   ladder up to ``shed`` and back to ``healthy``.
 6. serve_prequant / step parity / serve_unfused — the same requests on the
    same weights after ``apply_surgery``: fused GEMMs on offline-packed MLP
    weights, then the legacy unfused pipeline (int8 GEMM with its stats
@@ -85,6 +95,12 @@ Phases, each printing one JSON line:
    profiler runs during no other timed phase; where the profiler loses
    device events, all of them are read by CUDA events, and each record's
    ``device_ms_source`` says which.
+10b. serve_traced — the serve phase's workload untraced and with a
+   ``Tracer`` and a ``MetricsRegistry``, in turns (off, on, on, off: tick,
+   TTFT and inter-token ms), then traced inside ``obs.device_trace``
+   (tokens and cycles identical everywhere, the host trace valid, the
+   profiler trace holding the ``serve/step`` and ``serve/logits`` ranges
+   and the kernels).
 11. the kernels line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
@@ -926,7 +942,8 @@ def check_moe_gemm(torch, flush):
     and one ``tugemm_stats`` launch (the counters; the last phase reads 3
     device operations, the memset included, and raises otherwise). Library:
     ``torch.bmm`` on the bf16 operands. Then the model's 2-D GEMMs whose
-    widths the dense path never ran (M=64 and 4), bit for bit."""
+    widths the dense path never ran (M=64 and 4), bit for bit, with
+    ``torch._int_mm`` on their int8 operands as the library at M=64."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.unary_stats import HDR
     from repro_torch.quant.quantize import act_scale, fused_scales
@@ -990,7 +1007,12 @@ def check_moe_gemm(torch, flush):
             x = torch.randn(M2, K, device=dev, generator=gen).to(bf16)
             wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
             sx, sw = fused_scales(x, wf, bits)
-            run(f"{name} dynamic", x, wf, sx, sw, bits, False, None)
+            # library: torch._int_mm on the int8 operands where cuBLASLt
+            # takes the shape (M=64; none at M=4)
+            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+            xq = torch.clamp(torch.round(x.float() / sx.float()), lo, hi).to(torch.int8)
+            wq = torch.clamp(torch.round(wf.float() / sw.float()), lo, hi).to(torch.int8)
+            run(f"{name} dynamic", x, wf, sx, sw, bits, False, lib_int_mm(torch, xq, wq))
     return records
 
 
@@ -1480,9 +1502,10 @@ def step_parity_moe(torch, cfg, rc, params, phase: str = "step_parity_moe"):
                              f"router choices differ: {rec}")
 
 
-def serving_scheduler(cfg, rc, params, impl: str):
+def serving_scheduler(cfg, rc, params, impl: str, **kw):
     """The serve phase's workload: a Scheduler holding 8 requests of 32-128
-    prompt tokens from a seeded rng, 16 new tokens each."""
+    prompt tokens from a seeded rng, 16 new tokens each. ``kw`` goes to the
+    Scheduler (``faults``, ``tracer``, ``metrics``)."""
     import numpy as np
 
     from repro_torch.serve import Request, Scheduler
@@ -1491,16 +1514,17 @@ def serving_scheduler(cfg, rc, params, impl: str):
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(32, 129))).tolist()
                for _ in range(8)]
     sched = Scheduler(cfg, rc, params, capacity=256, max_batch=4, track_energy=True,
-                      device=DEVICE, impl=impl)
+                      device=DEVICE, impl=impl, **kw)
     for rid, p in enumerate(prompts):
-        sched.submit(Request(rid=rid, prompt=p, max_new=16))
+        if sched.submit(Request(rid=rid, prompt=p, max_new=16)) is not None:
+            raise AssertionError(f"request {rid} refused at submit")
     return sched, prompts
 
 
-def serve(torch, cfg, rc, params, impl: str):
+def serve(torch, cfg, rc, params, impl: str, **kw):
     from repro_torch.kernels import ops
 
-    sched, prompts = serving_scheduler(cfg, rc, params, impl)
+    sched, prompts = serving_scheduler(cfg, rc, params, impl, **kw)
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -1541,8 +1565,279 @@ def serve_record(phase, sched, done, wall, counts, prompts) -> dict:
             "layers": sched.cfg.num_layers,
             **({"dropped_tokens_per_tick": statistics.mean(sched.tick_dropped_tokens),
                 "dropped_tokens": sum(sched.tick_dropped_tokens),
-                "health_moe_dropped_tokens": sched.health()["moe_dropped_tokens"]}
+                "moe_dropped_tokens": sched.moe_dropped_tokens}
                if sched.tick_dropped_tokens else {})}
+
+
+# ------------------------------------------- serving robustness and observability
+# The chaos and fallback phases compare runs whose schedules differ (a fault
+# moves rows to other ticks). Per-token activation scales keep each row's
+# numbers independent of the rows it is batched with, as the reference's
+# chaos suite's unquantized policy does; under per-tensor scales another
+# schedule is another computation.
+ROBUST_POLICY = "attn.*=int8:per_token,mlp.*=int2:per_token,*=bf16"
+CHAOS_RATES = {"alloc_fail": 0.35, "preempt_storm": 0.1, "nan_logits": 0.12}
+# the health() counters the robustness phases print
+HEALTH_COUNTERS = ("clock", "ticks", "preemptions", "stalled_rows_total", "stall_episodes",
+                   "engine_stalls", "idle_fault_ticks", "nan_events", "fallback_retries",
+                   "sheds", "submitted", "admitted", "completed", "deadline_misses")
+FUSED_KERNELS = ("tugemm_fused", "flash_paged_decode", "tugemm_stats")
+
+
+def _only_fused_on_cuda(phase: str, counts: dict, paths: dict) -> None:
+    """A serve under the fused policy launched exactly the fused GEMM, its
+    stats assembly and attention, made no plain call, and every call site
+    took the ``cuda`` route."""
+    ran = {k for k, c in counts.items() if c["launches"] > 0}
+    routes = {path for p in paths.values() for path in p}
+    if ran != set(FUSED_KERNELS) or any(c["plain_calls"] for c in counts.values()) \
+            or routes != {"cuda"}:
+        raise AssertionError(f"{phase} did not run only the fused kernels on the cuda route: "
+                             f"{counts} {paths}")
+
+
+def _pool_clean(phase: str, sched, done, n: int) -> None:
+    sched.mgr.check_invariants()
+    if sched.mgr.pages_in_use or sched.engine_stalls or len(done) != n \
+            or not all(r.done for r in done):
+        raise AssertionError(f"{phase}: pages leaked, the engine stalled or a request did "
+                             f"not finish: {sched.health()}")
+
+
+def serve_chaos(torch, cfg, rc, params):
+    """The serve under ``ROBUST_POLICY``, fault-free, then under a generated
+    ``FaultPlan`` (allocation failures, preemption storms, transient NaN
+    logits, seed 0): the same greedy tokens, no page leaked, every request
+    done, the faults exercised and no row escalated to the fallback step.
+    Returns the fault-free run (scheduler, tokens, rid 0's finish tick)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FaultPlan
+
+    rc_pt = dataclasses.replace(rc, quant_policy=ROBUST_POLICY)
+    base, prompts = serving_scheduler(cfg, rc_pt, params, "auto")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid0_done = None
+    while base.tick() or base.queue:
+        if rid0_done is None and any(r.rid == 0 for r in base.finished):
+            rid0_done = base.clock
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    want = check_served(cfg, base, base.finished, prompts, {8, 2})
+    plan = FaultPlan.generate(0, horizon=8 * base.ticks + 50, max_batch=4, rates=CHAOS_RATES)
+    sched, done, wall, counts, _ = serve(torch, cfg, rc_pt, params, "auto", faults=plan)
+    paths = ops.path_counts()
+    got = {r.rid: list(r.out) for r in done}
+    h = sched.health()
+    rec = {"phase": "serve_chaos", "policy": ROBUST_POLICY, "plan": plan.describe(),
+           "rates": CHAOS_RATES, "fault_free_ticks": base.ticks, "fault_free_wall_s": wall_b,
+           "wall_s": wall, "tokens": sum(len(v) for v in want.values()),
+           "tokens_equal": sum(a == b for r in want for a, b in zip(want[r], got.get(r, []))),
+           **{k: h[k] for k in HEALTH_COUNTERS},
+           "injected_alloc_failures": sched.mgr.injected_failures,
+           "ladder_transitions": len(h["ladder"]["transitions"]),
+           "ladder_occupancy": h["ladder"]["occupancy"], "kernel_counts": counts,
+           "paths": paths}
+    emit(rec)
+    _pool_clean("serve_chaos", sched, done, len(prompts))
+    if got != want:
+        raise AssertionError("serve_chaos: faults changed greedy tokens")
+    if sched.mgr.injected_failures + sched.preemptions + sched.nan_events <= 0 \
+            or sched.fallback_retries:
+        raise AssertionError(f"serve_chaos: no fault fired, or a transient one escalated: {rec}")
+    _only_fused_on_cuda("serve_chaos", counts, paths)
+    return base, want, rid0_done
+
+
+def serve_fallback(torch, cfg, rc, params, want, rid0_done: int):
+    """A persistent NaN on row 0 (one ``nan_logits`` event a tick while rid 0,
+    admitted there first, holds it in the fault-free run): rid 0 is retried
+    once, then moves to the ``*=bf16`` fallback step, which runs on the card
+    (attention's kernel on the ``cuda`` route; the GEMMs bf16
+    ``torch.matmul``: no GEMM kernel launch, no quantized call site), and
+    completes; the other requests' tokens equal the fault-free run's."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FaultEvent, FaultPlan
+
+    rc_pt = dataclasses.replace(rc, quant_policy=ROBUST_POLICY)
+    plan = FaultPlan([FaultEvent(t, "nan_logits", 0) for t in range(1, rid0_done + 1)])
+    sched, prompts = serving_scheduler(cfg, rc_pt, params, "auto", faults=plan)
+    fb_calls = []
+    run_fb = sched._run_fallback
+
+    def counted(*a, **k):       # each fallback step's own launches and call sites
+        base = ops.kernel_counters()
+        out = run_fb(*a, **k)
+        torch.cuda.synchronize()
+        fb_calls.append(ops.kernel_counters_since(base))
+        return out
+
+    sched._run_fallback = counted
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {r.rid: list(r.out) for r in done}
+    launches = {}
+    for c in fb_calls:
+        for k, v in c["kernels"].items():
+            launches[k] = launches.get(k, 0) + v.get("launches", 0)
+    fb_paths = {}
+    for c in fb_calls:
+        for name, by in c["paths"].items():
+            for path, n in by.items():
+                fb_paths.setdefault(name, {}).setdefault(path, 0)
+                fb_paths[name][path] += n
+    h = sched.health()
+    rec = {"phase": "serve_fallback", "policy": ROBUST_POLICY,
+           "fallback_policy": sched.rc.fallback_policy, "nan_events_planned": len(plan),
+           "fallback_steps": len(fb_calls), "fallback_launches": launches,
+           "fallback_paths": fb_paths, "wall_s": wall,
+           "rid0_tokens": len(got.get(0, [])),
+           "others_tokens_equal": sum(a == b for r in want if r != 0
+                                      for a, b in zip(want[r], got.get(r, []))),
+           "others_tokens": sum(len(v) for r, v in want.items() if r != 0),
+           **{k: h[k] for k in HEALTH_COUNTERS}, "kernel_counts": ops.kernel_counts(),
+           "paths": ops.path_counts()}
+    emit(rec)
+    _pool_clean("serve_fallback", sched, done, len(prompts))
+    if sched.fallback_retries < 1 or not fb_calls or len(got.get(0, [])) != 16:
+        raise AssertionError(f"serve_fallback: rid 0 did not escalate and complete: {rec}")
+    if fb_paths != {"attn.paged": {"cuda": cfg.num_layers * len(fb_calls)}} \
+            or launches.get("flash_paged_decode", 0) < cfg.num_layers * len(fb_calls) \
+            or any(launches.get(k, 0) for k in launches if k != "flash_paged_decode") \
+            or any(v.get("plain_calls", 0) for c in fb_calls for v in c["kernels"].values()):
+        raise AssertionError(f"serve_fallback: the fallback step did not run attention on "
+                             f"its kernel and the GEMMs as bf16 matmuls: {rec}")
+    if any(got.get(r) != want[r] for r in want if r != 0):
+        raise AssertionError("serve_fallback: the other requests' tokens changed")
+
+
+def serve_overload(torch, cfg, rc, params):
+    """Bounded class queues under a burst: ``AdmissionController(max_queue=2)``
+    with per-class TTLs and two tenants' budgets, 3 requests a tick for 10
+    ticks (realtime / interactive / batch in turn) into 4 rows. The queues
+    sit at their bound long enough for the ladder to climb one level a tick
+    to ``shed`` (and ``reject``); after the burst it relaxes to
+    ``healthy``. Every request ends done or with a structured rejection."""
+    import numpy as np
+
+    from repro_torch.serve import AdmissionController, RejectReason, Request, Scheduler
+
+    adm = AdmissionController(max_queue=2, tenant_budgets={"acme": 700, "zeta": 350},
+                              default_ttl={"interactive": 60, "batch": 12})
+    sched = Scheduler(cfg, rc, params, capacity=256, max_batch=4, track_energy=True,
+                      device=DEVICE, admission=adm)
+    rng = np.random.default_rng(2)
+    pri = ("realtime", "interactive", "batch")
+    reqs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for _ in range(3):
+            rid = len(reqs)
+            r = Request(rid=rid, max_new=16, priority=pri[rid % 3], tenant=("acme", "zeta")[rid % 2],
+                        prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(32, 129))).tolist())
+            reqs.append(r)
+            sched.submit(r)
+        sched.tick()
+    sched.run()
+    relax = 0
+    while sched.ladder.level and relax < 64:   # idle ticks after the burst
+        sched.tick()
+        relax += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = sched.health()
+    levels = {t["to"] for t in h["ladder"]["transitions"]}
+    rec = {"phase": "serve_overload", "policy": rc.quant_policy, "requests": len(reqs),
+           "done": sum(r.done for r in reqs), "rejections": h["rejections"],
+           "tenant_spent": dict(adm.tenant_spent), "ladder_levels": sorted(levels),
+           "ladder_final": h["ladder"]["name"], "ladder_occupancy": h["ladder"]["occupancy"],
+           "idle_ticks_to_healthy": relax, "wall_s": wall,
+           "generated_tokens": sum(len(r.out) for r in reqs),
+           **{k: h[k] for k in HEALTH_COUNTERS}}
+    emit(rec)
+    sched.mgr.check_invariants()
+    bad = [r.rid for r in reqs if not (r.done or (r.rejected is not None
+                                                   and r.rejected.reason in RejectReason.ALL))]
+    if bad or sched.mgr.pages_in_use or sched.engine_stalls:
+        raise AssertionError(f"serve_overload: requests {bad} ended without a terminal state, "
+                             f"or pages leaked: {rec}")
+    if "shed" not in levels or h["ladder"]["level"] != 0:
+        raise AssertionError(f"serve_overload: the ladder did not reach shed and relax: {rec}")
+    if any(r.done and len(r.out) != 16 for r in reqs):
+        raise AssertionError("serve_overload: a completed request lacks tokens")
+
+
+def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
+    """The serve phase's workload with a ``Tracer`` and a ``MetricsRegistry``,
+    without and with ``obs.device_trace``. First four serves in turns
+    (untraced, traced, traced, untraced) for tick ms with tracing on and
+    off in this call; then one traced serve inside ``device_trace``, last,
+    since a profiler session over a whole serve slows the rest of the
+    process. Every traced serve gives the untraced serve's tokens and
+    ``cycles_by_bits``; the host trace passes ``validate_chrome_trace``; the
+    ``torch.profiler`` trace (build/serve_traced/) holds the ``serve/step``
+    and ``serve/logits`` ranges and the kernels. The profiler must start:
+    this phase fails where ``device_trace`` would only warn."""
+    from repro_torch.obs import (MetricsRegistry, Tracer, device_trace, trace_summary,
+                                 validate_chrome_trace)
+
+    runs = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        kw = dict(tracer=Tracer(), metrics=MetricsRegistry()) if mode == "on" else {}
+        sched, done, wall, _, _ = serve(torch, cfg, rc, params, "auto", **kw)
+        runs[mode].append((sched, done, wall))
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    with device_trace(os.path.join(HERE, "build", "serve_traced")) as path:
+        if path is None:
+            raise AssertionError("serve_traced: torch.profiler did not start")
+        sched, done, wall_prof, _, _ = serve(torch, cfg, rc, params, "auto", tracer=tracer,
+                                             metrics=MetricsRegistry())
+    export_s = time.perf_counter() - t0 - wall_prof
+    runs["profiled"] = [(sched, done, wall_prof)]
+    host = tracer.to_dict()
+    validate_chrome_trace(host)
+    if not os.path.exists(path):
+        raise AssertionError("serve_traced: the profiler wrote no trace")
+    with open(path) as f:
+        text = f.read()
+    found = {n: text.count(f'"{n}"') for n in ("serve/step", "serve/logits")}
+    found.update({n: text.count(n) for n in ("gemm_kernel", "flash_split_kernel",
+                                             "finish_kernel")})
+    trace_bytes = len(text)
+    del text
+
+    def lat(mode, key, p):
+        return [r[0].health()["latency"][key][p] * 1e3 for r in runs[mode]]
+
+    rec = {"phase": "serve_traced", "card": smi, "policy": rc.quant_policy,
+           "order": "off, on, on, off, then on with the profiler",
+           "tick_ms_p50": {m: lat(m, "tick_s", "p50") for m in runs},
+           "tick_ms_p99": {m: lat(m, "tick_s", "p99") for m in runs},
+           "ttft_ms_p50": {m: lat(m, "ttft_s", "p50") for m in runs},
+           "ttft_ms_p99": {m: lat(m, "ttft_s", "p99") for m in runs},
+           "itl_ms_p50": {m: lat(m, "itl_s", "p50") for m in runs},
+           "itl_ms_p99": {m: lat(m, "itl_s", "p99") for m in runs},
+           "median_step_ms": {m: [statistics.median(r[0].tick_seconds) * 1e3 for r in runs[m]]
+                              for m in runs},
+           "wall_s": {m: [r[2] for r in runs[m]] for m in runs},
+           "profiler_export_s": export_s, "trace_bytes": trace_bytes,
+           "profiler_ranges": found, "host_trace": trace_summary(host)["spans"]}
+    emit(rec)
+    for s, d, _ in runs["on"] + runs["off"] + runs["profiled"]:
+        if {r.rid: list(r.out) for r in d} != outs or s.cycles_by_bits != sched_off.cycles_by_bits:
+            raise AssertionError("serve_traced: tracing changed tokens or cycle counts")
+    if not all(found.values()):
+        raise AssertionError(f"serve_traced: the profiler trace lacks a range or kernel: {found}")
 
 
 def serve_moe_phases(torch) -> dict:
@@ -1684,6 +1979,14 @@ def main() -> int:
     emit({"phase": "serve_plain", "wall_s": wall_p, "tokens_per_s": gen / wall_p,
           "tokens_equal": same, "tokens": gen, "kernel_counts": counts_p})
 
+    # the serving robustness and observability layer on the same model
+    # (serve_traced runs after device_time: one profiler session over a
+    # whole serve leaves torch.profiler without device events for the rest
+    # of the process)
+    _, want_pt, rid0_done = serve_chaos(torch, cfg, rc, params)
+    serve_fallback(torch, cfg, rc, params, want_pt, rid0_done)
+    serve_overload(torch, cfg, rc, params)
+
     # the same requests on offline-packed weights: fused, then unfused
     rc_pq, params_pq = surgered(cfg, rc, params, PREQUANT_POLICY)
     sched_pq, done_pq, wall_pq, counts_pq, _ = serve(torch, cfg, rc_pq, params_pq, "auto")
@@ -1746,6 +2049,7 @@ def main() -> int:
 
     moe_serves = serve_moe_phases(torch)
     device_times(torch)
+    serve_traced(torch, cfg, rc, sched.params, outs, sched, smi)
     for r in moe_gemm:
         if r["device_launches"] is not None and r["device_launches"] != 3:
             raise AssertionError(f"an expert GEMM call is not 3 device operations (memset, "

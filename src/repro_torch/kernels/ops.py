@@ -54,6 +54,8 @@ __all__ = [
     "record_path",
     "path_counts",
     "kernel_counts",
+    "kernel_counters",
+    "kernel_counters_since",
     "reset_counts",
 ]
 
@@ -107,6 +109,34 @@ def path_counts() -> dict:
 def kernel_counts() -> dict:
     """{kernel: {"launches": n, "plain_calls": n}} since the last reset."""
     return {c.name: c.as_dict() for c in _COUNTS}
+
+
+def kernel_counters() -> dict:
+    """Snapshot of the process-wide counters: ``{"paths": {name: {path: n}},
+    "kernels": {kernel: {"launches": n, "plain_calls": n}}}``. (The
+    reference also keeps kernel-to-XLA fallbacks; the port has none: a CUDA
+    tensor launches its kernel or raises.)"""
+    return {"paths": path_counts(),
+            "kernels": {k: dict(v) for k, v in kernel_counts().items()}}
+
+
+def kernel_counters_since(base: dict) -> dict:
+    """``kernel_counters()`` minus a baseline snapshot: the view one engine
+    reports, so two schedulers in one process never claim each other's
+    calls. Zero entries are dropped (a ``reset_counts`` since the baseline
+    drops the rest)."""
+    cur = kernel_counters()
+    out: dict = {}
+    for sec in ("paths", "kernels"):
+        bs = base.get(sec, {})
+        d: dict[str, dict[str, int]] = {}
+        for name, by in cur[sec].items():
+            bn = bs.get(name, {})
+            row = {k: v - bn.get(k, 0) for k, v in by.items() if v - bn.get(k, 0) > 0}
+            if row:
+                d[name] = row
+        out[sec] = d
+    return out
 
 
 def reset_counts() -> None:

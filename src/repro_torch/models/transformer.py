@@ -36,6 +36,7 @@ __all__ = [
     "plan_groups",
     "forward",
     "lm_logits",
+    "step_backend",
     "init_caches",
     "backend_from",
     "check_supported",
@@ -131,6 +132,19 @@ def _validate_policy(policy: QuantPolicy, targets: tuple, packed: frozenset) -> 
     _check_stack_consistency(policy, targets, packed=set(packed))
 
 
+def step_backend(cfg: ModelConfig, rc: RunConfig, params: dict):
+    """Resolve and check the RunConfig's policy against the live params:
+    the per-GEMM table a forward runs with. Raises ``NotImplementedError``
+    for what the port does not serve and ``ValueError`` (``PolicyError``)
+    for a policy that does not resolve on these params."""
+    check_supported(cfg, rc)
+    policy = effective_policy(rc)
+    packed: set = set()
+    targets = gemm_name_targets(cfg, params, packed=packed)
+    _validate_policy(policy, tuple(targets), frozenset(packed))
+    return policy.resolved()
+
+
 def backend_from(rc: RunConfig):
     """The RunConfig's QuantPolicy as a memoized per-GEMM resolution table."""
     return effective_policy(rc).resolved()
@@ -201,12 +215,7 @@ def forward(
     batch: {"tokens": (B,S) int}. cache_pos: (B,) per-row write offsets.
     ``impl`` selects every kernel's path (``auto`` | ``torch`` | ``cuda``,
     ``kernels/ops.py``); a policy rule's own impl overrides it."""
-    check_supported(cfg, rc)
-    policy = effective_policy(rc)
-    packed: set = set()
-    targets = gemm_name_targets(cfg, params, packed=packed)
-    _validate_policy(policy, tuple(targets), frozenset(packed))
-    backend = policy.resolved()
+    backend = step_backend(cfg, rc, params)
     x = embed_lookup(params["embed"], batch["tokens"], torch_dtype(rc.dtype))
     B, S = x.shape[:2]
     positions = cache_pos.long()[:, None] + torch.arange(S, device=x.device)[None, :]

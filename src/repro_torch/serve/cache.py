@@ -12,20 +12,34 @@ step columns. int8 pools keep per-(page, offset) scales.
 
 This module owns the *host* side: :class:`BlockManager` hands out pages on
 admit/extend, reclaims them on finish or rollback, and tracks the pool's
-high-water mark.
+high-water marks. A fault hook (``serve/faults.py``) can make an allocating
+``extend`` fail, and ``bind_registry`` exposes the pool as callback gauges
+on an obs ``MetricsRegistry``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["BlockManager", "num_pages_for"]
+__all__ = ["BlockManager", "cache_bytes", "num_pages_for"]
 
 
 def num_pages_for(capacity: int, block_size: int, slots: int) -> int:
     """Pages needed to back ``slots`` sequences of up to ``capacity`` tokens
     (the dense-equivalent worst case; real pools are usually sized smaller)."""
     return slots * (-(-capacity // block_size))
+
+
+def cache_bytes(caches) -> int:
+    """Total bytes of the tensor leaves of a cache tree (the paged pools)."""
+    if isinstance(caches, dict):
+        return sum(cache_bytes(v) for v in caches.values())
+    if isinstance(caches, (tuple, list)):
+        return sum(cache_bytes(v) for v in caches)
+    if isinstance(caches, torch.Tensor):
+        return caches.numel() * caches.element_size()
+    return 0
 
 
 class BlockManager:
@@ -43,6 +57,13 @@ class BlockManager:
                 f"capacity {capacity} must be a multiple of block_size {block_size} "
                 "(the paged view must span exactly the dense capacity for A/B)"
             )
+        # fault-injection hook (serve/faults.py): ``hook(slot, new_len) ->
+        # True`` forces an *allocating* extend to report failure without
+        # mutating any state — exactly the contract a real failed allocation
+        # has. It is consulted only when the call must take pages off the
+        # free list; a decode tick inside an allocated block cannot fail.
+        self.fault_hook = None
+        self.injected_failures = 0
         self.num_pages = num_pages
         self.block_size = block_size
         self.max_blocks = capacity // block_size
@@ -53,14 +74,46 @@ class BlockManager:
         self.lens = np.zeros(max_batch, np.int32)      # live tokens per slot
         self.blocks_used = np.zeros(max_batch, np.int32)  # allocated blocks/slot
         self.high_water = 0            # max pages ever off the free list
+        self.live_high_water = 0       # max pages ever referenced by a table
         # bumped on every table mutation — consumers key device-side copies
         # on it so steady-state decode ticks skip the host->device upload
         self.version = 0
+
+    # -------------------------------------------------------- observability
+    def bind_registry(self, registry) -> None:
+        """Expose pool state as callback gauges on an obs MetricsRegistry,
+        read lazily at snapshot time (the reference's families; without
+        prefix sharing no page is cached and no copy-on-write happens)."""
+        registry.gauge_fn(
+            "cache_pages",
+            lambda: {"state=in_use": self.pages_in_use,
+                     "state=live": self.live_pages,
+                     "state=cached": 0,
+                     "state=free": len(self.free)},
+            help="pool pages by state")
+        registry.gauge_fn(
+            "cache_high_water_pages",
+            lambda: {"kind=total": self.high_water,
+                     "kind=live": self.live_high_water},
+            help="page-pool high-water marks")
+        registry.gauge_fn("cache_cow_events", lambda: 0,
+                          help="copy-on-write resolutions so far")
+        registry.gauge_fn("cache_table_version", lambda: self.version,
+                          help="block-table mutation counter")
+        registry.gauge_fn("cache_injected_alloc_failures",
+                          lambda: self.injected_failures,
+                          help="fault-plan induced allocation failures")
 
     # ------------------------------------------------------------- queries
     @property
     def pages_in_use(self) -> int:
         return self.num_pages - len(self.free)
+
+    @property
+    def live_pages(self) -> int:
+        """Pages referenced by a slot's table (every page off the free list:
+        without prefix sharing none is kept as a cached prefix)."""
+        return self.pages_in_use
 
     def blocks_of(self, slot: int) -> list[int]:
         return [int(p) for p in self.tables[slot, : int(self.blocks_used[slot])]]
@@ -69,21 +122,26 @@ class BlockManager:
     def extend(self, slot: int, new_len: int) -> bool:
         """Grow ``slot`` to cover ``new_len`` tokens, allocating any missing
         pages. Returns False (state unchanged) if the pool cannot cover the
-        allocation. The per-decode-tick call allocates none at all
-        ``block_size - 1`` times out of ``block_size``."""
+        allocation or the fault hook fails it. The per-decode-tick call
+        allocates none at all ``block_size - 1`` times out of
+        ``block_size``."""
         if new_len > self.max_blocks * self.block_size:
             raise ValueError(f"slot {slot}: {new_len} tokens > table capacity")
         have = int(self.blocks_used[slot])
         need = -(-new_len // self.block_size)
-        if need - have > len(self.free):
-            return False
         if need > have:
+            if self.fault_hook is not None and self.fault_hook(slot, new_len):
+                self.injected_failures += 1
+                return False
+            if need - have > len(self.free):
+                return False
             self.version += 1
             for b in range(have, need):
                 self.tables[slot, b] = self.free.pop()
             self.blocks_used[slot] = need
         self.lens[slot] = new_len
         self.high_water = max(self.high_water, self.pages_in_use)
+        self.live_high_water = max(self.live_high_water, self.live_pages)
         return True
 
     def truncate(self, slot: int, new_len: int) -> None:

@@ -1,6 +1,6 @@
 """Token-budget scheduler: chunked prefill + decode packed into one mixed
 step per tick over a paged KV pool (the reference's
-``repro/serve/scheduler.py`` main path).
+``repro/serve/scheduler.py``).
 
 Each tick packs decode rows first (one token each), then FIFO prompt chunks
 of up to ``rc.prefill_chunk`` tokens, into one step of shape
@@ -8,32 +8,44 @@ of up to ``rc.prefill_chunk`` tokens, into one step of shape
 step carries a :class:`~repro_torch.models.KVView` (per-row write
 position, live width and block table); idle and padded columns write to the
 trash page and their outputs are never read. Under pool pressure the
-youngest slot is recompute-preempted: its pages are released and it is
-requeued at the front, its generated tokens joining its prompt.
+lowest-priority youngest slot is recompute-preempted: its pages are
+released and it is requeued at the front of its class, its generated tokens
+joining its prompt.
 
-Pool pressure also drives the degradation ladder (``serve/admission.py``):
-a preemption lifts it to ``preempt``, a stalled row one level per tick (up
-to ``preempt``), and from ``shrink_chunk`` up the prefill share of a tick's
-token budget halves per level; ``rc.ladder_relax_ticks`` clean ticks relax
-it one level. Every tick advances a logical ``clock``, the ladder's time.
+Robustness (DESIGN.md §10): admission flows through
+``serve.admission.AdmissionController`` (priority classes, tenant budgets,
+per-request tick deadlines, bounded queues), and overload walks ONE ordered
+``DegradationLadder`` (shrink the prefill budget → preempt → shed expired
+and batch-class work → reject admissions); every tick advances a logical
+``clock``, the time of deadlines, fault plans and the ladder. A seed-keyed
+``serve.faults.FaultPlan`` can induce allocation failures, preemption storms
+and NaN logits against that clock; a numerical guard quarantines any row
+whose step logits come back non-finite, retries it clean, and escalates to
+a ``rc.fallback_policy`` (bf16) step if the fault persists. Faults change
+*scheduling*, never *results*.
+
+Observability (DESIGN.md §14): the counters live in an obs
+``MetricsRegistry`` (the legacy int attributes are views over it), TTFT,
+inter-token and tick latencies are histograms, an optional ``Tracer``
+records request and tick-phase spans, and ``health()`` reports all of it
+with this engine's kernel and path counters.
 
 Cycle attribution (``track_energy=True``): a tick's tuGEMM cycles are split
-across scheduled rows by active-token weight ``lens[b] / sum(lens)``, and
-each tick's MoE capacity drops (the capture's ``moe.dropped_tokens``) are
-kept in ``tick_dropped_tokens``. ``health()`` reports
-``moe_dropped_tokens``, which counts drops on the expert-parallel mesh path
-only and stays 0 on one device, as the reference's does.
+across the rows of the main step by active-token weight
+``lens[b] / sum(lens)``, and each tick's MoE capacity drops (the capture's
+``moe.dropped_tokens``) are kept in ``tick_dropped_tokens``.
+``moe_dropped_tokens`` counts drops on the expert-parallel mesh path only
+and stays 0 on one device, as the reference's does.
 
-This slice has plain FIFO admission. Admission classes, shedding, fault
-injection, speculative decoding, prefix caching, tracing and the dense
-layout are later slices; the knobs that select them raise
-``NotImplementedError``.
+Speculative decoding, prefix caching, the mesh and the dense layout are
+later slices; the knobs that select them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import time
-from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,15 +54,30 @@ import torch
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..core.report import slot_energy
+from ..kernels import ops as _kops
 from ..models import KVView, forward, init_caches, lm_logits
-from ..models.transformer import check_supported
+from ..models.transformer import check_supported, step_backend
+from ..obs.logs import kv
+from ..obs.metrics import MetricsRegistry
+from ..obs.metrics import family_percentile as _family_percentile
+from ..obs.profile import named_scope
+from ..obs.trace import NULL_TRACER, PID_REQUESTS, PID_SCHED, TID_TICK
 from ..quant import capture as stats_capture
 from ..quant.capture import scalar_totals, tree_totals_by_bits
-from .admission import DegradationLadder
-from .cache import BlockManager, num_pages_for
+from .admission import (
+    LADDER_LEVELS,
+    PRIORITY_RANK,
+    AdmissionController,
+    DegradationLadder,
+    Rejection,
+    RejectReason,
+)
+from .cache import BlockManager, cache_bytes, num_pages_for
 
-__all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "sample",
-           "STREAM_SAMPLE"]
+__all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "install_sigint_drain",
+           "sample", "STREAM_SAMPLE"]
+
+log = logging.getLogger("repro_torch.serve")
 
 STREAM_SAMPLE = 0    # the canonical next-token draw at a position
 
@@ -82,6 +109,34 @@ class Request:
     max_new: int = 32
     out: list[int] = field(default_factory=list)
     done: bool = False
+    # robustness metadata (serve/admission.py). ``priority`` is one of
+    # realtime | interactive | batch; ``ttl_ticks`` is a deadline relative to
+    # submission on the scheduler's logical clock (None = no deadline);
+    # ``tenant`` keys per-tenant token budgets. Terminal state is exactly one
+    # of ``done`` (completed) or ``rejected`` (a structured
+    # admission.Rejection) — never silence.
+    tenant: str = "default"
+    priority: str = "interactive"
+    ttl_ticks: int | None = None
+    deadline: int | None = None      # absolute clock deadline (set at submit)
+    submitted_tick: int = 0
+    admitted: bool = False           # ever held a slot (preemption re-queues stay True)
+    rejected: Rejection | None = None
+    # tenant accounting: ``charged`` is the quote debited at submit
+    # (len(prompt) + max_new, 0 when the tenant has no budget);
+    # ``prompt_consumed`` high-water-marks how many *original* prompt tokens
+    # have been committed to KV (generated tokens live in ``out``);
+    # ``settled`` guards the terminal one-shot refund of the remainder.
+    charged: int = 0
+    prompt_consumed: int = 0
+    settled: bool = False
+
+    def consumed_tokens(self) -> int:
+        """Tokens this request used against its tenant quote: prompt tokens
+        committed plus every token generated. Recompute-preemption
+        re-prefills are not double-counted: the quote caps service
+        delivered, not engine work performed."""
+        return self.prompt_consumed + len(self.out)
 
 
 @dataclass
@@ -129,21 +184,26 @@ class SlotMeter:
 
 # ------------------------------------------------------------------- step fn
 def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = False,
-                     impl: str = "auto"):
+                     impl: str = "auto", scope: str = "serve/step"):
     """One tick: (params, caches, tokens (B,W), pos (B,), lens (B,), tables)
     -> (caches, logits (B, V)[, capture]). Row b's logits come from hidden
     column lens[b]-1. Caches are updated in place. ``impl`` selects every
-    kernel's path (``kernels/ops.py``)."""
+    kernel's path (``kernels/ops.py``). The step runs inside a
+    ``named_scope(scope)`` profiler range, the lm head inside
+    ``serve/logits``."""
 
     @torch.no_grad()
     def step(params, caches, tokens, pos, lens, tables):
         view = KVView(pos=pos, lens=lens, tables=tables, block_size=rc.block_size,
                       layout=rc.kv_layout)
-        h, caches, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
-                               cache_pos=pos, kv_view=view, impl=impl)
-        idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
-        h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
-        return caches, lm_logits(cfg, rc, params, h_last, impl=impl)[:, 0, :]
+        cuda = tokens.is_cuda
+        with named_scope(scope, cuda=cuda):
+            h, caches, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
+                                   cache_pos=pos, kv_view=view, impl=impl)
+            with named_scope("serve/logits", cuda=cuda):
+                idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
+                h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+                return caches, lm_logits(cfg, rc, params, h_last, impl=impl)[:, 0, :]
 
     if not with_stats:
         return step
@@ -165,10 +225,53 @@ class _Slot:
     pos: int = 0                 # tokens already written to this row's cache
     last_token: int = 0          # next decode input (last sampled token)
     meter: SlotMeter | None = None
+    # numerical-fault quarantine: consecutive non-finite logits strikes, and
+    # whether the row moved to the fallback (bf16-policy) step. Fallback is
+    # sticky — a model that NaNs at low bits will NaN again.
+    retries: int = 0
+    fallback: bool = False
 
     @property
     def prefilling(self) -> bool:
         return self.pos < len(self.prompt)
+
+
+# The Scheduler's counters, registry-backed (the reference's families, its
+# speculative and prefix counters included: they stay 0 until those slices
+# land). Each becomes a class-level property over a ``serve_<attr>_total``
+# Counter, so ``self.x += 1`` writes and Prometheus/JSONL export and
+# health() read one store.
+_SCHED_COUNTERS = {
+    "generated_tokens": "tokens emitted (decode + prefill-riding first tokens)",
+    "drafted_tokens": "speculative proposals drafted",
+    "accepted_draft_tokens": "drafted tokens the target verified and kept",
+    "ticks": "tick() calls that ran a device step",
+    "preemptions": "slots evicted under pool pressure (recompute-on-resume)",
+    "prefix_hits": "admissions that forked a cached prefix",
+    "prefix_tokens_reused": "prompt tokens served from shared pages",
+    "prefill_tokens_computed": "prompt tokens actually stepped",
+    "deadline_misses": "completions past their deadline",
+    "stalled_rows_total": "row-ticks lost to pool exhaustion",
+    "stall_episodes": "distinct pool-pressure episodes",
+    "engine_stalls": "unexplained no-progress ticks (must stay 0)",
+    "idle_fault_ticks": "ticks idled by injected allocation exhaustion",
+    "nan_events": "non-finite logit rows quarantined",
+    "fallback_retries": "rows escalated to the fallback-policy step",
+    "draft_stale_events": "slots entering draft staleness",
+    "draft_resyncs": "stale slots recovered via draft resync",
+    "moe_dropped_tokens": "router capacity drops (never silent)",
+}
+
+
+def _counter_property(attr: str):
+    def fget(self):
+        v = self._ctr[attr].value
+        return int(v) if float(v).is_integer() else v
+
+    def fset(self, v):
+        self._ctr[attr].value = v
+
+    return property(fget, fset)
 
 
 class Scheduler:
@@ -177,7 +280,10 @@ class Scheduler:
     One mixed step of shape ``(max_batch, prefill_chunk)`` serves prefill
     and decode alike; each tick fills rows under a token budget with decode
     rows first, then FIFO prompt chunks. ``params`` must live on ``device``
-    (default ``cuda``); the paged pools are allocated there.
+    (default ``cuda``); the paged pools are allocated there. ``admission``,
+    ``faults``, ``tracer`` and ``metrics`` take the robustness and
+    observability parts (defaults: unbounded classes, no faults, no
+    tracing, a private registry).
     """
 
     def __init__(
@@ -192,6 +298,10 @@ class Scheduler:
         temperature: float = 0.0,
         seed: int = 0,
         track_energy: bool = False,
+        admission: AdmissionController | None = None,
+        faults=None,
+        tracer=None,
+        metrics: MetricsRegistry | None = None,
         device=None,
         impl: str = "auto",
     ):
@@ -208,47 +318,199 @@ class Scheduler:
         self.temperature = temperature
         self.seed = seed
         self.track_energy = track_energy
+        self.impl = impl
+
+        # --- observability (DESIGN.md §14) ------------------------------
+        # ``self.trace`` is NULL_TRACER when tracing is off: every call site
+        # guards arg construction on ``self.trace.enabled``. The counters
+        # are class-level properties over registry Counters.
+        self.trace = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._init_metrics()
+        for a in _SCHED_COUNTERS:     # every counter exports a sample from the start
+            setattr(self, a, 0)
+        if self.trace.enabled:
+            self.trace.name_process(PID_SCHED, "scheduler")
+            self.trace.name_thread(PID_SCHED, TID_TICK, "tick")
+            self.trace.name_process(PID_REQUESTS, "requests")
+        # kernel and path counters are process-wide: health() reports their
+        # growth since this engine was built, never another engine's calls
+        self._kernel_base = _kops.kernel_counters()
+        self._t_submit: dict[int, float] = {}    # rid -> wall time at submit
+        self._t_queued: dict[int, float] = {}    # rid -> tracer ts at enqueue
+        self._t_emit: dict[int, float] = {}      # rid -> wall time, last emit
+        self._tick_energy_j = 0.0                # modeled J this tick
+        self._total_energy_j = 0.0               # modeled J since construction
+
         pages = num_pages if num_pages is not None else num_pages_for(
             capacity, rc.block_size, max_batch)
         self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity)
+        self.mgr.bind_registry(self.metrics)
         self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
                                   device=self.device)
         self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
-        self.queue: deque[Request] = deque()
         self.slots: list[_Slot | None] = [None] * max_batch
         self.finished: list[Request] = []
         self.finished_meters: list[SlotMeter] = []
         self.final_kv_lens: dict[int, int] = {}     # rid -> live KV at finish
         self.cycles_by_bits: dict = {}              # bits -> exact int cycle totals
-        self.moe_dropped_tokens = 0                 # expert-parallel drops (0 on one device)
         self.tick_dropped_tokens: list[int] = []    # capture's MoE drops a tick (track_energy)
-        self.tick_seconds: list[float] = []         # wall time of every step tick
-        self.generated_tokens = 0
-        self.ticks = 0
-        self.clock = 0                   # logical time: every tick, run or idle
-        self.preemptions = 0
-        self.ladder = DegradationLadder(relax_after=rc.ladder_relax_ticks)
+        self.tick_seconds: list[float] = []         # wall time of every main step, to its sync
         self._admit_counter = 0
         self._meters_by_rid: dict[int, SlotMeter] = {}
         self._tables_dev = None          # device copy of mgr.tables ...
         self._tables_version = -1        # ... keyed on mgr.version
         self._rr = 0                     # rotating plan start (fairness)
 
+        # --- robustness layer (DESIGN.md §10) ---
+        self.admission = admission if admission is not None else AdmissionController()
+        self.ladder = DegradationLadder(relax_after=rc.ladder_relax_ticks)
+        self.faults = faults             # serve.faults.FaultPlan | None
+        self.clock = 0                   # logical time: +1 per tick() call,
+        #                                  even idle ones
+        self.draining = False            # graceful shutdown: no new admissions
+        self._in_stall = False
+        self.nan_retry_limit = 1         # clean retries before bf16 fallback
+        self._fault_fired = False        # injected alloc failure this tick
+        self._stall_this_tick = False
+        self._fb_step = None             # lazily built fallback-policy step
+        self._fb_unavailable = False
+        if self.faults is not None:
+            self.mgr.fault_hook = self._alloc_fault_hook
+        # one registry for the whole engine: the controller's counters move in
+        self.admission.bind_registry(self.metrics)
+        self._register_gauges()
+
+    # ---------------------------------------------------------- observability
+    def _init_metrics(self) -> None:
+        m = self.metrics
+        self._ctr = {
+            a: m.counter(f"serve_{a}_total", h)
+            for a, h in _SCHED_COUNTERS.items()
+        }
+        self._h_ttft = m.histogram(
+            "serve_ttft_seconds",
+            "wall time from submit to first emitted token", labels=("priority",))
+        self._h_itl = m.histogram(
+            "serve_itl_seconds",
+            "wall time between consecutive emitted tokens", labels=("priority",))
+        self._h_queue_wait = m.histogram(
+            "serve_queue_wait_ticks",
+            "logical ticks spent queued before (re)admission",
+            labels=("priority",),
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+        self._h_tick = m.histogram(
+            "serve_tick_seconds", "wall duration of one tick() call")
+        self._c_sched_tokens = m.counter(
+            "serve_scheduled_tokens_total",
+            "tokens packed into device steps, by phase", labels=("phase",))
+        self._c_cycles = m.counter(
+            "serve_modeled_cycles_total",
+            "modeled tuGEMM cycles by bitwidth (serial variant)",
+            labels=("bits", "bucket"))
+        self._c_energy = m.counter(
+            "serve_modeled_energy_joules",
+            "modeled tuGEMM energy by bucket (Table-I pricing)",
+            labels=("bucket",))
+
+    def _register_gauges(self) -> None:
+        """Callback gauges over structural state, read at snapshot time;
+        registered last so every attribute they close over exists."""
+        m = self.metrics
+        m.gauge_fn("serve_active_slots",
+                   lambda: sum(s is not None for s in self.slots),
+                   help="slots currently holding a request")
+        m.gauge_fn("serve_clock", lambda: self.clock,
+                   help="logical scheduler clock (ticks since construction)")
+        m.gauge_fn("serve_queue_depth",
+                   lambda: {f"priority={c}": d
+                            for c, d in self.admission.depths().items()},
+                   help="queued requests by priority class")
+        m.gauge_fn("serve_ladder_level", lambda: self.ladder.level,
+                   help="degradation ladder level (0=healthy)")
+
+    def _note_step_energy(self, by_bits: dict, *, bucket: str) -> None:
+        """Mirror one step's tuGEMM cycle totals into the registry and the
+        modeled-energy accumulators (Table-I pricing via
+        core.report.slot_energy); no-op when the step carries no stats."""
+        if not by_bits:
+            return
+        tick_j = 0.0
+        for b, tot in by_bits.items():
+            cyc = tot["serial_cycles"]
+            self._c_cycles.labels(str(b), bucket).inc(cyc)
+            tick_j += slot_energy(b, "serial", cyc)[1]
+        self._c_energy.labels(bucket).inc(tick_j)
+        self._tick_energy_j += tick_j
+        self._total_energy_j += tick_j
+
+    def _emit_counter_tracks(self, tick_wall_s: float) -> None:
+        """Per-tick counter samples (pool occupancy, queue depth, ladder
+        level, modeled power); only called when tracing is on."""
+        tr = self.trace
+        ts = tr.ts()
+        tr.counter("pool_pages", {
+            "in_use": self.mgr.pages_in_use,
+            "live": self.mgr.live_pages,
+        }, ts=ts)
+        tr.counter("queue_depth", self.admission.depths(), ts=ts)
+        tr.counter("ladder_level", {"level": self.ladder.level}, ts=ts)
+        if self.track_energy:
+            mw = (self._tick_energy_j / tick_wall_s * 1e3
+                  if tick_wall_s > 0 else 0.0)
+            tr.counter("modeled_power_mw", {"mw": round(mw, 3)}, ts=ts)
+            tr.counter("modeled_energy_mj",
+                       {"mj": round(self._total_energy_j * 1e3, 6)}, ts=ts)
+
     # ---------------------------------------------------------------- admin
-    def submit(self, req: Request) -> None:
+    @property
+    def queue(self) -> list[Request]:
+        """Pop-order view of the admission queues (read-only — mutate
+        through ``submit`` / the AdmissionController)."""
+        return self.admission.pending_list()
+
+    def submit(self, req: Request) -> Rejection | None:
+        """Admit through the AdmissionController. Returns None when queued,
+        else the structured :class:`~repro_torch.serve.admission.Rejection`
+        (also stored on ``req.rejected``). Oversized prompts still raise —
+        that is a caller bug, not load."""
         if len(req.prompt) > self.capacity - 1:
             raise ValueError(
                 f"request {req.rid}: prompt of {len(req.prompt)} tokens "
                 f"exceeds capacity {self.capacity} - 1")
-        self.queue.append(req)
+        rej = self.admission.submit(req, self.clock)
+        if rej is None:
+            self._t_submit[req.rid] = time.perf_counter()
+        if self.trace.enabled:
+            tr = self.trace
+            tr.name_thread(PID_REQUESTS, req.rid, f"req {req.rid}")
+            if rej is None:
+                self._t_queued[req.rid] = tr.ts()
+                tr.instant("submit", PID_REQUESTS, req.rid, args={
+                    "rid": req.rid, "tenant": req.tenant,
+                    "priority": req.priority,
+                    "prompt_tokens": len(req.prompt),
+                })
+            else:
+                tr.instant("reject", PID_REQUESTS, req.rid,
+                           args={"rid": req.rid, "reason": rej.reason})
+        return rej
+
+    def begin_drain(self) -> None:
+        """Graceful shutdown: stop admitting new work (structured
+        SHUTTING_DOWN rejections), let active slots — and preempted work
+        that already ran — finish, then ``run()`` flushes whatever is still
+        queued. SlotMeters survive the drain."""
+        self.draining = True
+        self.admission.draining = True
 
     def _admit(self) -> None:
         for i, sl in enumerate(self.slots):
             if sl is not None:
                 continue
-            if not self.queue:
+            req = self.admission.pop(self.clock, readmit_only=self.draining)
+            if req is None:
                 break
-            req = self.queue.popleft()
             meter = None
             if self.track_energy:
                 # a preempted request resumes its meter: charged cycles stay
@@ -259,38 +521,140 @@ class Scheduler:
             self.slots[i] = _Slot(req=req, prompt=list(req.prompt) + list(req.out),
                                   admit_seq=self._admit_counter, meter=meter)
             self._admit_counter += 1
+            self._h_queue_wait.labels(req.priority).observe(
+                max(self.clock - req.submitted_tick, 0))
+            if self.trace.enabled:
+                tr = self.trace
+                now = tr.ts()
+                t0 = self._t_queued.pop(req.rid, now)
+                tr.complete("queued", PID_REQUESTS, req.rid, t0, now - t0,
+                            args={"rid": req.rid, "priority": req.priority})
+                tr.instant("admit", PID_REQUESTS, req.rid, args={
+                    "rid": req.rid, "slot": i,
+                    "wait_ticks": self.clock - req.submitted_tick,
+                    "readmit": req.admitted,
+                }, ts=now)
 
-    def _finish(self, i: int) -> None:
+    def _note_consumed(self, sl: _Slot) -> None:
+        """High-water-mark the original prompt tokens committed to KV —
+        read by admission.settle at every terminal/requeue transition."""
+        sl.req.prompt_consumed = max(
+            sl.req.prompt_consumed, min(sl.pos, len(sl.req.prompt)))
+
+    def _release_slot(self, i: int) -> _Slot:
+        """Free slot ``i`` of a request that reached a terminal state: keep
+        its meter, return its pages, forget its latency clocks."""
         sl = self.slots[i]
-        sl.req.done = True
-        self.finished.append(sl.req)
-        self.final_kv_lens[sl.req.rid] = sl.pos
         if sl.meter is not None:
             self.finished_meters.append(sl.meter)
             self._meters_by_rid.pop(sl.req.rid, None)
         self.mgr.release(i)
         self.slots[i] = None
+        self._t_submit.pop(sl.req.rid, None)
+        self._t_emit.pop(sl.req.rid, None)
+        return sl
+
+    def _finish(self, i: int) -> None:
+        sl = self.slots[i]
+        sl.req.done = True
+        if sl.req.deadline is not None and self.clock > sl.req.deadline:
+            self.deadline_misses += 1
+        self.finished.append(sl.req)
+        self.final_kv_lens[sl.req.rid] = sl.pos
+        self._note_consumed(sl)
+        # refund the unused remainder of the quote (an early stop's max_new)
+        self.admission.settle(sl.req)
+        self._release_slot(i)
+        if self.trace.enabled:
+            self.trace.instant("finish", PID_REQUESTS, sl.req.rid, args={
+                "rid": sl.req.rid, "generated": len(sl.req.out),
+                "deadline_missed": bool(
+                    sl.req.deadline is not None
+                    and self.clock > sl.req.deadline),
+            })
+
+    def _shed_slot(self, i: int, reason: str, detail: str = "") -> None:
+        """Terminate an *active* slot with a structured rejection (a
+        numerical fault with no fallback path). Pages are released; the
+        request is terminal — rejected, never silently dropped."""
+        sl = self.slots[i]
+        r = Rejection(rid=sl.req.rid, reason=reason, detail=detail,
+                      tick=self.clock)
+        sl.req.rejected = r
+        self.admission.rejections.append(r)
+        self.admission.sheds += 1
+        # settle net of what actually ran
+        self._note_consumed(sl)
+        self.admission.settle(sl.req)
+        self._release_slot(i)
+        if self.trace.enabled:
+            self.trace.instant("shed", PID_REQUESTS, sl.req.rid, args={
+                "rid": sl.req.rid, "reason": reason})
 
     def _preempt_one(self) -> bool:
-        """Recompute-preemption under pool pressure: release the youngest
-        slot's pages and requeue it first; its effective prompt (original +
-        generated) is re-prefilled on readmission. Never preempts the last
-        active slot (it must be able to drain)."""
+        """Recompute-preemption under pool pressure (ladder level 3):
+        release the lowest-priority youngest slot's pages and requeue it at
+        the front of its class; its effective prompt (original + generated)
+        is re-prefilled on readmission. Never preempts the last active slot
+        (it must be able to drain)."""
         cand = [i for i, s in enumerate(self.slots) if s is not None]
         if len(cand) <= 1:
             return False
-        i = max(cand, key=lambda j: self.slots[j].admit_seq)
+        i = max(cand, key=lambda j: (PRIORITY_RANK[self.slots[j].req.priority],
+                                     self.slots[j].admit_seq))
+        sl = self.slots[i]
+        # consumption must be current before the victim re-enters the queue:
+        # if it expires there, the shed settles against these numbers
+        self._note_consumed(sl)
         self.mgr.release(i)
-        self.queue.appendleft(self.slots[i].req)
+        self.admission.requeue_front(sl.req)
         self.slots[i] = None
         self.preemptions += 1
         self.ladder.escalate_to(self.clock, 3, "preemption")
+        if self.trace.enabled:
+            self.trace.instant("preempt", PID_REQUESTS, sl.req.rid, args={
+                "rid": sl.req.rid, "slot": i, "pos": sl.pos})
+            self._t_queued[sl.req.rid] = self.trace.ts()
         return True
 
-    def _note_stall(self) -> None:
-        """Rows whose page allocation failed this tick escalate the ladder
-        (allocation stalls stop at ``preempt``)."""
+    # ---------------------------------------------------------- fault hooks
+    def _alloc_fault_hook(self, slot: int, new_len: int) -> bool:
+        """BlockManager hook: injected page-allocation failure for the
+        (clock, slot) pairs the fault plan names."""
+        if self.faults.fires(self.clock, "alloc_fail", slot):
+            self._fault_fired = True
+            return True
+        return False
+
+    def _apply_tick_faults(self) -> None:
+        """Tick-start faults: forced preemption storms. (``alloc_fail``
+        fires inside BlockManager.extend, ``nan_logits`` after the step;
+        ``draft_stale`` needs a draft pool, which the port has not yet, and
+        is inert, as in the reference without speculative decoding.)"""
+        for ev in self.faults.at(self.clock, "preempt_storm"):
+            for _ in range(ev.arg):
+                if not self._preempt_one():
+                    break
+
+    def _note_stall(self, stalled: int) -> None:
+        """Rows whose page allocation failed this tick: count them, escalate
+        the ladder (allocation stalls stop at ``preempt``) and log once per
+        pressure episode."""
+        self.stalled_rows_total += stalled
+        self._stall_this_tick = True
         self.ladder.note_pressure(self.clock, "alloc_stall", ceil=3)
+        if not self._in_stall:
+            self.stall_episodes += 1
+            self._in_stall = True
+            log.warning(kv(
+                "stall", tick=self.clock, rows=stalled,
+                pool=f"{self.mgr.pages_in_use}/{self.mgr.num_pages}",
+                ladder=self.ladder.snapshot()["name"],
+                episode=self.stall_episodes,
+            ))
+            if self.trace.enabled:
+                self.trace.instant("stall", PID_SCHED, TID_TICK, args={
+                    "tick": self.clock, "rows": stalled})
 
     # ----------------------------------------------------------------- tick
     def _plan(self):
@@ -344,9 +708,17 @@ class Scheduler:
             self._tables_version = self.mgr.version
         return self._tables_dev
 
+    def _step_args(self, tokens, pos, lens, width):
+        """A step's host inputs as device tensors (tokens cut to ``width``)."""
+        dev = self.device
+        return (torch.from_numpy(tokens[:, :width].copy()).to(dev),
+                torch.from_numpy(pos).to(dev), torch.from_numpy(lens).to(dev))
+
     def _emit(self, i: int, token: int) -> None:
         """Append a sampled token. A request's first token rides its prefill;
-        any later one counts as a decode token."""
+        any later one — the sample after a preemption's re-prefill too —
+        counts as a decode token. TTFT and inter-token latencies are keyed
+        by rid, so they survive preemption."""
         sl = self.slots[i]
         continuing = bool(sl.req.out)
         sl.req.out.append(token)
@@ -356,109 +728,426 @@ class Scheduler:
             sl.meter.emitted_tokens += 1
             if continuing:
                 sl.meter.decode_tokens += 1
+        now = time.perf_counter()
+        rid = sl.req.rid
+        prev = self._t_emit.get(rid)
+        if prev is not None:
+            self._h_itl.labels(sl.req.priority).observe(now - prev)
+        elif rid in self._t_submit:
+            self._h_ttft.labels(sl.req.priority).observe(now - self._t_submit[rid])
+        self._t_emit[rid] = now
 
     def _end_tick(self, ran: bool) -> bool:
-        """Per-tick ladder bookkeeping: relax toward healthy on a clean tick
-        (the ladder ignores it if pressure was noted at this clock)."""
+        """Per-tick ladder/admission bookkeeping: relax toward healthy on a
+        clean tick (the ladder ignores it if pressure was noted at this
+        clock), close stall episodes, and (un)pause admissions at level 5."""
+        if not self._stall_this_tick:
+            self._in_stall = False
         self.ladder.note_clean(self.clock)
+        self.admission.paused = self.ladder.level >= len(LADDER_LEVELS) - 1
         self.ladder.tick()
         return ran
 
     def tick(self) -> bool:
-        """Plan + run one mixed step. Returns False when nothing ran."""
+        """Plan + run one mixed step. Returns False when nothing ran.
+
+        Advances the logical ``clock`` unconditionally. With a tracer, one
+        ``tick`` span holds the phase spans of ``_tick_inner`` and the
+        counter tracks follow it; the tick's wall time always goes to the
+        ``serve_tick_seconds`` histogram."""
+        t0 = time.perf_counter()
+        tr = self.trace
+        if tr.enabled:
+            self._tick_energy_j = 0.0
+            with tr.span("tick", args={"clock": self.clock + 1}):
+                ran = self._tick_inner()
+            wall = time.perf_counter() - t0
+            self._emit_counter_tracks(wall)
+        else:
+            ran = self._tick_inner()
+            wall = time.perf_counter() - t0
+        self._h_tick.observe(wall)
+        return ran
+
+    def _tick_inner(self) -> bool:
         self.clock += 1
+        self._fault_fired = False
+        self._stall_this_tick = False
+        tr = self.trace
+        _pt = tr.ts()
+        if self.faults is not None:
+            self._apply_tick_faults()
+        if self.admission.queue_pressure():
+            # a bounded queue at its limit is the signal that can push the
+            # ladder past preempt into shed/reject
+            self.ladder.note_pressure(self.clock, "queue_full")
+        if self.ladder.level >= 4:
+            # level 4: shed queued work that cannot or should not run
+            self.admission.shed_expired(self.clock)
+            self.admission.shed_class("batch", self.clock)
         self._admit()
+        if tr.enabled:
+            now = tr.ts()
+            tr.complete("admit", PID_SCHED, TID_TICK, _pt, now - _pt)
+            _pt = now
         tokens, pos, lens, decode_rows, prefill_rows, stalled = self._plan()
         if stalled:
-            self._note_stall()
+            self._note_stall(stalled)
         # pool pressure: nothing schedulable while slots are active means
         # every row's page allocation failed — preempt until one can proceed
         while not (decode_rows or prefill_rows) and self._preempt_one():
             tokens, pos, lens, decode_rows, prefill_rows, stalled = self._plan()
             if stalled:
-                self._note_stall()
+                self._note_stall(stalled)
         scheduled = decode_rows + prefill_rows
+        if tr.enabled:
+            tr.complete("plan", PID_SCHED, TID_TICK, _pt, tr.ts() - _pt,
+                        args={"decode_rows": len(decode_rows),
+                              "prefill_rows": len(prefill_rows),
+                              "stalled": stalled})
         if not scheduled:
             if any(s is not None for s in self.slots):
+                if self._fault_fired:
+                    # injected exhaustion on every schedulable row: idle the
+                    # tick — the fault is keyed to this clock and passes
+                    self.idle_fault_ticks += 1
+                    return self._end_tick(True)
+                self.engine_stalls += 1
                 raise RuntimeError(
                     f"page pool cannot back a single active sequence "
                     f"({self.mgr.num_pages} pages of {self.rc.block_size} tokens)")
             return self._end_tick(False)
-        t0 = time.perf_counter()
+        with tr.span("cow_drain"):
+            pass    # no copy-on-write to drain without prefix sharing
+        tables = self._tables()
         # decode-only ticks run at width 1 instead of the full chunk width
         width = self.chunk if prefill_rows else 1
-        dev = self.device
-        out = self._step(
-            self.params, self.caches,
-            torch.from_numpy(tokens[:, :width].copy()).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(lens).to(dev),
-            self._tables(),
-        )
+
+        # quarantined rows run through the fallback-policy step instead of
+        # the (suspect) main step; everything else is unchanged
+        fbset = {i for i in scheduled if self.slots[i].fallback}
+        fb_np = None
+        if fbset:
+            with tr.span("fallback_step"):
+                fb_np = self._run_fallback(tokens, pos, lens, tables, sorted(fbset), width)
+            if fb_np is None:
+                for i in sorted(fbset):
+                    self._shed_slot(i, RejectReason.NUMERICAL_FAULT,
+                                    "non-finite logits and no fallback step")
+                decode_rows = [i for i in decode_rows if i not in fbset]
+                prefill_rows = [i for i in prefill_rows if i not in fbset]
+                scheduled = decode_rows + prefill_rows
+                fbset = set()
+                if not scheduled:
+                    return self._end_tick(True)
+        main_rows = [i for i in scheduled if i not in fbset]
         step_by_bits: dict = {}
-        if self.track_energy:
-            self.caches, logits, cap = out
-            step_by_bits = tree_totals_by_bits(cap)
-            if cap.scalars:
-                self.tick_dropped_tokens.append(
-                    scalar_totals(cap).get("moe.dropped_tokens", 0))
-        else:
-            self.caches, logits = out
-        for b, d in step_by_bits.items():
-            acc = self.cycles_by_bits.setdefault(b, {"serial_cycles": 0, "parallel_cycles": 0})
-            for k, v in d.items():
-                acc[k] += int(v)
-        logits_np = logits.to(torch.float32).cpu().numpy()
-        self.tick_seconds.append(time.perf_counter() - t0)
+        # writable host copy: fault injection + row merging mutate it
+        logits_np = None if fb_np is None else fb_np.copy()
+        _st = tr.ts()
+        if main_rows:
+            lens_main = lens.copy()
+            for i in fbset:
+                lens_main[i] = 0
+            t0 = time.perf_counter()
+            out = self._step(self.params, self.caches,
+                             *self._step_args(tokens, pos, lens_main, width), tables)
+            if self.track_energy:
+                self.caches, logits, cap = out
+                step_by_bits = tree_totals_by_bits(cap)
+                if cap.scalars:
+                    self.tick_dropped_tokens.append(
+                        scalar_totals(cap).get("moe.dropped_tokens", 0))
+            else:
+                self.caches, logits = out
+            for b, d in step_by_bits.items():
+                acc = self.cycles_by_bits.setdefault(
+                    b, {"serial_cycles": 0, "parallel_cycles": 0})
+                for k2, v2 in d.items():
+                    acc[k2] += int(v2)
+            # the host copy is the tick's one sync with the device
+            main_np = logits.to(torch.float32).cpu().numpy()
+            self.tick_seconds.append(time.perf_counter() - t0)
+            if logits_np is None:
+                logits_np = main_np
+            else:
+                for i in main_rows:
+                    logits_np[i] = main_np[i]
         self.ticks += 1
+        n_prefill = sum(int(lens[i]) for i in prefill_rows)
+        self.prefill_tokens_computed += n_prefill
+        if n_prefill:
+            self._c_sched_tokens.labels("prefill").inc(n_prefill)
+        if decode_rows:
+            self._c_sched_tokens.labels("decode").inc(len(decode_rows))
+        if self.track_energy:
+            self._note_step_energy(step_by_bits, bucket="target")
+        if tr.enabled:
+            # device_step ends at the host logits copy (the sync)
+            _sdur = tr.ts() - _st
+            tr.complete("device_step", PID_SCHED, TID_TICK, _st, _sdur, args={
+                "rows": len(main_rows), "width": width,
+                "tokens": int(sum(int(lens[i]) for i in scheduled))})
+            for i in scheduled:
+                sl = self.slots[i]
+                tr.complete(
+                    "prefill" if i in prefill_rows else "decode",
+                    PID_REQUESTS, sl.req.rid, _st, _sdur,
+                    args={"rid": sl.req.rid, "pos": int(pos[i]),
+                          "tokens": int(lens[i]),
+                          **({"path": "fallback"} if i in fbset else {})})
+        _ct = tr.ts()
+
+        # induced numerical faults corrupt main-step rows only (the fallback
+        # step models the numerically safe path)
+        if self.faults is not None:
+            for ev in self.faults.at(self.clock, "nan_logits"):
+                r = ev.arg % self.max_batch
+                if r in main_rows:
+                    logits_np[r] = np.nan
+        bad = [i for i in scheduled if not np.isfinite(logits_np[i]).all()]
+        for i in bad:
+            if self.slots[i].fallback:
+                # the numerically safe path itself is non-finite: terminal
+                self._shed_slot(i, RejectReason.NUMERICAL_FAULT,
+                                "non-finite logits at the fallback policy")
+            else:
+                self._quarantine(i)
+        badset = set(bad)
 
         rids = [sl.req.rid if (sl := self.slots[i]) is not None else 0
                 for i in range(self.max_batch)]
         toks = sample(logits_np, self.temperature, seed=self.seed, rids=rids,
                       positions=[int(pos[i]) + int(lens[i]) for i in range(self.max_batch)])
-        total = float(sum(int(lens[i]) for i in scheduled)) or 1.0
+
+        total = float(sum(int(lens[i]) for i in main_rows)) or 1.0
         for i in scheduled:
             sl = self.slots[i]
-            if self.track_energy and sl.meter is not None:
+            if sl is None:
+                continue  # shed this tick (terminal numerical fault)
+            if self.track_energy and sl.meter is not None and i not in fbset:
+                # quarantined rows stay charged: wasted compute is real
                 sl.meter.add_share(step_by_bits, int(lens[i]) / total)
+            if i in badset:
+                continue  # quarantined: the same position retries next tick
             was_decoding = not sl.prefilling
             sl.pos += int(lens[i])
+            sl.retries = 0
             if was_decoding or not sl.prefilling:
                 # decode rows and just-completed prefills both sampled a token
                 self._emit(i, int(toks[i]))
                 if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
                     self._finish(i)
         self._rr = (self._rr + 1) % self.max_batch
+        if tr.enabled:
+            tr.complete("commit", PID_SCHED, TID_TICK, _ct, tr.ts() - _ct)
         return self._end_tick(True)
 
+    # ------------------------------------------------------ numerical guard
+    def _quarantine(self, i: int) -> None:
+        """Non-finite logits on row ``i``: roll the row back to its pre-tick
+        state (pages freed via truncate, position unchanged, nothing
+        emitted) and retry next tick. The first ``nan_retry_limit`` retries
+        re-run the same policy — a transient fault clears bit-exactly (the
+        sample at a position is keyed by (seed, rid, position)); a
+        persistent one escalates to the ``rc.fallback_policy`` step
+        (sticky). Overflow at int2/int4 is the fault this guard exists
+        for."""
+        sl = self.slots[i]
+        self.nan_events += 1
+        self.mgr.truncate(i, sl.pos)
+        sl.retries += 1
+        if sl.retries > self.nan_retry_limit and not sl.fallback:
+            sl.fallback = True
+            self.fallback_retries += 1
+        log.warning(kv(
+            "nan_logits", rid=sl.req.rid, tick=self.clock, row=i,
+            retries=sl.retries,
+            action="fallback" if sl.fallback else "retry",
+        ))
+        if self.trace.enabled:
+            self.trace.instant("nan_quarantine", PID_REQUESTS, sl.req.rid,
+                               args={"rid": sl.req.rid, "row": i})
+
+    def _fallback_rc(self) -> RunConfig:
+        """The fallback step's RunConfig: ``rc.fallback_policy`` (default
+        ``*=bf16``) with the legacy single-backend knobs cleared."""
+        return dataclasses.replace(
+            self.rc,
+            quant_policy=self.rc.fallback_policy or "*=bf16",
+            gemm_backend="bf16", gemm_mode="dynamic", quant_layers=(),
+            spec_gamma=0, draft_policy=None,
+        )
+
+    def _run_fallback(self, tokens, pos, lens, tables, fb_rows, width):
+        """One mixed step at ``rc.fallback_policy`` for the quarantined rows
+        only (other rows masked to length 0), with the main step's
+        ``impl``: attention on its kernel, each GEMM as the policy resolves
+        it (``*=bf16``: ``torch.matmul``; a packed prequant leaf keeps its
+        packed kernel). Returns last-column logits (B, V), or None when the
+        policy does not resolve on these params (callers then shed with a
+        structured NUMERICAL_FAULT). Only that resolution is guarded: an
+        error from the step itself — a kernel launch or build failure —
+        propagates."""
+        if self._fb_unavailable:
+            return None
+        if self._fb_step is None:
+            rc_fb = self._fallback_rc()
+            try:
+                step_backend(self.cfg, rc_fb, self.params)
+            except (ValueError, NotImplementedError) as e:
+                log.error(kv("fallback_unavailable", tick=self.clock,
+                             policy=self.rc.fallback_policy or "*=bf16",
+                             error=repr(e)))
+                self._fb_unavailable = True
+                return None
+            self._fb_step = build_mixed_step(self.cfg, rc_fb, impl=self.impl,
+                                             scope="serve/fallback")
+        lens_fb = np.zeros_like(lens)
+        for i in fb_rows:
+            lens_fb[i] = lens[i]
+        self.caches, logits = self._fb_step(self.params, self.caches,
+                                            *self._step_args(tokens, pos, lens_fb, width),
+                                            tables)
+        return logits.to(torch.float32).cpu().numpy()
+
     def run(self, max_ticks: int = 100_000) -> list[Request]:
-        """Drain the queue and all active slots; returns finished requests."""
-        for _ in range(max_ticks):
-            if not self.queue and not any(s is not None for s in self.slots):
+        """Drain the queue and all active slots; returns finished requests.
+
+        Under :meth:`begin_drain` only active (and previously admitted,
+        preempted) work runs; everything still queued afterwards is rejected
+        with SHUTTING_DOWN — no request ends without a terminal state."""
+        ticks = 0
+        while ticks < max_ticks:
+            pending = self.admission.pending(admitted_only=self.draining)
+            if not pending and not any(s is not None for s in self.slots):
                 break
-            if not self.tick() and not self.queue:
+            if not self.tick() and not pending:
                 break
+            ticks += 1
+        if self.draining:
+            n = self.admission.flush_pending(RejectReason.SHUTTING_DOWN, self.clock)
+            if n:
+                log.info(kv("drain_flush", tick=self.clock, flushed=n))
         return self.finished
 
+    # -------------------------------------------------------------- health
     def health(self) -> dict:
-        """Host-side snapshot: ladder state, slot and queue occupancy, the
-        counters of this engine, and ``moe_dropped_tokens`` (router
-        capacity drops on the mesh path; 0 on one device)."""
+        """Robustness snapshot (DESIGN.md §10): ladder state and
+        transitions, per-class queue depths, pool occupancy, and every
+        shed / preempt / stall / fault counter, with the reference's keys.
+
+        ``kernels`` holds the kernel wrappers' launch and plain-call counts
+        and the per-call-site path counts (``kernels/ops.py``) accumulated
+        since this engine was built. ``latency`` summarizes the wall-clock
+        histograms (seconds): TTFT, inter-token and tick percentiles over
+        every priority class. The prefix-cache, sharding and mesh entries
+        carry the values the reference gives with those features off."""
+        mgr = self.mgr
+
+        def _pct(h):
+            return {"count": sum(c.count for c in h.children.values()),
+                    **{f"p{p}": round(_family_percentile(h, p), 6)
+                       for p in (50, 95, 99)}}
+
         return {
+            "kernels": _kops.kernel_counters_since(self._kernel_base),
+            "latency": {"ttft_s": _pct(self._h_ttft),
+                        "itl_s": _pct(self._h_itl),
+                        "tick_s": _pct(self._h_tick)},
             "clock": self.clock,
             "ticks": self.ticks,
+            "draining": self.draining,
             "ladder": self.ladder.snapshot(),
             "active_slots": sum(1 for s in self.slots if s is not None),
             "max_batch": self.max_batch,
-            "queued": len(self.queue),
+            "queue_depths": self.admission.depths(),
+            "queued": self.admission.pending(),
+            "submitted": self.admission.submitted,
+            "admitted": self.admission.admitted,
             "completed": len(self.finished),
+            "rejections": self.admission.rejections_by_reason(),
+            "sheds": self.admission.sheds,
             "preemptions": self.preemptions,
-            "pages_in_use": self.mgr.pages_in_use,
-            "moe_dropped_tokens": self.moe_dropped_tokens,
+            "deadline_misses": self.deadline_misses,
+            "pool": {
+                "pages": mgr.num_pages,
+                "in_use": mgr.pages_in_use,
+                "high_water": mgr.high_water,
+                "live_pages": mgr.live_pages,
+                "live_high_water": mgr.live_high_water,
+                "occupancy": mgr.pages_in_use / max(mgr.num_pages, 1),
+                "injected_alloc_failures": mgr.injected_failures,
+            },
+            "prefix_cache": {"enabled": False,
+                             "prefill_tokens_computed": self.prefill_tokens_computed},
+            "sharding": {"replicated_dims": 0, "dropped_rules": {}},
+            "mesh": {"enabled": False},
+            "stalled_rows_total": self.stalled_rows_total,
+            "stall_episodes": self.stall_episodes,
+            "engine_stalls": self.engine_stalls,
+            "idle_fault_ticks": self.idle_fault_ticks,
+            "nan_events": self.nan_events,
+            "fallback_retries": self.fallback_retries,
+            "draft_stale_events": self.draft_stale_events,
+            "draft_resyncs": self.draft_resyncs,
         }
 
+    # -------------------------------------------------------------- energy
     def energy_summary(self, variant: str = "serial") -> list[dict]:
         """Per-request {rid, tokens, cycles, cycles_by_bits, latency_s,
         energy_j} — finished requests first, then in-flight slots.
         Requires ``track_energy=True``."""
         active = [s.meter for s in self.slots if s is not None and s.meter is not None]
         return [m.energy(variant) for m in self.finished_meters + active]
+
+    # --------------------------------------------------------------- stats
+    def cache_stats(self) -> dict:
+        """Live-vs-reserved cache accounting of the paged pool."""
+        total = cache_bytes(self.caches)
+        frac = self.mgr.high_water / max(self.mgr.num_pages, 1)
+        return {
+            "layout": "paged",
+            "pool_pages": self.mgr.num_pages,
+            "high_water_pages": self.mgr.high_water,
+            "live_high_water_pages": self.mgr.live_high_water,
+            "cache_bytes_reserved": total,
+            "cache_bytes_high_water": int(total * frac),
+        }
+
+
+# Registry-backed views over the counter attributes (see _SCHED_COUNTERS),
+# installed on the class so ``self.ticks += 1`` routes through the setter.
+for _a in _SCHED_COUNTERS:
+    setattr(Scheduler, _a, _counter_property(_a))
+del _a
+
+
+def install_sigint_drain(sched: Scheduler):
+    """Graceful shutdown: the first SIGINT begins a drain — active slots
+    finish, queued work is rejected with structured SHUTTING_DOWN, SlotMeter
+    energy summaries survive for the final flush; a second SIGINT restores
+    the previous handler and raises KeyboardInterrupt (hard abort). Returns
+    a zero-arg callable that restores the previous handler."""
+    import signal
+
+    prev = signal.getsignal(signal.SIGINT)
+
+    def _handler(signum, frame):
+        if sched.draining:
+            signal.signal(signal.SIGINT, prev)
+            raise KeyboardInterrupt
+        log.warning(kv(
+            "sigint_drain", tick=sched.clock,
+            active=sum(1 for s in sched.slots if s is not None),
+            queued=sched.admission.pending(),
+            hint="^C again to abort",
+        ))
+        sched.begin_drain()
+
+    signal.signal(signal.SIGINT, _handler)
+
+    def restore():
+        signal.signal(signal.SIGINT, prev)
+
+    return restore

@@ -42,6 +42,10 @@ def test_port_imports_without_jax():
         "core.encoding", "core.tugemm", "core.cycle_sim", "core.latency", "core.tiling",
         "core.report", "core.ugemm_baseline", "configs.tugemm_paper", "kernels.quantize",
         "kernels.temporal_unary", "quant.stats", "quickstart")} <= names
+    # and the serving robustness and observability modules
+    assert {f"repro_torch.{m}" for m in (
+        "obs", "obs.logs", "obs.metrics", "obs.trace", "obs.profile", "serve.admission",
+        "serve.faults", "serve.cache", "serve.scheduler")} <= names
 
 
 def test_sources_name_no_jax_or_reference():

@@ -236,10 +236,12 @@ def test_mla_moe_greedy_tokens_and_cycles_match_reference(policy):
     assert port.cycles_by_bits == ref.cycles_by_bits
     assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
     assert port.final_kv_lens == ref.final_kv_lens
-    # capacity drops reach the capture every tick; health() counts only the
-    # mesh path's, 0 on one device as in the reference
+    # capacity drops reach the capture every tick; moe_dropped_tokens counts
+    # only the mesh path's, 0 on one device as in the reference, and health()
+    # reports the mesh as off, as the reference's does
     assert len(port.tick_dropped_tokens) == port.ticks and sum(port.tick_dropped_tokens) > 0
-    assert port.health()["moe_dropped_tokens"] == ref.moe_dropped_tokens == 0
+    assert port.moe_dropped_tokens == ref.moe_dropped_tokens == 0
+    assert port.health()["mesh"] == ref.health()["mesh"] == {"enabled": False}
     port.mgr.check_invariants()
 
 
