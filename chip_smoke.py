@@ -51,6 +51,16 @@ Phases, each printing one JSON line:
    unchanged. ``serve_overload``: bounded class queues, TTLs and tenant
    budgets under a burst: every request done or structurally rejected, the
    ladder up to ``shed`` and back to ``healthy``.
+5c. prefix caching and speculative decoding on the same model, under
+   ``ROBUST_POLICY``: ``serve_spec`` (γ=4, ``*=int2`` draft),
+   ``serve_spec_selfdraft`` (the draft at the target's policy: acceptance
+   near 1) and ``serve_spec_prequant`` (``*=int2:prequant``: a second,
+   packed int2 view) each give the plain serve's tokens and final KV
+   lengths; ``serve_prefix`` (a shared 96-token prefix, 10 requests, the
+   cache off then on: the same tokens, at least 8 forks, fewer prefill
+   tokens); ``serve_prefix_spec`` (both at once) and ``cow_copy`` (a forced
+   copy-on-write drained into every leaf of the target and draft pools,
+   exactly). Only the fused GEMM, its stats assembly and attention launch.
 6. serve_prequant / step parity / serve_unfused — the same requests on the
    same weights after ``apply_surgery``: fused GEMMs on offline-packed MLP
    weights, then the legacy unfused pipeline (int8 GEMM with its stats
@@ -573,6 +583,10 @@ def check_attention(torch, flush):
         # the serve phase's own shape: 4 rows, a 16-wide step, 16 pages a row
         ("gqa_serve_step16_int8", serve, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, i8, bf16,
          None),
+        # the speculative verify step at the serve's pool: every decode row
+        # judges γ+1 = 5 positions (its split plan is the decode step's)
+        ("gqa_verify_int8", serve, [(112, SPEC_GAMMA + 1), (143, SPEC_GAMMA + 1), (0, 0),
+                                    (60, SPEC_GAMMA + 1)], SPEC_GAMMA + 1, i8, bf16, None),
         # the MoE serve's MLA shapes: its mixed ticks (16 wide) and its
         # decode-only ticks (1 wide)
         ("mla_serve_step16_int8", mla_serve, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, i8,
@@ -1776,6 +1790,293 @@ def serve_overload(torch, cfg, rc, params):
         raise AssertionError("serve_overload: a completed request lacks tokens")
 
 
+# ------------------------------------------- prefix caching and speculative decoding
+# The slice's phases serve under ROBUST_POLICY: per-token scales make a
+# verify column's GEMMs compute what a decode column's do, so greedy
+# speculative decoding is held to the plain serve's tokens exactly.
+SPEC_GAMMA = 4
+PREFIX_NEW = 8                 # new tokens a request of the shared-prompt trace
+
+
+def _cycles_split(sched) -> tuple[dict, dict]:
+    """(target, draft) cycles by bits summed over the requests' meters."""
+    tgt, drf = {}, {}
+    for e in sched.energy_summary():
+        d = e.get("draft_cycles_by_bits", {})
+        for b, c in e["cycles_by_bits"].items():
+            tgt[str(b)] = tgt.get(str(b), 0) + c - d.get(b, 0)
+        for b, c in d.items():
+            drf[str(b)] = drf.get(str(b), 0) + c
+    return tgt, drf
+
+
+def _margin(torch, cfg, rc, params, seq) -> float:
+    """The top-2 logit margin of the next token after ``seq``: one plain
+    prefill step of the whole sequence into fresh pools (kernels on)."""
+    from repro_torch.models import init_caches
+    from repro_torch.serve.cache import BlockManager
+    from repro_torch.serve.scheduler import build_mixed_step
+
+    dev = torch.device(DEVICE)
+    mgr = BlockManager(256 // rc.block_size, rc.block_size, 1, 256)
+    mgr.extend(0, len(seq))
+    caches = init_caches(cfg, rc, 1, 256, num_pages=mgr.num_pages, device=dev)
+    step = build_mixed_step(cfg, rc)
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    _, lg = step(params, caches, toks, torch.zeros(1, dtype=torch.int32, device=dev),
+                 torch.tensor([len(seq)], dtype=torch.int32, device=dev),
+                 torch.from_numpy(mgr.tables.copy()).to(dev))
+    top = lg[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def serve_spec(torch, cfg, rc, params, want: dict, want_kv: dict, phase: str,
+               draft_policy: str):
+    """The serve phase's 8 requests with speculative decoding (γ=4) under
+    ``ROBUST_POLICY`` and ``draft_policy``: greedy tokens and final KV
+    lengths equal to the plain ``ROBUST_POLICY`` serve's (``serve_chaos``'s
+    fault-free run), no page left, only the fused GEMM, its stats assembly
+    and attention launched on the cuda route. Prints drafted and accepted
+    counts, the target's and the draft's ``cycles_by_bits``, tokens/s and
+    launches a tick; under a self-draft below 0.99 acceptance, the first
+    rejected (rid, position) and the target's top-2 logit margin there."""
+    import dataclasses
+
+    import repro_torch.serve.spec as spec_mod
+    from repro_torch.kernels import ops
+
+    rc_sp = dataclasses.replace(rc, quant_policy=ROBUST_POLICY, spec_gamma=SPEC_GAMMA,
+                                draft_policy=draft_policy)
+    first_reject = []
+    accept = spec_mod.greedy_accept
+
+    def watched(props, argmax_row):        # the first rejection's (rid, position)
+        n, emitted = accept(props, argmax_row)
+        if n < len(props) and not first_reject:
+            sl = sys._getframe(1).f_locals["sl"]
+            first_reject.append((sl.req.rid, sl.pos + n + 1))
+        return n, emitted
+
+    spec_mod.greedy_accept = watched
+    try:
+        sched, done, wall, counts, prompts = serve(torch, cfg, rc_sp, params, "auto")
+    finally:
+        spec_mod.greedy_accept = accept
+    paths = ops.path_counts()
+    got = {r.rid: list(r.out) for r in done}
+    summ = sched.spec_summary()
+    tgt, drf = _cycles_split(sched)
+    rec = {**serve_record(phase, sched, done, wall, counts, prompts),
+           "draft_policy": draft_policy, "spec_gamma": SPEC_GAMMA,
+           "drafted_tokens": sched.drafted_tokens,
+           "accepted_draft_tokens": sched.accepted_draft_tokens,
+           "acceptance_rate": summ["acceptance_rate"],
+           "target_cycles_by_bits": tgt, "draft_cycles_by_bits": drf,
+           "energy_per_accepted_token_j": summ["energy_per_accepted_token_j"],
+           "draft_energy_j": summ["draft_energy_j"], "target_energy_j": summ["target_energy_j"],
+           "tokens_equal": sum(a == b for r in want for a, b in zip(want[r], got.get(r, []))),
+           "tokens": sum(len(v) for v in want.values()),
+           "final_kv_lens_equal": sched.final_kv_lens == want_kv}
+    if draft_policy == ROBUST_POLICY and summ["acceptance_rate"] < 0.99 and first_reject:
+        rid, at = first_reject[0]
+        seq = list(prompts[rid]) + got[rid][: at - len(prompts[rid])]
+        rec["first_rejection"] = {"rid": rid, "position": at,
+                                  "target_top2_margin": _margin(torch, cfg, rc_sp, params, seq)}
+    emit(rec)
+    _pool_clean(phase, sched, done, len(prompts))
+    if got != want or sched.final_kv_lens != want_kv:
+        raise AssertionError(f"{phase}: speculative tokens or KV lengths differ from the plain "
+                             f"serve's: {rec}")
+    if sched.drafted_tokens <= 0 or (draft_policy != ROBUST_POLICY and set(drf) != {"2"}):
+        raise AssertionError(f"{phase}: no int2 draft cycles: {rec}")
+    _only_fused_on_cuda(phase, counts, paths)
+    return sched, counts
+
+
+def prefix_trace(cfg):
+    """The shared-prompt trace: a warm request (a 96-token prefix, 6 full
+    pages, + 8 tokens), then 8 requests of the same prefix + 8-40 unique
+    tokens, then one whose prompt is exactly the 96 prefix tokens (numpy
+    seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 96).tolist()
+    warm = prefix + rng.integers(0, cfg.vocab_size, 8).tolist()
+    burst = [prefix + rng.integers(0, cfg.vocab_size, int(rng.integers(8, 41))).tolist()
+             for _ in range(8)]
+    return [[warm], burst, [list(prefix)]]
+
+
+def run_prefix_trace(torch, cfg, rc, params, **kw):
+    """The trace's three waves, each run to the end before the next, on one
+    scheduler (the serve's pool: capacity 256, 4 rows). Returns (scheduler,
+    tokens by rid, wall s, kernel counts, paths), counts zeroed just before."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, Scheduler
+
+    sched = Scheduler(cfg, rc, params, capacity=256, max_batch=4, track_energy=True,
+                      device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    rid = 0
+    for wave in prefix_trace(cfg):
+        for p in wave:
+            if sched.submit(Request(rid=rid, prompt=p, max_new=PREFIX_NEW)) is not None:
+                raise AssertionError(f"request {rid} refused at submit")
+            rid += 1
+        sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = {r.rid: list(r.out) for r in sched.finished}
+    return sched, outs, wall, ops.kernel_counts(), ops.path_counts()
+
+
+def serve_prefix(torch, cfg, rc, params):
+    """The shared-prompt trace with ``prefix_cache`` off and then on, under
+    ``ROBUST_POLICY``: the same greedy tokens, the warm request's
+    ``cycles_by_bits`` identical, at least 8 admissions forking the prefix,
+    fewer prefill tokens computed, invariants clean and no live page left;
+    only the fused kernels launched. The last request's prompt is exactly
+    the prefix: a fork stops one token short of a prompt's end, so it forks
+    5 of the 6 pages and recomputes the sixth into a fresh page (the engine
+    writes no shared page; ``cow_copy`` drives the copy-on-write drain).
+    Prints live high-water marks, tokens/s and the ``cow_drain`` span's
+    share of the tick (a tracer on the cached run). Returns the uncached
+    run's tokens."""
+    import dataclasses
+
+    from repro_torch.obs import Tracer
+
+    rc_pt = dataclasses.replace(rc, quant_policy=ROBUST_POLICY)
+    off, out_off, wall_off, counts_off, paths_off = run_prefix_trace(torch, cfg, rc_pt, params)
+    tr = Tracer()
+    on, out_on, wall_on, counts_on, paths_on = run_prefix_trace(
+        torch, cfg, dataclasses.replace(rc_pt, prefix_cache=True), params, tracer=tr)
+    spans = {}
+    for ev in tr.to_dict()["traceEvents"]:
+        if ev.get("ph") == "X" and ev["name"] in ("tick", "cow_drain"):
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
+    cyc = lambda s: {e["rid"]: e["cycles_by_bits"] for e in s.energy_summary()}
+    gen = sum(len(v) for v in out_on.values())
+    last = max(out_on)
+    meters = {m.rid: m for m in on.finished_meters}
+    rec = {"phase": "serve_prefix", "policy": ROBUST_POLICY, "requests": len(out_on),
+           "new_tokens_each": PREFIX_NEW, "tokens": gen,
+           "tokens_equal": sum(a == b for r in out_off for a, b in zip(out_off[r],
+                                                                      out_on.get(r, []))),
+           "prefix_hits": on.prefix_hits, "prefix_tokens_reused": on.prefix_tokens_reused,
+           "prefill_tokens_computed": {"off": off.prefill_tokens_computed,
+                                       "on": on.prefill_tokens_computed},
+           "last_request_forked_tokens": meters[last].cached_prompt_tokens,
+           "cow_events": on.mgr.cow_events,
+           "live_high_water_pages": {"off": off.mgr.live_high_water,
+                                     "on": on.mgr.live_high_water},
+           "cached_pages_at_end": on.mgr.cached_pages,
+           "wall_s": {"off": wall_off, "on_traced": wall_on},
+           "tokens_per_s": {"off": gen / wall_off, "on_traced": gen / wall_on},
+           "ticks": {"off": off.ticks, "on": on.ticks},
+           "cow_drain_share_of_tick": spans.get("cow_drain", 0.0) / max(spans.get("tick", 1.0),
+                                                                        1e-9),
+           "warm_cycles_equal": cyc(on)[0] == cyc(off)[0],
+           "health_prefix_cache": on.health()["prefix_cache"],
+           "kernel_counts": counts_on, "paths": paths_on}
+    emit(rec)
+    for phase, sched in (("serve_prefix (off)", off), ("serve_prefix", on)):
+        sched.mgr.check_invariants()
+        if sched.mgr.live_pages or sched.engine_stalls or len(sched.finished) != 10:
+            raise AssertionError(f"{phase}: a live page left, a stall or a request unfinished: "
+                                 f"{sched.health()}")
+        _only_fused_on_cuda(phase, counts_on if sched is on else counts_off,
+                            paths_on if sched is on else paths_off)
+    if out_on != out_off or not rec["warm_cycles_equal"]:
+        raise AssertionError(f"serve_prefix: tokens or the warm request's cycles differ: {rec}")
+    if on.prefix_hits < 8 or on.prefill_tokens_computed >= off.prefill_tokens_computed \
+            or rec["last_request_forked_tokens"] != 80:
+        raise AssertionError(f"serve_prefix: the prefix was not shared as planned: {rec}")
+    return out_off
+
+
+def cow_copy(torch, sched) -> dict:
+    """The reference's COW device-copy test on the card, on a served
+    prefix + spec scheduler's pools: the warm request's registered prefix
+    forked onto two empty slots, slot 0 rolled back into the shared second
+    page and extended (one copy-on-write queued); the source page of every
+    leaf of both pools (int8 KV and f32 scales, target and draft) filled
+    with seeded data; one drain, timed, and the same pair queued and drained
+    again for a second time; every leaf's destination page must equal its
+    source exactly. The slots are released after."""
+    mgr, bs = sched.mgr, sched.rc.block_size
+    warm = next(r for r in sched.finished if r.rid == 0)
+    nodes, matched = mgr.lookup_prefix(list(warm.prompt) + list(warm.out), now=sched.clock + 1)
+    if matched < 2 * bs:
+        raise AssertionError(f"cow_copy: the warm request's prefix is not indexed ({matched})")
+    for slot in (0, 1):
+        mgr.fork_prefix(slot, nodes[:2], now=sched.clock + 1)
+    mgr.truncate(0, 2 * bs - 1)
+    before = mgr.cow_events
+    if not mgr.extend(0, 2 * bs) or mgr.cow_events != before + 1:
+        raise AssertionError("cow_copy: the write into the shared page queued no copy")
+    src, dst = mgr.cow_copies[-1]
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    leaves = sched._pools()
+    for leaf in leaves:
+        leaf[:, src] = torch.randint(-120, 120, leaf[:, src].shape, generator=gen,
+                                     device=leaf.device).to(leaf.dtype)
+    want = [leaf[:, src].clone() for leaf in leaves]
+    ms = []
+    for _ in range(2):      # the first drain's time, then the same copy queued again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched._drain_cow()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        mgr.cow_copies.append((src, dst))
+    mgr.drain_cow_copies()
+    exact = sum(bool(torch.equal(leaf[:, dst], w)) for leaf, w in zip(leaves, want))
+    for slot in (0, 1):
+        mgr.release(slot)
+    mgr.check_invariants()
+    rec = {"phase": "cow_copy", "leaves": len(leaves), "leaves_exact": exact,
+           "draft_leaves": len(leaves) // 2, "src": src, "dst": dst,
+           "bytes_copied": sum(w.numel() * w.element_size() for w in want),
+           "ms_first": ms[0], "ms_again": ms[1],
+           "live_pages_after": mgr.live_pages}
+    emit(rec)
+    if sched.spec is None or exact != len(leaves) or mgr.live_pages:
+        raise AssertionError(f"cow_copy: a destination page differs from its source: {rec}")
+    return rec
+
+
+def serve_prefix_spec(torch, cfg, rc, params, want: dict):
+    """Prefix caching and speculative decoding (γ=4, ``*=int2`` draft)
+    together on the shared-prompt trace: tokens equal to the plain uncached
+    run's; then ``cow_copy`` on its pools."""
+    import dataclasses
+
+    rc_ps = dataclasses.replace(rc, quant_policy=ROBUST_POLICY, prefix_cache=True,
+                                spec_gamma=SPEC_GAMMA, draft_policy="*=int2")
+    sched, outs, wall, counts, paths = run_prefix_trace(torch, cfg, rc_ps, params)
+    summ = sched.spec_summary()
+    rec = {"phase": "serve_prefix_spec", "policy": ROBUST_POLICY, "draft_policy": "*=int2",
+           "spec_gamma": SPEC_GAMMA, "tokens": sum(len(v) for v in outs.values()),
+           "tokens_equal": sum(a == b for r in want for a, b in zip(want[r], outs.get(r, []))),
+           "prefix_hits": sched.prefix_hits, "drafted_tokens": sched.drafted_tokens,
+           "accepted_draft_tokens": sched.accepted_draft_tokens,
+           "acceptance_rate": summ["acceptance_rate"], "ticks": sched.ticks, "wall_s": wall,
+           "tokens_per_s": sum(len(v) for v in outs.values()) / wall,
+           "kernel_launches_per_tick": sum(c["launches"] for c in counts.values()) / sched.ticks,
+           "kernel_counts": counts, "paths": paths}
+    emit(rec)
+    sched.mgr.check_invariants()
+    if outs != want or sched.mgr.live_pages or sched.prefix_hits < 8 or not sched.drafted_tokens:
+        raise AssertionError(f"serve_prefix_spec: tokens differ from the plain uncached run's, "
+                             f"a live page is left or nothing was shared or drafted: {rec}")
+    _only_fused_on_cuda("serve_prefix_spec", counts, paths)
+    return sched, counts, cow_copy(torch, sched)
+
+
 def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
     """The serve phase's workload with a ``Tracer`` and a ``MetricsRegistry``,
     without and with ``obs.device_trace``. First four serves in turns
@@ -1983,9 +2284,20 @@ def main() -> int:
     # (serve_traced runs after device_time: one profiler session over a
     # whole serve leaves torch.profiler without device events for the rest
     # of the process)
-    _, want_pt, rid0_done = serve_chaos(torch, cfg, rc, params)
+    base_pt, want_pt, rid0_done = serve_chaos(torch, cfg, rc, params)
     serve_fallback(torch, cfg, rc, params, want_pt, rid0_done)
     serve_overload(torch, cfg, rc, params)
+
+    # prefix caching and speculative decoding on the same model
+    slice_serves = {}
+    for phase, draft in (("serve_spec", "*=int2"), ("serve_spec_selfdraft", ROBUST_POLICY),
+                         ("serve_spec_prequant", "*=int2:prequant")):
+        slice_serves[phase] = serve_spec(torch, cfg, rc, params, want_pt,
+                                         base_pt.final_kv_lens, phase, draft)
+    want_prefix = serve_prefix(torch, cfg, rc, params)
+    sched_ps, counts_ps, cow = serve_prefix_spec(torch, cfg, rc, params, want_prefix)
+    slice_serves["serve_prefix_spec"] = (sched_ps, counts_ps)
+    del sched_ps
 
     # the same requests on offline-packed weights: fused, then unfused
     rc_pq, params_pq = surgered(cfg, rc, params, PREQUANT_POLICY)
@@ -2063,6 +2375,7 @@ def main() -> int:
     for name, K, N, bits in LAYER_GEMMS:
         per_layer.append(next(r for r in picked if (r["K"], r["N"], r["bits"]) == (K, N, bits)))
     dec = next(r for r in attn if r["case"] == "gqa_decode_int8")
+    ver = next(r for r in attn if r["case"] == "gqa_verify_int8")
     kernels = [
         {"name": "tugemm_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/tugemm_fused.cu",
@@ -2078,9 +2391,11 @@ def main() -> int:
          **device_entry(per_layer),
          "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY,
          "launches_by_path": {"serve": counts["tugemm_fused"]["launches"], **{
-             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in moe_serves.items()}},
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in slice_serves.items()}},
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
-                                       for ph, (sc, c) in moe_serves.items()},
+                                       for ph, (sc, c) in {**moe_serves,
+                                                          **slice_serves}.items()},
          "experts": expert_entry(moe_gemm, moe_serves)},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
@@ -2094,7 +2409,13 @@ def main() -> int:
          "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
                   f"kv_len {dec['kv_len']}",
          "launches_by_path": {"serve": counts["flash_paged_decode"]["launches"], **{
-             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in moe_serves.items()}},
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in slice_serves.items()}},
+         "launches_per_tick_by_path": {ph: c["flash_paged_decode"]["launches"] / sc.ticks
+                                       for ph, (sc, c) in slice_serves.items()},
+         "verify": {k: ver[k] for k in (
+             "sq", "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms")},
          "mla_serve": {r["case"]: {k: r[k] for k in (
              "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")}
@@ -2155,7 +2476,7 @@ def main() -> int:
                              "serve_prequant": counts_pq["tugemm_stats"]["launches"],
                              "serve_unfused": counts_unf["tugemm_stats"]["launches"],
                              **{ph: c["tugemm_stats"]["launches"]
-                                for ph, (_, c) in moe_serves.items()}},
+                                for ph, (_, c) in {**moe_serves, **slice_serves}.items()}},
         "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
                                         if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),

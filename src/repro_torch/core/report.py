@@ -298,8 +298,8 @@ def energy_report(
 
 def spec_energy_summary(entries: list[dict]) -> dict:
     """Speculative-decoding fleet rollup over per-request ``SlotMeter.energy()``
-    dicts (``serve.scheduler.Scheduler.energy_summary``; speculative
-    decoding itself is a later slice of the port).
+    dicts (``serve.scheduler.Scheduler.energy_summary``; ``spec_summary``
+    adds the speculative engine's counters).
 
     "Accepted tokens" are the tokens a run actually kept — every one was
     target-verified (an accepted draft, a rejection correction, a bonus

@@ -79,10 +79,11 @@ def init_kv_cache(cfg: ModelConfig, rows: int, width: int, dtype, device) -> dic
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(batch, position) int8 quantization over heads*dim; the scale is
     ``max(amax, 1e-8) / 127`` in the division form (a tensor divisor, so no
-    backend rewrites it into a reciprocal multiply)."""
+    backend rewrites it into a reciprocal multiply; filled on the device, so
+    no host copy waits for the stream)."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=tuple(range(2, x.ndim)))
-    scale = amax.clamp_min(1e-8) / torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    scale = amax.clamp_min(1e-8) / torch.full((), 127.0, dtype=torch.float32, device=x.device)
     q = torch.round(xf / scale.reshape(scale.shape + (1,) * (x.ndim - 2)))
     return torch.clamp(q, -128, 127).to(torch.int8), scale
 

@@ -22,9 +22,10 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """(head_dim/2,) inverse frequencies, in f32."""
+    """(head_dim/2,) inverse frequencies, in f32 (made on ``device``: no
+    host copy, so a step never waits for the stream here)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

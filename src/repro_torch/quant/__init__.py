@@ -4,8 +4,15 @@ stats capture and the debug stats collector."""
 
 from .policy import LayerRule, PolicyError, QuantPolicy, effective_policy
 from .qlinear import BF16, GemmBackend, QBits, dense, gemm, prequantize_tree
-from .surgery import apply_surgery, plan_surgery, validate_runtime_policy
+from .surgery import (
+    apply_surgery,
+    draft_quant_view,
+    forward_with_stats,
+    plan_surgery,
+    validate_runtime_policy,
+)
 
 __all__ = ["BF16", "GemmBackend", "LayerRule", "PolicyError", "QBits", "QuantPolicy",
-           "apply_surgery", "dense", "effective_policy", "gemm", "plan_surgery",
-           "prequantize_tree", "validate_runtime_policy"]
+           "apply_surgery", "dense", "draft_quant_view", "effective_policy",
+           "forward_with_stats", "gemm", "plan_surgery", "prequantize_tree",
+           "validate_runtime_policy"]

@@ -181,6 +181,10 @@ class QuantPolicy:
     def is_quant(self) -> bool:
         return self.default.is_quant or any(r.is_quant for r in self.rules)
 
+    @property
+    def any_prequant(self) -> bool:
+        return any(r.is_quant and r.mode == "prequant" for r in (*self.rules, self.default))
+
     def resolved(self) -> "ResolvedPolicy":
         """A lazily-memoizing resolution table (trace-time cache)."""
         return ResolvedPolicy(self)

@@ -13,6 +13,9 @@
   Dynamic-mode leaves stay float: the fused kernel quantizes on load.
 - :func:`validate_runtime_policy` gives the runtime entry points the same
   policy checks on live (possibly surgered) params.
+- :func:`draft_quant_view` builds the speculative draft's RunConfig and
+  weight view (``serve/spec.py``), and :func:`forward_with_stats` runs a
+  forward inside a stats capture.
 
 It covers the stacks the port serves: GQA and MLA attention, dense MLPs,
 MoE expert stacks (raw ``(L, E, K, N)`` kernels, packed to ``(L, E, Kp,
@@ -24,6 +27,7 @@ hardware boundary and are never rewritten.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -41,6 +45,8 @@ __all__ = [
     "apply_surgery",
     "gemm_name_targets",
     "validate_runtime_policy",
+    "draft_quant_view",
+    "forward_with_stats",
 ]
 
 # param-tree key -> runtime GEMM name, per enclosing module; every other
@@ -261,3 +267,59 @@ def apply_surgery(cfg: ModelConfig, rc: RunConfig, params: dict) -> dict:
         policy.validate(entries_seen)
     _check_stack_consistency(policy, entries_seen)
     return out
+
+
+def draft_quant_view(cfg: ModelConfig, rc: RunConfig, params: dict) -> tuple[RunConfig, dict]:
+    """The speculative *draft* side of a RunConfig: ``(rc_draft, weight view)``.
+
+    ``rc.draft_policy`` (QuantPolicy | grammar string | to_json dict;
+    default ``"*=int2"``, the paper's cheapest Table-I point) becomes a
+    standalone RunConfig: the target's dtypes, KV layout and chunking, so the
+    draft's mixed step shares block tables with the target pool, with the
+    draft policy as its only quantization knob (the legacy single-backend
+    fields cleared, or effective_policy's both-set guard would trip).
+
+    The weight view is the *same float tree* under a dynamic draft policy
+    (the fused kernel quantizes on load at the draft width) and an
+    offline-packed second tree under a prequant one. A base tree that
+    target-policy surgery already packed is refused: packed leaves pin
+    their own bitwidth (``qbits``), so the draft would silently run at the
+    target's precision; build the draft view from the float params first."""
+    draft = getattr(rc, "draft_policy", None)
+    if draft is None:
+        draft = "*=int2"
+    rc_draft = dataclasses.replace(
+        rc,
+        quant_policy=draft,
+        gemm_backend="bf16", gemm_mode="dynamic",
+        collect_gemm_stats=False, quant_layers=(),
+        spec_gamma=0, draft_policy=None,
+    )
+    policy = effective_policy(rc_draft)
+    packed: set = set()
+    gemm_name_targets(cfg, params, packed=packed)
+    if packed:
+        raise PolicyError(
+            "draft_quant_view needs the original float params: leaves "
+            f"{sorted(packed)[:3]}... are already prequant-packed and would pin the "
+            "target bitwidth under the draft policy — build the draft view before "
+            "running target-policy apply_surgery")
+    view = apply_surgery(cfg, rc_draft, params) if policy.any_prequant else params
+    return rc_draft, view
+
+
+def forward_with_stats(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict, *,
+                       caches, cache_pos, kv_view, impl: str = "auto"):
+    """``models.forward`` inside a stats capture: returns ``(hidden,
+    caches, aux_loss, capture)``, the capture holding every quantized GEMM's
+    :class:`~repro_torch.quant.capture.CapturedGemm` in execution order
+    (``capture.tree_totals_by_bits`` sums them per bitwidth). The reference
+    returns its stats as a tree stacked along each group's layers axis; the
+    port's forward runs eagerly, so its capture is a flat list."""
+    from ..models import forward  # lazy: models imports this module
+    from . import capture
+
+    with capture.capture_stats() as cap:
+        h, new_caches, aux = forward(cfg, rc, params, batch, caches=caches,
+                                     cache_pos=cache_pos, kv_view=kv_view, impl=impl)
+    return h, new_caches, aux, cap

@@ -1,16 +1,21 @@
 """Serving substrate (the port of the reference's ``repro/serve``).
 
 - serve.cache: paged KV pool block manager (free-list pages, block tables,
-  rollback via truncate, an allocation fault hook, registry gauges)
+  speculative rollback via truncate; ref-counted copy-on-write prefix
+  sharing + radix-trie prefix index under rc.prefix_cache; an allocation
+  fault hook, registry gauges)
 - serve.scheduler: chunked-prefill + decode mixed-step Scheduler with the
-  numerical guard (quarantine, retry, fallback-policy step)
+  numerical guard (quarantine, retry, fallback-policy step); speculative
+  ticks when rc.spec_gamma > 0
+- serve.spec: int-low self-drafting + batched-verify speculative decoding
+  (draft QuantPolicy weight view, draft KV pool, acceptance rules)
 - serve.admission: admission control (priority classes, tenant budgets,
   TTLs) + the overload degradation ladder (DESIGN.md §10)
 - serve.faults: deterministic seed-keyed fault injection for chaos testing
 """
 
 from .admission import AdmissionController, DegradationLadder, Rejection, RejectReason
-from .cache import BlockManager, num_pages_for
+from .cache import BlockManager, PrefixCache, PrefixNode, num_pages_for
 from .faults import FaultEvent, FaultPlan
 from .scheduler import (
     Request,
@@ -20,6 +25,7 @@ from .scheduler import (
     install_sigint_drain,
     sample,
 )
+from .spec import SpecDecoder, greedy_accept, rejection_accept
 
 __all__ = [
     "AdmissionController",
@@ -27,13 +33,18 @@ __all__ = [
     "DegradationLadder",
     "FaultEvent",
     "FaultPlan",
+    "PrefixCache",
+    "PrefixNode",
     "Rejection",
     "RejectReason",
     "Request",
     "Scheduler",
     "SlotMeter",
+    "SpecDecoder",
     "build_mixed_step",
+    "greedy_accept",
     "install_sigint_drain",
     "num_pages_for",
+    "rejection_accept",
     "sample",
 ]

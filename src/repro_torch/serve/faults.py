@@ -14,8 +14,8 @@ shrinks to a seed. Four fault kinds cover the engine's real failure surface:
   Models an external reclaim (e.g. a higher-priority tenant burst); exercises
   release/readmit and the re-prefill path.
 - ``draft_stale`` — mark one slot's speculative draft pool stale. Models a
-  draft view falling behind. The port has no speculative decoding yet, so
-  these events are inert, as the reference's are without spec.
+  draft view falling behind; exercises the plain-decode fallback and the
+  draft resync. Inert without speculative decoding, as in the reference.
 - ``nan_logits`` — overwrite one scheduled row's step logits with NaN on the
   host. Models a low-bit numerical fault (overflowed int2/int4 accumulation);
   exercises the quarantine/retry/bf16-fallback guard. Generated plans space

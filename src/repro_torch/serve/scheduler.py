@@ -37,8 +37,21 @@ across the rows of the main step by active-token weight
 ``moe_dropped_tokens`` counts drops on the expert-parallel mesh path only
 and stays 0 on one device, as the reference's does.
 
-Speculative decoding, prefix caching, the mesh and the dense layout are
-later slices; the knobs that select them raise ``NotImplementedError``.
+Prefix caching (``rc.prefix_cache``, DESIGN.md §11): an admission forks the
+longest cached block-aligned prefix of its prompt onto its block table
+(``BlockManager.fork_prefix``) and starts prefill past it; committed full
+blocks are indexed in the trie at every commit point and before every
+release; the device page copies owed by copy-on-write are drained into
+every pool before the step that writes them.
+
+Speculative decoding (``rc.spec_gamma > 0``, ``serve/spec.py``, DESIGN.md
+§9): decode rows draft up to γ tokens against a low-bit draft view and
+draft pool, and one target step of width γ+1 (``all_logits``) verifies them
+and runs the tick's prefill chunks; rejected candidates roll back through
+``BlockManager.truncate``.
+
+The mesh and the dense layout are later slices; the knobs that select them
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,7 +69,7 @@ from ..configs.base import ModelConfig, RunConfig
 from ..core.report import slot_energy
 from ..kernels import ops as _kops
 from ..models import KVView, forward, init_caches, lm_logits
-from ..models.transformer import check_supported, step_backend
+from ..models.transformer import backend_from, check_supported, step_backend
 from ..obs.logs import kv
 from ..obs.metrics import MetricsRegistry
 from ..obs.metrics import family_percentile as _family_percentile
@@ -75,31 +88,57 @@ from .admission import (
 from .cache import BlockManager, cache_bytes, num_pages_for
 
 __all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "install_sigint_drain",
-           "sample", "STREAM_SAMPLE"]
+           "sample", "uniform", "categorical", "STREAM_SAMPLE", "STREAM_DRAFT",
+           "STREAM_ACCEPT", "STREAM_RESIDUAL"]
 
 log = logging.getLogger("repro_torch.serve")
 
+# Stream tags of the per-request draws: the token sampled at a position must
+# draw from another stream than the speculative machinery's draws *about*
+# that position (serve/spec.py), or acceptance thresholds would be
+# correlated with the tokens they judge.
 STREAM_SAMPLE = 0    # the canonical next-token draw at a position
+STREAM_DRAFT = 1     # draft-model proposal draw
+STREAM_ACCEPT = 2    # rejection-sampling acceptance uniform
+STREAM_RESIDUAL = 3  # residual-distribution draw after a rejection
+
+
+def _stream(seed: int, rid: int, position: int, stream: int) -> np.random.Generator:
+    """The counter-based Philox stream keyed by (seed, rid) at counter
+    (position, stream): its draws depend only on those four numbers."""
+    return np.random.Generator(np.random.Philox(
+        key=np.array([seed, rid], np.uint64),
+        counter=np.array([position, stream, 0, 0], np.uint64)))
 
 
 def sample(logits: np.ndarray, temperature: float = 0.0, *, seed: int = 0,
            rids=None, positions=None, stream: int = STREAM_SAMPLE) -> np.ndarray:
     """Greedy argmax at temperature <= 0. Otherwise a Gumbel-max draw per
-    row from a counter-based Philox stream keyed by (seed, rid) at counter
-    (position, stream): a request's draws depend only on (seed, rid,
-    position, stream), never on how ticks were packed, so temperature > 0
-    runs are reproducible and schedule-invariant (the reference keys
-    ``jax.random.fold_in`` the same way; the bits themselves differ)."""
+    row from ``_stream(seed, rid, position, stream)``: a request's draws
+    depend only on (seed, rid, position, stream), never on how ticks were
+    packed, so temperature > 0 runs are reproducible and schedule-invariant
+    (the reference keys ``jax.random.fold_in`` the same way; the bits
+    themselves differ)."""
     if temperature <= 0.0:
         return np.argmax(logits, axis=-1).astype(np.int32)
     out = np.empty(logits.shape[0], np.int32)
     for b in range(logits.shape[0]):
-        bitgen = np.random.Philox(
-            key=np.array([seed, rids[b]], np.uint64),
-            counter=np.array([positions[b], stream, 0, 0], np.uint64))
-        g = np.random.Generator(bitgen).gumbel(size=logits.shape[-1])
+        g = _stream(seed, rids[b], positions[b], stream).gumbel(size=logits.shape[-1])
         out[b] = np.argmax(logits[b].astype(np.float64) / temperature + g)
     return out
+
+
+def uniform(*, seed: int, rid: int, position: int, stream: int = STREAM_ACCEPT) -> float:
+    """One uniform draw in [0, 1) from the request's stream at ``position``."""
+    return float(_stream(seed, rid, position, stream).random())
+
+
+def categorical(logp: np.ndarray, *, seed: int, rid: int, position: int,
+                stream: int = STREAM_RESIDUAL) -> int:
+    """One draw from log-probabilities ``logp`` (V,) (``-inf`` = no mass) by
+    Gumbel-max on the request's stream at ``position``."""
+    g = _stream(seed, rid, position, stream).gumbel(size=logp.shape[-1])
+    return int(np.argmax(logp.astype(np.float64) + g))
 
 
 @dataclass
@@ -145,33 +184,67 @@ class SlotMeter:
     bitwidth (mixed policies run int8 and int2 cycles at different clocks
     and Table-I power points). Shared-step cycles accumulate as floats (a
     step's total times this slot's active-token weight); rounding happens
-    once at read."""
+    once at read, so the meters stay conservative: the sum over slots is
+    the measured pool total."""
 
     rid: int
     prompt_tokens: int = 0
     decode_tokens: int = 0
+    # prompt tokens served from the prefix cache: their KV was forked from
+    # shared pages, so they never ran in a prefill chunk and are charged no
+    # cycles — the one meter difference from an uncached run of a trace
+    cached_prompt_tokens: int = 0
     emitted_tokens: int = 0
+    # speculative decoding: proposals this request drafted, and how many the
+    # target verified and kept. Rejected drafts' cycles are not subtracted
+    # anywhere, so energy per accepted token includes the waste.
+    drafted_tokens: int = 0
+    accepted_draft_tokens: int = 0
+    # bits -> {variant: cycles}. ``prefill_by_bits`` is the legacy Engine's
+    # exact B=1 prefill bucket (the scheduler charges prefill chunks to the
+    # shared-step bucket); draft-pass cycles stay apart from the target's,
+    # at the draft policy's bitwidths.
+    prefill_by_bits: dict = field(default_factory=dict)   # bits -> {variant: int}
     decode_by_bits: dict = field(default_factory=dict)    # bits -> {variant: float}
+    draft_by_bits: dict = field(default_factory=dict)     # bits -> {variant: float}
 
-    def add_share(self, by_bits: dict, weight: float) -> None:
+    def add_share(self, by_bits: dict, weight: float, *, bucket: str = "decode") -> None:
+        """Charge ``weight`` (this slot's active-token fraction) of one
+        step's pool-wide cycles; ``bucket="draft"`` routes them to the
+        draft-pass bucket, the default to the target's (decode, prefill
+        chunks and verify steps)."""
+        dst = self.draft_by_bits if bucket == "draft" else self.decode_by_bits
         for b, tot in by_bits.items():
-            d = self.decode_by_bits.setdefault(b, {"serial": 0.0, "parallel": 0.0})
+            d = dst.setdefault(b, {"serial": 0.0, "parallel": 0.0})
             d["serial"] += tot["serial_cycles"] * weight
             d["parallel"] += tot["parallel_cycles"] * weight
 
-    def cycles_by_bits(self, variant: str = "serial") -> dict[int, int]:
-        return {b: int(round(d[variant])) for b, d in self.decode_by_bits.items()}
+    def cycles_by_bits(self, variant: str = "serial", *,
+                       bucket: str | None = None) -> dict[int, int]:
+        """Total cycles per bitwidth; ``bucket`` picks one of "prefill",
+        "decode" and "draft", None sums all three."""
+        srcs = {"prefill": self.prefill_by_bits, "decode": self.decode_by_bits,
+                "draft": self.draft_by_bits}
+        out: dict[int, int] = {}
+        for src in (srcs.values() if bucket is None else (srcs[bucket],)):
+            for b, d in src.items():
+                out[b] = out.get(b, 0) + int(round(d[variant]))
+        return out
 
     def energy(self, variant: str = "serial") -> dict:
         """Latency/energy of this request's GEMM work on the paper's 16×16
-        unit, each bitwidth at its own clock and power."""
+        unit, each bitwidth at its own clock and power. Under speculative
+        decoding ``energy_j`` includes the draft pass and every rejected
+        candidate's verify cycles; the ``draft_*`` fields give the split."""
         by = self.cycles_by_bits(variant)
         lat = e_j = 0.0
         for b, cyc in by.items():
             l, e = slot_energy(b, variant, cyc)
             lat += l
             e_j += e
-        return {
+        draft_by = self.cycles_by_bits(variant, bucket="draft")
+        draft_e = sum(slot_energy(b, variant, cyc)[1] for b, cyc in draft_by.items())
+        out = {
             "rid": self.rid,
             "tokens": self.prompt_tokens + self.decode_tokens,
             "generated_tokens": self.emitted_tokens,
@@ -180,17 +253,38 @@ class SlotMeter:
             "latency_s": lat,
             "energy_j": e_j,
         }
+        if self.drafted_tokens or draft_by:
+            out.update(
+                drafted_tokens=self.drafted_tokens,
+                accepted_draft_tokens=self.accepted_draft_tokens,
+                draft_cycles_by_bits=draft_by,
+                draft_energy_j=draft_e,
+                target_energy_j=e_j - draft_e,
+            )
+        return out
 
 
 # ------------------------------------------------------------------- step fn
 def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = False,
-                     impl: str = "auto", scope: str = "serve/step"):
+                     all_logits: bool = False, impl: str = "auto", scope: str = "serve/step"):
     """One tick: (params, caches, tokens (B,W), pos (B,), lens (B,), tables)
-    -> (caches, logits (B, V)[, capture]). Row b's logits come from hidden
-    column lens[b]-1. Caches are updated in place. ``impl`` selects every
-    kernel's path (``kernels/ops.py``). The step runs inside a
+    -> (caches, logits[, capture]). By default row b's logits (B, V) come
+    from hidden column lens[b]-1. ``all_logits=True`` keeps every column's
+    next-token logits, (B, W, V): the speculative verify step judges all γ+1
+    candidate positions of a row in one pass (padded columns carry garbage;
+    callers mask by lens). Caches are updated in place. ``impl`` selects
+    every kernel's path (``kernels/ops.py``). The step runs inside a
     ``named_scope(scope)`` profiler range, the lm head inside
-    ``serve/logits``."""
+    ``serve/logits``.
+
+    An unquantized head under ``all_logits`` runs once per column on that
+    column's (B, 1) rows: the very product a decode step computes, so a
+    verify column's logits equal the decode step's bit for bit whatever
+    kernel the matmul library picks for a taller M. A quantized head runs
+    once over all columns, as the reference's does: its cycle statistics
+    are those of that one GEMM."""
+    head_per_column = all_logits and (
+        cfg.tie_embeddings or backend_from(rc).for_gemm("lm_head").kind == "bf16")
 
     @torch.no_grad()
     def step(params, caches, tokens, pos, lens, tables):
@@ -201,6 +295,12 @@ def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = Fals
             h, caches, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
                                    cache_pos=pos, kv_view=view, impl=impl)
             with named_scope("serve/logits", cuda=cuda):
+                if head_per_column:
+                    return caches, torch.cat(
+                        [lm_logits(cfg, rc, params, h[:, j:j + 1].contiguous(), impl=impl)
+                         for j in range(h.shape[1])], dim=1)
+                if all_logits:
+                    return caches, lm_logits(cfg, rc, params, h, impl=impl)
                 idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
                 h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
                 return caches, lm_logits(cfg, rc, params, h_last, impl=impl)[:, 0, :]
@@ -216,6 +316,17 @@ def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = Fals
     return step_stats
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of host array ``a`` as a tensor on ``device``: later writes to
+    ``a`` do not reach it. To a card it goes through pinned memory without
+    waiting for the stream, so a tick queues its inputs behind work already
+    on the card."""
+    t = torch.from_numpy(np.array(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # ----------------------------------------------------------------- scheduler
 @dataclass
 class _Slot:
@@ -225,20 +336,32 @@ class _Slot:
     pos: int = 0                 # tokens already written to this row's cache
     last_token: int = 0          # next decode input (last sampled token)
     meter: SlotMeter | None = None
+    # speculative decoding: tokens already written to this row of the
+    # *draft* pool, and the committed tokens the draft has not ingested yet
+    # (draft_pos + len(draft_gap) == pos at tick boundaries). The gap is
+    # normally 0 or 1 token and bounded by γ: a slot that falls further
+    # behind goes draft_stale and plain-decodes until a healthy tick
+    # re-ingests its committed tokens into the draft pool.
+    draft_pos: int = 0
+    draft_gap: list[int] = field(default_factory=list)
+    draft_stale: bool = False
     # numerical-fault quarantine: consecutive non-finite logits strikes, and
     # whether the row moved to the fallback (bf16-policy) step. Fallback is
     # sticky — a model that NaNs at low bits will NaN again.
     retries: int = 0
     fallback: bool = False
+    # prefix cache: committed full blocks of this slot already indexed in
+    # the trie (forked blocks count from admission, so a forked slot never
+    # re-registers what it borrowed)
+    reg_blocks: int = 0
 
     @property
     def prefilling(self) -> bool:
         return self.pos < len(self.prompt)
 
 
-# The Scheduler's counters, registry-backed (the reference's families, its
-# speculative and prefix counters included: they stay 0 until those slices
-# land). Each becomes a class-level property over a ``serve_<attr>_total``
+# The Scheduler's counters, registry-backed (the reference's families). Each
+# becomes a class-level property over a ``serve_<attr>_total``
 # Counter, so ``self.x += 1`` writes and Prometheus/JSONL export and
 # health() read one store.
 _SCHED_COUNTERS = {
@@ -283,7 +406,9 @@ class Scheduler:
     (default ``cuda``); the paged pools are allocated there. ``admission``,
     ``faults``, ``tracer`` and ``metrics`` take the robustness and
     observability parts (defaults: unbounded classes, no faults, no
-    tracing, a private registry).
+    tracing, a private registry). ``draft_params`` is the float tree the
+    speculative draft view is built from when ``params`` were already
+    packed for the target policy (default: ``params``).
     """
 
     def __init__(
@@ -298,6 +423,7 @@ class Scheduler:
         temperature: float = 0.0,
         seed: int = 0,
         track_energy: bool = False,
+        draft_params: dict | None = None,
         admission: AdmissionController | None = None,
         faults=None,
         tracer=None,
@@ -306,10 +432,6 @@ class Scheduler:
         impl: str = "auto",
     ):
         check_supported(cfg, rc)
-        if getattr(rc, "spec_gamma", 0) > 0:
-            raise NotImplementedError("speculative decoding is not ported yet (spec_gamma>0)")
-        if getattr(rc, "prefix_cache", False):
-            raise NotImplementedError("prefix caching is not ported yet (prefix_cache=True)")
         self.device = resolve_device(device)
         self.cfg, self.rc, self.params = cfg, rc, params
         self.capacity, self.max_batch = capacity, max_batch
@@ -344,11 +466,26 @@ class Scheduler:
 
         pages = num_pages if num_pages is not None else num_pages_for(
             capacity, rc.block_size, max_batch)
-        self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity)
+        self.prefix_caching = bool(getattr(rc, "prefix_cache", False))
+        self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity,
+                                prefix_cache=self.prefix_caching)
         self.mgr.bind_registry(self.metrics)
         self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
                                   device=self.device)
         self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
+        # speculative decoding: a draft-policy view + draft pool
+        # (serve.spec.SpecDecoder) backed by this one BlockManager, and a
+        # verify step that keeps every column's logits; spec_gamma == 0
+        # leaves the plain path as it is
+        self.spec = None
+        if getattr(rc, "spec_gamma", 0) > 0:
+            from .spec import SpecDecoder
+
+            self.spec = SpecDecoder(cfg, rc, params, max_batch=max_batch, capacity=capacity,
+                                    num_pages=pages, track_energy=track_energy,
+                                    draft_params=draft_params, device=self.device, impl=impl)
+            self._vstep = build_mixed_step(cfg, rc, with_stats=track_energy, all_logits=True,
+                                           impl=impl, scope="serve/verify")
         self.slots: list[_Slot | None] = [None] * max_batch
         self.finished: list[Request] = []
         self.finished_meters: list[SlotMeter] = []
@@ -518,8 +655,9 @@ class Scheduler:
                 if meter is None:
                     meter = SlotMeter(rid=req.rid, prompt_tokens=len(req.prompt))
                     self._meters_by_rid[req.rid] = meter
-            self.slots[i] = _Slot(req=req, prompt=list(req.prompt) + list(req.out),
-                                  admit_seq=self._admit_counter, meter=meter)
+            sl = _Slot(req=req, prompt=list(req.prompt) + list(req.out),
+                       admit_seq=self._admit_counter, meter=meter)
+            self.slots[i] = sl
             self._admit_counter += 1
             self._h_queue_wait.labels(req.priority).observe(
                 max(self.clock - req.submitted_tick, 0))
@@ -534,6 +672,28 @@ class Scheduler:
                     "wait_ticks": self.clock - req.submitted_tick,
                     "readmit": req.admitted,
                 }, ts=now)
+            if self.prefix_caching:
+                # fork the longest cached block-aligned prefix of the
+                # effective prompt (refcount++, no allocation) and start
+                # prefill past it: the matched tokens are never stepped and
+                # charge no cycles; at least one suffix token remains to
+                # seed the first sample
+                nodes, matched = self.mgr.lookup_prefix(sl.prompt, now=self.clock)
+                if matched:
+                    self.mgr.fork_prefix(i, nodes, now=self.clock)
+                    sl.pos = matched
+                    sl.reg_blocks = len(nodes)
+                    self.prefix_hits += 1
+                    self.prefix_tokens_reused += matched
+                    if sl.meter is not None:
+                        sl.meter.cached_prompt_tokens += matched
+                    if self.spec is not None:
+                        # the shared pages back the draft pool too (one
+                        # BlockManager, the same tables): whatever draft KV
+                        # their writer mirrored there is reused as it is.
+                        # Worse draft content only lowers acceptance; the
+                        # verify step keeps the output exact.
+                        sl.draft_pos = matched
 
     def _note_consumed(self, sl: _Slot) -> None:
         """High-water-mark the original prompt tokens committed to KV —
@@ -561,6 +721,9 @@ class Scheduler:
             self.deadline_misses += 1
         self.finished.append(sl.req)
         self.final_kv_lens[sl.req.rid] = sl.pos
+        # index the finished sequence's full blocks before releasing: its
+        # pages outlive the slot as cached prefixes (refcount 0, evictable)
+        self._register_prefix(i)
         self._note_consumed(sl)
         # refund the unused remainder of the quote (an early stop's max_new)
         self.admission.settle(sl.req)
@@ -606,6 +769,9 @@ class Scheduler:
         # consumption must be current before the victim re-enters the queue:
         # if it expires there, the shed settles against these numbers
         self._note_consumed(sl)
+        # its committed blocks are still good KV: index them, so that the
+        # readmission (and any request sharing the prompt) forks them
+        self._register_prefix(i)
         self.mgr.release(i)
         self.admission.requeue_front(sl.req)
         self.slots[i] = None
@@ -627,14 +793,20 @@ class Scheduler:
         return False
 
     def _apply_tick_faults(self) -> None:
-        """Tick-start faults: forced preemption storms. (``alloc_fail``
-        fires inside BlockManager.extend, ``nan_logits`` after the step;
-        ``draft_stale`` needs a draft pool, which the port has not yet, and
-        is inert, as in the reference without speculative decoding.)"""
+        """Tick-start faults: forced preemption storms and draft staleness.
+        (``alloc_fail`` fires inside BlockManager.extend, ``nan_logits``
+        after the step; ``draft_stale`` is inert without speculative
+        decoding.)"""
         for ev in self.faults.at(self.clock, "preempt_storm"):
             for _ in range(ev.arg):
                 if not self._preempt_one():
                     break
+        for ev in self.faults.at(self.clock, "draft_stale"):
+            sl = self.slots[ev.arg % self.max_batch]
+            if sl is not None and self.spec is not None and not sl.draft_stale:
+                sl.draft_stale = True
+                sl.draft_gap = []
+                self.draft_stale_events += 1
 
     def _note_stall(self, stalled: int) -> None:
         """Rows whose page allocation failed this tick: count them, escalate
@@ -655,6 +827,71 @@ class Scheduler:
             if self.trace.enabled:
                 self.trace.instant("stall", PID_SCHED, TID_TICK, args={
                     "tick": self.clock, "rows": stalled})
+
+    # ---------------------------------------------------------- prefix cache
+    def _register_prefix(self, i: int) -> None:
+        """Index slot ``i``'s newly committed full blocks in the prefix trie.
+        Called after every commit point and before every release, so a
+        concurrent request sharing the prompt can fork a block the moment it
+        fills. O(1) when no block completed."""
+        if not self.prefix_caching:
+            return
+        sl = self.slots[i]
+        if sl is None:
+            return
+        bs = self.rc.block_size
+        if sl.pos // bs <= sl.reg_blocks:
+            return
+        seq = list(sl.req.prompt) + list(sl.req.out)
+        self.mgr.register_prefix(i, seq[: sl.pos], now=self.clock)
+        sl.reg_blocks = sl.pos // bs
+
+    def _pools(self) -> list[torch.Tensor]:
+        """Every tensor leaf of the target pools and of the draft pool, int8
+        scales included: each is (layers, num_pages + 1, block_size, ...),
+        indexed by the same page ids."""
+        out: list[torch.Tensor] = []
+
+        def walk(t):
+            if isinstance(t, dict):
+                for v in t.values():
+                    walk(v)
+            elif isinstance(t, (tuple, list)):
+                for v in t:
+                    walk(v)
+            elif isinstance(t, torch.Tensor):
+                out.append(t)
+
+        walk(self.caches)
+        if self.spec is not None:
+            walk(self.spec.caches)
+        return out
+
+    def _drain_cow(self) -> None:
+        """Perform the page copies owed by copy-on-write resolutions queued
+        since the last step, ``leaf[:, dst] = leaf[:, src]`` on every leaf of
+        the target pools AND the draft pool (both are indexed by the same
+        block tables, so a retabled page must exist in both). When no page
+        is both a source and a destination of this drain, one
+        ``index_select`` / ``index_copy_`` per leaf does them all; otherwise
+        the pairs go one by one in queue order. The copies run on the
+        pools' device, queued on its stream like the step after them. Must
+        run before the step that writes into a copied destination page."""
+        copies = self.mgr.drain_cow_copies()
+        if not copies:
+            return
+        src = [s_ for s_, _ in copies]
+        dst = [d for _, d in copies]
+        leaves = self._pools()
+        if set(src).isdisjoint(dst):
+            si = upload(np.array(src, np.int64), self.device)
+            di = upload(np.array(dst, np.int64), self.device)
+            for leaf in leaves:
+                leaf.index_copy_(1, di, leaf.index_select(1, si))
+            return
+        for s_, d in copies:
+            for leaf in leaves:
+                leaf[:, d] = leaf[:, s_]
 
     # ----------------------------------------------------------------- tick
     def _plan(self):
@@ -704,15 +941,14 @@ class Scheduler:
         """Device copy of the block tables, re-uploaded only when the host
         manager mutated since the last tick."""
         if self._tables_version != self.mgr.version:
-            self._tables_dev = torch.from_numpy(self.mgr.tables.copy()).to(self.device)
+            self._tables_dev = upload(self.mgr.tables, self.device)
             self._tables_version = self.mgr.version
         return self._tables_dev
 
     def _step_args(self, tokens, pos, lens, width):
         """A step's host inputs as device tensors (tokens cut to ``width``)."""
-        dev = self.device
-        return (torch.from_numpy(tokens[:, :width].copy()).to(dev),
-                torch.from_numpy(pos).to(dev), torch.from_numpy(lens).to(dev))
+        return (upload(tokens[:, :width], self.device), upload(pos, self.device),
+                upload(lens, self.device))
 
     def _emit(self, i: int, token: int) -> None:
         """Append a sampled token. A request's first token rides its prefill;
@@ -817,8 +1053,11 @@ class Scheduler:
                     f"page pool cannot back a single active sequence "
                     f"({self.mgr.num_pages} pages of {self.rc.block_size} tokens)")
             return self._end_tick(False)
+        if self.spec is not None:
+            return self._end_tick(
+                self._spec_tick(tokens, pos, lens, decode_rows, prefill_rows))
         with tr.span("cow_drain"):
-            pass    # no copy-on-write to drain without prefix sharing
+            self._drain_cow()
         tables = self._tables()
         # decode-only ticks run at width 1 instead of the full chunk width
         width = self.chunk if prefill_rows else 1
@@ -938,6 +1177,8 @@ class Scheduler:
                 self._emit(i, int(toks[i]))
                 if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
                     self._finish(i)
+                    continue
+            self._register_prefix(i)
         self._rr = (self._rr + 1) % self.max_batch
         if tr.enabled:
             tr.complete("commit", PID_SCHED, TID_TICK, _ct, tr.ts() - _ct)
@@ -956,6 +1197,13 @@ class Scheduler:
         sl = self.slots[i]
         self.nan_events += 1
         self.mgr.truncate(i, sl.pos)
+        if self.spec is not None:
+            # speculative state past the committed prefix is suspect too
+            sl.draft_pos = min(sl.draft_pos, sl.pos)
+            sl.draft_gap = []
+            if not sl.draft_stale:
+                sl.draft_stale = True
+                self.draft_stale_events += 1
         sl.retries += 1
         if sl.retries > self.nan_retry_limit and not sl.fallback:
             sl.fallback = True
@@ -1011,6 +1259,368 @@ class Scheduler:
                                             tables)
         return logits.to(torch.float32).cpu().numpy()
 
+    # ------------------------------------------------------------ spec tick
+    def _spec_tick(self, tokens, pos, lens, decode_rows, prefill_rows) -> bool:
+        """One speculative tick (DESIGN.md §9).
+
+        Decode rows draft up to γ candidates against the low-bit draft view
+        and draft pool (``serve.spec``), then ONE target step of width
+        max(γ+1, chunk) verifies all γ+1 positions of every decode row while
+        also running the tick's prefill chunks; rejected candidates roll
+        back through ``BlockManager.truncate`` so they never leak KV.
+        Prefill chunks are mirrored into the draft pool so a slot can draft
+        as soon as it finishes prefilling.
+
+        Every input of the draft, verify and mirror steps is built on the
+        host and queued before the first of them launches, and the tick
+        waits for the card once: the host copy after the verify step. At
+        temperature 0 that copy holds the verify step's per-column argmax,
+        its per-column finiteness and the proposals, never the logits; the
+        draft's and verify's logits come to the host only at temperature >
+        0, where rejection sampling reads them."""
+        from .spec import DraftRow, greedy_accept, rejection_accept
+
+        spec, rows, dev = self.spec, self.max_batch, self.device
+        tr = self.trace
+        W = tokens.shape[1]
+
+        # ---- stale-draft resync (one slot a tick, healthy ladder only):
+        # re-ingest the committed tokens the draft pool is missing, one
+        # chunk a tick, so a stale slot recovers drafting. Under pressure
+        # it waits: a stale draft costs speed, not correctness.
+        if self.ladder.level == 0:
+            for i, sl in enumerate(self.slots):
+                if sl is None or sl.prefilling or sl.fallback or not sl.draft_stale:
+                    continue
+                behind = sl.pos - sl.draft_pos
+                if behind > 0:
+                    seq = list(sl.req.prompt) + list(sl.req.out)
+                    n = min(self.chunk, behind)
+                    rt = np.zeros((rows, self.chunk), np.int32)
+                    rp = np.zeros(rows, np.int32)
+                    rl = np.zeros(rows, np.int32)
+                    rt[i, :n] = seq[sl.draft_pos: sl.draft_pos + n]
+                    rp[i] = sl.draft_pos
+                    rl[i] = n
+                    cap = spec.mirror_prefill(upload(rt, dev), upload(rp, dev), upload(rl, dev),
+                                              self._tables())
+                    by_bits = tree_totals_by_bits(cap) if cap is not None else {}
+                    if by_bits and sl.meter is not None:
+                        sl.meter.add_share(by_bits, 1.0, bucket="draft")
+                    sl.draft_pos += n
+                if sl.draft_pos >= sl.pos:
+                    sl.draft_stale = False
+                    sl.draft_gap = []
+                    self.draft_resyncs += 1
+                break
+
+        # per-row candidate budget: never past max_new or capacity, γ capped
+        # by the ladder (degrading γ is its rung 1), and γ degraded (not the
+        # row stalled) when the pool cannot back the γ+1 verify writes
+        gcap = self.ladder.gamma_cap(spec.gamma)
+        g: dict[int, int] = {}
+        draft_rows: list[DraftRow] = []
+        for i in decode_rows:
+            sl = self.slots[i]
+            remaining = sl.req.max_new - len(sl.req.out)
+            gi = max(0, min(gcap, remaining - 1, self.capacity - 2 - sl.pos))
+            if sl.draft_stale or sl.fallback:
+                gi = 0
+            while gi > 0 and not self.mgr.extend(i, sl.pos + gi + 1):
+                gi -= 1
+            g[i] = gi
+            if gi > 0:
+                draft_rows.append(DraftRow(
+                    row=i, rid=sl.req.rid, pos=sl.pos, draft_pos=sl.draft_pos,
+                    gap=list(sl.draft_gap), last_token=sl.last_token, g=gi))
+        # resolve copy-on-write before anything (draft or verify) writes into
+        # this tick's pages: covers _plan's extends and the γ extends above
+        with tr.span("cow_drain"):
+            self._drain_cow()
+        tables = self._tables()
+
+        # quarantined rows run the fallback-policy step instead (masked out
+        # of the draft and verify steps); an unavailable fallback sheds them
+        fbset = {i for i in decode_rows + prefill_rows if self.slots[i].fallback}
+        fb_np = None
+        if fbset:
+            fbw = W if any(i in fbset for i in prefill_rows) else 1
+            with tr.span("fallback_step"):
+                fb_np = self._run_fallback(tokens, pos, lens, tables, sorted(fbset), fbw)
+            if fb_np is None:
+                for i in sorted(fbset):
+                    self._shed_slot(i, RejectReason.NUMERICAL_FAULT,
+                                    "non-finite logits and no fallback step")
+                decode_rows = [i for i in decode_rows if i not in fbset]
+                prefill_rows = [i for i in prefill_rows if i not in fbset]
+                fbset = set()
+                if not (decode_rows or prefill_rows):
+                    return True
+
+        # ---- the verify and mirror steps' inputs, queued before any launch
+        Wv = max(spec.gamma + 1, W if prefill_rows else 0)
+        vt = np.zeros((rows, Wv), np.int32)
+        vlens = np.zeros(rows, np.int32)
+        vmask = np.zeros((rows, spec.gamma), bool)     # columns 1.. that take a proposal
+        for i in prefill_rows:
+            if i in fbset:
+                continue          # runs through the fallback step instead
+            vt[i, : int(lens[i])] = tokens[i, : int(lens[i])]
+            vlens[i] = lens[i]
+        for i in decode_rows:
+            if i in fbset:
+                continue
+            vt[i, 0] = self.slots[i].last_token
+            vlens[i] = g[i] + 1
+            vmask[i, : g[i]] = True
+        vt_d, vpos_d, vlens_d = upload(vt, dev), upload(pos, dev), upload(vlens, dev)
+        main_prefill = [i for i in prefill_rows if i not in fbset]
+        if main_prefill:
+            mlens = lens.copy()
+            for i in decode_rows:
+                mlens[i] = 0
+            for i in fbset:
+                mlens[i] = 0      # fallback rows' drafts are stale anyway
+            mirror_args = (upload(tokens[:, :W], dev), vpos_d, upload(mlens, dev))
+
+        # ---- draft phase: γ sequential low-bit steps over the draft rows
+        _st = tr.ts()
+        t0 = time.perf_counter()
+        props_d, qlogits, draft_events = None, [], []
+        if draft_rows:
+            props_d, qlogits, draft_events = spec.draft(
+                draft_rows, tables, self.temperature, self.seed)
+            gmax = props_d.shape[1]
+            vmask_d = upload(vmask[:, :gmax], dev)
+            vt_d[:, 1: 1 + gmax] = torch.where(vmask_d, props_d, vt_d[:, 1: 1 + gmax])
+            if tr.enabled:
+                _ddur = tr.ts() - _st
+                n_drafted = sum(r.g for r in draft_rows)
+                tr.complete("draft", PID_SCHED, TID_TICK, _st, _ddur, args={
+                    "rows": len(draft_rows), "drafted": n_drafted})
+                for r in draft_rows:
+                    tr.complete("draft", PID_REQUESTS, r.rid, _st, _ddur,
+                                args={"rid": r.rid, "pos": r.pos, "gamma": r.g})
+
+        # ---- verify + prefill: one target step, every column's logits kept
+        _st = tr.ts()
+        out = self._vstep(self.params, self.caches, vt_d, vpos_d, vlens_d, tables)
+        cap = None
+        if self.track_energy:
+            self.caches, logits, cap = out
+        else:
+            self.caches, logits = out
+        # ---- mirror prefill chunks into the draft pool
+        m_cap = None
+        if main_prefill:
+            with tr.span("mirror"):
+                m_cap = spec.mirror_prefill(*mirror_args, tables)
+        # the tick's one wait for the card
+        if self.temperature <= 0.0:
+            parts = [logits.argmax(dim=-1).to(torch.int32),
+                     torch.isfinite(logits).all(dim=-1).to(torch.int32)]
+            if props_d is not None:
+                parts.append(props_d)
+            host = torch.cat(parts, dim=1).cpu().numpy()
+            argmax, finite = host[:, :Wv], host[:, Wv: 2 * Wv].astype(bool)
+            props_np = host[:, 2 * Wv:]
+            logits_np = None
+        else:
+            logits_np = logits.to(torch.float32).cpu().numpy()        # (B, Wv, V)
+            finite = np.isfinite(logits_np).all(axis=-1)
+            props_np = props_d.cpu().numpy() if props_d is not None else None
+        self.tick_seconds.append(time.perf_counter() - t0)
+        proposals = {r.row: [int(t) for t in props_np[r.row, : r.g]] for r in draft_rows}
+
+        # ---- accounting, in the reference's order: draft, verify, mirror
+        for ev_cap, weights in draft_events:
+            by_bits = tree_totals_by_bits(ev_cap)
+            if not by_bits:
+                continue
+            for i, w in weights.items():
+                sl = self.slots[i]
+                if sl is not None and sl.meter is not None:
+                    sl.meter.add_share(by_bits, w, bucket="draft")
+            self._note_step_energy(by_bits, bucket="draft")
+        n_drafted = 0
+        for r in draft_rows:
+            sl = self.slots[r.row]
+            # the draft ingested [gap..., last, d_1..d_{g-1}]: its pool now
+            # covers sequence positions < pos + g
+            sl.draft_pos = r.pos + r.g
+            sl.draft_gap = []
+            self.drafted_tokens += r.g
+            n_drafted += r.g
+            if sl.meter is not None:
+                sl.meter.drafted_tokens += r.g
+        if draft_rows:
+            self._c_sched_tokens.labels("draft").inc(n_drafted)
+        step_by_bits: dict = {}
+        if cap is not None:
+            step_by_bits = tree_totals_by_bits(cap)
+            if cap.scalars:
+                self.tick_dropped_tokens.append(
+                    scalar_totals(cap).get("moe.dropped_tokens", 0))
+            self._note_step_energy(step_by_bits, bucket="target")
+        self.ticks += 1
+        n_prefill = sum(int(lens[i]) for i in prefill_rows)
+        self.prefill_tokens_computed += n_prefill
+        if n_prefill:
+            self._c_sched_tokens.labels("prefill").inc(n_prefill)
+        if decode_rows:
+            self._c_sched_tokens.labels("decode").inc(len(decode_rows))
+        scheduled = decode_rows + prefill_rows
+        total = float(sum(int(vlens[i]) for i in scheduled)) or 1.0
+        if self.track_energy:
+            for i in scheduled:
+                sl = self.slots[i]
+                if sl.meter is not None and i not in fbset:
+                    sl.meter.add_share(step_by_bits, int(vlens[i]) / total)
+        if main_prefill:
+            m_by_bits = tree_totals_by_bits(m_cap) if m_cap is not None else {}
+            if m_by_bits and self.track_energy:
+                self._note_step_energy(m_by_bits, bucket="draft")
+            m_total = float(sum(int(lens[i]) for i in main_prefill)) or 1.0
+            for i in main_prefill:
+                sl = self.slots[i]
+                if m_by_bits and sl.meter is not None:
+                    sl.meter.add_share(m_by_bits, int(lens[i]) / m_total, bucket="draft")
+                sl.draft_pos = int(pos[i]) + int(lens[i])
+        if tr.enabled:
+            # device_step ends at the host copy (the sync); it includes the
+            # mirror step, queued behind the verify step
+            _sdur = tr.ts() - _st
+            tr.complete("device_step", PID_SCHED, TID_TICK, _st, _sdur, args={
+                "rows": len(scheduled), "width": int(Wv), "kind": "verify"})
+            for i in scheduled:
+                sl = self.slots[i]
+                if sl is None:
+                    continue
+                tr.complete(
+                    "prefill" if i in prefill_rows else "verify",
+                    PID_REQUESTS, sl.req.rid, _st, _sdur,
+                    args={"rid": sl.req.rid, "pos": int(pos[i]),
+                          "tokens": int(vlens[i]),
+                          **({"path": "fallback"} if i in fbset else {})})
+        _ct = tr.ts()
+
+        # ---- numerical-fault guard (injection, then detection)
+        if self.faults is not None:
+            for ev in self.faults.at(self.clock, "nan_logits"):
+                r = ev.arg % rows
+                if r in scheduled and r not in fbset:
+                    finite[r] = False
+                    if logits_np is not None:
+                        logits_np[r] = np.nan
+        bad = []
+        for i in scheduled:
+            ok = (np.isfinite(fb_np[i]).all() if i in fbset
+                  else finite[i, : max(int(vlens[i]), 1)].all())
+            if not ok:
+                bad.append(i)
+        for i in bad:
+            if i in fbset:
+                # the numerically safe path itself is non-finite: terminal
+                self._shed_slot(i, RejectReason.NUMERICAL_FAULT,
+                                "non-finite logits at the fallback policy")
+            else:
+                self._quarantine(i)
+        badset = set(bad)
+        decode_rows = [i for i in decode_rows if i not in badset]
+        prefill_rows = [i for i in prefill_rows if i not in badset]
+        fbset -= badset
+
+        # ---- acceptance + emission
+        for i in decode_rows:
+            if i in fbset:
+                continue          # emitted from the fallback logits below
+            sl = self.slots[i]
+            if self.temperature <= 0.0:
+                n_acc, emitted = greedy_accept(proposals.get(i, []), argmax[i])
+            else:
+                q_rows = (np.stack([qlogits[j][i] for j in range(g[i])]) if g[i]
+                          else np.zeros((0, logits_np.shape[-1]), np.float32))
+                n_acc, emitted = rejection_accept(
+                    self.seed, sl.req.rid, sl.pos, proposals.get(i, []),
+                    logits_np[i, : g[i] + 1], q_rows, self.temperature)
+            self.accepted_draft_tokens += n_acc
+            if sl.meter is not None:
+                sl.meter.accepted_draft_tokens += n_acc
+            # rollback: keep only the accepted prefix's KV in both pools
+            new_len = sl.pos + n_acc + 1
+            self.mgr.truncate(i, new_len)
+            sl.pos = new_len
+            sl.retries = 0
+            if g[i] == 0:
+                # a plain-decode tick for this row: the draft never saw the
+                # old last token — queue it for the next catch-up step
+                if not sl.draft_stale:
+                    sl.draft_gap.append(sl.last_token)
+                    if len(sl.draft_gap) > spec.gamma:
+                        sl.draft_stale = True
+                        sl.draft_gap = []
+            elif sl.draft_pos >= new_len:
+                # a candidate was rejected: the draft KV past the accepted
+                # prefix is dead too (position new_len-1, whose input is the
+                # last accepted token, stays valid)
+                sl.draft_pos = new_len
+            else:
+                # all γ accepted: the draft never ingested d_γ — carry it as
+                # catch-up for the next tick's first draft step
+                sl.draft_gap = [int(emitted[-2])]
+            for t in emitted:
+                self._emit(i, int(t))
+            if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
+                self._finish(i)
+            else:
+                self._register_prefix(i)
+
+        def draw(i: int, row_logits) -> int:
+            """Row ``i``'s completion sample from ``row_logits`` (None: the
+            verify step's argmax at column lens-1): argmax at temperature 0,
+            else the STREAM_SAMPLE draw at the row's next position."""
+            if row_logits is None:
+                return int(argmax[i, int(lens[i]) - 1])
+            if self.temperature <= 0.0:
+                return int(np.argmax(row_logits))
+            return int(sample(row_logits[None], self.temperature, seed=self.seed,
+                              rids=[self.slots[i].req.rid],
+                              positions=[int(pos[i]) + int(lens[i])])[0])
+
+        # prefill rows: plain chunk bookkeeping + completion sampling from the
+        # verify step's per-position logits (column lens-1)
+        for i in prefill_rows:
+            if i in fbset:
+                continue          # emitted from the fallback logits below
+            sl = self.slots[i]
+            sl.pos += int(lens[i])
+            sl.retries = 0
+            if not sl.prefilling:
+                self._emit(i, draw(i, None if logits_np is None
+                                   else logits_np[i, int(lens[i]) - 1]))
+                if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
+                    self._finish(i)
+                    continue
+            self._register_prefix(i)
+        # quarantined rows: a plain (γ=0) commit from the fallback step's
+        # last-column logits — decode rows advance one token, prefill rows
+        # their chunk
+        for i in sorted(fbset):
+            sl = self.slots[i]
+            was_decoding = not sl.prefilling
+            sl.pos += int(lens[i])
+            sl.retries = 0
+            if was_decoding or not sl.prefilling:
+                self._emit(i, draw(i, fb_np[i]))
+                if len(sl.req.out) >= sl.req.max_new or sl.pos >= self.capacity - 1:
+                    self._finish(i)
+                    continue
+            self._register_prefix(i)
+        self._rr = (self._rr + 1) % self.max_batch
+        if tr.enabled:
+            tr.complete("commit", PID_SCHED, TID_TICK, _ct, tr.ts() - _ct)
+        return True
+
     def run(self, max_ticks: int = 100_000) -> list[Request]:
         """Drain the queue and all active slots; returns finished requests.
 
@@ -1041,8 +1651,8 @@ class Scheduler:
         and the per-call-site path counts (``kernels/ops.py``) accumulated
         since this engine was built. ``latency`` summarizes the wall-clock
         histograms (seconds): TTFT, inter-token and tick percentiles over
-        every priority class. The prefix-cache, sharding and mesh entries
-        carry the values the reference gives with those features off."""
+        every priority class. The sharding and mesh entries carry the values
+        the reference gives with those features off."""
         mgr = self.mgr
 
         def _pct(h):
@@ -1079,8 +1689,18 @@ class Scheduler:
                 "occupancy": mgr.pages_in_use / max(mgr.num_pages, 1),
                 "injected_alloc_failures": mgr.injected_failures,
             },
-            "prefix_cache": {"enabled": False,
-                             "prefill_tokens_computed": self.prefill_tokens_computed},
+            "prefix_cache": ({
+                "enabled": True,
+                "hits": self.prefix_hits,
+                "tokens_reused": self.prefix_tokens_reused,
+                "prefill_tokens_computed": self.prefill_tokens_computed,
+                "cached_pages": mgr.cached_pages,
+                "indexed_pages": len(mgr.prefix),
+                "evictions": mgr.prefix.evictions,
+                "cow_events": mgr.cow_events,
+            } if mgr.prefix is not None
+                else {"enabled": False,
+                      "prefill_tokens_computed": self.prefill_tokens_computed}),
             "sharding": {"replicated_dims": 0, "dropped_rules": {}},
             "mesh": {"enabled": False},
             "stalled_rows_total": self.stalled_rows_total,
@@ -1101,12 +1721,34 @@ class Scheduler:
         active = [s.meter for s in self.slots if s is not None and s.meter is not None]
         return [m.energy(variant) for m in self.finished_meters + active]
 
+    def spec_summary(self, variant: str = "serial") -> dict:
+        """Speculative-decoding rollup: acceptance rate, the draft-vs-verify
+        energy split and energy per accepted token (``core.report``). The
+        energy fields need ``track_energy=True``; the token counters are
+        always live."""
+        from ..core.report import spec_energy_summary
+
+        out = spec_energy_summary(self.energy_summary(variant))
+        out.update(
+            spec_gamma=self.spec.gamma if self.spec is not None else 0,
+            draft_policy=self.spec.describe_draft() if self.spec is not None else None,
+            ticks=self.ticks,
+            drafted_tokens=self.drafted_tokens,
+            accepted_draft_tokens=self.accepted_draft_tokens,
+            acceptance_rate=(self.accepted_draft_tokens / self.drafted_tokens
+                             if self.drafted_tokens else 0.0),
+        )
+        return out
+
     # --------------------------------------------------------------- stats
     def cache_stats(self) -> dict:
-        """Live-vs-reserved cache accounting of the paged pool."""
+        """Live-vs-reserved cache accounting of the paged pools (the draft
+        pool included: one BlockManager, so one page high-water, backs both)."""
         total = cache_bytes(self.caches)
+        if self.spec is not None:
+            total += cache_bytes(self.spec.caches)
         frac = self.mgr.high_water / max(self.mgr.num_pages, 1)
-        return {
+        out = {
             "layout": "paged",
             "pool_pages": self.mgr.num_pages,
             "high_water_pages": self.mgr.high_water,
@@ -1114,6 +1756,16 @@ class Scheduler:
             "cache_bytes_reserved": total,
             "cache_bytes_high_water": int(total * frac),
         }
+        if self.mgr.prefix is not None:
+            out.update(
+                prefix_hits=self.prefix_hits,
+                prefix_tokens_reused=self.prefix_tokens_reused,
+                prefill_tokens_computed=self.prefill_tokens_computed,
+                prefix_cached_pages=self.mgr.cached_pages,
+                prefix_evictions=self.mgr.prefix.evictions,
+                cow_events=self.mgr.cow_events,
+            )
+        return out
 
 
 # Registry-backed views over the counter attributes (see _SCHED_COUNTERS),

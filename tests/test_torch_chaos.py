@@ -12,7 +12,8 @@ seeds, and must agree on greedy tokens, each request's terminal state
 ``tenant_spent``, every ``health()`` entry but the kernel and latency ones,
 and ``cycles_by_bits``. The host-only units (admission, ladder, fault plans,
 the allocator's hook) run the reference's assertions on the port's copies.
-The speculative variant waits for speculative decoding in the port."""
+The speculative variant (draft staleness and its resync) runs as a parity
+test too."""
 
 import numpy as np
 import pytest
@@ -78,24 +79,28 @@ def _reqs(cls, n=5, max_new=5, seed=1, **kw):
     return out
 
 
-def _pair(model, *, policy=None, surgery=False, fallback_policy="*=bf16", **kw):
+def _pair(model, *, policy=None, surgery=False, fallback_policy="*=bf16", rc_kw=None,
+          draft_params=False, **kw):
     """The reference's and the port's Scheduler over the same weights and
-    RunConfig (capacity 32, max_batch 3 unless ``kw`` says otherwise).
-    ``admission`` and ``faults`` in ``kw`` are factories called with each
-    package's AdmissionController / FaultPlan class, so each engine gets
-    its own."""
+    RunConfig (capacity 32, max_batch 3 unless ``kw`` says otherwise;
+    ``rc_kw`` adds RunConfig fields). ``admission`` and ``faults`` in ``kw``
+    are factories called with each package's AdmissionController /
+    FaultPlan class, so each engine gets its own. ``draft_params`` passes
+    each package's float params as the speculative draft's."""
     params, tparams = model
     kw = dict(dict(capacity=32, max_batch=3), **kw)
     adm, faults = kw.pop("admission", None), kw.pop("faults", None)
     out = []
     for pkg in ("ref", "port"):
         rc = (RunConfig if pkg == "ref" else TRunConfig)(
-            quant_policy=policy, fallback_policy=fallback_policy, **RC_KW)
+            quant_policy=policy, fallback_policy=fallback_policy, **RC_KW, **(rc_kw or {}))
         cfg = (get_config if pkg == "ref" else t_get_config)(ARCH)
         p = params if pkg == "ref" else tparams
+        extra = dict(kw)
+        if draft_params:
+            extra["draft_params"] = p
         if surgery:
             p = (j_apply_surgery if pkg == "ref" else t_apply_surgery)(cfg, rc, p)
-        extra = dict(kw)
         if adm is not None:
             extra["admission"] = adm(j_adm.AdmissionController if pkg == "ref"
                                      else AdmissionController)
@@ -423,6 +428,31 @@ def test_chaos_smoke_faults_cycles_follow_reference(model, seed):
         for b, tot in port.cycles_by_bits.items():
             metered = sum(m.cycles_by_bits(var).get(b, 0) for m in port.finished_meters)
             assert abs(metered - tot[k]) <= len(port.finished_meters)   # rounding, one a meter
+
+
+def test_chaos_smoke_spec_faults_never_change_results(model):
+    """Spec-decoding variant: draft staleness, storms and allocation
+    failures may cost ticks and resyncs but never change greedy output vs
+    the fault-free spec run — and both runs make the reference's decisions
+    (tokens, terminal states, ladder, health() with its draft counters,
+    final KV lengths) under the same plan."""
+    spec = dict(spec_gamma=2, draft_policy="*=int2")
+    ref0, port0 = _pair(model, rc_kw=spec, draft_params=True)
+    jreqs0, treqs0, _, _ = _serve((ref0, port0), n=4)
+    _agree(ref0, port0, jreqs0, treqs0)
+    want = {r.rid: list(r.out) for r in treqs0}
+
+    plan = lambda cls: cls.generate(
+        3, horizon=8 * port0.ticks + 50, max_batch=3,
+        rates={"draft_stale": 0.25, "alloc_fail": 0.0, "preempt_storm": 0.02,
+               "nan_logits": 0.0})
+    ref, port = _pair(model, rc_kw=spec, draft_params=True, faults=plan)
+    jreqs, treqs, _, _ = _serve((ref, port), n=4)
+    _assert_clean(port, treqs)
+    _agree(ref, port, jreqs, treqs)
+    assert {r.rid: list(r.out) for r in treqs} == want
+    assert port.draft_stale_events > 0
+    assert port.draft_resyncs > 0        # stale slots recovered, not stuck
 
 
 def test_chaos_smoke_nan_transient_retry_is_bitexact(model, baseline):

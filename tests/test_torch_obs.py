@@ -6,8 +6,7 @@ timestamps normalised, log lines); ``health()`` has the reference's keys
 on ``qwen3-0.6b_smoke``; kernel counters are scoped per scheduler; tracing
 changes no token; the registry and the legacy counters are one store; and
 the PyTorch profiler ranges (``obs/profile.py``) show up in a CPU
-``torch.profiler`` trace without touching NVTX. The speculative variant of
-the tracing test waits for speculative decoding in the port."""
+``torch.profiler`` trace without touching NVTX."""
 
 import json
 
@@ -339,6 +338,42 @@ def test_tracing_changes_no_tokens_plain(model):
     rtr = j_trace.Tracer()
     _, ref_out = _run(params, prompts=prompts, ref=True, tracer=rtr, track_energy=True)
     assert ref_out == out_on
+    assert _trace_shape(obj) == _trace_shape(rtr.to_dict())
+
+
+def test_tracing_changes_no_tokens_spec(model):
+    """Speculative decoding (γ=2, an int2 draft) under a tracer: the same
+    tokens as untraced, the draft, verify and device-step spans present,
+    and the reference's tracer records the same events in the same order."""
+    params, tparams = model
+    prompts = _prompts(n=3)
+    spec = dict(RC_KW, spec_gamma=2, draft_policy="*=int2")
+    kw = dict(capacity=32, max_batch=3, temperature=0.0)
+
+    def run(pkg, tracer=None):
+        if pkg == "ref":
+            s = JScheduler(get_config(ARCH), RunConfig(**spec), params, tracer=tracer, **kw)
+            req = JRequest
+        else:
+            s = Scheduler(t_get_config(ARCH), TRunConfig(**spec), tparams, tracer=tracer,
+                          device="cpu", **kw)
+            req = Request
+        for rid, p in enumerate(prompts):
+            s.submit(req(rid=rid, prompt=list(p), max_new=6))
+        s.run()
+        return {r.rid: list(r.out) for r in s.finished}
+
+    out_off = run("port")
+    tr = Tracer()
+    out_on = run("port", tr)
+    assert out_on == out_off
+    obj = tr.to_dict()
+    validate_chrome_trace(obj)
+    names = {e["name"] for e in obj["traceEvents"] if e.get("ph") == "X"}
+    for n in ("draft", "verify", "device_step", "cow_drain", "mirror"):
+        assert n in names, f"missing spec span {n!r}"
+    rtr = j_trace.Tracer()
+    assert run("ref", rtr) == out_on
     assert _trace_shape(obj) == _trace_shape(rtr.to_dict())
 
 
