@@ -36,6 +36,11 @@ Phases, each printing one JSON line:
    the memset included), ``torch.bmm`` on the bf16 operands as the
    library; then the model's 2-D GEMMs of widths the dense path never ran
    (N=576, K=10944, 2816) at M=64 and 4.
+3d. check_ssm_gemm (run after 9b, when deepseek's weights are gone) — the
+   fused GEMM at the SSM and hybrid widths (falcon-mamba-7b's and
+   hymba-1.5b's SSM projections, hymba's attention and MLP; hymba's
+   ``ssm.dt`` has K = 100), int8 and int2, M = 4, 64, 128 and 1,100 for
+   hymba's ``ssm.in_proj``, bit for bit against the plain version.
 4. step parity — one prefill tick and one decode tick of the mixed step at
    full width through the kernels and through the plain versions.
 5. serve — the paged scheduler serves 8 requests on qwen3-0.6b at full
@@ -51,6 +56,10 @@ Phases, each printing one JSON line:
    unchanged. ``serve_overload``: bounded class queues, TTLs and tenant
    budgets under a burst: every request done or structurally rejected, the
    ladder up to ``shed`` and back to ``healthy``.
+5a. serve_dense — the same Scheduler and requests on ``kv_layout="dense"``
+   (no block tables; attention through plain ``blockwise_attention``): only
+   the fused GEMM and its stats launch; tokens equal to the paged serve's
+   printed, not gated (another attention float order).
 5c. prefix caching and speculative decoding on the same model, under
    ``ROBUST_POLICY``: ``serve_spec`` (γ=4, ``*=int2`` draft),
    ``serve_spec_selfdraft`` (the draft at the target's policy: acceptance
@@ -94,6 +103,16 @@ Phases, each printing one JSON line:
    packed int2 planes): the same 8 requests, only the fused GEMM, the
    stats assembly and attention launching, every call site on the cuda
    route; tokens/s, tick ms, launches and MoE drops a tick.
+9c. the legacy dense-slot Engine at full width, bf16 weights drawn on the
+   card: ``serve_ssm`` (falcon-mamba-7b, 64 layers, ``ssm.*=int8,*=bf16``)
+   and ``serve_hybrid`` (hymba-1.5b, 32 layers,
+   ``attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16``, int8 dense KV) on the 8
+   requests, then ``serve_hybrid_long`` (one 1,100-token prompt at capacity
+   1,152: the sliding window and a second KV chunk). Each runs through the
+   kernels and through the plain versions: identical greedy tokens and
+   per-request ``cycles_by_bits``, only ``tugemm_fused`` and
+   ``tugemm_stats`` launching (no ``flash_paged_decode``); tokens/s, step
+   and prefill ms, launches a decode step, weight GB and peak memory.
 10. device_time — the device time and device launches of each fused GEMM,
    int8 GEMM, attention and temporal-GEMM case checked above, of the
    unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
@@ -119,12 +138,14 @@ device and exits non-zero without one.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -945,6 +966,59 @@ MOE_EXPERTS, MOE_M = 64, 16
 MOE_GEMMS = [("moe.gate/up", 2048, 1408), ("moe.down", 1408, 2048)]
 
 
+def fused_case(torch, phase, case, x, w, sx, sw, bits, packed, lib_call, flush, **extra):
+    """One ``ops.matmul_fused`` call with stats (bf16 out) held to its plain
+    version bit for bit (y and every TuGemmStats field), one GEMM launch
+    and one ``tugemm_stats`` launch a call (the counters), timed with its
+    plain version and ``lib_call``; emitted under ``phase``, appended to
+    DEVICE_TIMED and returned."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.unary_stats import HDR
+
+    call = lambda impl="cuda": ops.matmul_fused(
+        x, w, sx=sx, sw=sw, bits=bits, w_quantized=packed, collect_stats=True,
+        out_dtype=torch.bfloat16, impl=impl, name=phase)
+    before = ops.kernel_counts()
+    got = call()
+    after = ops.kernel_counts()
+    want = call("torch")
+    torch.cuda.synchronize()
+    launches = {k: after[k]["launches"] - before[k]["launches"] for k in after}
+    exact, err = _exact(got, want)
+    lead = x.shape[:-2]
+    Mx, K = x.shape[-2:]
+    N = sw.shape[-1]
+    n_e = lead[0] if lead else 1
+    byts = nbytes(x, w, sx, sw, got[0]) + 4 * n_e * (2 * K + HDR + K)   # ca, rb, stats
+    rec = dict(kernel="tugemm_fused", case=case, experts=n_e, M=Mx, K=K, N=N, bits=bits,
+               w_mode="packed" if packed else "quant", stats=True, **extra,
+               **gemm_grid(Mx, N, w.shape[-2], 4 if packed else 1, 2, n_e),
+               exact=exact, max_abs_err=err, launches_a_call=launches,
+               ms=median_ms(torch, call, flush=flush),
+               plain_ms=median_ms(torch, lambda: call("torch"), flush=flush),
+               library_ms=None if lib_call is None else median_ms(torch, lib_call,
+                                                                 flush=flush),
+               **_bound(byts, 2 * n_e * Mx * K * N))
+    emit({"phase": phase, **rec})
+    if not exact:
+        raise AssertionError(f"tugemm_fused disagrees with its plain version: {rec}")
+    ran = {k: n for k, n in launches.items() if n}
+    if ran != {"tugemm_fused": 1, "tugemm_stats": 1}:
+        raise AssertionError(f"matmul_fused with stats is not one GEMM launch and one "
+                             f"tugemm_stats launch: {rec}")
+    DEVICE_TIMED.append((rec, call, lib_call))
+    return rec
+
+
+def int8_operands(torch, x, wf, sx, sw, bits):
+    """x and W quantized as the fused GEMM quantizes them: ``torch._int_mm``'s
+    operands for the library yardstick."""
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    xq = torch.clamp(torch.round(x.float() / sx.float()), lo, hi).to(torch.int8)
+    wq = torch.clamp(torch.round(wf.float() / sw.float()), lo, hi).to(torch.int8)
+    return xq, wq
+
+
 def check_moe_gemm(torch, flush):
     """The expert axis of ``tugemm_fused``: ``ops.matmul_fused`` with stats
     over all 64 experts of deepseek-v2-lite at M=16 (4 rows x capacity 4),
@@ -958,8 +1032,6 @@ def check_moe_gemm(torch, flush):
     ``torch.bmm`` on the bf16 operands. Then the model's 2-D GEMMs whose
     widths the dense path never ran (M=64 and 4), bit for bit, with
     ``torch._int_mm`` on their int8 operands as the library at M=64."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.unary_stats import HDR
     from repro_torch.quant.quantize import act_scale, fused_scales
     from repro_torch.quant.surgery import _prequant_leaf
 
@@ -969,41 +1041,8 @@ def check_moe_gemm(torch, flush):
     E, M = MOE_EXPERTS, MOE_M
     records = []
 
-    def run(case, x, w, sx, sw, bits, packed, lib_call, **extra):
-        call = lambda impl="cuda": ops.matmul_fused(
-            x, w, sx=sx, sw=sw, bits=bits, w_quantized=packed, collect_stats=True,
-            out_dtype=bf16, impl=impl, name="check_moe")
-        before = ops.kernel_counts()
-        got = call()
-        after = ops.kernel_counts()
-        want = call("torch")
-        torch.cuda.synchronize()
-        launches = {k: after[k]["launches"] - before[k]["launches"] for k in after}
-        exact, err = _exact(got, want)
-        lead = x.shape[:-2]
-        Mx, K = x.shape[-2:]
-        N = sw.shape[-1]
-        n_e = lead[0] if lead else 1
-        byts = nbytes(x, w, sx, sw, got[0]) + 4 * n_e * (2 * K + HDR + K)   # ca, rb, stats
-        rec = dict(kernel="tugemm_fused", case=case, experts=n_e, M=Mx, K=K, N=N, bits=bits,
-                   w_mode="packed" if packed else "quant", stats=True, **extra,
-                   **gemm_grid(Mx, N, w.shape[-2], 4 if packed else 1, 2, n_e),
-                   exact=exact, max_abs_err=err, launches_a_call=launches,
-                   ms=median_ms(torch, call, flush=flush),
-                   plain_ms=median_ms(torch, lambda: call("torch"), flush=flush),
-                   library_ms=None if lib_call is None else median_ms(torch, lib_call,
-                                                                     flush=flush),
-                   **_bound(byts, 2 * n_e * Mx * K * N))
-        emit({"phase": "check_moe_gemm", **rec})
-        if not exact:
-            raise AssertionError(f"tugemm_fused over experts disagrees with its plain "
-                                 f"version: {rec}")
-        ran = {k: n for k, n in launches.items() if n}
-        if ran != {"tugemm_fused": 1, "tugemm_stats": 1}:
-            raise AssertionError(f"matmul_fused with stats is not one GEMM launch and one "
-                                 f"tugemm_stats launch: {rec}")
-        records.append(rec)
-        DEVICE_TIMED.append((rec, call, lib_call))
+    def run(*args):
+        records.append(fused_case(torch, "check_moe_gemm", *args, flush))
 
     for name, K, N in MOE_GEMMS:
         x = torch.randn(E, M, K, device=dev, generator=gen).to(bf16)
@@ -1023,10 +1062,49 @@ def check_moe_gemm(torch, flush):
             sx, sw = fused_scales(x, wf, bits)
             # library: torch._int_mm on the int8 operands where cuBLASLt
             # takes the shape (M=64; none at M=4)
-            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-            xq = torch.clamp(torch.round(x.float() / sx.float()), lo, hi).to(torch.int8)
-            wq = torch.clamp(torch.round(wf.float() / sw.float()), lo, hi).to(torch.int8)
-            run(f"{name} dynamic", x, wf, sx, sw, bits, False, lib_int_mm(torch, xq, wq))
+            run(f"{name} dynamic", x, wf, sx, sw, bits, False,
+                lib_int_mm(torch, *int8_operands(torch, x, wf, sx, sw, bits)))
+    return records
+
+
+# (model, GEMM, K, N) of the SSM and hybrid layers: falcon-mamba-7b's four
+# SSM projections, hymba-1.5b's four at d_model 1600 (dt_rank 100, so
+# ``ssm.dt`` has K = 100: a bf16 row of 200 bytes) and its attention and MLP
+SSM_GEMMS = [("hymba-1.5b", "ssm.in_proj", 1600, 6400), ("hymba-1.5b", "ssm.x_proj", 3200, 132),
+             ("hymba-1.5b", "ssm.dt", 100, 3200), ("hymba-1.5b", "ssm.out_proj", 3200, 1600),
+             ("hymba-1.5b", "attn.k/v", 1600, 320), ("hymba-1.5b", "attn.q/o", 1600, 1600),
+             ("hymba-1.5b", "mlp.gate/up", 1600, 5504), ("hymba-1.5b", "mlp.down", 5504, 1600),
+             ("falcon-mamba-7b", "ssm.in_proj", 4096, 16384),
+             ("falcon-mamba-7b", "ssm.x_proj", 8192, 288),
+             ("falcon-mamba-7b", "ssm.dt", 256, 8192),
+             ("falcon-mamba-7b", "ssm.out_proj", 8192, 4096)]
+SSM_M = (4, 64, 128)          # decode (max_batch 4) and B=1 prefills of 64 and 128 tokens
+LONG_PROMPT = 1100            # hymba's long request: its prefill's M
+
+
+def check_ssm_gemm(torch, flush):
+    """``tugemm_fused`` at the widths of the SSM and hybrid serves, none of
+    which an earlier phase ran: ``ops.matmul_fused`` with stats, bf16 x and
+    W quantized on load, int8 and int2, at M = 4, 64 and 128 (and 1,100 for
+    hymba's ``ssm.in_proj``, the long prompt's prefill), each held to its
+    plain version bit for bit, outputs and stats; ``torch._int_mm`` on the
+    int8 operands as the library where cuBLASLt takes the shape (M > 16, K
+    and N multiples of 8). Returns the records."""
+    from repro_torch.quant.quantize import fused_scales
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    records = []
+    for model, name, K, N in SSM_GEMMS:
+        wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        long = (LONG_PROMPT,) if (model, name) == ("hymba-1.5b", "ssm.in_proj") else ()
+        for M in SSM_M + long:
+            x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            for bits in (8, 2):
+                sx, sw = fused_scales(x, wf, bits)
+                lib = lib_int_mm(torch, *int8_operands(torch, x, wf, sx, sw, bits))
+                records.append(fused_case(torch, "check_ssm_gemm", f"{model} {name}", x, wf,
+                                          sx, sw, bits, False, lib, flush, model=model))
     return records
 
 
@@ -2174,8 +2252,232 @@ def serve_moe_phases(torch) -> dict:
                 or routes != {"cuda"}:
             raise AssertionError(f"{phase} did not run only the fused kernels on the cuda "
                                  f"route: {counts} {rec['paths']}")
-        out[phase] = (sched, counts)
-        del params_p
+        # keep the tick count, not the scheduler: it holds the weights, which
+        # the SSM and hybrid serves after this phase need the room of
+        out[phase] = (types.SimpleNamespace(ticks=sched.ticks), counts)
+        del params_p, sched
+    del params
+    free_device_memory(torch)
+    return out
+
+
+def free_device_memory(torch) -> None:
+    """Collect the reference cycles a Scheduler or Engine leaves (its
+    registry's gauges close over it), so the weights they held go now."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------- the legacy Engine: SSM and hybrid
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "hymba-1.5b"
+SSM_POLICY = "ssm.*=int8,*=bf16"
+HYBRID_POLICY = "attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16"
+LONG_CAPACITY = 1152          # the long request's pool: 1,100 prompt + 16 new tokens fit
+ENGINE_KERNELS = {"tugemm_fused", "tugemm_stats"}
+
+
+def engine_requests(cfg) -> list:
+    """The serve phase's 8 requests (32-128 prompt tokens from numpy seed 0,
+    16 new tokens each) as (prompt, max_new)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(32, 129))).tolist(), 16)
+            for _ in range(8)]
+
+
+def model_setup_engine(torch, arch: str, policy: str, kv_cache_dtype: str = "bfloat16"):
+    """``arch`` at full width on the dense layout, bf16 weights drawn on the
+    card by a CUDA generator seeded 0."""
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.models import init
+
+    cfg = get_config(arch)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=policy,
+                   kv_cache_dtype=kv_cache_dtype, kv_layout="dense")
+    t0 = time.perf_counter()
+    params = init(cfg, rc, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    emit({"phase": f"init_{arch}", "arch": arch, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner, "seconds": time.perf_counter() - t0,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "weight_gb": sum(nbytes(t) for t in _leaves(params)) / 1e9,
+          "device_bytes": torch.cuda.memory_allocated()})
+    return cfg, rc, params
+
+
+def engine_serve(torch, cfg, rc, params, impl: str, reqs, *, capacity: int, max_batch: int):
+    """``reqs`` through a ``serve.Engine`` (track_energy) on ``impl``. The
+    kernel counters are zeroed just before ``run`` and read just after; each
+    prefill's and decode step's wrapper launches are counted around its
+    call. Returns (record, {rid: tokens}, {rid: cycles_by_bits})."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, Request
+
+    eng = Engine(cfg, rc, params, capacity=capacity, max_batch=max_batch, track_energy=True,
+                 device=DEVICE, impl=impl)
+    launches = {"prefill": [], "decode": []}
+
+    def counted(fn, phase):
+        def run(*a):
+            before = sum(c["launches"] for c in ops.kernel_counts().values())
+            out = fn(*a)
+            launches[phase].append(sum(c["launches"] for c in ops.kernel_counts().values())
+                                   - before)
+            return out
+        return run
+
+    eng._prefill, eng._decode = counted(eng._prefill, "prefill"), counted(eng._decode, "decode")
+    for rid, (p, n) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=list(p), max_new=n))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = {r.rid: list(r.out) for r in done}
+    energy = {e["rid"]: e["cycles_by_bits"] for e in eng.energy_summary()}
+    gen = sum(len(o) for o in outs.values())
+    cyc: dict = {}
+    for c in energy.values():
+        for b, v in c.items():
+            cyc[str(b)] = cyc.get(str(b), 0) + v
+    rec = {"impl": impl, "requests": len(done), "prompt_tokens": sum(len(p) for p, _ in reqs),
+            "generated_tokens": gen, "wall_s": wall, "tokens_per_s": gen / wall,
+            "decode_steps": len(eng.step_seconds),
+            "median_step_ms": statistics.median(eng.step_seconds) * 1e3,
+            "prefill_ms": [t * 1e3 for t in eng.prefill_seconds],
+            "launches_per_decode_step": statistics.mean(launches["decode"]),
+            "launches_per_prefill": statistics.mean(launches["prefill"]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kernel_counts": ops.kernel_counts(), "paths": ops.path_counts(),
+            "cycles_by_bits": cyc}
+    return rec, outs, energy
+
+
+def serve_engine_pair(torch, phase, cfg, rc, params, reqs, bits: set, *, capacity: int,
+                      max_batch: int) -> dict:
+    """One Engine serve through the kernels, then through the plain versions:
+    greedy tokens and per-request ``cycles_by_bits`` identical (the only
+    code that differs is the fused GEMM and its stats, bit-exact against
+    their plain versions), every request finished with its tokens in the
+    vocabulary and cycles at exactly ``bits``; on the kernel serve only
+    ``tugemm_fused`` and ``tugemm_stats`` launch (no plain call, every call
+    site on the cuda route, ``flash_paged_decode`` not at all), on the
+    plain serve none. Returns the kernel serve's record."""
+    k, outs, energy = engine_serve(torch, cfg, rc, params, "auto", reqs, capacity=capacity,
+                                   max_batch=max_batch)
+    p, p_outs, p_energy = engine_serve(torch, cfg, rc, params, "torch", reqs,
+                                       capacity=capacity, max_batch=max_batch)
+    same = sum(a == b for r in outs for a, b in zip(outs[r], p_outs.get(r, [])))
+    gen = k["generated_tokens"]
+    rec = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "policy": rc.quant_policy,
+           "kv_cache_dtype": rc.kv_cache_dtype, "capacity": capacity, "max_batch": max_batch,
+           "weight_gb": sum(nbytes(t) for t in _leaves(params)) / 1e9, **k,
+           "plain": {n: p[n] for n in ("wall_s", "tokens_per_s", "median_step_ms",
+                                       "kernel_counts", "cycles_by_bits")},
+           "tokens_equal_plain": same, "cycles_equal_plain": energy == p_energy}
+    emit(rec)
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[r]) != n for r, (_, n) in enumerate(reqs)):
+        raise AssertionError(f"{phase}: not every request finished with its tokens: {outs}")
+    if any(not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise AssertionError(f"{phase}: a token outside the vocabulary")
+    if any(set(c) != bits or min(c.values()) <= 0 for c in energy.values()):
+        raise AssertionError(f"{phase}: cycle totals not at bits {bits}: {energy}")
+    if outs != p_outs or energy != p_energy:
+        raise AssertionError(f"{phase}: the kernel serve's tokens or cycles differ from the "
+                             f"plain serve's ({same} of {gen} tokens equal)")
+    counts = k["kernel_counts"]
+    ran = {n for n, c in counts.items() if c["launches"] > 0}
+    routes = {r for v in k["paths"].values() for r in v}
+    if ran != ENGINE_KERNELS or any(c["plain_calls"] for c in counts.values()) \
+            or routes != {"cuda"}:
+        raise AssertionError(f"{phase} did not run only the fused GEMM and its stats on the "
+                             f"cuda route: {counts} {k['paths']}")
+    if any(c["launches"] for c in p["kernel_counts"].values()):
+        raise AssertionError(f"{phase}: the plain serve launched a kernel: {p['kernel_counts']}")
+    return rec
+
+
+def serve_engine_phases(torch) -> dict:
+    """The legacy Engine at full width: ``serve_ssm`` (falcon-mamba-7b, 64
+    layers, ``SSM_POLICY``) and ``serve_hybrid`` (hymba-1.5b, 32 layers,
+    ``HYBRID_POLICY``, int8 dense KV) on the serve phase's 8 requests, then
+    ``serve_hybrid_long``: one 1,100-token prompt and 16 new tokens at
+    capacity 1,152, through the 1024-token sliding window of 29 of the 32
+    layers and ``blockwise_attention``'s second KV chunk. Each serve runs
+    through the kernels and the plain versions (``serve_engine_pair``).
+    Returns {phase: record}."""
+    import numpy as np
+
+    out = {}
+    cfg, rc, params = model_setup_engine(torch, SSM_ARCH, SSM_POLICY)
+    out["serve_ssm"] = serve_engine_pair(torch, "serve_ssm", cfg, rc, params,
+                                         engine_requests(cfg), {8}, capacity=256, max_batch=4)
+    del params
+    free_device_memory(torch)
+    cfg, rc, params = model_setup_engine(torch, HYBRID_ARCH, HYBRID_POLICY, "int8")
+    out["serve_hybrid"] = serve_engine_pair(torch, "serve_hybrid", cfg, rc, params,
+                                            engine_requests(cfg), {8, 2}, capacity=256,
+                                            max_batch=4)
+    long = [(np.random.default_rng(1).integers(0, cfg.vocab_size, LONG_PROMPT).tolist(), 16)]
+    out["serve_hybrid_long"] = serve_engine_pair(torch, "serve_hybrid_long", cfg, rc, params,
+                                                 long, {8, 2}, capacity=LONG_CAPACITY,
+                                                 max_batch=1)
+    del params
+    free_device_memory(torch)
+    return out
+
+
+def serve_dense(torch, cfg, rc, params, paged_outs: dict):
+    """The paged-pool Scheduler on ``kv_layout="dense"`` (one KV row per
+    slot, no block tables, attention through ``blockwise_attention``) on
+    the serve phase's requests and weights: only the fused GEMM and its
+    stats launch, no plain call. Its tokens against the paged serve's are
+    printed, not gated: the paged serve attends through
+    ``flash_paged_decode``, another float order."""
+    import dataclasses
+
+    rc_d = dataclasses.replace(rc, kv_layout="dense")
+    sched, done, wall, counts, prompts = serve(torch, cfg, rc_d, params, "auto")
+    outs = check_served(cfg, sched, done, prompts, {8, 2})
+    rec = serve_record("serve_dense", sched, done, wall, counts, prompts)
+    gen = sum(len(o) for o in outs.values())
+    rec.update(tokens_equal_paged=sum(a == b for r in outs for a, b in
+                                      zip(outs[r], paged_outs[r])),
+               tokens=gen, cache_stats=sched.cache_stats())
+    emit(rec)
+    ran = {k for k, c in counts.items() if c["launches"] > 0}
+    if ran != ENGINE_KERNELS or any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"serve_dense did not run only the fused GEMM and its stats: "
+                             f"{counts}")
+    return sched, counts
+
+
+def ssm_entry(ssm_gemm: list) -> dict:
+    """The kernels line's numbers of ``tugemm_fused`` at the SSM and hybrid
+    widths: one layer's GEMMs of each model at decode (M=4) and at a
+    128-token prefill, at the bits its serve policy gives them."""
+    layers = {"falcon-mamba-7b": [("ssm.in_proj", 8), ("ssm.x_proj", 8), ("ssm.dt", 8),
+                                  ("ssm.out_proj", 8)],
+              "hymba-1.5b": [("ssm.in_proj", 8), ("ssm.x_proj", 8), ("ssm.dt", 8),
+                             ("ssm.out_proj", 8), ("attn.q/o", 8), ("attn.k/v", 8),
+                             ("attn.k/v", 8), ("attn.q/o", 8), ("mlp.gate/up", 2),
+                             ("mlp.gate/up", 2), ("mlp.down", 2)]}
+    out = {}
+    for model, gemms in layers.items():
+        for M in (4, 128):
+            rows = [next(r for r in ssm_gemm if r["case"] == f"{model} {n}" and r["M"] == M
+                         and r["bits"] == b) for n, b in gemms]
+            libs = [r["library_ms"] for r in rows]
+            out[f"{model} M={M}"] = {
+                "gemms": len(rows), "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "library_ms": None if None in libs else sum(libs), **device_entry(rows)}
     return out
 
 
@@ -2279,6 +2581,10 @@ def main() -> int:
     same = sum(a == b for r in outs for a, b in zip(outs[r], outs_p[r]))
     emit({"phase": "serve_plain", "wall_s": wall_p, "tokens_per_s": gen / wall_p,
           "tokens_equal": same, "tokens": gen, "kernel_counts": counts_p})
+    # the same requests on the dense KV layout (attention off the paged kernel)
+    sched_d, counts_d = serve_dense(torch, cfg, rc, params, outs)
+    dense_serves = {"serve_dense": (sched_d, counts_d)}
+    del sched_d
 
     # the serving robustness and observability layer on the same model
     # (serve_traced runs after device_time: one profiler session over a
@@ -2360,6 +2666,11 @@ def main() -> int:
     del params
 
     moe_serves = serve_moe_phases(torch)
+    # the legacy Engine on the SSM and hybrid archs, after deepseek's weights went
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
+    ssm_gemm = check_ssm_gemm(torch, flush)
+    del flush
+    engine_serves = serve_engine_phases(torch)
     device_times(torch)
     serve_traced(torch, cfg, rc, sched.params, outs, sched, smi)
     for r in moe_gemm:
@@ -2381,7 +2692,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/tugemm_fused.cu",
          "replaces": "src/repro/kernels/tugemm_fused.py:151",
          "launches": counts["tugemm_fused"]["launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in gemm),
+         "max_abs_err": max(r["max_abs_err"] for r in gemm + ssm_gemm),
          "ms": sum(r["ms"] for r in per_layer),
          "plain_ms": sum(r["plain_ms"] for r in per_layer),
          "bound_ms": sum(r["bound_ms"] for r in per_layer),
@@ -2392,11 +2703,15 @@ def main() -> int:
          "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY,
          "launches_by_path": {"serve": counts["tugemm_fused"]["launches"], **{
              ph: c["tugemm_fused"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
-             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in slice_serves.items()}},
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in slice_serves.items()}, **{
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in dense_serves.items()}, **{
+             ph: r["kernel_counts"]["tugemm_fused"]["launches"]
+             for ph, r in engine_serves.items()}},
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
-                                       for ph, (sc, c) in {**moe_serves,
-                                                          **slice_serves}.items()},
-         "experts": expert_entry(moe_gemm, moe_serves)},
+                                       for ph, (sc, c) in {**moe_serves, **slice_serves,
+                                                          **dense_serves}.items()},
+         "experts": expert_entry(moe_gemm, moe_serves),
+         "ssm": ssm_entry(ssm_gemm)},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
          "replaces": "src/repro/kernels/flash_paged.py:193",
@@ -2410,7 +2725,10 @@ def main() -> int:
                   f"kv_len {dec['kv_len']}",
          "launches_by_path": {"serve": counts["flash_paged_decode"]["launches"], **{
              ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
-             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in slice_serves.items()}},
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in slice_serves.items()}, **{
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in dense_serves.items()}, **{
+             ph: r["kernel_counts"]["flash_paged_decode"]["launches"]
+             for ph, r in engine_serves.items()}},
          "launches_per_tick_by_path": {ph: c["flash_paged_decode"]["launches"] / sc.ticks
                                        for ph, (sc, c) in slice_serves.items()},
          "verify": {k: ver[k] for k in (
@@ -2476,7 +2794,10 @@ def main() -> int:
                              "serve_prequant": counts_pq["tugemm_stats"]["launches"],
                              "serve_unfused": counts_unf["tugemm_stats"]["launches"],
                              **{ph: c["tugemm_stats"]["launches"]
-                                for ph, (_, c) in {**moe_serves, **slice_serves}.items()}},
+                                for ph, (_, c) in {**moe_serves, **slice_serves,
+                                                   **dense_serves}.items()},
+                             **{ph: r["kernel_counts"]["tugemm_stats"]["launches"]
+                                for ph, r in engine_serves.items()}},
         "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
                                         if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),

@@ -1,4 +1,5 @@
-"""Model zoo slice: the dense GQA backbone on a paged KV pool."""
+"""Model zoo: dense GQA, MLA + MoE, Mamba-1 SSM and hybrid (Hymba) stacks
+over a dense or paged KV cache."""
 
 from .attention import KVView
 from .model import init

@@ -1,15 +1,24 @@
-"""GQA attention (+qk_norm, RoPE) and MLA (DeepSeek-V2) over the paged KV
-pool.
+"""GQA attention (+qk_norm, RoPE) and MLA (DeepSeek-V2) over a KV cache in
+one of the reference's two layouts, or over the step's own K/V (no cache).
 
-The pool is a fixed set of ``block_size``-token pages shared by all slots
-and addressed through per-slot block tables (a :class:`KVView`), so one
-step mixes prefill chunks and decode rows. int8 pools store per-(page,
-token) scales (``_quantize_kv``). Writes are eager in-place scatters into
-the pool; padded step columns land on the trailing trash page, which is
-never read. MLA caches the compressed kv latent (``ckv``) and the shared
-rope key (``kr``), each with its own per-token scale, and attends in the
-absorbed form: one kv head whose K is ``[ckv ; kr]`` and whose V is
-``ckv``. The dense per-slot layout is a later slice.
+- **dense**: per-slot ``(batch, capacity)`` buffers. The legacy Engine
+  writes every row at one scalar position (``kv_cache_write(..., pos)``,
+  the start clamped so the span fits, as ``dynamic_update_slice`` clamps
+  it); the Scheduler's dense layout writes each row at its own position
+  through a :class:`KVView` without tables, dropping columns past the live
+  width or the capacity. Reads are contiguous and attend through
+  ``blockwise_attention``.
+- **paged**: a fixed set of ``block_size``-token pages shared by all slots
+  and addressed through per-slot block tables, so one step mixes prefill
+  chunks and decode rows; attention runs the paged flash-decode kernel.
+
+int8 caches store per-(row, token) scales (``_quantize_kv``); every dense
+read is length-masked, so positions at or beyond the live length read as
+exact zeros and a recycled slot never sees its previous occupant. Writes
+are eager in-place updates of the cache tensors. MLA caches the compressed
+kv latent (``ckv``) and the shared rope key (``kr``), each with its own
+per-token scale, and attends in the absorbed form: one kv head whose K is
+``[ckv ; kr]`` and whose V is ``ckv``.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_paged import gather_pages
 from ..quant.qlinear import dense
-from .flash import paged_decode_attention
+from .flash import blockwise_attention, paged_decode_attention
 from .layers import apply_rope, rms_norm
 
 __all__ = [
@@ -40,13 +49,14 @@ class KVView:
 
     ``pos[b]`` is row b's first write position, ``lens[b]`` how many of the
     step's S columns are real tokens (0 = idle row), ``tables[b]`` maps
-    block index -> page id in the pool."""
+    block index -> page id in the pool (None: the dense layout, row b of
+    the cache is slot b)."""
 
     pos: torch.Tensor                   # (B,) int32
     lens: torch.Tensor                  # (B,) int32
     tables: torch.Tensor | None = None  # (B, max_blocks) int32 page ids
     block_size: int = 16
-    layout: str = "paged"
+    layout: str = "dense"               # dense | paged
 
     @property
     def kv_len(self) -> torch.Tensor:
@@ -102,12 +112,36 @@ def _paged_targets(view: KVView, B: int, S: int, num_rows: int):
     return page, tp % bs
 
 
-def kv_cache_write(cache: dict, names: tuple[str, ...], new: tuple, *, view: KVView) -> dict:
-    """Write each row's ``lens[b]`` tokens of ``new`` (B, S, ...) at its own
-    ``pos[b]`` through the block table, in place; int8 pools quantize per
-    token first."""
-    if view.tables is None:
-        raise NotImplementedError("dense KV layout is not ported yet; use kv_layout='paged'")
+def _dense_window(view: KVView, W: int, capacity: int):
+    """Per-row write window of a dense step: (rows, q, j, live), each (B, W).
+    Row b's window is W distinct in-bounds positions ``q`` that hold every
+    in-bounds target ``pos[b] + c`` of its columns; ``j`` is the column
+    landing at ``q`` and ``live`` says whether that column is a real token.
+    The window's other positions are written back with their own values,
+    so padded columns and columns past the capacity are dropped (the
+    reference's ``mode="drop"``) with no host sync and no two writes to one
+    position."""
+    dev = view.pos.device
+    pos = view.pos.long()
+    start = torch.clamp(pos, max=capacity - W)
+    q = start[:, None] + torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    j = q - pos[:, None]
+    live = (j >= 0) & (j < view.lens.long()[:, None])
+    rows = torch.arange(pos.shape[0], dtype=torch.int64, device=dev)[:, None].expand_as(q)
+    return rows, q, torch.clamp(j, 0, W - 1), live
+
+
+def kv_cache_write(cache: dict, names: tuple[str, ...], new: tuple, pos: int | None = None, *,
+                   view: KVView | None = None) -> dict:
+    """Write a (B, S, ...) span of each of ``names`` in place; int8 buffers
+    quantize per token first.
+
+    ``view=None``: every row writes at the scalar position ``pos`` (a
+    Python int), the start clamped to ``[0, capacity - S]``. A
+    :class:`KVView` without tables: row b writes its ``lens[b]`` tokens at
+    ``pos[b]`` of its dense row, padded columns and positions past the
+    capacity dropped. A paged view: through the block table, padded
+    columns landing on the trash page (the pool's last row, never read)."""
     for name, val in zip(names, new):
         buf = cache[name]
         if buf.dtype == torch.int8:
@@ -116,25 +150,68 @@ def kv_cache_write(cache: dict, names: tuple[str, ...], new: tuple, *, view: KVV
         else:
             vals = [(name, val.to(buf.dtype))]
         B, S = val.shape[:2]
-        page, off = _paged_targets(view, B, S, buf.shape[0])
-        for n, v in vals:
-            cache[n][page, off] = v
+        if view is None:
+            start = min(max(pos, 0), buf.shape[1] - S)
+            for n, v in vals:
+                cache[n][:, start:start + S] = v
+        elif view.tables is None:
+            W = min(S, buf.shape[1])
+            rows, q, j, live = _dense_window(view, W, buf.shape[1])
+            for n, v in vals:
+                dst = cache[n]
+                src = v[:, :W][rows, j]
+                keep = live.reshape(live.shape + (1,) * (src.ndim - 2))
+                dst[rows, q] = torch.where(keep, src, dst[rows, q])
+        else:
+            page, off = _paged_targets(view, B, S, buf.shape[0])
+            for n, v in vals:
+                cache[n][page, off] = v
     return cache
 
 
-def kv_cache_read(cache: dict, name: str, compute_dtype, *, view: KVView) -> torch.Tensor:
-    """Gather one pool through the block tables into a contiguous
-    (B, max_blocks*block_size, ...) view, dequantized and length-masked:
-    positions at or beyond kv_len read as exact zeros."""
-    if view.tables is None:
-        raise NotImplementedError("dense KV layout is not ported yet; use kv_layout='paged'")
-    pool = cache[name]
-    flat = pool.reshape(pool.shape[0], pool.shape[1], -1)
-    buf = gather_pages(flat, cache.get(name + "_scale"), view.tables)
-    buf = buf.reshape(buf.shape[:2] + tuple(pool.shape[2:]))
-    live = torch.arange(buf.shape[1], device=buf.device)[None, :] < view.kv_len.long()[:, None]
-    buf = torch.where(live.reshape(live.shape + (1,) * (buf.ndim - 2)), buf, 0)
-    return buf.to(compute_dtype)
+def _mask_dead(x: torch.Tensor, kv_len) -> torch.Tensor:
+    """Zero every position at or beyond the live length (an int, or (B,))."""
+    if kv_len is None:
+        return x
+    pos = torch.arange(x.shape[1], device=x.device)
+    if isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1:
+        live = pos[None, :] < kv_len.long()[:, None]
+    else:
+        live = (pos < kv_len)[None, :]
+    return torch.where(live.reshape(live.shape + (1,) * (x.ndim - 2)), x, 0)
+
+
+def kv_cache_read(cache: dict, name: str, compute_dtype, *, kv_len=None,
+                  view: KVView | None = None) -> torch.Tensor:
+    """One cache buffer as a contiguous (B, capacity, ...) tensor,
+    dequantized and length-masked: positions at or beyond ``kv_len`` (an
+    int or (B,)) read as exact zeros. With a paged ``view``, the pages are
+    gathered through its block tables and masked at ``view.kv_len``."""
+    if view is not None and view.tables is not None:
+        pool = cache[name]
+        flat = pool.reshape(pool.shape[0], pool.shape[1], -1)
+        buf = gather_pages(flat, cache.get(name + "_scale"), view.tables)
+        buf = buf.reshape(buf.shape[:2] + tuple(pool.shape[2:]))
+        return _mask_dead(buf, view.kv_len).to(compute_dtype)
+    buf = cache[name]
+    if buf.dtype == torch.int8:
+        s = cache[name + "_scale"]
+        buf = buf.to(torch.float32) * s.reshape(s.shape + (1,) * (buf.ndim - 2))
+    return _mask_dead(buf, kv_len).to(compute_dtype)
+
+
+def _dense_kv(cache, names, new, x, cache_pos, kv_view):
+    """Write a dense cache (scalar ``cache_pos`` or a table-less view) and
+    read every buffer of ``names`` back: (buffers, q_offset, kv_len)."""
+    S = x.shape[1]
+    if kv_view is not None:
+        kv_cache_write(cache, names, new, view=kv_view)
+        kv_len, q_offset = kv_view.kv_len, kv_view.pos
+    else:
+        kv_cache_write(cache, names, new, cache_pos)
+        kv_len, q_offset = min(cache_pos + S, cache[names[0]].shape[1]), cache_pos
+    bufs = [kv_cache_read(cache, n, x.dtype, kv_len=kv_len) for n in names]
+    return bufs, q_offset, kv_len
 
 
 def gqa_attention(
@@ -144,13 +221,17 @@ def gqa_attention(
     positions: torch.Tensor,        # (B, S)
     *,
     backend,
-    cache: dict,
-    kv_view: KVView,
+    cache: dict | None = None,
+    cache_pos: int | None = None,   # scalar write position (the dense lock step)
+    kv_view: KVView | None = None,  # per-row addressing (mixed steps, paged or dense)
     is_global: bool = True,
+    chunk: int = 1024,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """One GQA layer of a paged mixed step: projections, qk-norm, RoPE, the
-    in-place KV write, paged attention, output projection."""
+    """One GQA layer: projections, qk-norm, RoPE, then the in-place KV write
+    and attention — the paged kernel through a paged view, contiguous
+    ``blockwise_attention`` on a dense cache or, with no cache, over the
+    step's own K/V — and the output projection."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.mrope_sections is not None or cfg.attn_logit_softcap is not None:
@@ -161,14 +242,23 @@ def gqa_attention(
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = rms_norm(p["k_norm"], k, cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    kv_cache_write(cache, ("k", "v"), (k, v), view=kv_view)
+    if cfg.attn_type != "none":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     window = None if is_global else cfg.sliding_window
-    out = paged_decode_attention(
-        q, cache, ("k",), "v", kv_view, kv_heads=kv, causal=cfg.causal,
-        window=window, impl=impl, name="attn.paged",
-    )
+    if cache is None:
+        out = blockwise_attention(q, k, v, causal=cfg.causal, window=window, chunk=chunk)
+    elif kv_view is not None and kv_view.tables is not None:
+        kv_cache_write(cache, ("k", "v"), (k, v), view=kv_view)
+        out = paged_decode_attention(
+            q, cache, ("k",), "v", kv_view, kv_heads=kv, causal=cfg.causal,
+            window=window, impl=impl, name="attn.paged",
+        )
+    else:
+        (k_full, v_full), q_offset, kv_len = _dense_kv(cache, ("k", "v"), (k, v), x,
+                                                       cache_pos, kv_view)
+        out = blockwise_attention(q, k_full, v_full, q_offset=q_offset, kv_len=kv_len,
+                                  causal=cfg.causal, window=window, chunk=chunk)
     return dense(p["wo"], out.reshape(B, S, h * hd), backend=backend, name="attn.o", impl=impl)
 
 
@@ -179,17 +269,20 @@ def mla_attention(
     positions: torch.Tensor,        # (B, S)
     *,
     backend,
-    cache: dict,
-    kv_view: KVView,
+    cache: dict | None = None,
+    cache_pos: int | None = None,
+    kv_view: KVView | None = None,
+    chunk: int = 1024,
     impl: str = "auto",
     **_unused,
 ) -> torch.Tensor:
-    """One MLA layer of a paged mixed step in the absorbed form: q and the
-    compressed kv latent, RoPE on their rope parts, the in-place write of
-    ``ckv`` / ``kr``, ``q_nope`` absorbed into the latent space through
-    ``w_uk`` (an f32 einsum, outside the hardware boundary as in the
-    reference), paged attention over one kv head with K = ``[ckv ; kr]``
-    and V = ``ckv``, then ``w_uv`` and the output projection."""
+    """One MLA layer in the absorbed form: q and the compressed kv latent,
+    RoPE on their rope parts, ``q_nope`` absorbed into the latent space
+    through ``w_uk`` (an f32 einsum, outside the hardware boundary as in
+    the reference), the in-place write of ``ckv`` / ``kr``, attention over
+    one kv head with K = ``[ckv ; kr]`` and V = ``ckv`` (the paged kernel,
+    or ``blockwise_attention`` on a dense cache or the step's own latent),
+    then ``w_uv`` and the output projection."""
     B, S, _ = x.shape
     h = cfg.num_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -211,11 +304,22 @@ def mla_attention(
     # the kernel scales scores by 1/sqrt(lora+rope); MLA's is 1/sqrt(nope+rope)
     comp = ((lora + rope_d) ** 0.5) / (scale_dim ** 0.5)
 
-    kv_cache_write(cache, ("ckv", "kr"), (ckv, k_rope), view=kv_view)
-    ctx = paged_decode_attention(
-        q_eff * comp, cache, ("ckv", "kr"), "ckv", kv_view, kv_heads=1,
-        causal=cfg.causal, impl=impl, name="mla.paged",
-    )                                                           # (B, S, h, lora)
+    if cache is not None and kv_view is not None and kv_view.tables is not None:
+        kv_cache_write(cache, ("ckv", "kr"), (ckv, k_rope), view=kv_view)
+        ctx = paged_decode_attention(
+            q_eff * comp, cache, ("ckv", "kr"), "ckv", kv_view, kv_heads=1,
+            causal=cfg.causal, impl=impl, name="mla.paged",
+        )                                                       # (B, S, h, lora)
+    else:
+        if cache is None:
+            ckv_full, kr_full, kv_len, q_offset = ckv, k_rope, None, 0
+        else:
+            (ckv_full, kr_full), q_offset, kv_len = _dense_kv(
+                cache, ("ckv", "kr"), (ckv, k_rope), x, cache_pos, kv_view)
+        k_eff = torch.cat([ckv_full, kr_full], dim=-1)[:, :, None, :]
+        ctx = blockwise_attention(q_eff * comp, k_eff, ckv_full[:, :, None, :],
+                                  q_offset=q_offset, kv_len=kv_len, causal=cfg.causal,
+                                  chunk=chunk)
     out = torch.einsum("bshl,lhv->bshv", ctx.to(torch.float32),
                        p["w_uv"]["kernel"].to(torch.float32)).to(x.dtype)
     return dense(p["wo"], out.reshape(B, S, h * vd), backend=backend, name="mla.o", impl=impl)

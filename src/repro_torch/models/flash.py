@@ -1,14 +1,148 @@
-"""Paged attention read side: the dispatcher over the paged flash-decode
-kernel (``kernels/flash_paged.py``)."""
+"""Attention read side: ``blockwise_attention`` over contiguous K/V (the
+dense KV layout and the no-cache forward), and the dispatcher over the
+paged flash-decode kernel (``kernels/flash_paged.py``).
+
+``blockwise_attention`` is the forward of the reference's
+``repro/models/flash.py``: an online softmax over ``chunk``-wide KV chunks,
+or for ``Sq <= 4`` one masked product and softmax over the whole cache. GQA
+repeats KV heads chunk by chunk; causal, sliding-window and valid-length
+masks come from position arithmetic; ``q_offset`` / ``kv_len`` are Python
+ints or (B,) tensors, so rows of one step may sit at different positions.
+The reference computes it outside any Pallas kernel, so plain PyTorch is
+its port. Its custom-VJP backward is not ported (no training path yet).
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.flash_paged import flash_paged_decode
 
-__all__ = ["paged_decode_attention"]
+__all__ = ["blockwise_attention", "paged_decode_attention"]
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, C, KV, hd) -> (B, C, KV*n_rep, hd)."""
+    if n_rep == 1:
+        return x
+    b, c, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, c, kv, n_rep, hd).reshape(b, c, kv * n_rep, hd)
+
+
+def _per_row(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.ndim == 1
+
+
+def _q_positions(q_offset, Sq: int, device) -> torch.Tensor:
+    """(Sq,) for a scalar offset, (B, Sq) for per-row offsets."""
+    cols = torch.arange(Sq, dtype=torch.int64, device=device)
+    if _per_row(q_offset):
+        return q_offset.long()[:, None] + cols
+    return cols + q_offset
+
+
+def _chunk_mask(q_pos, k_pos, valid_len, causal: bool, window):
+    """Visibility over one KV chunk: (Sq, C) when ``q_pos`` is (Sq,) and
+    ``valid_len`` a scalar, else (B, Sq, C)."""
+    if q_pos.ndim == 1 and not _per_row(valid_len):
+        mask = k_pos[None, :] < valid_len
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        return mask
+    qp = q_pos if q_pos.ndim == 2 else q_pos[None, :]
+    vl = valid_len[:, None, None] if _per_row(valid_len) else valid_len
+    mask = k_pos[None, None, :] < vl
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= qp[:, :, None])
+    if window is not None:
+        mask = mask & (qp[:, :, None] - k_pos[None, None, :] < window)
+    return mask
+
+
+def _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap):
+    """Online softmax over KV chunks; returns (B, Sq, H, hdv) in q.dtype."""
+    B, Sq, H, _ = q.shape
+    Skv, KV, hdv = v.shape[1:]
+    n_rep = H // KV
+    scale = 1.0 / (k.shape[-1] ** 0.5)
+    pad = (-Skv) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.to(torch.float32) * scale
+    q_pos = _q_positions(q_offset, Sq, q.device)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, hdv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        k_pos = torch.arange(c0, c0 + chunk, dtype=torch.int64, device=q.device)
+        k_r = _repeat_kv(k[:, c0:c0 + chunk], n_rep).to(torch.float32)
+        v_r = _repeat_kv(v[:, c0:c0 + chunk], n_rep).to(torch.float32)
+        s = torch.einsum("bqhd,bchd->bhqc", qf, k_r)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _chunk_mask(q_pos, k_pos, valid_len, causal, window)
+        s = torch.where(mask[None, None] if mask.ndim == 2 else mask[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqc,bchd->bhqd", p, v_r)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _decode_direct(q, k, v, q_offset, valid_len, causal, window, softcap):
+    """Sq <= 4 without the chunk scan: one masked product and softmax over
+    the whole cache (q rounded to the cache's dtype, products accumulated
+    in f32, as the reference's)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV, hdv = v.shape[1:]
+    n_rep = H // KV
+    scale = 1.0 / (k.shape[-1] ** 0.5)
+    qf = (q.to(torch.float32) * scale).reshape(B, Sq, KV, n_rep, hd)
+    s = torch.einsum("bqkrd,bckd->bkrqc", qf.to(k.dtype).to(torch.float32),
+                     k.to(torch.float32))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    k_pos = torch.arange(Skv, dtype=torch.int64, device=q.device)
+    mask = _chunk_mask(_q_positions(q_offset, Sq, q.device), k_pos, valid_len, causal, window)
+    s = torch.where(mask[None, None, None] if mask.ndim == 2 else mask[:, None, None], s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkrqc,bckd->bqkrd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, Sq, H, hdv).to(q.dtype)
+
+
+def blockwise_attention(
+    q: torch.Tensor,                    # (B, Sq, H, hd)
+    k: torch.Tensor,                    # (B, Skv, KV, hd)
+    v: torch.Tensor,                    # (B, Skv, KV, hdv)
+    *,
+    q_offset: torch.Tensor | int = 0,   # absolute position of q[:, 0]
+    kv_len: torch.Tensor | int | None = None,   # valid cache length (None -> Skv)
+    causal: bool = True,
+    window: int | None = None,          # sliding-window width (None -> full)
+    chunk: int = 1024,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """(B, Sq, H, hdv) attention output in q.dtype."""
+    Skv = k.shape[1]
+    chunk = min(chunk, Skv)
+    if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
+        return _fwd_scan(q, k, v, 0, Skv, causal, window, chunk, softcap)
+    valid_len = Skv if kv_len is None else kv_len
+    if q.shape[1] <= 4:
+        return _decode_direct(q, k, v, q_offset, valid_len, causal, window, softcap)
+    return _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap)
 
 
 def paged_decode_attention(

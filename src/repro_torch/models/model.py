@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import resolve_device
@@ -65,27 +67,73 @@ def _moe_shapes(cfg: ModelConfig) -> dict:
     return spec
 
 
-def _block_shapes(cfg: ModelConfig, kind: LayerKind) -> dict:
-    """One block's parameter shapes and init ("normal" at its std, "ones"
-    for norms) — the reference's ``block_spec``."""
-    d = cfg.d_model
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    """The reference's ``mamba_spec``: the four projections, the depthwise
+    conv (``zeros`` bias), ``dt_bias`` (inverse softplus of a log-uniform
+    dt), ``A_log`` (``hippo``: log(n+1) along the state axis) and ``D``."""
+    d, di, n, r, ck = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     return {
-        "norm1": _norm(d),
-        "attn": _mla_shapes(cfg) if kind.mixer == "mla" else _gqa_shapes(cfg),
-        "norm2": _norm(d),
-        "ffn": _moe_shapes(cfg) if kind.moe else _mlp(d, cfg.d_ff),
+        "in_proj": _linear(d, 2 * di),
+        "conv_w": ((ck, di), "normal", 0.1),
+        "conv_b": ((di,), "zeros"),
+        "x_proj": _linear(di, r + 2 * n),
+        "dt_w": _linear(r, di),
+        "dt_bias": ((di,), "dt_bias"),
+        "A_log": ((di, n), "hippo"),
+        "D": ((di,), "ones"),
+        "out_proj": _linear(di, d),
     }
+
+
+def _block_shapes(cfg: ModelConfig, kind: LayerKind) -> dict:
+    """One block's parameter shapes and init — the reference's
+    ``block_spec``: an SSM block is its norm and mixer alone; a hybrid block
+    runs attention and the SSM side by side with a norm on each branch's
+    output."""
+    d = cfg.d_model
+    if kind.mixer == "ssm":
+        return {"norm1": _norm(d), "ssm": _mamba_shapes(cfg)}
+    spec = {"norm1": _norm(d),
+            "attn": _mla_shapes(cfg) if kind.mixer == "mla" else _gqa_shapes(cfg)}
+    if kind.mixer == "hybrid":
+        spec.update(ssm=_mamba_shapes(cfg), fuse_attn_norm=_norm(d), fuse_ssm_norm=_norm(d))
+    spec.update(norm2=_norm(d), ffn=_moe_shapes(cfg) if kind.moe else _mlp(d, cfg.d_ff))
+    return spec
+
+
+def _special(how: str, shape: tuple, gen, device) -> torch.Tensor:
+    """The reference's non-normal init kinds, in f32 on ``device``:
+    ``zeros``; ``hippo`` (log(n+1) along the last axis); ``dt_bias``
+    (dt log-uniform in [1e-3, 1e-1], then its inverse softplus: the only
+    one of the three that draws from ``gen``)."""
+    if how == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if how == "hippo":
+        row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device))
+        return row.expand(shape).clone()
+    if how == "dt_bias":
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return dt + torch.log(-torch.expm1(-dt))
+    raise ValueError(f"unknown init kind {how!r}")
 
 
 def _materialize(spec, lead: tuple, gen, dtype, device):
     """Draw one tree of leaves, leaf by leaf. A CPU generator draws in f32
     and casts (these values are fixed: tests and the card's qwen3-0.6b
     weights depend on them); a generator on the card draws each leaf there
-    in ``dtype``, so a 16 B-parameter model never passes through the host."""
+    in ``dtype``, so a 16 B-parameter model never passes through the host.
+    The SSM leaves' ``zeros`` / ``hippo`` / ``dt_bias`` kinds are made in
+    f32 on the generator's device and cast; only ``dt_bias`` draws, and
+    only SSM blocks have these leaves, so the other archs' draws are as
+    they were."""
     if isinstance(spec, dict):
         return {k: _materialize(v, lead, gen, dtype, device) for k, v in spec.items()}
     shape, how, *scale = spec
     shape = lead + tuple(shape)
+    if how in ("zeros", "hippo", "dt_bias"):
+        return _special(how, shape, gen, gen.device).to(dtype=dtype, device=device)
     if gen.device.type == "cpu":
         if how == "ones":
             t = torch.ones(shape, dtype=torch.float32)

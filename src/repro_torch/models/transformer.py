@@ -1,16 +1,23 @@
-"""Decoder backbone over stacked layer groups: dense GQA and MLA + MoE.
+"""Decoder backbone over stacked layer groups: dense GQA and MLA + MoE,
+the Mamba-1 SSM stack and the hybrid (Hymba) block.
 
 Layers are partitioned into groups exactly as the reference plans them
 (``plan_groups``), and each group's parameters and caches are stacked along
 a leading ``layers`` axis — the reference's tree layout, so weights carry
 across by a plain tree map. Where the reference scans a group with
 ``lax.scan`` (and rematerializes blocks with ``jax.checkpoint``), the port
-runs a Python loop over the stacked weights and updates the cache pools in
-place.
+runs a Python loop over the stacked weights and updates the KV caches in
+place; the SSM state comes back as new stacked leaves, as the reference
+returns it.
 
-Block layout (pre-norm, residual): ``x += attn(norm(x)); x += mlp|moe(norm(x))``.
-The port serves GQA and MLA attention with dense MLP or MoE FFNs on the
-paged KV layout, with float or offline-packed
+Block layouts (pre-norm, residual):
+
+- dense/MoE: ``x += attn(norm(x)); x += mlp|moe(norm(x))``
+- ssm: ``x += mamba(norm(x))`` (no MLP)
+- hybrid: ``x += 0.5·(rms(attn(norm(x))) + rms(mamba(norm(x)))); x += mlp(norm(x))``
+
+The KV cache is the dense per-slot layout or the paged pool
+(``rc.kv_layout``), with float or offline-packed
 (``quant.surgery.apply_surgery``) linear weights.
 """
 
@@ -29,6 +36,7 @@ from ..quant.qlinear import refuse_unfused_experts
 from .attention import KVView, gqa_attention, init_kv_cache, mla_attention
 from .layers import embed_lookup, mlp, rms_norm
 from .moe import moe_ffn
+from .ssm import init_ssm_state, mamba_decode_step, mamba_mixer
 
 __all__ = [
     "LayerKind",
@@ -97,22 +105,19 @@ _MOE_GEMMS = ("moe.gate", "moe.up", "moe.down")
 
 
 def check_supported(cfg: ModelConfig, rc: RunConfig) -> None:
-    """Raise for what the port does not serve yet: SSM and hybrid mixers,
-    frontends and encoders, the dense KV layout, and an ``unfused`` rule on
+    """Raise for what the port does not serve yet: frontends and encoders
+    (hubert-xlarge), M-RoPE, the logit softcap, and an ``unfused`` rule on
     a quantized MoE expert GEMM."""
-    moe = False
-    for g in plan_groups(cfg):
-        for kind in g.kinds:
-            if kind.mixer not in ("gqa", "mla"):
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind.mixer} layers are not ported yet (the port serves "
-                    "GQA and MLA attention with dense or MoE FFNs)")
-            moe = moe or kind.moe
-    if cfg.frontend is not None or cfg.is_encoder:
-        raise NotImplementedError(f"{cfg.name}: frontends/encoders are not ported yet")
-    if rc.kv_layout != "paged":
-        raise NotImplementedError("dense KV layout is not ported yet; use kv_layout='paged'")
-    if moe:
+    if cfg.frontend is not None or cfg.is_encoder or cfg.mlp_type != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: frontends, encoders and the gelu MLP are not ported yet "
+            "(ROADMAP A7: hubert-xlarge)")
+    if cfg.mrope_sections is not None or cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE / logit softcap are not ported yet "
+                                  "(ROADMAP A2)")
+    if rc.kv_layout not in ("dense", "paged"):
+        raise ValueError(f"unknown kv_layout {rc.kv_layout!r}")
+    if any(kind.moe for g in plan_groups(cfg) for kind in g.kinds):
         resolved = effective_policy(rc).resolved()
         for name in _MOE_GEMMS:
             refuse_unfused_experts(resolved.for_gemm(name), f"{cfg.name}: {name}")
@@ -153,24 +158,37 @@ def backend_from(rc: RunConfig):
 # -------------------------------------------------------------------- cache
 def init_caches(cfg: ModelConfig, rc: RunConfig, batch: int, capacity: int, *,
                 num_pages: int | None = None, device=None):
-    """Stacked per-group paged KV pools: leaves (layers, num_pages+1,
-    block_size, ...) shared by all slots and indexed through block tables;
-    the trailing page swallows masked writes. ``num_pages`` defaults to the
-    dense equivalent batch*ceil(capacity/block_size). The pools live on
-    ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    """Stacked per-group cache trees on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``).
+
+    ``rc.kv_layout="dense"``: KV leaves (layers, batch, capacity, ...).
+    ``rc.kv_layout="paged"``: KV leaves are page pools (layers,
+    num_pages+1, block_size, ...) shared by all slots and indexed through
+    block tables; the trailing page swallows masked writes. ``num_pages``
+    defaults to the dense equivalent batch*ceil(capacity/block_size).
+    SSM and hybrid blocks add their state per slot in either layout: ``h``
+    (layers, batch, d_inner, ssm_state) and ``conv`` (layers, batch,
+    ssm_conv-1, d_inner), both f32."""
     check_supported(cfg, rc)
     device = resolve_device(device)
     kv_dtype = torch.int8 if rc.kv_cache_dtype == "int8" else torch_dtype(rc.dtype)
-    bs = rc.block_size
-    pages = num_pages if num_pages is not None else batch * (-(-capacity // bs))
+    if rc.kv_layout == "paged":
+        bs = rc.block_size
+        rows, width = (num_pages if num_pages is not None
+                       else batch * (-(-capacity // bs))) + 1, bs
+    else:
+        rows, width = batch, capacity
     out = []
     for g in plan_groups(cfg):
         blocks = {}
-        for j in range(len(g.kinds)):
-            one = init_kv_cache(cfg, pages + 1, bs, kv_dtype, device)
-            blocks[f"k{j}"] = {
-                n: t.unsqueeze(0).repeat((g.repeats,) + (1,) * t.ndim) for n, t in one.items()
-            }
+        for j, kind in enumerate(g.kinds):
+            one = {}
+            if kind.mixer in ("gqa", "mla", "hybrid"):
+                one.update(init_kv_cache(cfg, rows, width, kv_dtype, "meta"))
+            if kind.mixer in ("ssm", "hybrid"):
+                one.update(init_ssm_state(cfg, batch, "meta"))
+            blocks[f"k{j}"] = {n: torch.zeros((g.repeats,) + tuple(t.shape), dtype=t.dtype,
+                                              device=device) for n, t in one.items()}
         out.append(blocks)
     return tuple(out)
 
@@ -185,17 +203,42 @@ def _select(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
-def _apply_block(cfg, kind, p, x, positions, *, backend, cache, kv_view, impl):
-    """One block: returns (x, the block's aux loss)."""
+def _apply_block(cfg, kind, p, x, positions, *, backend, cache, cache_pos, kv_view, chunk,
+                 want_state, impl):
+    """One block: returns (x, the block's new SSM state or None, its aux
+    loss or None). An SSM step of one token with a state decodes from it;
+    any longer step runs the full scan from a zero state, as the
+    reference's does."""
     h = rms_norm(p["norm1"], x, cfg.rms_eps)
-    attn = mla_attention if kind.mixer == "mla" else gqa_attention
-    x = x + attn(cfg, p["attn"], h, positions, backend=backend, cache=cache,
-                 kv_view=kv_view, is_global=kind.is_global, impl=impl)
+    state = None
+    if kind.mixer in ("gqa", "mla", "hybrid"):
+        attn = mla_attention if kind.mixer == "mla" else gqa_attention
+        kv_cache = None
+        if cache is not None and ("k" in cache or "ckv" in cache):
+            kv_cache = {n: t for n, t in cache.items() if n not in ("h", "conv")}
+        y = y_attn = attn(cfg, p["attn"], h, positions, backend=backend, cache=kv_cache,
+                          cache_pos=cache_pos, kv_view=kv_view, is_global=kind.is_global,
+                          chunk=chunk, impl=impl)
+    if kind.mixer in ("ssm", "hybrid"):
+        if cache is not None and "h" in cache and x.shape[1] == 1:
+            y_ssm, state = mamba_decode_step(cfg, p["ssm"], h,
+                                             {"h": cache["h"], "conv": cache["conv"]},
+                                             backend=backend, impl=impl)
+        else:
+            y_ssm, state = mamba_mixer(cfg, p["ssm"], h, backend=backend, impl=impl,
+                                       return_state=want_state)
+        y = y_ssm
+    if kind.mixer == "hybrid":
+        y = 0.5 * (rms_norm(p["fuse_attn_norm"], y_attn, cfg.rms_eps)
+                   + rms_norm(p["fuse_ssm_norm"], y_ssm, cfg.rms_eps))
+    x = x + y
+    if kind.mixer == "ssm":
+        return x, state, None
     h2 = rms_norm(p["norm2"], x, cfg.rms_eps)
     if kind.moe:
         y2, aux = moe_ffn(cfg, p["ffn"], h2, backend=backend, impl=impl)
-        return x + y2, aux
-    return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl), None
+        return x + y2, state, aux
+    return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl), state, None
 
 
 def forward(
@@ -204,33 +247,56 @@ def forward(
     params: dict,
     batch: dict,
     *,
-    caches,
-    cache_pos: torch.Tensor,
-    kv_view: KVView,
+    caches=None,
+    cache_pos: torch.Tensor | int | None = None,
+    kv_view: KVView | None = None,
     impl: str = "auto",
 ):
-    """Returns (hidden (B,S,D), caches, aux_loss). ``caches`` (the stacked
-    paged pools of :func:`init_caches`) are updated in place and returned.
+    """Returns (hidden (B,S,D), caches, aux_loss).
 
-    batch: {"tokens": (B,S) int}. cache_pos: (B,) per-row write offsets.
-    ``impl`` selects every kernel's path (``auto`` | ``torch`` | ``cuda``,
+    batch: {"tokens": (B,S) int}. ``caches`` (from :func:`init_caches`, or
+    None for the no-cache forward) have their KV leaves updated in place;
+    the returned tree holds them and, for SSM and hybrid blocks, the new
+    state as new stacked ``h`` / ``conv`` leaves. cache_pos: a Python int
+    (every row writes there: the legacy lock step) or (B,) per-row write
+    offsets; ``kv_view`` addresses the rows of a mixed step (with block
+    tables: the paged pool; without: the dense layout). ``impl`` selects
+    every kernel's path (``auto`` | ``torch`` | ``cuda``,
     ``kernels/ops.py``); a policy rule's own impl overrides it."""
     backend = step_backend(cfg, rc, params)
     x = embed_lookup(params["embed"], batch["tokens"], torch_dtype(rc.dtype))
     B, S = x.shape[:2]
-    positions = cache_pos.long()[:, None] + torch.arange(S, device=x.device)[None, :]
+    cols = torch.arange(S, device=x.device)[None, :]
+    if isinstance(cache_pos, torch.Tensor):
+        positions = cache_pos.long()[:, None] + cols
+    else:
+        positions = (cols + (cache_pos or 0)).expand(B, S)
+    want_state = caches is not None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
     for gi, g in enumerate(plan_groups(cfg)):
-        gp, gc = params["groups"][gi], caches[gi]
+        gp = params["groups"][gi]
+        gc = caches[gi] if caches is not None else None
+        states = {f"k{j}": [] for j in range(len(g.kinds))}
         for i in range(g.repeats):
-            p_i, c_i = _select(gp, i), _select(gc, i)
+            p_i = _select(gp, i)
+            c_i = _select(gc, i) if gc is not None else None
             for j, kind in enumerate(g.kinds):
-                x, aux = _apply_block(cfg, kind, p_i[f"k{j}"], x, positions, backend=backend,
-                                      cache=c_i[f"k{j}"], kv_view=kv_view, impl=impl)
+                x, st, aux = _apply_block(
+                    cfg, kind, p_i[f"k{j}"], x, positions, backend=backend,
+                    cache=c_i[f"k{j}"] if c_i is not None else None, cache_pos=cache_pos,
+                    kv_view=kv_view, chunk=rc.attn_chunk, want_state=want_state, impl=impl)
+                if st is not None:
+                    states[f"k{j}"].append(st)
                 if aux is not None:
                     aux_total = aux_total + aux
+        if gc is not None:
+            new_caches.append({
+                kj: {**gc[kj], **({n: torch.stack([st[n] for st in states[kj]])
+                                   for n in ("h", "conv")} if states[kj] else {})}
+                for kj in gc})
     x = rms_norm(params["final_norm"], x, cfg.rms_eps)
-    return x, caches, aux_total
+    return x, (tuple(new_caches) if caches is not None else None), aux_total
 
 
 def lm_logits(cfg: ModelConfig, rc: RunConfig, params: dict, h: torch.Tensor,

@@ -52,6 +52,8 @@ __all__ = [
 # param-tree key -> runtime GEMM name, per enclosing module; every other
 # key (norms, embeddings) is outside the tuGEMM hardware boundary
 _ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o", "w_dkv": "dkv"}
+_SSM = {"in_proj": "ssm.in_proj", "x_proj": "ssm.x_proj",
+        "dt_w": "ssm.dt", "out_proj": "ssm.out_proj"}
 _MLP = {"w_gate": "gate", "w_up": "up", "w_down": "down"}
 _TOP = {"head": "lm_head"}
 
@@ -64,6 +66,8 @@ def _gemm_name(cfg: ModelConfig, path: tuple) -> str | None:
     if "attn" in path and key in _ATTN:
         prefix = "mla" if cfg.attn_type == "mla" else "attn"
         return f"{prefix}.{_ATTN[key]}"
+    if "ssm" in path and key in _SSM:
+        return _SSM[key]
     if "ffn" in path and key in _MLP:
         if "experts" in path:
             return f"moe.{_MLP[key]}"

@@ -4,9 +4,11 @@
   speculative rollback via truncate; ref-counted copy-on-write prefix
   sharing + radix-trie prefix index under rc.prefix_cache; an allocation
   fault hook, registry gauges)
+- serve.engine: the legacy dense-slot Engine (one-shot B=1 prefill,
+  lock-step decode): the serving path of SSM and hybrid stacks
 - serve.scheduler: chunked-prefill + decode mixed-step Scheduler with the
   numerical guard (quarantine, retry, fallback-policy step); speculative
-  ticks when rc.spec_gamma > 0
+  ticks when rc.spec_gamma > 0; paged pool or dense per-slot rows
 - serve.spec: int-low self-drafting + batched-verify speculative decoding
   (draft QuantPolicy weight view, draft KV pool, acceptance rules)
 - serve.admission: admission control (priority classes, tenant budgets,
@@ -16,6 +18,7 @@
 
 from .admission import AdmissionController, DegradationLadder, Rejection, RejectReason
 from .cache import BlockManager, PrefixCache, PrefixNode, num_pages_for
+from .engine import Engine, build_decode, build_prefill
 from .faults import FaultEvent, FaultPlan
 from .scheduler import (
     Request,
@@ -31,6 +34,7 @@ __all__ = [
     "AdmissionController",
     "BlockManager",
     "DegradationLadder",
+    "Engine",
     "FaultEvent",
     "FaultPlan",
     "PrefixCache",
@@ -41,7 +45,9 @@ __all__ = [
     "Scheduler",
     "SlotMeter",
     "SpecDecoder",
+    "build_decode",
     "build_mixed_step",
+    "build_prefill",
     "greedy_accept",
     "install_sigint_drain",
     "num_pages_for",

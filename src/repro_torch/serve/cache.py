@@ -47,6 +47,7 @@ __all__ = [
     "PrefixCache",
     "PrefixNode",
     "cache_bytes",
+    "dense_cache_tokens",
     "num_pages_for",
 ]
 
@@ -55,6 +56,11 @@ def num_pages_for(capacity: int, block_size: int, slots: int) -> int:
     """Pages needed to back ``slots`` sequences of up to ``capacity`` tokens
     (the dense-equivalent worst case; real pools are usually sized smaller)."""
     return slots * (-(-capacity // block_size))
+
+
+def dense_cache_tokens(max_batch: int, capacity: int) -> int:
+    """Token slots a dense pool reserves regardless of occupancy."""
+    return max_batch * capacity
 
 
 class PrefixNode:

@@ -50,8 +50,12 @@ draft pool, and one target step of width γ+1 (``all_logits``) verifies them
 and runs the tick's prefill chunks; rejected candidates roll back through
 ``BlockManager.truncate``.
 
-The mesh and the dense layout are later slices; the knobs that select them
-raise ``NotImplementedError``.
+``rc.kv_layout="dense"`` keeps one ``(max_batch, capacity)`` KV row per
+slot instead of the pool: no ``BlockManager``, the step's view carries no
+tables (attention reads the rows contiguously) and nothing stalls for
+pages; prefix caching needs the pool and is refused there. SSM and hybrid
+stacks have no resumable mixer state for chunked prefill and are refused:
+they serve through the legacy ``serve.Engine``. The mesh is a later slice.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ from ..configs.base import ModelConfig, RunConfig
 from ..core.report import slot_energy
 from ..kernels import ops as _kops
 from ..models import KVView, forward, init_caches, lm_logits
-from ..models.transformer import backend_from, check_supported, step_backend
+from ..models.transformer import backend_from, check_supported, plan_groups, step_backend
 from ..obs.logs import kv
 from ..obs.metrics import MetricsRegistry
 from ..obs.metrics import family_percentile as _family_percentile
@@ -85,7 +89,7 @@ from .admission import (
     Rejection,
     RejectReason,
 )
-from .cache import BlockManager, cache_bytes, num_pages_for
+from .cache import BlockManager, cache_bytes, dense_cache_tokens, num_pages_for
 
 __all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "install_sigint_drain",
            "sample", "uniform", "categorical", "STREAM_SAMPLE", "STREAM_DRAFT",
@@ -208,6 +212,13 @@ class SlotMeter:
     decode_by_bits: dict = field(default_factory=dict)    # bits -> {variant: float}
     draft_by_bits: dict = field(default_factory=dict)     # bits -> {variant: float}
 
+    def add_prefill(self, by_bits: dict) -> None:
+        """Charge a legacy-Engine B=1 prefill's cycles, exactly."""
+        for b, tot in by_bits.items():
+            d = self.prefill_by_bits.setdefault(b, {"serial": 0, "parallel": 0})
+            d["serial"] += tot["serial_cycles"]
+            d["parallel"] += tot["parallel_cycles"]
+
     def add_share(self, by_bits: dict, weight: float, *, bucket: str = "decode") -> None:
         """Charge ``weight`` (this slot's active-token fraction) of one
         step's pool-wide cycles; ``bucket="draft"`` routes them to the
@@ -218,6 +229,11 @@ class SlotMeter:
             d = dst.setdefault(b, {"serial": 0.0, "parallel": 0.0})
             d["serial"] += tot["serial_cycles"] * weight
             d["parallel"] += tot["parallel_cycles"] * weight
+
+    def add_decode_share(self, by_bits: dict, active: int) -> None:
+        """The legacy Engine's even split: every active row decodes one
+        token, so 1/active is the active-token weight."""
+        self.add_share(by_bits, 1.0 / active)
 
     def cycles_by_bits(self, variant: str = "serial", *,
                        bucket: str | None = None) -> dict[int, int]:
@@ -431,6 +447,10 @@ class Scheduler:
         device=None,
         impl: str = "auto",
     ):
+        if any(k.mixer in ("ssm", "hybrid") for g in plan_groups(cfg) for k in g.kinds):
+            raise NotImplementedError(
+                "chunked-prefill scheduling needs resumable mixer state; "
+                "SSM/hybrid stacks serve through the legacy Engine")
         check_supported(cfg, rc)
         self.device = resolve_device(device)
         self.cfg, self.rc, self.params = cfg, rc, params
@@ -464,12 +484,20 @@ class Scheduler:
         self._tick_energy_j = 0.0                # modeled J this tick
         self._total_energy_j = 0.0               # modeled J since construction
 
-        pages = num_pages if num_pages is not None else num_pages_for(
-            capacity, rc.block_size, max_batch)
+        self.paged = rc.kv_layout == "paged"
         self.prefix_caching = bool(getattr(rc, "prefix_cache", False))
-        self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity,
-                                prefix_cache=self.prefix_caching)
-        self.mgr.bind_registry(self.metrics)
+        if self.prefix_caching and not self.paged:
+            raise ValueError(
+                "rc.prefix_cache needs rc.kv_layout='paged' — prefix sharing "
+                "is page aliasing; the dense layout has nothing to alias")
+        pages = None
+        self.mgr: BlockManager | None = None
+        if self.paged:
+            pages = num_pages if num_pages is not None else num_pages_for(
+                capacity, rc.block_size, max_batch)
+            self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity,
+                                    prefix_cache=self.prefix_caching)
+            self.mgr.bind_registry(self.metrics)
         self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
                                   device=self.device)
         self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
@@ -512,7 +540,7 @@ class Scheduler:
         self._stall_this_tick = False
         self._fb_step = None             # lazily built fallback-policy step
         self._fb_unavailable = False
-        if self.faults is not None:
+        if self.mgr is not None and self.faults is not None:
             self.mgr.fault_hook = self._alloc_fault_hook
         # one registry for the whole engine: the controller's counters move in
         self.admission.bind_registry(self.metrics)
@@ -586,10 +614,11 @@ class Scheduler:
         level, modeled power); only called when tracing is on."""
         tr = self.trace
         ts = tr.ts()
-        tr.counter("pool_pages", {
-            "in_use": self.mgr.pages_in_use,
-            "live": self.mgr.live_pages,
-        }, ts=ts)
+        if self.mgr is not None:
+            tr.counter("pool_pages", {
+                "in_use": self.mgr.pages_in_use,
+                "live": self.mgr.live_pages,
+            }, ts=ts)
         tr.counter("queue_depth", self.admission.depths(), ts=ts)
         tr.counter("ladder_level", {"level": self.ladder.level}, ts=ts)
         if self.track_energy:
@@ -708,7 +737,8 @@ class Scheduler:
         if sl.meter is not None:
             self.finished_meters.append(sl.meter)
             self._meters_by_rid.pop(sl.req.rid, None)
-        self.mgr.release(i)
+        if self.mgr is not None:
+            self.mgr.release(i)
         self.slots[i] = None
         self._t_submit.pop(sl.req.rid, None)
         self._t_emit.pop(sl.req.rid, None)
@@ -772,7 +802,8 @@ class Scheduler:
         # its committed blocks are still good KV: index them, so that the
         # readmission (and any request sharing the prompt) forks them
         self._register_prefix(i)
-        self.mgr.release(i)
+        if self.mgr is not None:
+            self.mgr.release(i)
         self.admission.requeue_front(sl.req)
         self.slots[i] = None
         self.preemptions += 1
@@ -820,7 +851,8 @@ class Scheduler:
             self._in_stall = True
             log.warning(kv(
                 "stall", tick=self.clock, rows=stalled,
-                pool=f"{self.mgr.pages_in_use}/{self.mgr.num_pages}",
+                pool=(f"{self.mgr.pages_in_use}/{self.mgr.num_pages}"
+                      if self.mgr is not None else "dense"),
                 ladder=self.ladder.snapshot()["name"],
                 episode=self.stall_episodes,
             ))
@@ -877,6 +909,8 @@ class Scheduler:
         the pairs go one by one in queue order. The copies run on the
         pools' device, queued on its stream like the step after them. Must
         run before the step that writes into a copied destination page."""
+        if self.mgr is None:
+            return
         copies = self.mgr.drain_cow_copies()
         if not copies:
             return
@@ -915,7 +949,7 @@ class Scheduler:
                 continue
             pos[i] = sl.pos
             if not sl.prefilling and budget > 0:
-                if not self.mgr.extend(i, sl.pos + 1):
+                if self.mgr is not None and not self.mgr.extend(i, sl.pos + 1):
                     stalled += 1  # pool exhausted — row stalls this tick
                     continue
                 tokens[i, 0] = sl.last_token
@@ -928,7 +962,7 @@ class Scheduler:
             if sl is None or lens[i] or not sl.prefilling or pbudget <= 0:
                 continue
             n = min(W, len(sl.prompt) - sl.pos, pbudget)
-            if not self.mgr.extend(i, sl.pos + n):
+            if self.mgr is not None and not self.mgr.extend(i, sl.pos + n):
                 stalled += 1
                 continue
             tokens[i, :n] = sl.prompt[sl.pos : sl.pos + n]
@@ -937,9 +971,11 @@ class Scheduler:
             prefill_rows.append(i)
         return tokens, pos, lens, decode_rows, prefill_rows, stalled
 
-    def _tables(self) -> torch.Tensor:
+    def _tables(self) -> torch.Tensor | None:
         """Device copy of the block tables, re-uploaded only when the host
-        manager mutated since the last tick."""
+        manager mutated since the last tick (None on the dense layout)."""
+        if self.mgr is None:
+            return None
         if self._tables_version != self.mgr.version:
             self._tables_dev = upload(self.mgr.tables, self.device)
             self._tables_version = self.mgr.version
@@ -1051,7 +1087,8 @@ class Scheduler:
                 self.engine_stalls += 1
                 raise RuntimeError(
                     f"page pool cannot back a single active sequence "
-                    f"({self.mgr.num_pages} pages of {self.rc.block_size} tokens)")
+                    f"({self.mgr.num_pages if self.mgr else 0} pages of "
+                    f"{self.rc.block_size} tokens)")
             return self._end_tick(False)
         if self.spec is not None:
             return self._end_tick(
@@ -1196,7 +1233,8 @@ class Scheduler:
         for."""
         sl = self.slots[i]
         self.nan_events += 1
-        self.mgr.truncate(i, sl.pos)
+        if self.mgr is not None:
+            self.mgr.truncate(i, sl.pos)
         if self.spec is not None:
             # speculative state past the committed prefix is suspect too
             sl.draft_pos = min(sl.draft_pos, sl.pos)
@@ -1326,7 +1364,7 @@ class Scheduler:
             gi = max(0, min(gcap, remaining - 1, self.capacity - 2 - sl.pos))
             if sl.draft_stale or sl.fallback:
                 gi = 0
-            while gi > 0 and not self.mgr.extend(i, sl.pos + gi + 1):
+            while gi > 0 and self.mgr is not None and not self.mgr.extend(i, sl.pos + gi + 1):
                 gi -= 1
             g[i] = gi
             if gi > 0:
@@ -1548,7 +1586,8 @@ class Scheduler:
                 sl.meter.accepted_draft_tokens += n_acc
             # rollback: keep only the accepted prefix's KV in both pools
             new_len = sl.pos + n_acc + 1
-            self.mgr.truncate(i, new_len)
+            if self.mgr is not None:
+                self.mgr.truncate(i, new_len)
             sl.pos = new_len
             sl.retries = 0
             if g[i] == 0:
@@ -1680,7 +1719,7 @@ class Scheduler:
             "sheds": self.admission.sheds,
             "preemptions": self.preemptions,
             "deadline_misses": self.deadline_misses,
-            "pool": {
+            "pool": ({
                 "pages": mgr.num_pages,
                 "in_use": mgr.pages_in_use,
                 "high_water": mgr.high_water,
@@ -1688,7 +1727,7 @@ class Scheduler:
                 "live_high_water": mgr.live_high_water,
                 "occupancy": mgr.pages_in_use / max(mgr.num_pages, 1),
                 "injected_alloc_failures": mgr.injected_failures,
-            },
+            } if mgr is not None else {"layout": "dense"}),
             "prefix_cache": ({
                 "enabled": True,
                 "hits": self.prefix_hits,
@@ -1698,7 +1737,7 @@ class Scheduler:
                 "indexed_pages": len(mgr.prefix),
                 "evictions": mgr.prefix.evictions,
                 "cow_events": mgr.cow_events,
-            } if mgr.prefix is not None
+            } if mgr is not None and mgr.prefix is not None
                 else {"enabled": False,
                       "prefill_tokens_computed": self.prefill_tokens_computed}),
             "sharding": {"replicated_dims": 0, "dropped_rules": {}},
@@ -1742,11 +1781,16 @@ class Scheduler:
 
     # --------------------------------------------------------------- stats
     def cache_stats(self) -> dict:
-        """Live-vs-reserved cache accounting of the paged pools (the draft
-        pool included: one BlockManager, so one page high-water, backs both)."""
+        """Live-vs-reserved cache accounting (the draft pool included: one
+        BlockManager, so one page high-water, backs both pools). The dense
+        layout reserves ``max_batch * capacity`` tokens whatever the load."""
         total = cache_bytes(self.caches)
         if self.spec is not None:
             total += cache_bytes(self.spec.caches)
+        if self.mgr is None:
+            return {"layout": "dense",
+                    "reserved_tokens": dense_cache_tokens(self.max_batch, self.capacity),
+                    "cache_bytes_reserved": total, "cache_bytes_high_water": total}
         frac = self.mgr.high_water / max(self.mgr.num_pages, 1)
         out = {
             "layout": "paged",

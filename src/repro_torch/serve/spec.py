@@ -144,7 +144,7 @@ class SpecDecoder:
     prefill chunk)."""
 
     def __init__(self, cfg: ModelConfig, rc: RunConfig, params: dict, *, max_batch: int,
-                 capacity: int, num_pages: int, track_energy: bool = False,
+                 capacity: int, num_pages: int | None, track_energy: bool = False,
                  draft_params: dict | None = None, device=None, impl: str = "auto"):
         from ..quant.surgery import draft_quant_view
 

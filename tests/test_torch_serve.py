@@ -181,13 +181,18 @@ def test_temperature_draws_are_schedule_invariant(port_params):
 
 def test_unported_features_raise(port_params):
     cfg = t_get_config(ARCH)
-    # the dense layout waits for its slice (speculative decoding and prefix
-    # caching are ported: tests/test_torch_spec.py, tests/test_torch_prefix.py)
-    rc = dataclasses.replace(TRunConfig(**RC_KW), kv_layout="dense")
-    with pytest.raises(NotImplementedError):
+    # the dense layout is ported (tests/test_torch_dense_layout.py); prefix
+    # caching there is refused, as the reference refuses it
+    rc = dataclasses.replace(TRunConfig(**RC_KW), kv_layout="dense", prefix_cache=True)
+    with pytest.raises(ValueError, match="prefix_cache"):
         Scheduler(cfg, rc, port_params, capacity=32, max_batch=2, device="cpu")
-    # still unported: SSM layers, and the unfused expert GEMMs of an MoE model
-    with pytest.raises(NotImplementedError):
+    # still unported: frontends/encoders (hubert-xlarge)
+    with pytest.raises(NotImplementedError, match="hubert"):
+        Scheduler(cfg.replace(frontend="audio"), TRunConfig(**RC_KW), port_params,
+                  capacity=32, max_batch=2, device="cpu")
+    # SSM stacks serve through the Engine, and the unfused expert GEMMs of an
+    # MoE model are not ported
+    with pytest.raises(NotImplementedError, match="legacy Engine"):
         Scheduler(t_get_config("qwen3-0.6b_smoke").replace(family="ssm"),
                   TRunConfig(**RC_KW), port_params, capacity=32, max_batch=2, device="cpu")
     ds = t_get_config("deepseek-v2-lite-16b_smoke")
