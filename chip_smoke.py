@@ -36,6 +36,12 @@ Phases, each printing one JSON line:
    the memset included), ``torch.bmm`` on the bf16 operands as the
    library; then the model's 2-D GEMMs of widths the dense path never ran
    (N=576, K=10944, 2816) at M=64 and 4.
+3c'. check_expert_int_gemm (its lines read ``check_moe_gemm``) — rows 3
+   and 4 over the experts, as the unfused expert route calls them: one MoE
+   layer's 3 expert GEMMs over the 64 experts at M=16 on int2 codes,
+   ``ops.matmul_int8`` with stats and ``ops.matmul_packed``, one launch a
+   call over all experts, bit for bit against the plain versions; library
+   ``torch.bmm`` on the bf16 operands.
 3d. check_ssm_gemm (run after 9b, when deepseek's weights are gone) — the
    fused GEMM at the SSM and hybrid widths (falcon-mamba-7b's and
    hymba-1.5b's SSM projections, hymba's attention and MLP; hymba's
@@ -102,7 +108,15 @@ Phases, each printing one JSON line:
    and ``serve_moe_prequant`` (after ``apply_surgery``, the experts from
    packed int2 planes): the same 8 requests, only the fused GEMM, the
    stats assembly and attention launching, every call site on the cuda
-   route; tokens/s, tick ms, launches and MoE drops a tick.
+   route; tokens/s, tick ms, launches and MoE drops a tick. Then the
+   unfused expert route on the same weights: ``serve_moe_unfused``
+   (``mla.*=int8,moe.*=int2:unfused,*=bf16``: each expert GEMM one
+   ``tugemm_int8`` launch with stats over the 64 experts) and
+   ``serve_moe_unfused_prequant`` (``moe.*=int2:prequant:unfused``: one
+   ``tugemm_packed`` launch over the experts' planes; the shared experts,
+   which ``moe.*`` also takes, run the route's 2-D calls); every expert GEMM
+   call of both held bit for bit against its plain arithmetic, the same
+   tokens and int8 cycles from both.
 9c. the legacy dense-slot Engine at full width, bf16 weights drawn on the
    card: ``serve_ssm`` (falcon-mamba-7b, 64 layers, ``ssm.*=int8,*=bf16``)
    and ``serve_hybrid`` (hymba-1.5b, 32 layers,
@@ -113,6 +127,18 @@ Phases, each printing one JSON line:
    per-request ``cycles_by_bits``, only ``tugemm_fused`` and
    ``tugemm_stats`` launching (no ``flash_paged_decode``); tokens/s, step
    and prefill ms, launches a decode step, weight GB and peak memory.
+9d. the last archs' model paths at full width, each drawn on the card after
+   the previous model is freed: ``encode_audio`` (hubert-xlarge, 48 layers,
+   4 clips of 1,000 stub frames, ``attn.*=int8,mlp.*=int2,*=bf16``; the
+   no-cache non-causal encoder through the kernels against the plain
+   versions: per-frame argmax and ``cycles_by_bits`` identical; frames/s);
+   ``serve_vl`` (qwen2-vl-7b, 28 layers: the mixed step with M-RoPE at t =
+   h = w bit for bit against the RoPE step, step parity, then the serve
+   phase's 8 requests under ``POLICY``); ``serve_llama4`` and
+   ``serve_llama4_prequant`` (llama4-maverick, depth cut to 2 layers: a
+   dense and an MoE layer of 128 experts top-1 with the shared expert,
+   ~37 GB; ``step_parity_llama4``, then the serves fused dynamic and with
+   packed int2 experts). Each prints its seconds and peak memory.
 10. device_time — the device time and device launches of each fused GEMM,
    int8 GEMM, attention and temporal-GEMM case checked above, of the
    unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
@@ -130,7 +156,8 @@ Phases, each printing one JSON line:
    (tokens and cycles identical everywhere, the host trace valid, the
    profiler trace holding the ``serve/step`` and ``serve/logits`` ranges
    and the kernels).
-11. the kernels line, then the device line last.
+11. the seconds of each group of phases (``phase_seconds``), the kernels
+   line, then the device line last.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
 device and exits non-zero without one.
@@ -161,6 +188,24 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_LAYERS = None
 MOE_POLICY = "mla.*=int8,moe.*=int2,mlp.*=int2,*=bf16"
 MOE_PREQUANT_POLICY = "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16"
+# the unfused expert route on the same weights: the expert GEMMs through the
+# int8 GEMM (row 3) and, packed, the plane-packed GEMM (row 4) over all experts
+MOE_UNFUSED_POLICY = "mla.*=int8,moe.*=int2:unfused,*=bf16"
+MOE_UNFUSED_PREQUANT_POLICY = "mla.*=int8,moe.*=int2:prequant:unfused,*=bf16"
+# the last three archs' model paths at full width: hubert-xlarge's encoder on
+# 4 clips of 1,000 stub frames (20 s of audio each at HuBERT's 20 ms frame
+# stride), qwen2-vl-7b's M-RoPE serve, llama4-maverick's interleaved top-1
+# MoE with its depth cut (one card holds 2 of its 48 layers' expert stacks)
+AUDIO_ARCH, AUDIO_CLIPS, AUDIO_FRAMES = "hubert-xlarge", 4, 1000
+AUDIO_POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
+# the encoder's kernel and plain runs differ only in the fused GEMM (bit for
+# bit) and run the same plain attention: hidden states held to this relative
+# L2 (one bf16 rounding step would show as ~2**-8 at a few elements)
+AUDIO_REL_TOL = 1e-3
+VL_ARCH = "qwen2-vl-7b"
+LLAMA4_ARCH, LLAMA4_LAYERS = "llama4-maverick-400b-a17b", 2
+LLAMA4_POLICY = "attn.*=int8,mlp.*=int2,moe.*=int2,*=bf16"
+LLAMA4_PREQUANT_POLICY = "attn.*=int8,mlp.*=int2,moe.*=int2:prequant,*=bf16"
 POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
 # offline-packed int2 MLPs served by the fused kernel, and by the legacy
 # unfused pipeline (int8 attention quantized per call, packed MLP GEMMs)
@@ -1067,6 +1112,68 @@ def check_moe_gemm(torch, flush):
     return records
 
 
+def check_expert_int_gemm(torch, flush):
+    """Rows 3 and 4 over the experts, as the unfused expert route calls them:
+    one MoE layer's 3 expert GEMMs over deepseek-v2-lite's 64 experts at
+    M=16 on int2 codes made by the route's own scales and quantizer;
+    ``ops.matmul_int8`` with stats (dynamic: int8 carriers, memset + GEMM +
+    ``tugemm_stats``) and ``ops.matmul_packed`` (prequant: int2 planes), each
+    one launch a call over all experts (the counters), held to its plain
+    version bit for bit; library ``torch.bmm`` on the bf16 operands. Their
+    device time is read by the last phase. Returns the records."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.unary_stats import HDR
+    from repro_torch.quant.quantize import fused_scales, quantize
+    from repro_torch.quant.surgery import _prequant_leaf
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    E, M = MOE_EXPERTS, MOE_M
+    records = []
+    for name, K, N in MOE_GEMMS:
+        x = torch.randn(E, M, K, device=dev, generator=gen).to(torch.bfloat16)
+        x[:, 12:] = 0                     # every expert's empty slots
+        x[::7] = 0                        # experts that received no token
+        wf = (torch.randn(E, K, N, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        sx, sw = fused_scales(x, wf, 2)
+        xq, wq = quantize(x, sx.reshape(E, 1, 1), 2), quantize(wf, sw.unsqueeze(-2), 2)
+        pb = _prequant_leaf(wf, 2)["qkernel"]
+        lib = lambda x=x, wf=wf: torch.bmm(x, wf)
+        cases = (
+            ("tugemm_int8", "dynamic", wq, 1, {"tugemm_int8": 1, "tugemm_stats": 1},
+             lambda impl, xq=xq, wq=wq: ops.matmul_int8(xq, wq, collect_stats=True, impl=impl)),
+            ("tugemm_packed", "packed", pb, 4, {"tugemm_packed": 1},
+             lambda impl, xq=xq, pb=pb: ops.matmul_packed(xq, pb, bits=2, impl=impl)))
+        for kernel, form, w, planes, one_launch, fn in cases:
+            before = ops.kernel_counts()
+            got = fn("cuda")
+            after = ops.kernel_counts()
+            want = fn("torch")
+            torch.cuda.synchronize()
+            launches = {k: after[k]["launches"] - before[k]["launches"] for k in after}
+            exact, err = _exact(got, want)
+            stats = 4 * E * (2 * K + HDR + K) if kernel == "tugemm_int8" else 0
+            call = lambda fn=fn: fn("cuda")
+            rec = dict(kernel=kernel, case=f"{name} experts {form}", experts=E, M=M, K=K, N=N,
+                       bits=2, stats=kernel == "tugemm_int8",
+                       **gemm_grid(M, N, w.shape[-2], planes, 1, E),
+                       exact=exact, max_abs_err=err, launches_a_call=launches,
+                       ms=median_ms(torch, call, flush=flush),
+                       plain_ms=median_ms(torch, lambda fn=fn: fn("torch"), flush=flush),
+                       library_ms=median_ms(torch, lib, flush=flush),
+                       **_bound(nbytes(xq, w) + 4 * E * M * N + stats, 2 * E * M * K * N))
+            emit({"phase": "check_moe_gemm", **rec})
+            if not exact:
+                raise AssertionError(f"{kernel} over the experts disagrees with its plain "
+                                     f"version: {rec}")
+            if {k: n for k, n in launches.items() if n} != one_launch:
+                raise AssertionError(f"{kernel} over the experts is not one launch a call: "
+                                     f"{rec}")
+            DEVICE_TIMED.append((rec, call, lib))
+            records.append(rec)
+    return records
+
+
 # (model, GEMM, K, N) of the SSM and hybrid layers: falcon-mamba-7b's four
 # SSM projections, hymba-1.5b's four at d_model 1600 (dt_rank 100, so
 # ``ssm.dt`` has K = 100: a bf16 row of 200 bytes) and its attention and MLP
@@ -1541,9 +1648,10 @@ def _pinned(rc, impl: str):
 
 
 def step_parity_moe(torch, cfg, rc, params, phase: str = "step_parity_moe"):
-    """The MoE model's mixed step through the kernels, held against the
-    plain versions in two gated parts that together cover every kernel of
-    the step: (a) every GEMM and stats kernel's plain version with attention
+    """A model's mixed step through the kernels (the MoE models', and
+    qwen2-vl's: any whose all-plain step an int2 policy moves past the
+    tolerance), held against the plain versions in two gated parts that
+    together cover every kernel of the step: (a) every GEMM and stats kernel's plain version with attention
     on its kernel (its rules pinned to ``torch``): router choices identical
     and logits within ``STEP_REL_TOL`` (the fused GEMMs hold their plain
     versions bit for bit, so both are exact); (b) under ``*=bf16`` (no
@@ -2223,39 +2331,321 @@ def serve_moe_phases(torch) -> dict:
     """The MLA + MoE slice on deepseek-v2-lite at full width: step parity
     (kernels against plain versions, and the router's choices on both
     paths), then the serve under the fused dynamic policy and, after
-    ``apply_surgery``, under the prequant one. Each serve's kernel counts are
-    zeroed just before it and read just after; only the fused GEMM, the
-    stats assembly and attention may launch, every call site on the
-    ``cuda`` route, no plain call. Returns {phase: (sched, counts)}."""
-    from repro_torch.kernels import ops
-
+    ``apply_surgery``, under the prequant one (``_serve_gated``), then the
+    unfused expert route on the same weights (``serve_moe_unfused``). Each
+    serve's kernel counts are zeroed just before it and read just after.
+    Returns {phase: (ticks, counts)}."""
     cfg, rc, params, init_s = model_setup_moe(torch)
     emit({"phase": "init_moe", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "experts": cfg.num_experts, "seconds": init_s,
           "params": sum(t.numel() for t in _leaves(params)),
           "device_bytes": torch.cuda.memory_allocated()})
     step_parity_moe(torch, cfg, rc, params)
-    fused_kernels = {"tugemm_fused", "flash_paged_decode", "tugemm_stats"}
     out = {}
     for phase, policy in (("serve_moe", MOE_POLICY), ("serve_moe_prequant", MOE_PREQUANT_POLICY)):
         rc_p, params_p = surgered(cfg, rc, params, policy)
-        sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto")
-        check_served(cfg, sched, done, prompts, {8, 2})
+        out[phase], _ = _serve_gated(torch, phase, cfg, rc_p, params_p, {8, 2},
+                                     time.perf_counter())
+        del params_p
+    out.update(serve_moe_unfused(torch, cfg, rc, params))
+    del params
+    free_device_memory(torch)
+    return out
+
+
+def _checked_expert_gemms(torch, ops, log: dict):
+    """Wrap ``ops.matmul_int8`` / ``ops.matmul_packed`` so that every call
+    on an expert stack (3-D operands) is held bit for bit against its plain
+    arithmetic (``kernels/ref.py``: the product, and with stats their
+    assembly from both operands' maxima), which no counter sees; ``log``
+    counts the checked calls under the kernel's name and the 2-D calls (the
+    shared experts, which the ``moe.*`` rule also takes) under
+    ``<name>_2d``. Returns the two originals, for the caller to put back."""
+    from repro_torch.kernels.ref import (colabsmax_ref, finish_stats_ref, matmul_int_ref,
+                                         packed_matmul_ref, rowabsmax_ref)
+
+    int8, packed = ops.matmul_int8, ops.matmul_packed
+
+    def note(name, ok):
+        log[name] = log.get(name, 0) + 1
+        if not ok:
+            log.setdefault("mismatches", []).append(name)
+
+    def int8_checked(a, b, c=None, *, collect_stats=False, impl="auto"):
+        out = int8(a, b, c, collect_stats=collect_stats, impl=impl)
+        if a.ndim == 3:
+            y, st = out if collect_stats else (out, None)
+            ok = torch.equal(y, matmul_int_ref(a, b, c))
+            if collect_stats:
+                want = finish_stats_ref(colabsmax_ref(a).unsqueeze(-2),
+                                        rowabsmax_ref(b).unsqueeze(-1), a.shape[-1])
+                ok = ok and all(f.dtype == g.dtype and torch.equal(f, g)
+                                for f, g in zip(st, want))
+            note("tugemm_int8", ok)
+        else:
+            log["tugemm_int8_2d"] = log.get("tugemm_int8_2d", 0) + 1
+        return out
+
+    def packed_checked(a, packed_b, *, bits, impl="auto"):
+        out = packed(a, packed_b, bits=bits, impl=impl)
+        if a.ndim == 3:
+            pad = packed_b.shape[-2] * (8 // bits) - a.shape[-1]
+            want = packed_matmul_ref(torch.nn.functional.pad(a, (0, pad)), packed_b, bits)
+            note("tugemm_packed", torch.equal(out, want))
+        else:
+            log["tugemm_packed_2d"] = log.get("tugemm_packed_2d", 0) + 1
+        return out
+
+    ops.matmul_int8, ops.matmul_packed = int8_checked, packed_checked
+    return int8, packed
+
+
+def serve_moe_unfused(torch, cfg, rc, params) -> dict:
+    """The unfused expert route on deepseek-v2-lite at full width: the serve
+    phase's requests under ``MOE_UNFUSED_POLICY`` (each MoE layer's 3 expert
+    GEMMs quantized per expert, then one ``tugemm_int8`` launch with stats
+    over all 64 experts) and, after ``apply_surgery``, under
+    ``MOE_UNFUSED_PREQUANT_POLICY`` (one ``tugemm_packed`` launch over the
+    experts' int2 planes). Every expert GEMM call of both serves is held bit
+    for bit against its plain arithmetic (``_checked_expert_gemms``: the
+    serves' wall time includes those checks). Only the fused GEMM (MLA),
+    attention, ``tugemm_stats`` and the route's kernel launch, no plain
+    call; every request finishes with in-vocabulary tokens and cycles at the
+    route's bits ({8, 2}; the prequant route records no expert cycles, as
+    the reference's does, {8}); the two serves' expert GEMMs compute the
+    same integers, so their tokens and int8 cycles are equal.
+    Returns {phase: (ticks, counts)}."""
+    from repro_torch.kernels import ops
+
+    out, outs, cyc8 = {}, {}, {}
+    for phase, policy, gemm, bits in (
+            ("serve_moe_unfused", MOE_UNFUSED_POLICY, "tugemm_int8", {8, 2}),
+            ("serve_moe_unfused_prequant", MOE_UNFUSED_PREQUANT_POLICY, "tugemm_packed", {8})):
+        rc_p, params_p = surgered(cfg, rc, params, policy)
+        log: dict = {}
+        orig = _checked_expert_gemms(torch, ops, log)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto")
+        finally:
+            ops.matmul_int8, ops.matmul_packed = orig
+        outs[phase] = check_served(cfg, sched, done, prompts, bits)
+        cyc8[phase] = sched.cycles_by_bits[8]
         rec = serve_record(phase, sched, done, wall, counts, prompts)
-        w_bytes = expert_w_bytes(params_p)
-        rec.update(expert_w_bytes_per_tick=w_bytes,
-                   expert_w_bound_ms_per_tick=w_bytes / HBM_BYTES_PER_S * 1e3)
+        rec.update(expert_calls_checked=log.get(gemm, 0),
+                   shared_expert_calls=log.get(gemm + "_2d", 0),
+                   expert_mismatches=log.get("mismatches", []),
+                   wall_includes_checks=True, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   seconds=time.perf_counter() - t0)
         emit(rec)
+        want = {"tugemm_fused", "flash_paged_decode", "tugemm_stats", gemm}
         ran = {k for k, c in counts.items() if c["launches"] > 0}
         routes = {path for p in rec["paths"].values() for path in p}
-        if ran != fused_kernels or any(c["plain_calls"] for c in counts.values()) \
-                or routes != {"cuda"}:
-            raise AssertionError(f"{phase} did not run only the fused kernels on the cuda "
-                                 f"route: {counts} {rec['paths']}")
-        # keep the tick count, not the scheduler: it holds the weights, which
-        # the SSM and hybrid serves after this phase need the room of
+        if ran != want or any(c["plain_calls"] for c in counts.values()) or routes != {"cuda"}:
+            raise AssertionError(f"{phase} did not run only {sorted(want)} on the cuda route: "
+                                 f"{counts} {rec['paths']}")
+        if log.get("mismatches") or not log.get(gemm) \
+                or log[gemm] + log.get(gemm + "_2d", 0) != counts[gemm]["launches"]:
+            raise AssertionError(f"{phase}: an expert GEMM call disagrees with its plain version "
+                                 f"or went unchecked: {log} {counts[gemm]}")
         out[phase] = (types.SimpleNamespace(ticks=sched.ticks), counts)
         del params_p, sched
+    (a, b), (ca, cb) = outs.values(), cyc8.values()
+    same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    emit({"phase": "moe_unfused_vs_prequant", "tokens_equal": same,
+          "tokens": sum(len(o) for o in a.values()), "int8_cycles_equal": ca == cb})
+    if a != b or ca != cb:
+        raise AssertionError("the unfused expert serves' tokens or int8 cycles differ")
+    return out
+
+
+# ------------------------------- the last archs: hubert, qwen2-vl, llama4
+def _init_on_card(torch, cfg, rc, phase: str, **extra):
+    """``cfg``'s bf16 weights drawn on the card by a CUDA generator seeded 0;
+    emits ``phase``'s init line (seconds, parameters, weight GB)."""
+    from repro_torch.models import init
+
+    t0 = time.perf_counter()
+    params = init(cfg, rc, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "seconds": time.perf_counter() - t0, "params": sum(t.numel() for t in _leaves(params)),
+          "weight_gb": sum(nbytes(t) for t in _leaves(params)) / 1e9,
+          "device_bytes": torch.cuda.memory_allocated(), **extra})
+    return params
+
+
+def encode_audio(torch) -> dict:
+    """hubert-xlarge at full width (48 layers, d_model 1280, 16 heads, d_ff
+    5120, vocab 504) encodes ``AUDIO_CLIPS`` clips of ``AUDIO_FRAMES`` stub
+    frames (512-d, the reference's stand-in for the conv frontend) under
+    ``AUDIO_POLICY``: one no-cache, non-causal forward and the head, through
+    the kernels (only ``tugemm_fused`` and ``tugemm_stats`` launch; no
+    paged attention) and through the plain versions on the card. Per-frame
+    argmax and ``cycles_by_bits`` identical, hidden states within
+    ``AUDIO_REL_TOL`` relative L2. Frames/s from the host clock, event ms
+    (the CUDA-event span of the kernel forward). Returns (record, counts)."""
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_logits
+    from repro_torch.quant.capture import tree_totals_by_bits
+    from repro_torch.quant.surgery import forward_with_stats
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(AUDIO_ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=AUDIO_POLICY)
+    params = _init_on_card(torch, cfg, rc, "init_audio")
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    batch = {"embeds": torch.randn(AUDIO_CLIPS, AUDIO_FRAMES, 512, device=DEVICE, generator=gen)}
+
+    @torch.no_grad()
+    def run(impl):
+        h, _, _, cap = forward_with_stats(cfg, rc, params, batch, caches=None, cache_pos=None,
+                                          kv_view=None, impl=impl)
+        return h, lm_logits(cfg, rc, params, h, impl=impl), cap
+
+    run("auto")
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    h, logits, cap = run("auto")
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.kernel_counts()
+    cyc = tree_totals_by_bits(cap)
+    ph, plogits, pcap = run("torch")
+    pcyc = tree_totals_by_bits(pcap)
+    frames = AUDIO_CLIPS * AUDIO_FRAMES
+    shape_ok = (tuple(h.shape) == (AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model)
+                and tuple(logits.shape) == (AUDIO_CLIPS, AUDIO_FRAMES, cfg.vocab_size)
+                and bool(h.isfinite().all()) and bool(logits.isfinite().all()))
+    hf, pf = h.float(), ph.float()
+    rec = {"phase": "encode_audio", "arch": cfg.name, "layers": cfg.num_layers,
+           "policy": AUDIO_POLICY, "clips": AUDIO_CLIPS, "frames_per_clip": AUDIO_FRAMES,
+           "wall_s": wall, "frames_per_s": frames / wall, "event_ms": start.elapsed_time(end),
+           "argmax_equal_frames": int((logits.argmax(-1) == plogits.argmax(-1)).sum()),
+           "frames": frames, "hidden_rel_l2": ((hf - pf).norm() / pf.norm()).item(),
+           "hidden_max_abs": (hf - pf).abs().max().item(), "tol_rel_l2": AUDIO_REL_TOL,
+           "cycles_by_bits": {str(b): v for b, v in sorted(cyc.items())},
+           "cycles_equal_plain": cyc == pcyc, "kernel_counts": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    ran = {k for k, c in counts.items() if c["launches"] > 0}
+    if not shape_ok or set(cyc) != {8, 2} or cyc != pcyc \
+            or rec["argmax_equal_frames"] != frames or rec["hidden_rel_l2"] > AUDIO_REL_TOL:
+        raise AssertionError(f"encode_audio: the kernel forward is not the plain one's: {rec}")
+    if ran != ENGINE_KERNELS or any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"encode_audio did not run only the fused GEMM and its stats: "
+                             f"{counts}")
+    del params, h, ph, logits, plogits, cap, pcap
+    free_device_memory(torch)
+    return rec, counts
+
+
+def _serve_gated(torch, phase, cfg, rc, params, bits: set, t_phase: float):
+    """One serve of the serve phase's requests through the kernels, gated as
+    the qwen3-0.6b serve is: every request done with 16 in-vocabulary
+    tokens and cycles at ``bits``, only the fused GEMM, attention and the
+    stats assembly launching, no plain call, every call site on the cuda
+    route. Its line adds the peak memory since the last reset and the
+    seconds since ``t_phase``. Returns ((ticks, counts), {rid: tokens}): the
+    tick count, not the scheduler, which holds the weights the next phases
+    need the room of."""
+    sched, done, wall, counts, prompts = serve(torch, cfg, rc, params, "auto")
+    outs = check_served(cfg, sched, done, prompts, bits)
+    rec = serve_record(phase, sched, done, wall, counts, prompts)
+    rec.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_phase)
+    if sched.tick_dropped_tokens:
+        w_bytes = expert_w_bytes(params)
+        rec.update(expert_w_bytes_per_tick=w_bytes,
+                   expert_w_bound_ms_per_tick=w_bytes / HBM_BYTES_PER_S * 1e3)
+    emit(rec)
+    ran = {k for k, c in counts.items() if c["launches"] > 0}
+    routes = {path for p in rec["paths"].values() for path in p}
+    if ran != set(FUSED_KERNELS) or any(c["plain_calls"] for c in counts.values()) \
+            or routes != {"cuda"}:
+        raise AssertionError(f"{phase} did not run only the fused kernels on the cuda route: "
+                             f"{counts} {rec['paths']}")
+    return (types.SimpleNamespace(ticks=sched.ticks), counts), outs
+
+
+def serve_vl(torch) -> dict:
+    """qwen2-vl-7b at full width (28 layers, d_model 3584, 28 / 4 heads of
+    128, d_ff 18944, vocab 152064; ~7.6 B bf16 parameters drawn on the card)
+    under the fused dynamic ``POLICY`` with int8 paged KV: one prefill and
+    one decode tick of the mixed step with ``mrope_sections`` set (positions
+    (3, B, W), t = h = w) against the same ticks with it cleared (RoPE):
+    logits bit for bit, since every M-RoPE angle is then the product RoPE
+    takes; ``step_parity_moe``'s gated parts (the GEMMs' plain versions
+    with attention on its kernel exact; attention's kernel against its
+    plain version under ``*=bf16``); then the serve phase's 8
+    requests through ``Scheduler.run``, gated as the qwen3-0.6b serve.
+    Returns {phase: (ticks, counts)}."""
+    from repro_torch.configs.base import RunConfig, get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VL_ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=POLICY,
+                   kv_cache_dtype="int8", kv_layout="paged", block_size=16, prefill_chunk=16)
+    params = _init_on_card(torch, cfg, rc, "init_vl", mrope_sections=list(cfg.mrope_sections))
+    mrope = _mixed_ticks(torch, cfg, rc, params, "cuda")
+    rope = _mixed_ticks(torch, cfg.replace(mrope_sections=None), rc, params, "cuda")
+    equal = [bool(torch.equal(a, b)) for a, b in zip(mrope[:2], rope[:2])]
+    emit({"phase": "mrope_vs_rope", "arch": cfg.name, "prefill_equal": equal[0],
+          "decode_equal": equal[1], "rows": len(mrope[2]),
+          "max_abs": max((a - b).abs().max().item() for a, b in zip(mrope[:2], rope[:2]))})
+    if not all(equal):
+        raise AssertionError("qwen2-vl's M-RoPE step with t = h = w is not the RoPE step")
+    # gated as the MoE step is: through 28 layers of int2 MLPs 18944 wide,
+    # the all-plain step's one-ulp attention differences moved the decode
+    # logits by 0.35 relative L2 on an H100, as deepseek-v2-lite's move
+    # theirs; that comparison is printed only
+    step_parity_moe(torch, cfg, rc, params, "step_parity_vl")
+    out = {}
+    out["serve_vl"], _ = _serve_gated(torch, "serve_vl", cfg, rc, params, {8, 2}, t_phase)
+    del params
+    free_device_memory(torch)
+    return out
+
+
+def serve_llama4(torch) -> dict:
+    """llama4-maverick-400b-a17b at full width with its depth cut 48 -> 2
+    (``LLAMA4_LAYERS``): layer 0 dense, layer 1 MoE over 128 experts, top-1,
+    with the shared expert (~37 GB of bf16 weights drawn on the card):
+    ``step_parity_moe`` (the routing hook's teacher-forced parity), then the
+    serve phase's requests under ``LLAMA4_POLICY`` (the expert GEMMs quantized
+    on load, int2) and, after ``apply_surgery``, ``LLAMA4_PREQUANT_POLICY``
+    (packed int2 experts), each gated as ``serve_moe``.
+    Returns {phase: (ticks, counts)}."""
+    from repro_torch.configs.base import RunConfig, get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(LLAMA4_ARCH)
+    cfg = full.replace(num_layers=LLAMA4_LAYERS)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=LLAMA4_POLICY,
+                   kv_cache_dtype="int8", kv_layout="paged", block_size=16, prefill_chunk=16)
+    params = _init_on_card(
+        torch, cfg, rc, "init_llama4", experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+        reduced=f"depth {full.num_layers} -> {cfg.num_layers} layers: layer 0 dense, layer 1 "
+                f"MoE ({cfg.num_experts} experts top-{cfg.num_experts_per_tok} + "
+                f"{cfg.num_shared_experts} shared); widths as published")
+    step_parity_moe(torch, cfg, rc, params, "step_parity_llama4")
+    out = {}
+    for phase, policy in (("serve_llama4", LLAMA4_POLICY),
+                          ("serve_llama4_prequant", LLAMA4_PREQUANT_POLICY)):
+        rc_p, params_p = surgered(cfg, rc, params, policy)
+        out[phase], _ = _serve_gated(torch, phase, cfg, rc_p, params_p, {8, 2}, t_phase)
+        del params_p
+        free_device_memory(torch)
     del params
     free_device_memory(torch)
     return out
@@ -2503,6 +2893,44 @@ def expert_entry(moe_gemm: list, moe_serves: dict) -> dict:
     return out
 
 
+def expert_int_entry(moe_int: list, kernel: str) -> dict:
+    """The kernels line's expert-axis numbers of ``tugemm_int8`` (with its
+    stats) or ``tugemm_packed``: one MoE layer's three expert GEMMs (64
+    experts, M=16, int2 codes), each one launch over all experts; library
+    ``torch.bmm`` on the bf16 operands."""
+    rows = [next(r for r in moe_int if r["kernel"] == kernel and r["case"].startswith(n))
+            for n in ("moe.gate/up", "moe.gate/up", "moe.down")]
+    return {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": sum(r["library_ms"] for r in rows), **device_entry(rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches_a_call": rows[0]["launches_a_call"][kernel],
+            "shape": "one deepseek-v2-lite MoE layer's 3 expert GEMMs (gate, up 2048->1408, "
+                     "down 1408->2048) over 64 experts at M=16 on int2 codes, "
+                     + ("int8 carriers with stats" if kernel == "tugemm_int8"
+                        else "packed int2 planes")}
+
+
+class PhaseClock:
+    """Seconds each group of phases took, from the process start's build
+    on; ``emit`` prints them on one line."""
+
+    def __init__(self):
+        self.t = self.t0 = time.perf_counter()
+        self.laps: dict = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+
+    def emit(self) -> None:
+        emit({"phase": "phase_seconds", **self.laps,
+              "total": time.perf_counter() - self.t0})
+
+
 def expert_w_bytes(params) -> int:
     """Bytes of expert weights one tick reads (every MoE layer's three expert
     GEMMs run every tick, whatever the tokens): a float stack twice (the
@@ -2545,18 +2973,22 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
+    clock = PhaseClock()
     t0 = time.perf_counter()
     took = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": took,
           "sources": list(build.SOURCES)})
 
+    clock.lap("build")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
     gemm = check_gemm(torch, flush)
     attn = check_attention(torch, flush)
     unf = check_unfused(torch, flush)
     st = check_stats(torch, flush)
     moe_gemm = check_moe_gemm(torch, flush)
+    moe_int = check_expert_int_gemm(torch, flush)
     del flush
+    clock.lap("kernel_checks")
 
     cfg, rc, params, init_s = model_setup(torch)
     emit({"phase": "init", "arch": cfg.name, "layers": cfg.num_layers,
@@ -2665,18 +3097,32 @@ def main() -> int:
     run_quickstart(torch)
     del params
 
+    clock.lap("qwen3-0.6b phases")
     moe_serves = serve_moe_phases(torch)
+    clock.lap("deepseek-v2-lite phases")
     # the legacy Engine on the SSM and hybrid archs, after deepseek's weights went
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
     ssm_gemm = check_ssm_gemm(torch, flush)
     del flush
     engine_serves = serve_engine_phases(torch)
+    clock.lap("engine phases")
+    # the last archs' model paths, each model freed before the next is drawn
+    audio, audio_counts = encode_audio(torch)
+    clock.lap("encode_audio")
+    arch_serves = serve_vl(torch)
+    clock.lap("serve_vl")
+    arch_serves.update(serve_llama4(torch))
+    clock.lap("serve_llama4")
     device_times(torch)
+    clock.lap("device_time")
     serve_traced(torch, cfg, rc, sched.params, outs, sched, smi)
-    for r in moe_gemm:
-        if r["device_launches"] is not None and r["device_launches"] != 3:
-            raise AssertionError(f"an expert GEMM call is not 3 device operations (memset, "
-                                 f"GEMM, tugemm_stats): {r}")
+    clock.lap("serve_traced")
+    for r in moe_gemm + moe_int:
+        want = 1 if r["kernel"] == "tugemm_packed" else 3
+        if r["device_launches"] is not None and r["device_launches"] != want:
+            raise AssertionError(f"an expert GEMM call is not {want} device operations "
+                                 f"(memset, GEMM, tugemm_stats; the packed GEMM alone): {r}")
+    serves = {**moe_serves, **slice_serves, **dense_serves, **arch_serves}
 
     layer = {g[0]: g for g in LAYER_GEMMS}
     picked = [r for r in gemm if r["case"] == "serve" and r["w_mode"] == "quant"
@@ -2702,14 +3148,12 @@ def main() -> int:
          **device_entry(per_layer),
          "shape": "the 7 GEMMs of one qwen3-0.6b layer at M=64 under " + POLICY,
          "launches_by_path": {"serve": counts["tugemm_fused"]["launches"], **{
-             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
-             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in slice_serves.items()}, **{
-             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in dense_serves.items()}, **{
+             ph: c["tugemm_fused"]["launches"] for ph, (_, c) in serves.items()}, **{
              ph: r["kernel_counts"]["tugemm_fused"]["launches"]
-             for ph, r in engine_serves.items()}},
+             for ph, r in engine_serves.items()},
+             "encode_audio": audio_counts["tugemm_fused"]["launches"]},
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
-                                       for ph, (sc, c) in {**moe_serves, **slice_serves,
-                                                          **dense_serves}.items()},
+                                       for ph, (sc, c) in serves.items()},
          "experts": expert_entry(moe_gemm, moe_serves),
          "ssm": ssm_entry(ssm_gemm)},
         {"name": "flash_paged_decode", "route": "cuda",
@@ -2724,13 +3168,12 @@ def main() -> int:
          "shape": "decode: B=4, 16 heads over 8 kv heads, hd 128, int8 pages of 16, "
                   f"kv_len {dec['kv_len']}",
          "launches_by_path": {"serve": counts["flash_paged_decode"]["launches"], **{
-             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in moe_serves.items()}, **{
-             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in slice_serves.items()}, **{
-             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in dense_serves.items()}, **{
+             ph: c["flash_paged_decode"]["launches"] for ph, (_, c) in serves.items()}, **{
              ph: r["kernel_counts"]["flash_paged_decode"]["launches"]
              for ph, r in engine_serves.items()}},
          "launches_per_tick_by_path": {ph: c["flash_paged_decode"]["launches"] / sc.ticks
-                                       for ph, (sc, c) in slice_serves.items()},
+                                       for ph, (sc, c) in {**slice_serves,
+                                                          **arch_serves}.items()},
          "verify": {k: ver[k] for k in (
              "sq", "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")},
@@ -2771,7 +3214,11 @@ def main() -> int:
                       "attention operands (M=64); the unfused serve takes these maxima from "
                       "its int8 GEMMs' tiles (the tugemm_stats entry) and launches this "
                       "kernel no time") if absmax else
-            f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under " + UNFUSED_POLICY})
+            f"one qwen3-0.6b layer's {len(rows)} calls at M=64 under " + UNFUSED_POLICY,
+            **({} if absmax else {
+                "launches_by_path": {"serve_unfused": counts_unf[name]["launches"], **{
+                    ph: c[name]["launches"] for ph, (_, c) in moe_serves.items()}},
+                "experts": expert_int_entry(moe_int, name)})})
     # rows 5-6 as the unfused serve runs them: each int8 GEMM takes both
     # maxima from its own tiles (memset + the stats instantiation) and
     # tugemm_stats assembles them. Its work: the GEMM with stats over the
@@ -2794,10 +3241,10 @@ def main() -> int:
                              "serve_prequant": counts_pq["tugemm_stats"]["launches"],
                              "serve_unfused": counts_unf["tugemm_stats"]["launches"],
                              **{ph: c["tugemm_stats"]["launches"]
-                                for ph, (_, c) in {**moe_serves, **slice_serves,
-                                                   **dense_serves}.items()},
+                                for ph, (_, c) in serves.items()},
                              **{ph: r["kernel_counts"]["tugemm_stats"]["launches"]
-                                for ph, r in engine_serves.items()}},
+                                for ph, r in engine_serves.items()},
+                             "encode_audio": audio_counts["tugemm_stats"]["launches"]},
         "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
                                         if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),
@@ -2845,6 +3292,7 @@ def main() -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
             "library_ms": lib, **device_entry(rows), "shape": shape})
+    clock.emit()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -35,27 +35,33 @@
 // only from those of M tile 0 (the mainloop's stats, as in the fused
 // kernel). The operands are not read again; unary_stats.cu's tugemm_stats
 // launch turns the two vectors into TuGemmStats.
+//
+// Experts (E > 1, the unfused MoE expert GEMMs, the TPU kernel under the
+// reference's vmap): A (E, M, K), B (E, K, N), C and Y (E, M, N) in one
+// launch, the expert folded into grid z as in the fused kernel; each
+// expert's maxima go to its own rows, ca (E, K) then rb (E, K), which
+// tugemm_stats assembles one block an expert.
 
 #include "tugemm_mainloop.cuh"
 
-// stats (collect) is one int32 buffer, ca (K,) then rb (K,), zeroed here (one
-// cudaMemsetAsync on the stream) before the kernel merges its maxima into
-// it; null without collect. Returns 0 on success, -2 for a plan outside the
-// kernel's range, else the cudaError_t of the launch. c may be null. The
+// stats (collect) is one int32 buffer, ca (E, K) then rb (E, K), zeroed here
+// (one cudaMemsetAsync on the stream) before the kernel merges its maxima
+// into it; null without collect. Returns 0 on success, -2 for a plan outside
+// the kernel's range, else the cudaError_t of the launch. c may be null. The
 // plan (bn, splits, chunks) comes from kernels/tugemm_fused.py::split_plan.
 extern "C" int tugemm_int8_launch(const void* a, const void* b, const void* c, void* y,
-                                  int* stats, int M, int N, int K, int collect, int bn,
+                                  int* stats, int E, int M, int N, int K, int collect, int bn,
                                   int splits, int chunks, void* stream) {
   using namespace tugemm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = {};
   p.x = a; p.w = b; p.c = static_cast<const int*>(c); p.y = y;
-  p.M = M; p.N = N; p.Kw = K; p.Kx = K; p.planes = 1; p.bn = bn; p.chunks = chunks;
+  p.E = E; p.M = M; p.N = N; p.Kw = K; p.Kx = K; p.planes = 1; p.bn = bn; p.chunks = chunks;
   if (!collect) return launch<int8_t, W_INT8, int8_t, int, false>(p, splits, s);
   p.collect = 1;
   p.ca = stats;
-  p.rb = stats + K;
-  const cudaError_t e = cudaMemsetAsync(stats, 0, 2 * (size_t)K * sizeof(int), s);
+  p.rb = stats + (long)E * K;
+  const cudaError_t e = cudaMemsetAsync(stats, 0, 2 * (size_t)E * K * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   return launch<int8_t, W_INT8, int8_t, int, true>(p, splits, s);
 }

@@ -8,10 +8,11 @@
 // z = expert * M tiles + M tile), bn output columns (grid y) and one K slice
 // of `chunks` chunks of KC = 64 rows of W (grid x). A call over E experts
 // (the MoE expert GEMMs) is one launch: expert e reads its own X (M, Kx),
-// W, scales and bias, and writes its own Y and stats, each at e times the
-// operand's size past the base pointer. Only the quantizing kernel takes
-// E > 1, through its EXPERTS instantiations; a plain GEMM (E = 1) runs one
-// compiled without the expert index and offsets. The S blocks of one (M
+// W, scales, bias and C, and writes its own Y and stats, each at e times the
+// operand's size past the base pointer. Every kernel takes E > 1 through its
+// EXPERTS instantiations (the fused GEMM over the MoE experts, and the int8
+// and packed GEMMs of the unfused expert route); a plain GEMM (E = 1) runs
+// one compiled without the expert index and offsets. The S blocks of one (M
 // tile, N tile) form a thread block cluster; each
 // writes its int32 partial tile to its own shared memory, and after a cluster
 // barrier every rank reduces 1/S of the tile's elements over all S partials
@@ -20,7 +21,8 @@
 //
 // Cycle statistics (STATS instantiations, p.collect): ca[p, k] = max_m |X|
 // from the X tiles, only in the blocks of N tile 0, and rb[k, p] = max_n |W|
-// from the W tiles, only in the blocks of M tile 0 (per expert), each merged by atomicMax
+// from the W tiles, only in the blocks of M tile 0, each expert's into its
+// own rows of ca and rb, each merged by atomicMax
 // into a buffer the launcher zeroed; the order of the merges does not
 // matter. The fused kernel compiles them in (collect chosen at run time);
 // the int8 GEMM has one instantiation with and one without them, so the
@@ -65,11 +67,11 @@ struct Params {
   const float* sx;      // (E, 1) or (E, M) (fused only)
   const float* sw;      // (E, N) (fused only)
   const void* bias;     // (E, N) OT or null (fused only)
-  const int* c;         // (M, N) int32 or null (int8 GEMM only, E = 1)
+  const int* c;         // (E, M, N) int32 or null (int8 GEMM only)
   void* y;              // (E, M, N) OT
   int* ca;              // (E, planes, Kw), zeroed by the caller (STATS, collect)
   int* rb;              // (E, Kw, planes), zeroed by the caller (STATS, collect)
-  int E;                // experts (0 is taken as 1; > 1 only without INT_GEMM)
+  int E;                // experts (0 is taken as 1)
   int M, N, Kw, planes, bits, per_token, collect;
   int Kx;               // X's row length (<= planes*Kw); columns past it read as 0
   int bn, chunks;       // the split plan: tile columns, chunks a K slice
@@ -478,7 +480,7 @@ __global__ void __launch_bounds__(NT, 2) gemm_kernel(const Params p) {
         const int n = n0 + c + j;
         if (n < N) {
           const long o = (long)m * N + n;
-          Y[o] = p.c != nullptr ? s4[j] + p.c[o] : s4[j];
+          Y[o] = p.c != nullptr ? s4[j] + p.c[(long)ex * M * N + o] : s4[j];
         }
       }
     } else {
@@ -529,16 +531,15 @@ int launch_kernel(const Params& p, int splits, unsigned zdim, int smem, cudaStre
 
 // STATS: the statistics code is compiled in (taken where p.collect is set);
 // by default for the quantizing kernel, not for int8 X taken as stored.
-// E > 1 (the quantizing kernel only) runs the EXPERTS instantiation.
+// E > 1 runs the EXPERTS instantiation.
 template <typename XT, int WMODE, typename WT, typename OT,
           bool STATS = !std::is_same<XT, int8_t>::value>
 int launch(Params p, int splits, cudaStream_t stream) {
-  constexpr bool INT_GEMM = std::is_same<XT, int8_t>::value;
   if (p.E < 1) p.E = 1;
   const long zdim = (long)p.E * ((p.M + BM - 1) / BM);
   if (!(p.bn == 32 || p.bn == 64 || p.bn == 128) || splits < 1 || splits > MAX_SPLITS ||
       p.chunks < 1 || p.planes < 1 || p.planes > 4 || p.Kx < 0 || p.Kx > p.planes * p.Kw ||
-      zdim > 65535 || (INT_GEMM && p.E > 1))
+      zdim > 65535)
     return -2;
   p.ring = ring_depth(p.planes, p.bn, p.chunks, (int)sizeof(XT), (int)sizeof(WT));
   const Layout L = layout(p.planes, p.bn, p.ring, (int)sizeof(XT), (int)sizeof(WT));
@@ -547,11 +548,9 @@ int launch(Params p, int splits, cudaStream_t stream) {
   p.vx = (uintptr_t)p.x % 16 == 0 && ((long)p.Kw * sizeof(XT)) % 16 == 0 &&
          ((long)p.Kx * sizeof(XT)) % 16 == 0;
   p.vw = (uintptr_t)p.w % 16 == 0 && ((long)p.N * sizeof(WT)) % 16 == 0;
-  if constexpr (!INT_GEMM) {
-    if (p.E > 1)
-      return launch_kernel<XT, WMODE, WT, OT, STATS, true>(p, splits, (unsigned)zdim, L.total,
-                                                           stream);
-  }
+  if (p.E > 1)
+    return launch_kernel<XT, WMODE, WT, OT, STATS, true>(p, splits, (unsigned)zdim, L.total,
+                                                         stream);
   return launch_kernel<XT, WMODE, WT, OT, STATS, false>(p, splits, (unsigned)zdim, L.total,
                                                         stream);
 }

@@ -35,20 +35,24 @@
 // (planes = 8/bits) and the int32 partial tiles are summed exactly through
 // distributed shared memory. Ragged M, N, Kp and K are masked, so the caller
 // pads nothing.
+//
+// Experts (E > 1, the unfused prequant MoE expert GEMMs, the TPU kernel under
+// the reference's vmap): A (E, M, K), PB (E, Kp, N), Y (E, M, N) in one
+// launch, the expert folded into grid z as in the fused kernel.
 
 #include "tugemm_mainloop.cuh"
 
 // Returns 0 on success, -1 for a bitwidth other than 4 or 2, -2 for a plan
 // outside the kernel's range, else the cudaError_t of the launch. The plan
 // (bn, splits, chunks) comes from kernels/tugemm_fused.py::split_plan.
-extern "C" int tugemm_packed_launch(const void* a, const void* pb, void* y, int M, int N,
-                                    int K, int Kp, int bits, int bn, int splits, int chunks,
-                                    void* stream) {
+extern "C" int tugemm_packed_launch(const void* a, const void* pb, void* y, int E, int M,
+                                    int N, int K, int Kp, int bits, int bn, int splits,
+                                    int chunks, void* stream) {
   using namespace tugemm;
   if (bits != 4 && bits != 2) return -1;
   Params p = {};
   p.x = a; p.w = pb; p.c = nullptr; p.y = y;
-  p.M = M; p.N = N; p.Kw = Kp; p.Kx = K; p.planes = 8 / bits; p.bits = bits;
+  p.E = E; p.M = M; p.N = N; p.Kw = Kp; p.Kx = K; p.planes = 8 / bits; p.bits = bits;
   p.bn = bn; p.chunks = chunks;
   return launch<int8_t, W_PACKED, int8_t, int>(p, splits, static_cast<cudaStream_t>(stream));
 }

@@ -159,7 +159,9 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     (M, N) int32, or (y, TuGemmStats) when ``collect_stats``: the maxima
     come out of the GEMM (on the card, from its own tiles) and
     ``tugemm_stats`` assembles them. The reference's dispatch names are those
-    of the GEMM then ``unary_step_stats``."""
+    of the GEMM then ``unary_step_stats``. A leading expert axis (A (E, M,
+    K), B (E, K, N)) runs E GEMMs in one launch, and every stats field gets
+    a leading (E,) axis, still from one ``tugemm_stats`` launch."""
     count_dispatch("matmul_int8")
     path = resolve_path(impl, a)
     if not collect_stats:
@@ -167,7 +169,7 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     count_dispatch("absmax_a")
     count_dispatch("absmax_b")
     y, ca, rb = _int8.tugemm_int8(a, b, c, collect_stats=True, impl=path)
-    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, a.shape[1], impl=path))
+    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, a.shape[-1], impl=path))
 
 
 def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") -> TuGemmStats:
@@ -180,8 +182,9 @@ def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") ->
 def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
                   impl: str = "auto") -> torch.Tensor:
     """A (M, K) int8 · plane-packed B (ceil(K/planes), N) -> (M, N) int32.
-    A counts as zero-extended to ``planes * packed_b.shape[0]`` columns
-    (``pack_weights``' padding)."""
+    A counts as zero-extended to ``planes * packed_b.shape[-2]`` columns
+    (``pack_weights``' padding). A leading expert axis (A (E, M, K), B (E,
+    Kp, N)) runs E GEMMs in one launch."""
     count_dispatch("matmul_packed")
     return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a))
 

@@ -46,9 +46,13 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer product of two int8 carriers, as int32.
 
     CUDA has no integer ``matmul``; there the product runs in float64, which
-    is exact here because ``K * 128**2 < 2**53`` for every K a layer has."""
+    is exact here because ``K * 128**2 < 2**53`` for every K a layer has,
+    one slice of a leading (expert) axis at a time: a whole expert stack in
+    float64 (a 128-expert llama4 stack: 43 GB) does not fit beside the model."""
     if a.device.type == "cpu":
         return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    if a.ndim > 2:
+        return torch.stack([int_matmul(ai, bi) for ai, bi in zip(a, b)])
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
 
 
@@ -64,23 +68,25 @@ def matmul_int_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = No
 def packed_matmul_ref(a: torch.Tensor, packed_b: torch.Tensor, bits: int,
                       c: torch.Tensor | None = None) -> torch.Tensor:
     """int8 A (M, planes·Kp) x plane-packed B (Kp, N): unpack the planes,
-    then the exact GEMM."""
+    then the exact GEMM (leading axes batch GEMMs: the MoE experts)."""
     planes = BITS_TO_PLANES[bits]
-    if a.shape[1] != packed_b.shape[0] * planes:
+    if a.shape[-1] != packed_b.shape[-2] * planes:
         raise ValueError(f"a {tuple(a.shape)} does not match packed b "
                          f"{tuple(packed_b.shape)} at {bits} bits")
-    b = torch.cat([unpack_plane(packed_b, bits, p) for p in range(planes)], dim=0)
+    b = torch.cat([unpack_plane(packed_b, bits, p) for p in range(planes)], dim=-2)
     return matmul_int_ref(a, b, c)
 
 
 def colabsmax_ref(a: torch.Tensor) -> torch.Tensor:
-    """``max_m |A[m, k]|`` as int32 (the abs in int32, so -128 counts 128)."""
-    return a.to(torch.int32).abs().amax(dim=0)
+    """``max_m |A[m, k]|`` as int32 (the abs in int32, so -128 counts 128);
+    leading axes batch operands."""
+    return a.to(torch.int32).abs().amax(dim=-2)
 
 
 def rowabsmax_ref(b: torch.Tensor) -> torch.Tensor:
-    """``max_n |B[k, n]|`` as int32 (the abs in int32, so -128 counts 128)."""
-    return b.to(torch.int32).abs().amax(dim=1)
+    """``max_n |B[k, n]|`` as int32 (the abs in int32, so -128 counts 128);
+    leading axes batch operands."""
+    return b.to(torch.int32).abs().amax(dim=-1)
 
 
 def unary_stats_ref(a: torch.Tensor, b: torch.Tensor):
@@ -115,10 +121,14 @@ def dequant_bias_ref(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
     """The unfused pipeline's epilogue: int32 acc -> out dtype (+ bias).
     ``sx`` is the per-tensor scalar or a per-token (M,) vector; the float
     ops are the fused kernel's own (``_dequant_bias``), so the two paths
-    agree bit for bit."""
+    agree bit for bit. A leading expert axis (acc (E, M, N)) takes sx (E,)
+    or (E, M), sw (E, N) and bias (E, N): each expert its own."""
     sx = torch.as_tensor(sx, dtype=torch.float32, device=acc.device)
-    sx2 = sx.reshape(-1, 1) if sx.numel() > 1 else sx.reshape(1, 1)
-    return _dequant_bias(acc, sx2, sw.to(torch.float32).reshape(1, -1), bias, out_dtype)
+    lead = tuple(acc.shape[:-2])
+    per_token = sx.numel() > (lead[0] if lead else 1)
+    sx2 = sx.reshape(lead + ((-1, 1) if per_token else (1, 1)))
+    return _dequant_bias(acc, sx2, sw.to(torch.float32).reshape(lead + (1, -1)), bias,
+                         out_dtype)
 
 
 def _dequant_bias(acc, sx, sw, bias, out_dtype):
@@ -160,7 +170,19 @@ def fused_gemm_ref(
     Returns y (M, N) ``out_dtype``, or (y, ca (planes, Kw), rb (Kw, planes))
     with ``ca[p, k] = max_m |Xq[m, p·Kw + k]|`` and
     ``rb[k, p] = max_n |Wq_p[k, n]|`` — the kernel's stats layout (with
-    the leading axes in front)."""
+    the leading axes in front).
+
+    On the card a leading axis is taken one slice at a time (the float
+    temporaries of a whole 128-expert stack, 21.5 GB each in f32 for
+    llama4's, do not fit beside the model); the results are the batched
+    call's, as every op is per slice."""
+    if x.ndim > 2 and x.device.type == "cuda":
+        parts = [fused_gemm_ref(x[e], w[e], sx[e], sw[e], None if bias is None else bias[e],
+                                bits=bits, w_mode=w_mode, collect_stats=collect_stats,
+                                out_dtype=out_dtype) for e in range(x.shape[0])]
+        if not collect_stats:
+            return torch.stack(parts)
+        return tuple(torch.stack(t) for t in zip(*parts))
     lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
     Kw = w.shape[-2]
     lead = tuple(w.shape[:-2])

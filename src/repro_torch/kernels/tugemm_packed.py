@@ -8,7 +8,10 @@ bounds it on the card (reading the packed weight once: device-memory bytes)
 and how its design answers that. ``tugemm_packed`` launches the kernel for
 CUDA tensors and runs the plain version (zero-extend A, unpack the planes,
 ``kernels/ref.py::packed_matmul_ref``) for CPU tensors or under
-``impl="torch"``; both are exact, so they agree bit for bit.
+``impl="torch"``; both are exact, so they agree bit for bit. A leading
+expert axis (the unfused prequant MoE expert GEMMs: A (E, M, K), packed B
+(E, Kp, N)) runs all E GEMMs in one launch, the expert folded into the
+grid's z axis.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def _load():
     if _lib is None:
         lib = build.load("tugemm_packed")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tugemm_packed_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.tugemm_packed_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.tugemm_packed_launch.restype = ci
         _lib = lib
     return _lib
@@ -46,7 +49,8 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
 
     Plane p of packed row k is logical row ``k + p·Kp`` (``pack_planes``
     layout); A may have fewer than ``planes·Kp`` columns, the missing ones
-    count as zeros (``pack_weights`` pads K the same way).
+    count as zeros (``pack_weights`` pads K the same way). A leading expert
+    axis, A (E, M, K) and B (E, Kp, N), gives y (E, M, N) from one launch.
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
@@ -54,9 +58,13 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
     check(bits in BITS_TO_PLANES, lambda: f"tugemm_packed: bits={bits}; packed weights are 4 or 2 bits")
+    check(a.ndim == packed_b.ndim and a.ndim in (2, 3) and a.shape[:-2] == packed_b.shape[:-2],
+          lambda: f"tugemm_packed: a {tuple(a.shape)}, packed b {tuple(packed_b.shape)}: 2-D, "
+                  "or 3-D with one expert axis")
     planes = BITS_TO_PLANES[bits]
-    M, K = a.shape
-    Kp, N = packed_b.shape
+    lead = tuple(a.shape[:-2])
+    M, K = a.shape[-2:]
+    Kp, N = packed_b.shape[-2:]
     check(K <= planes * Kp,
           lambda: f"tugemm_packed: a {tuple(a.shape)} has more columns than packed b "
           f"{tuple(packed_b.shape)} holds at {bits} bits")
@@ -70,10 +78,11 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     for t in (a, packed_b):
         check(t.device == a.device and t.is_contiguous(),
               "tugemm_packed: every operand must be contiguous on a's device")
-    y = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    if M > 0 and N > 0:
-        plan = split_plan(M, N, Kp, planes, sm_count(a.device))
-        rc = _load().tugemm_packed_launch(ptr(a), ptr(packed_b), ptr(y), M, N, K, Kp, bits,
+    E = lead[0] if lead else 1
+    y = torch.empty(lead + (M, N), dtype=torch.int32, device=a.device)
+    if M > 0 and N > 0 and E > 0:
+        plan = split_plan(M, N, Kp, planes, sm_count(a.device), 1, E)
+        rc = _load().tugemm_packed_launch(ptr(a), ptr(packed_b), ptr(y), E, M, N, K, Kp, bits,
                                           *plan, stream_ptr(a.device))
         raise_on(rc, "tugemm_packed")
         COUNT.launches += 1

@@ -31,7 +31,7 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_paged import gather_pages
 from ..quant.qlinear import dense
 from .flash import blockwise_attention, paged_decode_attention
-from .layers import apply_rope, rms_norm
+from .layers import apply_mrope, apply_rope, rms_norm
 
 __all__ = [
     "KVView",
@@ -218,7 +218,7 @@ def gqa_attention(
     cfg: ModelConfig,
     p: dict,
     x: torch.Tensor,                # (B, S, D)
-    positions: torch.Tensor,        # (B, S)
+    positions: torch.Tensor,        # (B, S), or (3, B, S) for M-RoPE
     *,
     backend,
     cache: dict | None = None,
@@ -228,21 +228,26 @@ def gqa_attention(
     chunk: int = 1024,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """One GQA layer: projections, qk-norm, RoPE, then the in-place KV write
-    and attention — the paged kernel through a paged view, contiguous
+    """One GQA layer: projections, qk-norm, RoPE (M-RoPE over (3, B, S)
+    positions where ``cfg.mrope_sections`` is set), then the in-place KV
+    write and attention — the paged kernel through a paged view, contiguous
     ``blockwise_attention`` on a dense cache or, with no cache, over the
     step's own K/V — and the output projection."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    if cfg.mrope_sections is not None or cfg.attn_logit_softcap is not None:
-        raise NotImplementedError("M-RoPE / logit softcap are not ported yet")
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError("the attention logit softcap is not ported yet "
+                                  "(ROADMAP A11, with blockwise_attention's backward)")
     q = dense(p["wq"], x, backend=backend, name="attn.q", impl=impl).reshape(B, S, h, hd)
     k = dense(p["wk"], x, backend=backend, name="attn.k", impl=impl).reshape(B, S, kv, hd)
     v = dense(p["wv"], x, backend=backend, name="attn.v", impl=impl).reshape(B, S, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = rms_norm(p["k_norm"], k, cfg.rms_eps)
-    if cfg.attn_type != "none":
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.attn_type != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = None if is_global else cfg.sliding_window

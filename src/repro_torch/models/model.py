@@ -1,4 +1,5 @@
-"""Model entry points: parameter init at the reference's shapes and scales."""
+"""Model entry points: parameter init at the reference's shapes and scales,
+and a forward's batch in the reference's input forms."""
 
 from __future__ import annotations
 
@@ -10,18 +11,28 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from .transformer import LayerKind, check_supported, plan_groups, torch_dtype
 
-__all__ = ["init"]
+# the audio frontend stub's frame width (the conv feature extractor's output)
+FRONTEND_DIM = 512
+
+__all__ = ["init", "input_batch"]
 
 
-def _linear(d_in: int, d_out: int, scale: float = 0.02) -> dict:
-    return {"kernel": ((d_in, d_out), "normal", scale)}
+def _linear(d_in: int, d_out: int, scale: float = 0.02, bias: bool = False) -> dict:
+    out = {"kernel": ((d_in, d_out), "normal", scale)}
+    if bias:
+        out["bias"] = ((d_out,), "zeros")
+    return out
 
 
 def _norm(dim: int) -> dict:
     return {"scale": ((dim,), "ones")}
 
 
-def _mlp(d: int, ff: int) -> dict:
+def _mlp(d: int, ff: int, mlp_type: str = "swiglu") -> dict:
+    """The reference's ``mlp_spec``: SwiGLU, or the non-gated gelu MLP with
+    zero-initialised biases (hubert)."""
+    if mlp_type == "gelu":
+        return {"w_up": _linear(d, ff, bias=True), "w_down": _linear(ff, d, bias=True)}
     return {"w_gate": _linear(d, ff), "w_up": _linear(d, ff), "w_down": _linear(ff, d)}
 
 
@@ -97,7 +108,8 @@ def _block_shapes(cfg: ModelConfig, kind: LayerKind) -> dict:
             "attn": _mla_shapes(cfg) if kind.mixer == "mla" else _gqa_shapes(cfg)}
     if kind.mixer == "hybrid":
         spec.update(ssm=_mamba_shapes(cfg), fuse_attn_norm=_norm(d), fuse_ssm_norm=_norm(d))
-    spec.update(norm2=_norm(d), ffn=_moe_shapes(cfg) if kind.moe else _mlp(d, cfg.d_ff))
+    spec.update(norm2=_norm(d),
+                ffn=_moe_shapes(cfg) if kind.moe else _mlp(d, cfg.d_ff, cfg.mlp_type))
     return spec
 
 
@@ -149,7 +161,8 @@ def _materialize(spec, lead: tuple, gen, dtype, device):
 
 def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = None,
          device=None) -> dict:
-    """Random parameters in the reference's tree layout (``embed``,
+    """Random parameters in the reference's tree layout (``embed``, or
+    ``frontend_proj`` (512 -> d_model, biased) for an audio frontend;
     stacked ``groups``, ``final_norm`` [, ``head``]), drawn from
     ``generator`` (a fresh ``torch.Generator().manual_seed(0)`` when None)
     on its own device, leaf by leaf, and placed on ``device`` (default
@@ -158,8 +171,12 @@ def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = No
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = torch_dtype(rc.param_dtype)
-    params = {"embed": _materialize({"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)},
-                                    (), gen, dtype, dev)}
+    if cfg.frontend == "audio":
+        params = {"frontend_proj": _materialize(_linear(FRONTEND_DIM, cfg.d_model, bias=True),
+                                                (), gen, dtype, dev)}
+    else:
+        params = {"embed": _materialize(
+            {"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)}, (), gen, dtype, dev)}
     params["groups"] = tuple(
         {f"k{j}": _materialize(_block_shapes(cfg, kind), (g.repeats,), gen, dtype, dev)
          for j, kind in enumerate(g.kinds)}
@@ -170,3 +187,20 @@ def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = No
         params["head"] = _materialize(_linear(cfg.d_model, cfg.vocab_size), (), gen, dtype, dev)
     return params
 
+
+def input_batch(cfg: ModelConfig, inputs: torch.Tensor, pos=0) -> dict:
+    """A forward's batch in the reference's forms (its ``input_specs``):
+    ``{"embeds": inputs}`` for an audio frontend (inputs (B, S, 512)
+    frames), else ``{"tokens": inputs}`` (B, S); with M-RoPE also
+    ``"positions"`` (3, B, S): a text stream's t = h = w = ``pos`` plus the
+    column, ``pos`` an int or per-row (B,) offsets."""
+    if cfg.frontend == "audio":
+        return {"embeds": inputs}
+    batch = {"tokens": inputs}
+    if cfg.mrope_sections is not None:
+        B, S = inputs.shape[:2]
+        cols = torch.arange(S, device=inputs.device)[None, :]
+        p = (pos.long()[:, None] + cols if isinstance(pos, torch.Tensor)
+             else (cols + pos).expand(B, S))
+        batch["positions"] = torch.stack([p, p, p])
+    return batch

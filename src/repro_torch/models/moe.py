@@ -10,10 +10,14 @@ columns and idle rows are routed and take capacity exactly as the
 reference's do.
 
 The three expert GEMMs run through ``quant.qlinear.dense`` on the expert
-stacks: each is **one** fused launch over all experts (``ops.matmul_fused``
-with a leading expert axis), not a loop; their stats carry a leading (E,)
-axis, pushed once per GEMM as the reference re-pushes them after its
-``vmap``. The router is a bf16 ``dense`` named ``moe.router`` (outside the
+stacks: each is **one** launch over all experts, not a loop — the fused
+kernel (``ops.matmul_fused``), or under an ``unfused`` rule the int8 or
+packed GEMM (``ops.matmul_int8`` / ``ops.matmul_packed``), with a leading
+expert axis; each expert has its own scales, a per-tensor activation scale
+taken over its own ``cap`` rows, as the reference's ``vmap`` of ``dense``
+takes it. Their stats carry a leading (E,) axis, pushed once per GEMM as
+the reference re-pushes them after its ``vmap`` (the unfused prequant
+route has none, as the reference's has none). The router is a bf16 ``dense`` named ``moe.router`` (outside the
 hardware boundary); shared experts run as an always-on MLP named
 ``moe.shared.*``. The drop count rides the capture as ``moe.dropped_tokens``.
 
@@ -114,8 +118,9 @@ def _dispatch_group(xg: torch.Tensor, idx: torch.Tensor, E: int, cap: int):
 def _expert_mm(w, xs: torch.Tensor, backend, name: str, impl: str) -> torch.Tensor:
     """The batched expert GEMM ``xs (E, G·cap, K) · w[e]``: a raw stacked
     kernel (E, K, N) or its surgered ``{"qkernel", "qscale", "qbits"}``
-    leaf, in one fused launch. Under an active capture the (E,)-leading
-    stats are pushed with M = G·cap, empty slots included."""
+    leaf, in one launch of the pipeline its rule picks. Under an active
+    capture the (E,)-leading stats are pushed with M = G·cap, empty slots
+    included."""
     leaf = w if isinstance(w, dict) else {"kernel": w}
     return dense(leaf, xs, backend=backend, name=name, impl=impl)
 

@@ -1,5 +1,8 @@
-"""Decoder backbone over stacked layer groups: dense GQA and MLA + MoE,
-the Mamba-1 SSM stack and the hybrid (Hymba) block.
+"""Backbone over stacked layer groups: dense GQA (M-RoPE for qwen2-vl) and
+MLA + MoE (llama4's dense/MoE alternation is one group of two-layer
+super-blocks), the Mamba-1 SSM stack, the hybrid (Hymba) block and the
+non-causal audio encoder (hubert: a 512-wide stub frontend projected to
+d_model, the gelu MLP).
 
 Layers are partitioned into groups exactly as the reference plans them
 (``plan_groups``), and each group's parameters and caches are stacked along
@@ -12,7 +15,7 @@ returns it.
 
 Block layouts (pre-norm, residual):
 
-- dense/MoE: ``x += attn(norm(x)); x += mlp|moe(norm(x))``
+- dense/MoE/encoder: ``x += attn(norm(x)); x += mlp|moe(norm(x))``
 - ssm: ``x += mamba(norm(x))`` (no MLP)
 - hybrid: ``x += 0.5·(rms(attn(norm(x))) + rms(mamba(norm(x)))); x += mlp(norm(x))``
 
@@ -31,8 +34,8 @@ import torch
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..quant.policy import QuantPolicy, effective_policy
+from ..quant.qlinear import dense
 from ..quant.surgery import _check_stack_consistency, gemm_name_targets
-from ..quant.qlinear import refuse_unfused_experts
 from .attention import KVView, gqa_attention, init_kv_cache, mla_attention
 from .layers import embed_lookup, mlp, rms_norm
 from .moe import moe_ffn
@@ -101,26 +104,14 @@ def plan_groups(cfg: ModelConfig) -> tuple[Group, ...]:
     return tuple(groups)
 
 
-_MOE_GEMMS = ("moe.gate", "moe.up", "moe.down")
-
-
 def check_supported(cfg: ModelConfig, rc: RunConfig) -> None:
-    """Raise for what the port does not serve yet: frontends and encoders
-    (hubert-xlarge), M-RoPE, the logit softcap, and an ``unfused`` rule on
-    a quantized MoE expert GEMM."""
-    if cfg.frontend is not None or cfg.is_encoder or cfg.mlp_type != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: frontends, encoders and the gelu MLP are not ported yet "
-            "(ROADMAP A7: hubert-xlarge)")
-    if cfg.mrope_sections is not None or cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE / logit softcap are not ported yet "
-                                  "(ROADMAP A2)")
+    """Raise for what the port does not serve yet: the attention logit
+    softcap (no assigned arch uses it), and an unknown KV layout."""
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(f"{cfg.name}: the attention logit softcap is not ported yet "
+                                  "(ROADMAP A11)")
     if rc.kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {rc.kv_layout!r}")
-    if any(kind.moe for g in plan_groups(cfg) for kind in g.kinds):
-        resolved = effective_policy(rc).resolved()
-        for name in _MOE_GEMMS:
-            refuse_unfused_experts(resolved.for_gemm(name), f"{cfg.name}: {name}")
 
 
 # ------------------------------------------------------------ policy check
@@ -254,7 +245,10 @@ def forward(
 ):
     """Returns (hidden (B,S,D), caches, aux_loss).
 
-    batch: {"tokens": (B,S) int}. ``caches`` (from :func:`init_caches`, or
+    batch: {"tokens": (B,S) int} or, for an audio frontend, {"embeds": (B,S,512)}
+    (projected to d_model by the biased ``frontend`` GEMM); optional
+    "positions", (B,S) or (3,B,S) for M-RoPE, else each row's columns
+    counted from its write offset. ``caches`` (from :func:`init_caches`, or
     None for the no-cache forward) have their KV leaves updated in place;
     the returned tree holds them and, for SSM and hybrid blocks, the new
     state as new stacked ``h`` / ``conv`` leaves. cache_pos: a Python int
@@ -264,13 +258,21 @@ def forward(
     every kernel's path (``auto`` | ``torch`` | ``cuda``,
     ``kernels/ops.py``); a policy rule's own impl overrides it."""
     backend = step_backend(cfg, rc, params)
-    x = embed_lookup(params["embed"], batch["tokens"], torch_dtype(rc.dtype))
-    B, S = x.shape[:2]
-    cols = torch.arange(S, device=x.device)[None, :]
-    if isinstance(cache_pos, torch.Tensor):
-        positions = cache_pos.long()[:, None] + cols
+    dtype = torch_dtype(rc.dtype)
+    if "tokens" in batch:
+        x = embed_lookup(params["embed"], batch["tokens"], dtype)
     else:
-        positions = (cols + (cache_pos or 0)).expand(B, S)
+        x = dense(params["frontend_proj"], batch["embeds"].to(dtype), backend=backend,
+                  name="frontend", impl=impl)
+    B, S = x.shape[:2]
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        cols = torch.arange(S, device=x.device)[None, :]
+        if isinstance(cache_pos, torch.Tensor):
+            positions = cache_pos.long()[:, None] + cols
+        else:
+            positions = (cols + (cache_pos or 0)).expand(B, S)
     want_state = caches is not None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
@@ -304,6 +306,4 @@ def lm_logits(cfg: ModelConfig, rc: RunConfig, params: dict, h: torch.Tensor,
     """(B, S, D) -> (B, S, V) in h.dtype."""
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"]["embedding"].to(h.dtype).t())
-    from ..quant.qlinear import dense
-
     return dense(params["head"], h, backend=backend_from(rc), name="lm_head", impl=impl)

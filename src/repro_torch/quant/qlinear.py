@@ -24,11 +24,14 @@ or ``ops.matmul_packed``, the dequant epilogue — bit-exact against the
 fused path in outputs and stats.
 
 An expert stack (a raw ``(E, K, N)`` kernel or its packed ``(E, Kp, N)``
-leaf: the MoE expert GEMMs) takes x ``(E, M, K)`` and runs the same fused
-pipeline over all E experts in one ``ops.matmul_fused`` call, each expert
-with its own scales, as the reference's ``vmap`` of ``dense`` runs them.
-The unfused pipeline does not take an expert stack yet
-(``refuse_unfused_experts``).
+leaf: the MoE expert GEMMs) takes x ``(E, M, K)`` and runs either pipeline
+over all E experts at once, each expert with its own scales, as the
+reference's ``vmap`` of ``dense`` runs them: a per-tensor activation scale
+is per expert, over that expert's M rows (empty dispatch slots included).
+The fused pipeline is one ``ops.matmul_fused`` launch; the unfused one
+quantizes every expert's X and W, then one ``ops.matmul_int8`` (its stats
+with an (E,) axis) or ``ops.matmul_packed`` launch over all experts, then
+the dequant epilogue.
 """
 
 from __future__ import annotations
@@ -43,8 +46,7 @@ from . import capture
 from .quantize import act_scale, compute_scale, fused_scales, quantize
 from .stats import record_stats
 
-__all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree",
-           "refuse_unfused_experts"]
+__all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree"]
 
 
 @dataclass(frozen=True)
@@ -126,16 +128,10 @@ def _bf16_gemm(x, w, bias):
     return y
 
 
-# the ROADMAP item that ports the unfused expert path
-UNFUSED_EXPERTS = "ROADMAP A2: the unfused expert path (rows 3-4 over the experts)"
-
-
-def refuse_unfused_experts(backend: GemmBackend, name: str) -> None:
-    """Raise ``NotImplementedError`` where ``backend`` would run an expert
-    stack through the unfused pipeline, which is not ported yet."""
-    if backend.kind != "bf16" and not backend.fused:
-        raise NotImplementedError(f"{name}: an unfused rule on an expert GEMM is not ported "
-                                  f"yet ({UNFUSED_EXPERTS})")
+def _lead_scale(s: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A scale of x's leading axes ((), (M,), (E,) or (E, M)) shaped to
+    broadcast against x of ``ndim`` dims."""
+    return s.reshape(s.shape + (1,) * (ndim - s.ndim))
 
 
 def gemm(
@@ -164,24 +160,21 @@ def gemm(
     per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
     x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
+    sx, sw = fused_scales(x2, w, bits, per_token)
     if backend.fused:
-        sx, sw = fused_scales(x2, w, bits, per_token)
         ops.count_dispatch("fused_scales")
         y, stats = _emit_fused(x2, w, sx, sw, bias, backend, name, w_quantized=False,
                                return_stats=return_stats, impl=impl)
         y = y.reshape(*lead, w.shape[-1])
         return (y, stats) if return_stats else y
-    if w.ndim == 3:
-        refuse_unfused_experts(backend, name)
 
     # ------------------------------------------------ legacy unfused pipeline
+    # (an expert stack: every expert's scales and codes, then one launch)
     path = _impl(backend, impl)
-    sx = compute_scale(x2, bits, axis=0 if per_token else None)
-    sw = compute_scale(w, bits, axis=1)
     ops.count_dispatch("scale_x")
     ops.count_dispatch("scale_w")
-    xq = quantize(x2, sx.reshape(-1, 1) if per_token else sx, bits)
-    wq = quantize(w, sw.reshape(1, -1), bits)
+    xq = quantize(x2, _lead_scale(sx, x2.ndim), bits)
+    wq = quantize(w, sw.unsqueeze(-2), bits)
     ops.count_dispatch("quantize_x")
     ops.count_dispatch("quantize_w")
     want = _want_stats(backend, return_stats)
@@ -189,10 +182,10 @@ def gemm(
     y_int, stats = out if want else (out, None)
     if want:
         # the stats come from the int8 operands; the record carries x's shape
-        _sink_stats(stats, x2, w.shape[1], backend, name, return_stats)
+        _sink_stats(stats, x2, w.shape[-1], backend, name, return_stats)
     y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)
     ops.count_dispatch("dequant_epilogue")
-    y = y.reshape(*lead, w.shape[1])
+    y = y.reshape(*lead, w.shape[-1])
     return (y, stats) if return_stats else y
 
 
@@ -226,8 +219,6 @@ def _gemm_prequant(
     per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
     experts = leaf["qkernel"].ndim == 3
-    if experts:
-        refuse_unfused_experts(backend, name)
     x2 = x if experts else x.reshape(-1, x.shape[-1])
     sx = act_scale(x2, bits, per_token)
     ops.count_dispatch("scale_x")
@@ -242,7 +233,7 @@ def _gemm_prequant(
         return (y, stats) if return_stats else y
 
     path = _impl(backend, impl)
-    xq = quantize(x2, sx.reshape(-1, 1) if per_token else sx, bits)
+    xq = quantize(x2, _lead_scale(sx, x2.ndim), bits)
     ops.count_dispatch("quantize_x")
     if bits == 8:
         y_int = ops.matmul_int8(xq, leaf["qkernel"], impl=path)
@@ -250,10 +241,12 @@ def _gemm_prequant(
         y_int = ops.matmul_packed(xq, leaf["qkernel"], bits=bits, impl=path)
     if backend.collect_stats:
         # the legacy path has no unpacked weights at hand: it records the
-        # activation max only, with zero cycles, and pushes nothing to a
-        # capture (the reference's behaviour; the fused path does better)
-        record_stats(name, x2.shape[0], x2.shape[1], N, xq.abs().max(),
-                     torch.zeros(()), torch.zeros(()), bits=backend.bits)
+        # activation max only (one record an expert), with zero cycles, and
+        # pushes nothing to a capture (the reference's behaviour; the fused
+        # path does better)
+        for xe in xq.reshape((-1,) + tuple(xq.shape[-2:])):
+            record_stats(name, xe.shape[0], xe.shape[1], N, xe.abs().max(),
+                         torch.zeros(()), torch.zeros(()), bits=backend.bits)
     y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)
     ops.count_dispatch("dequant_epilogue")
     y = y.reshape(*lead, N)
@@ -275,9 +268,8 @@ def dense(
 
     An expert stack — ``{'kernel': (E, K, N)}`` or a packed ``{'qkernel':
     (E, Kp, N), 'qscale': (E, N), 'qbits'}`` leaf — takes x (E, M, K) and
-    runs all E GEMMs in one fused launch (stats fields with a leading (E,)
-    axis); a rule that resolves such a GEMM to ``unfused`` raises
-    ``NotImplementedError``."""
+    runs all E GEMMs in one launch of either pipeline (stats fields with a
+    leading (E,) axis)."""
     backend = backend.for_gemm(name)
     bias = params.get("bias")
     if "qkernel" in params:

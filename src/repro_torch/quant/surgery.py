@@ -17,12 +17,13 @@
   weight view (``serve/spec.py``), and :func:`forward_with_stats` runs a
   forward inside a stats capture.
 
-It covers the stacks the port serves: GQA and MLA attention, dense MLPs,
-MoE expert stacks (raw ``(L, E, K, N)`` kernels, packed to ``(L, E, Kp,
-N)`` leaves) and their shared experts, and an untied head; the reference's
-SSM and frontend leaves come with the slices that port those layers. MLA's
-3-D ``w_uk`` / ``w_uv`` factors and the MoE router stay outside the tuGEMM
-hardware boundary and are never rewritten.
+It covers every linear leaf the reference's does: GQA and MLA attention,
+dense MLPs (SwiGLU, and the biased gelu MLP's ``up`` / ``down``), MoE
+expert stacks (raw ``(L, E, K, N)`` kernels, packed to ``(L, E, Kp, N)``
+leaves) and their shared experts, the SSM projections, the audio
+frontend's ``frontend_proj`` and an untied head. MLA's 3-D ``w_uk`` /
+``w_uv`` factors and the MoE router stay outside the tuGEMM hardware
+boundary and are never rewritten.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ _ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o", "w_dkv": "dkv"}
 _SSM = {"in_proj": "ssm.in_proj", "x_proj": "ssm.x_proj",
         "dt_w": "ssm.dt", "out_proj": "ssm.out_proj"}
 _MLP = {"w_gate": "gate", "w_up": "up", "w_down": "down"}
-_TOP = {"head": "lm_head"}
+_TOP = {"head": "lm_head", "frontend_proj": "frontend"}
 
 
 def _gemm_name(cfg: ModelConfig, path: tuple) -> str | None:

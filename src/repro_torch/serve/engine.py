@@ -34,7 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
-from ..models import forward, init_caches, lm_logits
+from ..models import forward, init_caches, input_batch, lm_logits
 from ..quant import capture as stats_capture
 from ..quant.capture import tree_totals_by_bits
 from .scheduler import Request, SlotMeter, sample, upload
@@ -45,10 +45,14 @@ __all__ = ["build_prefill", "build_decode", "sample", "Engine", "Request", "Slot
 def build_prefill(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = False,
                   impl: str = "auto"):
     """(params, caches, {"tokens": (B, S)}) -> (caches, last-column logits
-    (B, V)[, capture]): the prompt written from position 0."""
+    (B, V)[, capture]): the prompt written from position 0; an M-RoPE
+    config's batch gains (3, B, S) positions t = h = w = 0..S-1, as the
+    reference's ``Engine._admit`` gives it."""
 
     @torch.no_grad()
     def prefill(params, caches, batch):
+        if cfg.mrope_sections is not None and "positions" not in batch:
+            batch = input_batch(cfg, batch["tokens"])
         h, caches, _ = forward(cfg, rc, params, batch, caches=caches, cache_pos=0, impl=impl)
         return caches, lm_logits(cfg, rc, params, h[:, -1:, :], impl=impl)[:, 0, :]
 
@@ -66,11 +70,12 @@ def build_prefill(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = False,
 def build_decode(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = False,
                  impl: str = "auto"):
     """(params, caches, tokens (B, 1), pos: int) -> (caches, logits (B, V)
-    [, capture]): every row writes at the shared position ``pos``."""
+    [, capture]): every row writes at the shared position ``pos`` (an
+    M-RoPE config's positions t = h = w = ``pos``)."""
 
     @torch.no_grad()
     def decode(params, caches, tokens, pos):
-        h, caches, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
+        h, caches, _ = forward(cfg, rc, params, input_batch(cfg, tokens, pos), caches=caches,
                                cache_pos=pos, impl=impl)
         return caches, lm_logits(cfg, rc, params, h, impl=impl)[:, 0, :]
 

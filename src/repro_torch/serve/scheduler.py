@@ -55,7 +55,11 @@ slot instead of the pool: no ``BlockManager``, the step's view carries no
 tables (attention reads the rows contiguously) and nothing stalls for
 pages; prefix caching needs the pool and is refused there. SSM and hybrid
 stacks have no resumable mixer state for chunked prefill and are refused:
-they serve through the legacy ``serve.Engine``. The mesh is a later slice.
+they serve through the legacy ``serve.Engine``. An encoder-only config
+(hubert-xlarge) has no decode step and is refused with a ``ValueError``
+(the reference does not check; ROADMAP C). An M-RoPE config's step takes
+(3, B, W) positions with t = h = w (a text stream). The mesh is a later
+slice.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..core.report import slot_energy
 from ..kernels import ops as _kops
-from ..models import KVView, forward, init_caches, lm_logits
+from ..models import KVView, forward, init_caches, input_batch, lm_logits
 from ..models.transformer import backend_from, check_supported, plan_groups, step_backend
 from ..obs.logs import kv
 from ..obs.metrics import MetricsRegistry
@@ -308,8 +312,8 @@ def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = Fals
                       layout=rc.kv_layout)
         cuda = tokens.is_cuda
         with named_scope(scope, cuda=cuda):
-            h, caches, _ = forward(cfg, rc, params, {"tokens": tokens}, caches=caches,
-                                   cache_pos=pos, kv_view=view, impl=impl)
+            h, caches, _ = forward(cfg, rc, params, input_batch(cfg, tokens, pos),
+                                   caches=caches, cache_pos=pos, kv_view=view, impl=impl)
             with named_scope("serve/logits", cuda=cuda):
                 if head_per_column:
                     return caches, torch.cat(
@@ -451,6 +455,9 @@ class Scheduler:
             raise NotImplementedError(
                 "chunked-prefill scheduling needs resumable mixer state; "
                 "SSM/hybrid stacks serve through the legacy Engine")
+        if cfg.is_encoder:
+            raise ValueError(f"{cfg.name} is an encoder-only config: it has no decode step "
+                             "to serve; run models.forward without caches")
         check_supported(cfg, rc)
         self.device = resolve_device(device)
         self.cfg, self.rc, self.params = cfg, rc, params

@@ -4,7 +4,7 @@ fresh caches copied into the slot, lock-step decode at one shared
 position, per-slot meters, plain PyTorch versions on the CPU.
 
 The acceptance gate: on ``falcon-mamba-7b_smoke`` (SSM), ``hymba-1.5b_smoke``
-(hybrid) and ``qwen3-0.6b_smoke``, unquantized f32 and under
+(hybrid), ``qwen3-0.6b_smoke`` and ``qwen2-vl-7b_smoke`` (M-RoPE), unquantized f32 and under
 ``attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16`` (a rule that names no GEMM of
 an arch is dropped for it), with more requests than slots and a
 ``max_new=1`` request, the port's Engine gives the reference Engine's
@@ -34,11 +34,13 @@ from repro_torch.serve import Engine, Request, build_decode, build_prefill
 
 torch.set_float32_matmul_precision("highest")
 SSM, HYBRID, QWEN = "falcon-mamba-7b_smoke", "hymba-1.5b_smoke", "qwen3-0.6b_smoke"
+QWEN2VL = "qwen2-vl-7b_smoke"     # M-RoPE: (3, B, S) positions t = h = w at prefill and decode
 RC_KW = dict(dtype="float32", param_dtype="float32", remat="none")
 MIXED = "attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16"
 # MIXED with the rules that name no GEMM of the arch dropped
-POLICIES = {SSM: "ssm.*=int8,*=bf16", HYBRID: MIXED, QWEN: "attn.*=int8,mlp.*=int2,*=bf16"}
-BITS = {SSM: {8}, HYBRID: {8, 2}, QWEN: {8, 2}}
+POLICIES = {SSM: "ssm.*=int8,*=bf16", HYBRID: MIXED, QWEN: "attn.*=int8,mlp.*=int2,*=bf16",
+            QWEN2VL: "attn.*=int8,mlp.*=int2,*=bf16"}
+BITS = {SSM: {8}, HYBRID: {8, 2}, QWEN: {8, 2}, QWEN2VL: {8, 2}}
 
 
 def _weights(arch, rc_kw, seed=0):
@@ -72,7 +74,7 @@ def _requests(vocab):
 
 
 @pytest.mark.parametrize("policy", ["f32", "mixed"])
-@pytest.mark.parametrize("arch", [SSM, HYBRID, QWEN])
+@pytest.mark.parametrize("arch", [SSM, HYBRID, QWEN, QWEN2VL])
 def test_engine_greedy_tokens_and_cycles_match_reference(arch, policy):
     rc_kw = dict(RC_KW, kv_cache_dtype="int8")
     if policy == "mixed":

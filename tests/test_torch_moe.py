@@ -9,7 +9,9 @@ against E single calls and against the reference's vmapped fused oracle
 (y, ca, rb); ``ops.matmul_fused`` / ``tugemm_stats`` over experts against
 single calls; the router's top-k indices, every group's dispatch slots
 (``dest``), the drop count and the expert GEMMs' stats with their leading
-(E,) axis. The MoE output is held to 1e-5 absolute + 1e-5 relative in f32:
+(E,) axis, under fused and unfused expert rules (the unfused route's own
+parity against the reference's vmap is ``tests/test_torch_unfused_experts.py``).
+The MoE output is held to 1e-5 absolute + 1e-5 relative in f32:
 the router's f32 softmax may differ from XLA's by an ulp, which moves the
 gate weights by as much."""
 
@@ -229,20 +231,28 @@ def test_expert_dense_matches_reference_vmap(w_quantized):
 
 
 def test_unfused_expert_rule_raises():
+    """An unfused rule on an expert stack no longer raises: it runs the
+    unfused route (per-expert scales, one int8 GEMM over the experts), which
+    equals the fused route's y and stats bit for bit, as on a 2-D GEMM."""
     x, w, _, _ = _expert_operands(2, 4, 16, 8, "quant", 8, 1)
-    with pytest.raises(NotImplementedError, match="unfused expert path"):
-        t_dense({"kernel": w}, x, backend=TBackend("int8", fused=False), name="moe.up")
+    y, st = t_dense({"kernel": w}, x, backend=TBackend("int8", fused=False), name="moe.up",
+                    return_stats=True)
+    fy, fst = t_dense({"kernel": w}, x, backend=TBackend("int8"), name="moe.up",
+                      return_stats=True)
+    assert y.shape == (2, 4, 8) and torch.equal(y, fy)
+    for f, ff in zip(st, fst):
+        assert torch.equal(f, ff)
 
 
 def test_unfused_packed_expert_rule_raises():
-    """A surgered expert stack under an unfused rule raises too, and the
-    same leaf runs under the fused rule."""
+    """A surgered expert stack under an unfused rule no longer raises: the
+    packed GEMM over the experts gives the fused rule's y on the same leaf,
+    bit for bit."""
     x, w, _, sw = _expert_operands(2, 4, 16, 8, "packed", 2, 1)
     leaf = {"qkernel": w, "qscale": sw, "qbits": TQBits(2)}
-    with pytest.raises(NotImplementedError, match="unfused expert path"):
-        t_dense(leaf, x, backend=TBackend("int2", "prequant", fused=False), name="moe.up")
+    yu = t_dense(leaf, x, backend=TBackend("int2", "prequant", fused=False), name="moe.up")
     y = t_dense(leaf, x, backend=TBackend("int2", "prequant"), name="moe.up")
-    assert y.shape == (2, 4, 8) and y.isfinite().all()
+    assert y.shape == (2, 4, 8) and y.isfinite().all() and torch.equal(yu, y)
 
 
 # ------------------------------------------------------------------ moe_ffn
@@ -270,7 +280,8 @@ def _ref_moe(cfg, p, x, policy):
 
 
 @pytest.mark.parametrize("capacity_factor", [None, 16.0])
-@pytest.mark.parametrize("policy", ["*=int2", "moe.*=int8,*=bf16"])
+@pytest.mark.parametrize("policy", ["*=int2", "moe.*=int8,*=bf16", "*=int2:unfused",
+                                    "moe.*=int8:unfused,*=bf16"])
 def test_moe_ffn_matches_reference(layer, capacity_factor, policy):
     p, x = layer
     cfg, tcfg = get_config(ARCH), t_get_config(ARCH)

@@ -186,29 +186,30 @@ def test_unported_features_raise(port_params):
     rc = dataclasses.replace(TRunConfig(**RC_KW), kv_layout="dense", prefix_cache=True)
     with pytest.raises(ValueError, match="prefix_cache"):
         Scheduler(cfg, rc, port_params, capacity=32, max_batch=2, device="cpu")
-    # still unported: frontends/encoders (hubert-xlarge)
-    with pytest.raises(NotImplementedError, match="hubert"):
-        Scheduler(cfg.replace(frontend="audio"), TRunConfig(**RC_KW), port_params,
+    # an encoder-only config (hubert-xlarge) has no decode step to serve: the
+    # Scheduler refuses it (the reference does not check; ROADMAP C)
+    with pytest.raises(ValueError, match="encoder-only"):
+        Scheduler(t_get_config("hubert-xlarge_smoke"), TRunConfig(**RC_KW), port_params,
                   capacity=32, max_batch=2, device="cpu")
-    # SSM stacks serve through the Engine, and the unfused expert GEMMs of an
-    # MoE model are not ported
+    # SSM stacks serve through the Engine
     with pytest.raises(NotImplementedError, match="legacy Engine"):
         Scheduler(t_get_config("qwen3-0.6b_smoke").replace(family="ssm"),
                   TRunConfig(**RC_KW), port_params, capacity=32, max_batch=2, device="cpu")
-    ds = t_get_config("deepseek-v2-lite-16b_smoke")
-    rc = TRunConfig(**dict(RC_KW, quant_policy="mla.*=int8,moe.*=int2:unfused,*=bf16"))
-    with pytest.raises(NotImplementedError, match="unfused expert path"):
-        Scheduler(ds, rc, port_params, capacity=32, max_batch=2, device="cpu")
+    # the encoder flag alone is refused, whatever else the config holds
+    with pytest.raises(ValueError, match="encoder-only"):
+        Scheduler(cfg.replace(is_encoder=True, causal=False), TRunConfig(**RC_KW), port_params,
+                  capacity=32, max_batch=2, device="cpu")
 
 
 # ------------------------------------------------------- the MLA + MoE slice
 DS_ARCH = "deepseek-v2-lite-16b_smoke"
 
 
-def _serve_both(policy, surgery: bool):
-    """The reference's and the port's Scheduler on deepseek-v2-lite-16b_smoke
-    (paged, pages of 4, chunks of 5), the same weights and prompts."""
-    cfg = get_config(DS_ARCH)
+def _serve_both(policy, surgery: bool, arch: str = DS_ARCH):
+    """The reference's and the port's Scheduler on ``arch`` (default
+    deepseek-v2-lite-16b_smoke; paged, pages of 4, chunks of 5), the same
+    weights and prompts."""
+    cfg = get_config(arch)
     rc = RunConfig(quant_policy=policy, **RC_KW)
     params = j_init(cfg, rc, jax.random.PRNGKey(0))
     prompts = _prompts(cfg.vocab_size)
@@ -218,7 +219,7 @@ def _serve_both(policy, surgery: bool):
         ref.submit(JRequest(rid=rid, prompt=list(p), max_new=3))
     ref_toks = {r.rid: r.out for r in ref.run()}
 
-    tcfg, trc = t_get_config(DS_ARCH), TRunConfig(quant_policy=policy, **RC_KW)
+    tcfg, trc = t_get_config(arch), TRunConfig(quant_policy=policy, **RC_KW)
     tparams = params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
     if surgery:
         tparams = t_apply_surgery(tcfg, trc, tparams)
@@ -263,3 +264,49 @@ def test_mla_moe_surgered_serving_matches_reference(policy):
     assert port.cycles_by_bits == ref.cycles_by_bits
     assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
     assert port.final_kv_lens == ref.final_kv_lens
+
+
+@pytest.mark.parametrize("surgery,policy,bits", [
+    (False, "mla.*=int8,moe.*=int2:unfused,*=bf16", {8, 2}),
+    (True, "mla.*=int8,moe.*=int2:prequant:unfused,*=bf16", {8}),
+])
+def test_mla_moe_unfused_experts_match_reference(surgery, policy, bits):
+    """The unfused expert route in a serve: the expert GEMMs through the int8
+    GEMM over all experts (dynamic) or the packed int2 GEMM over all experts
+    (prequant, which records no cycles, as the reference's does): greedy
+    tokens and per-request cycles_by_bits identical to the reference's."""
+    ref, ref_toks, port, toks = _serve_both(policy, surgery)
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+    assert toks == ref_toks
+    assert cyc == {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == bits and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+
+
+# ------------------------------------------ qwen2-vl's M-RoPE, llama4's MoE
+QWEN2VL, LLAMA4 = "qwen2-vl-7b_smoke", "llama4-maverick-400b-a17b_smoke"
+ARCH_POLICIES = {QWEN2VL: "attn.*=int8,mlp.*=int2,*=bf16",
+                 LLAMA4: "attn.*=int8,mlp.*=int2,moe.*=int2,*=bf16"}
+
+
+@pytest.mark.parametrize("surgery", [False, True])
+@pytest.mark.parametrize("arch", [QWEN2VL, LLAMA4])
+def test_new_archs_greedy_tokens_and_cycles_match_reference(arch, surgery):
+    """qwen2-vl (the mixed step's (3, B, W) M-RoPE positions, t = h = w) and
+    llama4 (a dense and an MoE layer alternating, top-1 over 4 experts and
+    the shared expert), fused dynamic and after apply_surgery under the
+    policy's prequant form: greedy tokens, per-request cycles_by_bits and
+    final KV lengths identical to the reference's Scheduler."""
+    policy = ARCH_POLICIES[arch]
+    if surgery:
+        policy = ",".join(r if r.endswith("bf16") else r + ":prequant"
+                          for r in policy.split(","))
+    ref, ref_toks, port, toks = _serve_both(policy, surgery, arch)
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+    assert toks == ref_toks
+    assert cyc == {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+    port.mgr.check_invariants()
