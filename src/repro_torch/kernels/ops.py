@@ -14,7 +14,17 @@ kernels' counterparts, then ``tugemm_stats`` and ``unary_step_stats``);
 name, how many calls went down each path; and
 ``counting_dispatches`` lists, under the reference's names, the
 operand-sized passes a GEMM pipeline makes (the fused pipeline's two
-against the unfused one's six or more).
+against the unfused one's six or more). Inside :func:`quiet_records` (the
+recomputation of a rematerialized block, ``models/transformer.py``) the
+path and dispatch records, the stats capture and the debug collector
+record nothing: they hold what the forward recorded once.
+
+No kernel has a backward (the reference's ``pallas_call`` has no
+reverse-mode rule either). On the CUDA path :func:`resolve_path` refuses
+an operand that requires grad while grad is enabled, instead of returning
+an output that silently drops the gradient; the plain versions on the CPU
+are differentiable where the reference's XLA twins are (the dequant scales
+and the bias; rounding cuts the rest).
 
 A GEMM's cycle statistics on the card: ``matmul_fused`` and
 ``matmul_int8(collect_stats=True)`` take the step maxima from the GEMM's own
@@ -57,6 +67,8 @@ __all__ = [
     "kernel_counters",
     "kernel_counters_since",
     "reset_counts",
+    "quiet_records",
+    "recording",
 ]
 
 _COUNTS = (_tugemm.COUNT, _flash.COUNT, _int8.COUNT, _packed.COUNT,
@@ -64,12 +76,30 @@ _COUNTS = (_tugemm.COUNT, _flash.COUNT, _int8.COUNT, _packed.COUNT,
            _stats.FINISH_COUNT, _stats.PAIR_COUNT)
 _paths: Counter = Counter()
 _dispatch_log: list[str] | None = None
+_quiet = 0
+
+
+@contextmanager
+def quiet_records():
+    """Record nothing inside (nestable): no path, dispatch, capture or
+    debug-collector entry."""
+    global _quiet
+    _quiet += 1
+    try:
+        yield
+    finally:
+        _quiet -= 1
+
+
+def recording() -> bool:
+    """False inside :func:`quiet_records`."""
+    return _quiet == 0
 
 
 def count_dispatch(name: str) -> None:
     """Register one operand-sized device pass named ``name`` (only inside
     :func:`counting_dispatches`)."""
-    if _dispatch_log is not None:
+    if _dispatch_log is not None and not _quiet:
         _dispatch_log.append(name)
 
 
@@ -86,16 +116,27 @@ def counting_dispatches():
 
 def record_path(name: str, path: str) -> None:
     """Count one call of ``name`` down ``path`` (cuda | torch)."""
-    _paths[(name, path)] += 1
+    if not _quiet:
+        _paths[(name, path)] += 1
 
 
-def resolve_path(impl: str, t: torch.Tensor) -> str:
-    """The path a call with ``impl`` takes for tensor ``t``."""
+def resolve_path(impl: str, t: torch.Tensor, *operands) -> str:
+    """The path a call with ``impl`` takes for tensor ``t``. A CUDA path
+    raises ``RuntimeError`` while grad is enabled and ``t`` or one of
+    ``operands`` (tensors or None) requires grad: no kernel has a backward."""
     if impl == "auto":
-        return "cuda" if t.device.type == "cuda" else "torch"
-    if impl in ("torch", "cuda"):
-        return impl
-    raise ValueError(f"unknown impl {impl!r}")
+        path = "cuda" if t.device.type == "cuda" else "torch"
+    elif impl in ("torch", "cuda"):
+        path = impl
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    if path == "cuda" and torch.is_grad_enabled() and any(
+            isinstance(o, torch.Tensor) and o.requires_grad for o in (t, *operands)):
+        raise RuntimeError(
+            "a tuGEMM CUDA kernel was called on an operand that requires grad: no TPU "
+            "kernel has a backward, and the launch would drop the gradient. Train under "
+            "a *=bf16 policy on the card, or run the plain versions (impl='torch')")
+    return path
 
 
 def path_counts() -> dict:
@@ -163,7 +204,7 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     K), B (E, K, N)) runs E GEMMs in one launch, and every stats field gets
     a leading (E,) axis, still from one ``tugemm_stats`` launch."""
     count_dispatch("matmul_int8")
-    path = resolve_path(impl, a)
+    path = resolve_path(impl, a, b, c)
     if not collect_stats:
         return _int8.tugemm_int8(a, b, c, impl=path)
     count_dispatch("absmax_a")
@@ -176,7 +217,7 @@ def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") ->
     """tuGEMM data-dependent cycle statistics for A (M, K) @ B (K, N)."""
     count_dispatch("absmax_a")
     count_dispatch("absmax_b")
-    return TuGemmStats(*_stats.unary_step_stats(a, b, impl=resolve_path(impl, a)))
+    return TuGemmStats(*_stats.unary_step_stats(a, b, impl=resolve_path(impl, a, b)))
 
 
 def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
@@ -186,7 +227,7 @@ def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     (``pack_weights``' padding). A leading expert axis (A (E, M, K), B (E,
     Kp, N)) runs E GEMMs in one launch."""
     count_dispatch("matmul_packed")
-    return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a))
+    return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a, packed_b))
 
 
 def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
@@ -196,7 +237,7 @@ def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
     kernel takes the operands cast to int8, as the reference's wrapper does;
     the plain version is a plain GEMM of the operands as given."""
     count_dispatch("temporal_gemm")
-    path = resolve_path(impl, a)
+    path = resolve_path(impl, a, b)
     record_path("temporal_gemm", path)
     if path == "cuda":
         a, b = a.to(torch.int8).contiguous(), b.to(torch.int8).contiguous()
@@ -210,7 +251,7 @@ def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -
     reference does. On the card the call is one launch: the scale goes to
     the kernel as given (a number as its f32 reciprocal, taken on the host)."""
     count_dispatch("quantize_sym")
-    path = resolve_path(impl, x)
+    path = resolve_path(impl, x, scale)
     record_path("quantize_sym", path)
     if path == "cuda":
         x = x.contiguous()
@@ -245,7 +286,7 @@ def matmul_fused(
     sw (E, N), bias (E, N); y (E, M, N) and TuGemmStats fields with a leading
     (E,) axis. It is recorded as one call of ``name``."""
     count_dispatch("matmul_fused")
-    path = resolve_path(impl, x)
+    path = resolve_path(impl, x, w, sx, sw, bias)
     record_path(name, path)
     sx = torch.as_tensor(sx, dtype=torch.float32, device=x.device)
     lead = tuple(x.shape[:-2])

@@ -2,7 +2,8 @@
 (Hymba) stacks over a dense or paged KV cache, and the audio encoder."""
 
 from .attention import KVView
-from .model import init, input_batch
+from .model import active_params, count_params, init, input_batch, loss_fn, model_flops
 from .transformer import forward, init_caches, lm_logits, plan_groups
 
-__all__ = ["KVView", "forward", "init", "init_caches", "input_batch", "lm_logits", "plan_groups"]
+__all__ = ["KVView", "active_params", "count_params", "forward", "init", "init_caches",
+           "input_batch", "lm_logits", "loss_fn", "model_flops", "plan_groups"]

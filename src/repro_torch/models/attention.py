@@ -235,9 +235,12 @@ def gqa_attention(
     step's own K/V — and the output projection."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError("the attention logit softcap is not ported yet "
-                                  "(ROADMAP A11, with blockwise_attention's backward)")
+    if cfg.attn_logit_softcap is not None and cache is not None:
+        # the reference drops the softcap with a cache (its cached branches
+        # never pass it); the port refuses instead of serving other logits
+        # than the no-cache forward computes (ROADMAP C13)
+        raise NotImplementedError("the attention logit softcap with a KV cache is refused "
+                                  "(ROADMAP C13); only the no-cache forward applies it")
     q = dense(p["wq"], x, backend=backend, name="attn.q", impl=impl).reshape(B, S, h, hd)
     k = dense(p["wk"], x, backend=backend, name="attn.k", impl=impl).reshape(B, S, kv, hd)
     v = dense(p["wv"], x, backend=backend, name="attn.v", impl=impl).reshape(B, S, kv, hd)
@@ -252,7 +255,8 @@ def gqa_attention(
         k = apply_rope(k, positions, cfg.rope_theta)
     window = None if is_global else cfg.sliding_window
     if cache is None:
-        out = blockwise_attention(q, k, v, causal=cfg.causal, window=window, chunk=chunk)
+        out = blockwise_attention(q, k, v, causal=cfg.causal, window=window, chunk=chunk,
+                                  softcap=cfg.attn_logit_softcap)
     elif kv_view is not None and kv_view.tables is not None:
         kv_cache_write(cache, ("k", "v"), (k, v), view=kv_view)
         out = paged_decode_attention(

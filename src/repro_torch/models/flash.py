@@ -9,7 +9,12 @@ repeats KV heads chunk by chunk; causal, sliding-window and valid-length
 masks come from position arithmetic; ``q_offset`` / ``kv_len`` are Python
 ints or (B,) tensors, so rows of one step may sit at different positions.
 The reference computes it outside any Pallas kernel, so plain PyTorch is
-its port. Its custom-VJP backward is not ported (no training path yet).
+its port. The no-cache case (``kv_len is None`` and ``q_offset == 0``: the
+training and encoder forward) runs as a ``torch.autograd.Function`` whose
+backward is the reference's chunked-recompute ``_bwd_scan`` (FlashAttention-2):
+it saves only ``q, k, v, out`` and the log-sum-exp, and recomputes each
+chunk's probabilities, so no (Sq, Skv) score tensor outlives its chunk in
+either direction. The logit softcap runs in both directions.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ def _chunk_mask(q_pos, k_pos, valid_len, causal: bool, window):
 
 
 def _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap):
-    """Online softmax over KV chunks; returns (B, Sq, H, hdv) in q.dtype."""
+    """Online softmax over KV chunks; returns (out (B, Sq, H, hdv) in
+    q.dtype, lse (B, H, Sq) f32)."""
     B, Sq, H, _ = q.shape
     Skv, KV, hdv = v.shape[1:]
     n_rep = H // KV
@@ -96,7 +102,66 @@ def _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap):
         acc = acc * alpha[..., None] + torch.einsum("bhqc,bchd->bhqd", p, v_r)
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _bwd_scan(q, k, v, out, lse, g, causal, window, chunk, softcap):
+    """FlashAttention-2 backward: recompute each chunk's probabilities from
+    the saved log-sum-exp; accumulate dq, emit each chunk's dk / dv (GQA:
+    summed over the query heads that share a KV head)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV, hdv = v.shape[1:]
+    n_rep = H // KV
+    scale = 1.0 / (k.shape[-1] ** 0.5)
+    pad = (-Skv) % chunk
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
+    qf = q.to(torch.float32)
+    do = g.to(torch.float32).transpose(1, 2)                      # (B, H, Sq, hdv)
+    delta = (do * out.to(torch.float32).transpose(1, 2)).sum(-1)  # (B, H, Sq)
+    q_pos = torch.arange(Sq, dtype=torch.int64, device=q.device)
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, kp.shape[1], chunk):
+        k_pos = torch.arange(c0, c0 + chunk, dtype=torch.int64, device=q.device)
+        k_r = _repeat_kv(kp[:, c0:c0 + chunk], n_rep).to(torch.float32)   # (B, C, H, hd)
+        v_r = _repeat_kv(vp[:, c0:c0 + chunk], n_rep).to(torch.float32)
+        s = torch.einsum("bqhd,bchd->bhqc", qf * scale, k_r)
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _chunk_mask(q_pos, k_pos, Skv, causal, window)
+        p = torch.where(mask[None, None], torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bhqd,bchd->bhqc", do, v_r)
+        ds = p * (dp - delta[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq = dq + torch.einsum("bhqc,bchd->bqhd", ds, k_r) * scale
+        dk_c = torch.einsum("bhqc,bqhd->bchd", ds, qf) * scale
+        dv_c = torch.einsum("bhqc,bhqd->bchd", p, do)
+        dks.append(dk_c.reshape(B, chunk, KV, n_rep, hd).sum(3))
+        dvs.append(dv_c.reshape(B, chunk, KV, n_rep, hdv).sum(3))
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _TrainableAttention(torch.autograd.Function):
+    """No-cache attention with the chunked-recompute backward (the
+    reference's ``_trainable_attention`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, softcap):
+        out, lse = _fwd_scan(q, k, v, 0, k.shape[1], causal, window, chunk, softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, chunk, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_bwd_scan(q, k, v, out, lse, g, *ctx.opts), None, None, None, None)
 
 
 def _decode_direct(q, k, v, q_offset, valid_len, causal, window, softcap):
@@ -138,11 +203,11 @@ def blockwise_attention(
     Skv = k.shape[1]
     chunk = min(chunk, Skv)
     if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
-        return _fwd_scan(q, k, v, 0, Skv, causal, window, chunk, softcap)
+        return _TrainableAttention.apply(q, k, v, causal, window, chunk, softcap)
     valid_len = Skv if kv_len is None else kv_len
     if q.shape[1] <= 4:
         return _decode_direct(q, k, v, q_offset, valid_len, causal, window, softcap)
-    return _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap)
+    return _fwd_scan(q, k, v, q_offset, valid_len, causal, window, chunk, softcap)[0]
 
 
 def paged_decode_attention(

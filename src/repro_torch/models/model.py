@@ -1,20 +1,28 @@
 """Model entry points: parameter init at the reference's shapes and scales,
-and a forward's batch in the reference's input forms."""
+a forward's batch in the reference's input forms, the training loss
+(``loss_fn``: chunked LM cross-entropy + 0.01 · the MoE aux loss) and the
+parameter and FLOP counts (``count_params``, ``active_params``,
+``model_flops``: 6·N·D with N the active parameters)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..configs.base import ModelConfig, RunConfig
-from .transformer import LayerKind, check_supported, plan_groups, torch_dtype
+from ..configs.base import ModelConfig, RunConfig, ShapeConfig
+from ..kernels import ops
+from .transformer import LayerKind, check_supported, forward, lm_logits, plan_groups, torch_dtype
 
 # the audio frontend stub's frame width (the conv feature extractor's output)
 FRONTEND_DIM = 512
+# the loss's sequence chunk: logits exist for this many columns at a time
+LOSS_CHUNK = 512
 
-__all__ = ["init", "input_batch"]
+__all__ = ["init", "input_batch", "loss_fn", "count_params", "active_params", "model_flops"]
 
 
 def _linear(d_in: int, d_out: int, scale: float = 0.02, bias: bool = False) -> dict:
@@ -204,3 +212,93 @@ def input_batch(cfg: ModelConfig, inputs: torch.Tensor, pos=0) -> dict:
              else (cols + pos).expand(B, S))
         batch["positions"] = torch.stack([p, p, p])
     return batch
+
+
+# --------------------------------------------------------------------- loss
+def _xent_chunk(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Token cross-entropy over one chunk, reduced in f32: (sum of masked
+    NLL, sum of the mask). logits (B, C, V)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def _chunk_nll(cfg, rc, params, h, labels, mask):
+    return _xent_chunk(lm_logits(cfg, rc, params, h), labels, mask)
+
+
+def _quiet_recompute():
+    """A loss chunk's checkpoint contexts: the backward's recompute of a
+    quantized head records no path, dispatch or stats entry a second time."""
+    return contextlib.nullcontext(), ops.quiet_records()
+
+
+def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
+    """Mean token loss + 0.01 · aux, and {"loss", "aux"}: the reference's
+    ``loss_fn``. The logits are computed ``LOSS_CHUNK`` columns at a time
+    when the sequence splits into more than one whole chunk (the
+    reference's scan branch; each chunk is checkpointed, so its logits are
+    recomputed in the backward and one chunk's (B, 512, V) logits exist at
+    a time in either direction), else in one piece. ``batch`` holds the
+    forward's inputs, ``labels`` (B, S) and optionally ``loss_mask``."""
+    h, _, aux = forward(cfg, rc, params, batch)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    S = h.shape[1]
+    chunk = min(LOSS_CHUNK, S)
+    n_chunks = max(1, S // chunk)
+    if S % chunk == 0 and n_chunks > 1:
+        nll = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(n_chunks):
+            cols = slice(c * chunk, (c + 1) * chunk)
+            args = (cfg, rc, params, h[:, cols], labels[:, cols], mask[:, cols])
+            n, m = (checkpoint(_chunk_nll, *args, use_reentrant=False,
+                               context_fn=_quiet_recompute)
+                    if torch.is_grad_enabled() else _chunk_nll(*args))
+            nll, cnt = nll + n, cnt + m
+    else:
+        nll, cnt = _chunk_nll(cfg, rc, params, h, labels, mask)
+    loss = nll / torch.clamp_min(cnt, 1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+
+# --------------------------------------------------------------- accounting
+def _numel(spec) -> int:
+    if isinstance(spec, dict):
+        return sum(_numel(v) for v in spec.values())
+    return math.prod(spec[0])
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Every parameter of ``init``'s tree, counted from the shapes alone."""
+    d = cfg.d_model
+    n = (_numel(_linear(FRONTEND_DIM, d, bias=True)) if cfg.frontend == "audio"
+         else cfg.vocab_size * d)
+    n += sum(g.repeats * sum(_numel(_block_shapes(cfg, k)) for k in g.kinds)
+             for g in plan_groups(cfg))
+    n += d
+    if not cfg.tie_embeddings:
+        n += d * cfg.vocab_size
+    return n
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top-k routed + shared experts)."""
+    total = count_params(cfg)
+    if cfg.num_experts == 0:
+        return total
+    per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+    n_moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    return total - n_moe_layers * (cfg.num_experts - cfg.num_experts_per_tok) * per_expert
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6·N·D for training (2·N·D otherwise) with N the active parameters and
+    D the step's tokens (decode: one a sequence)."""
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    return (6.0 if shape.kind == "train" else 2.0) * active_params(cfg) * tokens

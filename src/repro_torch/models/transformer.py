@@ -11,7 +11,10 @@ across by a plain tree map. Where the reference scans a group with
 ``lax.scan`` (and rematerializes blocks with ``jax.checkpoint``), the port
 runs a Python loop over the stacked weights and updates the KV caches in
 place; the SSM state comes back as new stacked leaves, as the reference
-returns it.
+returns it. With grad on and no caches, ``rc.remat`` wraps each block in
+``torch.utils.checkpoint``: ``full`` saves nothing inside it, ``block``
+saves the linear layers' matmul outputs (selective checkpointing), and the
+recompute records no path, dispatch or stats entry a second time.
 
 Block layouts (pre-norm, residual):
 
@@ -26,13 +29,16 @@ The KV cache is the dense per-slot layout or the paged pool
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
+from ..kernels import ops
 from ..quant.policy import QuantPolicy, effective_policy
 from ..quant.qlinear import dense
 from ..quant.surgery import _check_stack_consistency, gemm_name_targets
@@ -104,12 +110,13 @@ def plan_groups(cfg: ModelConfig) -> tuple[Group, ...]:
     return tuple(groups)
 
 
-def check_supported(cfg: ModelConfig, rc: RunConfig) -> None:
-    """Raise for what the port does not serve yet: the attention logit
-    softcap (no assigned arch uses it), and an unknown KV layout."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(f"{cfg.name}: the attention logit softcap is not ported yet "
-                                  "(ROADMAP A11)")
+def check_supported(cfg: ModelConfig, rc: RunConfig, *, caches: bool = False) -> None:
+    """Raise for what the port does not run: the attention logit softcap
+    with a KV cache (the reference drops it there; the port refuses, ROADMAP
+    C13; the no-cache forward applies it), and an unknown KV layout."""
+    if caches and cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(f"{cfg.name}: the attention logit softcap with a KV cache "
+                                  "is refused (ROADMAP C13)")
     if rc.kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {rc.kv_layout!r}")
 
@@ -160,7 +167,7 @@ def init_caches(cfg: ModelConfig, rc: RunConfig, batch: int, capacity: int, *,
     SSM and hybrid blocks add their state per slot in either layout: ``h``
     (layers, batch, d_inner, ssm_state) and ``conv`` (layers, batch,
     ssm_conv-1, d_inner), both f32."""
-    check_supported(cfg, rc)
+    check_supported(cfg, rc, caches=True)
     device = resolve_device(device)
     kv_dtype = torch.int8 if rc.kv_cache_dtype == "int8" else torch_dtype(rc.dtype)
     if rc.kv_layout == "paged":
@@ -184,6 +191,46 @@ def init_caches(cfg: ModelConfig, rc: RunConfig, batch: int, capacity: int, *,
     return tuple(out)
 
 
+# -------------------------------------------------------------------- remat
+# the reference's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+# the 2-D products (every linear layer: a (tokens, K) x (K, N) matmul
+# lowers to ``mm`` / ``addmm``); attention's batched einsums (``bmm``) and
+# everything elementwise are recomputed
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _quiet(ctx):
+    """``ctx`` with the path, dispatch and stats records off: the recompute
+    repeats calls the forward recorded."""
+    with ctx, ops.quiet_records():
+        yield
+
+
+def _remat_contexts(remat: str):
+    """torch.utils.checkpoint's (forward, recompute) contexts for ``remat``:
+    ``full`` saves nothing inside the block, ``block`` saves the 2-D
+    matmul outputs (selective checkpointing)."""
+    if remat == "full":
+        return contextlib.nullcontext(), _quiet(contextlib.nullcontext())
+    fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+    return fwd, _quiet(rec)
+
+
+def _block(rc: RunConfig, remat: bool, **kw):
+    """One ``_apply_block``, rematerialized per ``rc.remat`` when ``remat``."""
+    if not remat or rc.remat == "none":
+        return _apply_block(**kw)
+    if rc.remat not in ("block", "full"):
+        raise ValueError(f"unknown remat {rc.remat!r}")
+    return checkpoint(functools.partial(_apply_block, **kw), use_reentrant=False,
+                      context_fn=functools.partial(_remat_contexts, rc.remat))
+
+
 # ------------------------------------------------------------------ forward
 def _select(tree, i: int):
     """Layer ``i`` of a stacked tree (views: in-place writes land in the
@@ -194,7 +241,7 @@ def _select(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
-def _apply_block(cfg, kind, p, x, positions, *, backend, cache, cache_pos, kv_view, chunk,
+def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_view, chunk,
                  want_state, impl):
     """One block: returns (x, the block's new SSM state or None, its aux
     loss or None). An SSM step of one token with a state decodes from it;
@@ -274,6 +321,8 @@ def forward(
         else:
             positions = (cols + (cache_pos or 0)).expand(B, S)
     want_state = caches is not None
+    # remat (rc.remat) only where a backward will run: grad on, no caches
+    remat = torch.is_grad_enabled() and caches is None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for gi, g in enumerate(plan_groups(cfg)):
@@ -284,10 +333,11 @@ def forward(
             p_i = _select(gp, i)
             c_i = _select(gc, i) if gc is not None else None
             for j, kind in enumerate(g.kinds):
-                x, st, aux = _apply_block(
-                    cfg, kind, p_i[f"k{j}"], x, positions, backend=backend,
-                    cache=c_i[f"k{j}"] if c_i is not None else None, cache_pos=cache_pos,
-                    kv_view=kv_view, chunk=rc.attn_chunk, want_state=want_state, impl=impl)
+                x, st, aux = _block(
+                    rc, remat, cfg=cfg, kind=kind, p=p_i[f"k{j}"], x=x, positions=positions,
+                    backend=backend, cache=c_i[f"k{j}"] if c_i is not None else None,
+                    cache_pos=cache_pos, kv_view=kv_view, chunk=rc.attn_chunk,
+                    want_state=want_state, impl=impl)
                 if st is not None:
                     states[f"k{j}"].append(st)
                 if aux is not None:

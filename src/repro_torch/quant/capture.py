@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..core.tugemm import TuGemmStats
+from ..kernels.ops import recording
 
 __all__ = [
     "CapturedGemm",
@@ -71,15 +72,16 @@ def stats_wanted() -> bool:
 
 
 def push(name: str, M: int, K: int, N: int, stats: TuGemmStats, bits: int = 8) -> None:
-    """Record one GEMM in the innermost capture (no-op when not capturing)."""
-    if _ACTIVE:
+    """Record one GEMM in the innermost capture (no-op when not capturing
+    or inside ``ops.quiet_records``)."""
+    if _ACTIVE and recording():
         _ACTIVE[-1].entries.append(CapturedGemm(name, int(M), int(K), int(N), stats, int(bits)))
 
 
 def push_scalar(name: str, value: torch.Tensor) -> None:
     """Record one named scalar in the innermost capture (no-op when not
-    capturing)."""
-    if _ACTIVE:
+    capturing or inside ``ops.quiet_records``)."""
+    if _ACTIVE and recording():
         _ACTIVE[-1].scalars.append(CapturedScalar(name, value))
 
 

@@ -33,6 +33,7 @@ __all__ = [
     "QuantPolicy",
     "ResolvedPolicy",
     "effective_policy",
+    "load_policy",
 ]
 
 KIND_BITS = {"bf16": 16, "int8": 8, "int4": 4, "int2": 2}
@@ -341,6 +342,20 @@ _LEGACY_MSG = (
     "declarative RunConfig.quant_policy (QuantPolicy / 'attn.*=int8,*=bf16' "
     "grammar) instead — the legacy knobs are lowered to a one-rule policy."
 )
+
+
+def load_policy(text: str | None) -> QuantPolicy | None:
+    """CLI ``--policy`` value -> QuantPolicy: grammar string, inline JSON, or
+    a policy file (``@path``, or any value ending in ``.json``)."""
+    if text is None:
+        return None
+    if text.startswith("@"):
+        with open(text[1:]) as f:
+            text = f.read()
+    elif text.endswith(".json"):
+        with open(text) as f:
+            text = f.read()
+    return QuantPolicy.parse(text)
 
 
 def effective_policy(rc) -> QuantPolicy:

@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..core.latency import MaxValueProfile
+from ..kernels.ops import recording
 
 __all__ = ["GemmRecord", "StatsCollector", "collecting", "active_collector", "record_stats"]
 
@@ -72,8 +73,9 @@ def collecting(bitwidth: int = 8):
 
 def record_stats(name: str, M: int, N: int, P: int, max_abs, serial_cycles,
                  parallel_cycles, bits: int = 8) -> None:
-    """Append one GEMM's record to the active collector (no-op without one)."""
-    if _collector is not None:
+    """Append one GEMM's record to the active collector (no-op without one,
+    or inside ``ops.quiet_records``)."""
+    if _collector is not None and recording():
         _collector.records.append(GemmRecord(
             name, int(M), int(N), int(P), int(max_abs), int(serial_cycles),
             int(parallel_cycles), int(bits)))
