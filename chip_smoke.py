@@ -139,6 +139,27 @@ Phases, each printing one JSON line:
    dense and an MoE layer of 128 experts top-1 with the shared expert,
    ~37 GB; ``step_parity_llama4``, then the serves fused dynamic and with
    packed int2 experts). Each prints its seconds and peak memory.
+9e. the serving CLI, the last three dense archs and static scales, each
+   model drawn on the card after the previous one is freed, each phase
+   printing the bytes allocated as it starts: ``check_dense_widths``
+   (``tugemm_fused`` bit for bit at every distinct layer width of
+   qwen3-8b, qwen3-14b and smollm-360m at M = 64 and 4, int8 and int2
+   quantized on load and packed int2, plus static scales at half the
+   operand's absmax, whose codes clip; ``flash_paged_decode`` at
+   smollm's group 3 with head_dim 64, qwen3-14b's group 5 and qwen3-8b's
+   group 4, Sq 1 and 16, int8 pools, within ``ATTN_TOL``);
+   ``serve_cli_qwen3_8b`` and ``serve_cli_smollm``
+   (``repro_torch.launch.serve.main`` in-process at full width with
+   ``CLI_ARGS``: every request done with nonzero ``cycles_by_bits``, only
+   the fused kernels launching); ``serve_qwen3_14b`` (40 layers, ~29.5 GB:
+   ``step_parity_qwen3_14b``, then the serve under ``PREQUANT_POLICY``
+   after ``apply_surgery``); ``calibrate_static`` (smollm-360m under
+   ``*=int8``: a calibration forward, then ``static_scales`` and
+   ``collecting()`` through the kernels and the plain versions: layer 0's
+   every record identical, layer 0's q/k/v named first, the expected max
+   within ``CALIB_EMAX_TOL``)
+   and ``edge_deployment`` (``repro_torch.edge_deployment.main`` on the
+   card).
 10. device_time — the device time and device launches of each fused GEMM,
    int8 GEMM, attention and temporal-GEMM case checked above, of the
    unfused path's M=64 packed-GEMM and absmax cases, of the stats routes
@@ -639,10 +660,7 @@ def _attn_bytes_ops(args, kv, bs, window=None):
 
 
 def check_attention(torch, flush):
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_paged import (ROW_TILE, flash_paged_decode, flash_paged_ref,
-                                                 gather_pages, split_plan)
+    from repro_torch.kernels.flash_paged import split_plan
 
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -689,65 +707,78 @@ def check_attention(torch, flush):
         # one page of 16, f32 pools and f32 q (the f32 model dtype)
         ("gqa_quickstart_f32", dict(gqa, MB=1), [(0, 16), (0, 16)], 16, f32, f32, None),
     ]
-    records = []
-    for name, shape, rows, sq, kvt, qt, window in cases:
-        shape = dict(shape)
-        args = _attn_case(torch, gen, rows=rows, sq=sq, kv_dtype=kvt, q_dtype=qt, **shape)
-        kw = dict(kv_heads=shape["kv"], causal=True, window=window)
-        got = flash_paged_decode(*args, impl="cuda", **kw)
-        want = flash_paged_ref(*args, **kw)
-        torch.cuda.synchronize()
-        atol, rtol = ATTN_TOL["float32" if qt == f32 else "bfloat16"]
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= atol + rtol * want.float().abs()).all())
-        idle = [b for b, (_, l) in enumerate(rows) if l == 0]
-        zeros = all(bool((got[b] == 0).all()) for b in idle)
-        # library yardstick: SDPA over the gathered, dequantized pages
-        q, kparts, kscales, v, vs, tables, pos, kv_len = args
-        B, _, H, hd = q.shape
-        Lk = tables.shape[1] * shape["bs"]
-        kg = torch.cat([gather_pages(p, s, tables).reshape(B, Lk, shape["kv"], -1)
-                        for p, s in zip(kparts, kscales)], -1)
-        vg = gather_pages(v, vs, tables).reshape(B, Lk, shape["kv"], -1)
-        rep = H // shape["kv"]
-        kq = kg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-        vq = vg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-        qq = q.permute(0, 2, 1, 3)
-        kpos = torch.arange(Lk, device=dev)
-        qpos = pos.long()[:, None] + torch.arange(sq, device=dev)
-        mask = (kpos[None, None, :] < kv_len.long()[:, None, None]) & (
-            kpos[None, None, :] <= qpos[:, :, None])
-        if window is not None:
-            mask = mask & (qpos[:, :, None] - kpos[None, None, :] < window)
-        mask = mask[:, None]
-        call = lambda args=args, kw=kw: flash_paged_decode(*args, impl="cuda", **kw)
-        lib_call = lambda qq=qq, kq=kq, vq=vq, mask=mask: F.scaled_dot_product_attention(
-            qq, kq, vq, attn_mask=mask)
-        ms = median_ms(torch, call, flush=flush)
-        plain = median_ms(torch, lambda: flash_paged_ref(*args, **kw), flush=flush)
-        lib = median_ms(torch, lib_call, flush=flush)
-        byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"], window)
-        rows_head = rep * sq
-        splits, per = split_plan(B, shape["kv"], rows_head, tables.shape[1], sms)
-        bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-        rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
-                   kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
-                   pages=tables.shape[1], kv_len=kv_len.tolist(),
-                   kv_dtype=str(kvt).split(".")[-1], q_dtype=str(qt).split(".")[-1],
-                   window=window, splits=splits, pages_per_split=per,
-                   blocks=B * shape["kv"] * -(-rows_head // ROW_TILE) * splits,
-                   within_tol=ok, idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol],
-                   ms=ms, plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
-                   bound_ms=bound,
-                   bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-                   else "operations")
-        emit({"phase": "check", **rec})
-        if not (ok and zeros):
-            raise AssertionError(f"flash_paged_decode disagrees with its plain version: {rec}")
-        records.append(rec)
-        DEVICE_TIMED.append((rec, call, lib_call))
-    return records
+    return [attn_check(torch, gen, sms, flush, *case) for case in cases]
+
+
+def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, phase="check"):
+    """One ``flash_paged_decode`` case: random pools for ``rows`` ((pos,
+    lens) each) at ``shape``, the kernel against its plain version within
+    ``ATTN_TOL`` (idle rows exact zeros), timed with its plain version and
+    SDPA over the gathered pages; emitted under ``phase``, appended to
+    DEVICE_TIMED and returned."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_paged import (ROW_TILE, flash_paged_decode, flash_paged_ref,
+                                                 gather_pages, split_plan)
+
+    dev = torch.device(DEVICE)
+    f32 = torch.float32
+    shape = dict(shape)
+    args = _attn_case(torch, gen, rows=rows, sq=sq, kv_dtype=kvt, q_dtype=qt, **shape)
+    kw = dict(kv_heads=shape["kv"], causal=True, window=window)
+    got = flash_paged_decode(*args, impl="cuda", **kw)
+    want = flash_paged_ref(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL["float32" if qt == f32 else "bfloat16"]
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    idle = [b for b, (_, l) in enumerate(rows) if l == 0]
+    zeros = all(bool((got[b] == 0).all()) for b in idle)
+    # library yardstick: SDPA over the gathered, dequantized pages
+    q, kparts, kscales, v, vs, tables, pos, kv_len = args
+    B, _, H, hd = q.shape
+    Lk = tables.shape[1] * shape["bs"]
+    kg = torch.cat([gather_pages(p, s, tables).reshape(B, Lk, shape["kv"], -1)
+                    for p, s in zip(kparts, kscales)], -1)
+    vg = gather_pages(v, vs, tables).reshape(B, Lk, shape["kv"], -1)
+    rep = H // shape["kv"]
+    kq = kg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    vq = vg.to(qt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qq = q.permute(0, 2, 1, 3)
+    kpos = torch.arange(Lk, device=dev)
+    qpos = pos.long()[:, None] + torch.arange(sq, device=dev)
+    mask = (kpos[None, None, :] < kv_len.long()[:, None, None]) & (
+        kpos[None, None, :] <= qpos[:, :, None])
+    if window is not None:
+        mask = mask & (qpos[:, :, None] - kpos[None, None, :] < window)
+    mask = mask[:, None]
+    call = lambda args=args, kw=kw: flash_paged_decode(*args, impl="cuda", **kw)
+    lib_call = lambda qq=qq, kq=kq, vq=vq, mask=mask: F.scaled_dot_product_attention(
+        qq, kq, vq, attn_mask=mask)
+    ms = median_ms(torch, call, flush=flush)
+    plain = median_ms(torch, lambda: flash_paged_ref(*args, **kw), flush=flush)
+    lib = median_ms(torch, lib_call, flush=flush)
+    byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"], window)
+    rows_head = rep * sq
+    splits, per = split_plan(B, shape["kv"], rows_head, tables.shape[1], sms)
+    bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
+               kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
+               pages=tables.shape[1], kv_len=kv_len.tolist(),
+               kv_dtype=str(kvt).split(".")[-1], q_dtype=str(qt).split(".")[-1],
+               window=window, splits=splits, pages_per_split=per,
+               blocks=B * shape["kv"] * -(-rows_head // ROW_TILE) * splits,
+               within_tol=ok, idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol],
+               ms=ms, plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
+               bound_ms=bound,
+               bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+               else "operations")
+    emit({"phase": phase, **rec})
+    if not (ok and zeros):
+        raise AssertionError(f"flash_paged_decode disagrees with its plain version: {rec}")
+    DEVICE_TIMED.append((rec, call, lib_call))
+    return rec
 
 
 def _bound(byts: int, ops: int) -> dict:
@@ -2674,6 +2705,340 @@ def serve_llama4(torch) -> dict:
     return out
 
 
+# ------------------------- the serving CLI, the last dense archs, static scales
+DENSE_ARCHS = ("qwen3-8b", "qwen3-14b", "smollm-360m")
+# the CLI phases: launch.serve.main in-process at full width, paged int8 KV
+# under POLICY with prefix caching and per-request energy, 8 requests of 64
+# prompt tokens and 16 new tokens
+CLI_PHASES = (("serve_cli_qwen3_8b", "qwen3-8b"), ("serve_cli_smollm", "smollm-360m"))
+CLI_ARGS = ["--kv-layout", "paged", "--kv-dtype", "int8", "--policy", POLICY,
+            "--prefix-cache", "--energy", "--requests", "8", "--prompt-len", "64",
+            "--max-new", "16"]
+QWEN14_ARCH = "qwen3-14b"
+CALIB_ARCH, CALIB_POLICY = "smollm-360m", "*=int8"
+# the static-scale profile's expected max |q| (on the 0..127 code scale),
+# kernels against plain versions: both run the same registry, the fused GEMM
+# holds its plain version bit for bit and the no-cache attention is plain on
+# both sides, so every record and the expected max agree exactly
+CALIB_EMAX_TOL = 0.0
+
+
+def dense_widths(cfg) -> list:
+    """(name, K, N, bits) of one layer's distinct GEMM widths under POLICY
+    (q and o share a shape where heads · head_dim = d_model)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    seen, out = set(), []
+    for g in (("attn.q", d, q, 8), ("attn.k/v", d, kv, 8), ("attn.o", q, d, 8),
+              ("mlp.gate/up", d, cfg.d_ff, 2), ("mlp.down", cfg.d_ff, d, 2)):
+        if g[1:] not in seen:
+            seen.add(g[1:])
+            out.append(g)
+    return out
+
+
+def check_dense_widths(torch, flush):
+    """``tugemm_fused`` and ``flash_paged_decode`` at the three dense archs'
+    shapes. The GEMM: every distinct width of one layer of each arch at
+    M = 64 and 4, at the bits POLICY gives it, quantized on load (int8 and
+    int2) and from packed int2 planes, plus static scales set to half the
+    operand's absmax (``reg / hi`` as the static branch takes it, so codes
+    past half the range clip): int8 on the q width at M = 64, packed int2
+    on the gate/up width at M = 4. Each bit for bit against its plain
+    version, outputs and stats; ``torch._int_mm`` on the int8 operands as the
+    library where cuBLASLt takes the shape. Attention: smollm-360m's 15 q
+    heads over 5 kv heads (group 3, head_dim 64), qwen3-14b's group 5 and
+    qwen3-8b's group 4 at head_dim 128, on int8 pools, against the plain
+    version within ``ATTN_TOL``, SDPA as the library. Returns (GEMM records,
+    attention records)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.quant.quantize import act_scale, fused_scales, weight_scale
+    from repro_torch.quant.surgery import _prequant_leaf
+
+    dev = torch.device(DEVICE)
+    bf16, i8 = torch.bfloat16, torch.int8
+    gemms = []
+    for i, arch in enumerate(DENSE_ARCHS):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(20 + i)
+
+        def run(case, *args, **extra):
+            gemms.append(fused_case(torch, "check_dense_widths", f"{arch} {case}", *args,
+                                    flush, model=arch, **extra))
+
+        widths = dense_widths(cfg)
+        for M in (64, 4):
+            for name, K, N, bits in widths:
+                x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+                wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
+                sx, sw = fused_scales(x, wf, bits)
+                lib = lib_int_mm(torch, *int8_operands(torch, x, wf, sx, sw, bits))
+                run(f"{name} dynamic", x, wf, sx, sw, bits, False, lib)
+                if bits < 8:
+                    leaf = _prequant_leaf(wf, bits)
+                    run(f"{name} packed", x, leaf["qkernel"], act_scale(x, bits),
+                        leaf["qscale"], bits, True, lib)
+        for (name, K, N, bits), M, packed in ((widths[0], 64, False), (widths[-2], 4, True)):
+            x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+            wf = (torch.randn(K, N, device=dev, generator=gen) * 0.02).to(bf16)
+            hi = 2 ** (bits - 1) - 1
+            reg = float(x.abs().amax()) / 2
+            sx = torch.tensor(reg / hi, dtype=torch.float32, device=dev)
+            clipped = float(((x.float() / sx).round().abs() > hi).float().mean())
+            sw = weight_scale(wf, bits)
+            lib = lib_int_mm(torch, *int8_operands(torch, x, wf, sx, sw, bits))
+            w = wf
+            if packed:
+                leaf = _prequant_leaf(wf, bits)
+                w, sw = leaf["qkernel"], leaf["qscale"]
+            run(f"{name} static {'packed' if packed else 'quant'}", x, w, sx, sw, bits, packed,
+                lib, static=True, clipped_share=clipped)
+            if clipped <= 0:
+                raise AssertionError(f"the static scale clipped no code: {gemms[-1]}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(23)
+    smol = dict(kv=5, group=3, part_dims=(64,), hdv=64, bs=16, MB=128)
+    q14 = dict(kv=8, group=5, part_dims=(128,), hdv=128, bs=16, MB=128)
+    q8 = dict(q14, group=4)
+    dec = [(2047, 1), (1000, 1), (0, 0), (16, 1)]
+    pre = [(2032, 16), (500, 16), (0, 0), (0, 16)]
+    # the CLI serve's own pool: capacity 128 in pages of 16, 64-token prompts
+    cli = [(48, 16), (79, 1), (0, 0), (64, 1)]
+    cases = [("smollm_decode_int8", smol, dec, 1), ("smollm_step16_int8", smol, pre, 16),
+             ("smollm_cli_step16_int8", dict(smol, MB=8), cli, 16),
+             ("qwen3_14b_decode_int8", q14, dec, 1), ("qwen3_14b_step16_int8", q14, pre, 16),
+             ("qwen3_8b_decode_int8", q8, dec, 1)]
+    attn = [attn_check(torch, gen, sms, flush, name, shape, rows, sq, i8, bf16, None,
+                       phase="check_dense_widths") for name, shape, rows, sq in cases]
+    return gemms, attn
+
+
+def serve_cli(torch, phase: str, arch: str):
+    """``repro_torch.launch.serve.main`` in-process with ``CLI_ARGS`` on
+    ``arch`` at full width (bf16 weights drawn on the card by the CLI): the
+    counts zeroed just before ``main`` and read just after; every request
+    done with 16 in-vocabulary tokens and nonzero ``cycles_by_bits`` at 8
+    and 2 bits, only the fused GEMM, its stats assembly and attention
+    launching, every call site on the cuda route. The CLI prints its own
+    tokens/s and health lines. Returns ((ticks, counts), record)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+
+    t_phase = _phase_start(torch, phase)["t0"]
+    made = []
+    base = cli.Scheduler
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    cli.Scheduler = Recorded
+    try:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        done = cli.main(["--arch", arch, *CLI_ARGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, paths = ops.kernel_counts(), ops.path_counts()
+    finally:
+        cli.Scheduler = base
+    sched = made[0]
+    gen = sum(len(r.out) for r in done)
+    energy = sched.energy_summary()
+    h = sched.health()
+    rec = {"phase": phase, "arch": arch, "argv": CLI_ARGS, "layers": sched.cfg.num_layers,
+           "requests": len(done), "generated_tokens": gen, "wall_s_with_init": wall,
+           "serve_s": sum(sched.tick_seconds), "tokens_per_s": gen / sum(sched.tick_seconds),
+           "ticks": sched.ticks, "median_tick_ms": statistics.median(sched.tick_seconds) * 1e3,
+           "cycles_by_bits": {str(b): v for b, v in sorted(sched.cycles_by_bits.items())},
+           "request_cycles_by_bits": [{str(b): v for b, v in sorted(e["cycles_by_bits"].items())}
+                                      for e in energy],
+           "health": {k: h[k] for k in ("completed", "rejections", "preemptions",
+                                        "deadline_misses", "stall_episodes", "engine_stalls")},
+           "ladder": h["ladder"]["name"], "prefix_cache": h["prefix_cache"],
+           "kernel_counts": counts, "paths": paths,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if len(done) != 8 or any(len(r.out) != 16 or not all(0 <= t < sched.cfg.vocab_size
+                                                          for t in r.out) for r in done):
+        raise AssertionError(f"{phase}: not every request finished with 16 tokens")
+    if len(energy) != 8 or any(set(e["cycles_by_bits"]) != {8, 2}
+                               or min(e["cycles_by_bits"].values()) <= 0 for e in energy):
+        raise AssertionError(f"{phase}: a request without cycles at 8 and 2 bits: {energy}")
+    _only_fused_on_cuda(phase, counts, paths)
+    out = (types.SimpleNamespace(ticks=sched.ticks), counts)
+    del made, sched, done
+    free_device_memory(torch)
+    return out, rec
+
+
+def serve_qwen3_14b(torch) -> dict:
+    """qwen3-14b at full width (40 layers, d_model 5120, 40 / 8 heads of 128,
+    d_ff 17408; ~14.8 B bf16 parameters drawn on the card): the mixed step
+    under PREQUANT_POLICY on the float weights (a prequant rule on a float
+    leaf quantizes on load, bit-exact with the packed leaf) through
+    ``step_parity_moe``'s gated parts, then ``apply_surgery`` (the float MLP
+    weights are dropped for their int2 planes) and the serve phase's 8
+    requests, gated as the qwen3-0.6b serve. Returns {phase: (ticks, counts)}."""
+    from repro_torch.configs.base import RunConfig, get_config
+
+    t_phase = _phase_start(torch, "serve_qwen3_14b")["t0"]
+    cfg = get_config(QWEN14_ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=PREQUANT_POLICY,
+                   kv_cache_dtype="int8", kv_layout="paged", block_size=16, prefill_chunk=16)
+    params = _init_on_card(torch, cfg, rc, "init_qwen3_14b")
+    step_parity_moe(torch, cfg, rc, params, "step_parity_qwen3_14b")
+    rc_pq, params_pq = surgered(cfg, rc, params, PREQUANT_POLICY)
+    del params
+    free_device_memory(torch)
+    out = {}
+    out["serve_qwen3_14b"], _ = _serve_gated(torch, "serve_qwen3_14b", cfg, rc_pq, params_pq,
+                                             {8, 2}, t_phase)
+    del params_pq
+    free_device_memory(torch)
+    return out
+
+
+def _first_records(col, names) -> dict:
+    """{name: the collector's first record of that GEMM name} (layer 0's)."""
+    return {n: next(r for r in col.records if r.name == n) for n in names}
+
+
+def calibrate_static(torch) -> dict:
+    """Static-scale calibration on smollm-360m at full width under
+    ``CALIB_POLICY``: one calibration forward (4 x 64 tokens) through the
+    kernels builds the registry; then ``static_scales`` with ``collecting()``
+    on a second batch through the kernels and through the plain versions,
+    the same registry: every record identical (layer 0's q/k/v and the
+    first differing record named on failure), the profile's expected max
+    within ``CALIB_EMAX_TOL``, the kernels' run launching the
+    fused GEMM and its stats assembly only (the no-cache forward attends
+    through plain ``blockwise_attention``). Prints the GEMMs at the top code
+    and the names whose evaluation absmax passed the calibrated one (their
+    codes clip). Then ``edge_deployment.main()`` on the card. Returns the
+    phase's record with the edge study's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import edge_deployment
+    from repro_torch.configs.base import RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, input_batch
+    from repro_torch.quant.calibration import calibrating, static_scales
+    from repro_torch.quant.stats import collecting
+
+    t_phase = _phase_start(torch, "calibrate_static")["t0"]
+    cfg = get_config(CALIB_ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", quant_policy=CALIB_POLICY)
+    rc_s = dataclasses.replace(rc, quant_policy=CALIB_POLICY + ":stats")
+    params = _init_on_card(torch, cfg, rc, "init_calibrate")
+
+    def batch(seed):
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 64))
+        return input_batch(cfg, torch.from_numpy(toks).to(DEVICE))
+
+    with torch.no_grad():
+        with calibrating() as reg:
+            forward(cfg, rc, params, batch(13), impl="cuda")
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        with calibrating() as seen, static_scales(reg), collecting() as col_k:
+            h_k, _, _ = forward(cfg, rc_s, params, batch(14), impl="cuda")
+        torch.cuda.synchronize()
+        counts = ops.kernel_counts()
+        with static_scales(reg), collecting() as col_t:
+            h_t, _, _ = forward(cfg, rc_s, params, batch(14), impl="torch")
+    names = ("attn.q", "attn.k", "attn.v")
+    first_k, first_t = _first_records(col_k, names), _first_records(col_t, names)
+    e_k, e_t = col_k.profile().expected_max(), col_t.profile().expected_max()
+    hk, ht = h_k.float(), h_t.float()
+    rec = {"phase": "calibrate_static", "arch": cfg.name, "layers": cfg.num_layers,
+           "policy": CALIB_POLICY, "registry": dict(reg), "gemms": len(col_k.records),
+           "layer0_records": {n: dataclasses.asdict(r) for n, r in first_k.items()},
+           "layer0_identical": all(first_k[n] == first_t[n] for n in names),
+           "records_identical": col_k.records == col_t.records,
+           "first_differing_record": next(
+               (dataclasses.asdict(a) | {"plain": dataclasses.asdict(b)}
+                for a, b in zip(col_k.records, col_t.records) if a != b), None),
+           "expected_max": e_k, "expected_max_plain": e_t, "tol_expected_max": CALIB_EMAX_TOL,
+           # a negative code clips to -128, so a clipped GEMM's max |q| is 127 or 128
+           "gemms_at_top_code": sum(r.max_abs >= 127 for r in col_k.records),
+           "gemms_below_top_code": sum(r.max_abs < 127 for r in col_k.records),
+           "names_beyond_registry": sorted(n for n in seen if seen[n] > reg[n]),
+           "hidden_rel_l2": ((hk - ht).norm() / ht.norm()).item(),
+           "finite": bool(hk.isfinite().all()), "kernel_counts": counts}
+    emit(rec)
+    print(f"[calibrate_static] {rec['gemms_at_top_code']} of {rec['gemms']} GEMMs at the top "
+          f"code (clipped or exactly at it); names whose evaluation absmax passed the "
+          f"calibrated one: {rec['names_beyond_registry']}", flush=True)
+    ran = {k for k, c in counts.items() if c["launches"] > 0}
+    if not (rec["layer0_identical"] and rec["records_identical"]
+            and len(col_t.records) == rec["gemms"] and abs(e_k - e_t) <= CALIB_EMAX_TOL
+            and rec["finite"] and rec["gemms"] == 7 * cfg.num_layers
+            and rec["gemms_below_top_code"] > 0):
+        raise AssertionError(f"calibrate_static: kernels and plain versions disagree: {rec}")
+    if ran != ENGINE_KERNELS or any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"calibrate_static did not run only the fused GEMM and its "
+                             f"stats: {counts}")
+    del params, h_k, h_t, hk, ht
+    free_device_memory(torch)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    edge = edge_deployment.main()
+    torch.cuda.synchronize()
+    counts_e = ops.kernel_counts()
+    rec_e = {"phase": "edge_deployment",
+             "cosine": {str(b): c for b, c in edge["cosine"].items()},
+             "expected_max": {str(b): p.profile().expected_max()
+                              for b, p in edge["profiles"].items()},
+             "kernel_counts": counts_e, "seconds": time.perf_counter() - t0,
+             "calibrate_seconds": t0 - t_phase}
+    emit(rec_e)
+    if counts_e["tugemm_fused"]["launches"] <= 0 or any(
+            c["plain_calls"] for c in counts_e.values()):
+        raise AssertionError(f"edge_deployment did not run on the kernels: {counts_e}")
+    return {**rec, "edge": rec_e}
+
+
+def dense_arch_phases(torch):
+    """The group of the CLI / dense-archs / static-scale slice:
+    ``check_dense_widths``, the two CLI serves, qwen3-14b's step parity and
+    serve, ``calibrate_static`` and the edge study. Returns (GEMM records,
+    attention records, {phase: (ticks, counts)}, calibrate record)."""
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
+    gemms, attn = check_dense_widths(torch, flush)
+    del flush
+    serves = {}
+    for phase, arch in CLI_PHASES:
+        serves[phase], _ = serve_cli(torch, phase, arch)
+    serves.update(serve_qwen3_14b(torch))
+    calib = calibrate_static(torch)
+    return gemms, attn, serves, calib
+
+
+def dense_entry(gemms: list) -> dict:
+    """The kernels line's numbers of ``tugemm_fused`` at the dense archs'
+    widths: one layer of each arch (its distinct widths, at the bits POLICY
+    gives them) at M = 64 and 4, quantized on load (``dynamic``) and its
+    int2 widths from packed planes (``packed``)."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        for M in (64, 4):
+            for mode in ("dynamic", "packed"):
+                rows = [r for r in gemms if r["model"] == arch and r["M"] == M
+                        and r["case"].endswith(f" {mode}") and not r.get("static")]
+                libs = [r["library_ms"] for r in rows]
+                out[f"{arch} M={M} {mode}"] = {
+                    "gemms": len(rows), "ms": sum(r["ms"] for r in rows),
+                    "plain_ms": sum(r["plain_ms"] for r in rows),
+                    "bound_ms": sum(r["bound_ms"] for r in rows),
+                    "library_ms": None if None in libs else sum(libs), **device_entry(rows)}
+    return out
+
+
 def free_device_memory(torch) -> None:
     """Collect the reference cycles a Scheduler or Engine leaves (its
     registry's gauges close over it), so the weights they held go now."""
@@ -2950,10 +3315,10 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 TRAIN_CKPT = os.path.join(HERE, "build", "train_ckpt")
 
 
-def _train_start(torch, phase: str) -> dict:
-    """A training phase's record: the bytes allocated on the card as it
-    starts (also printed at once, on a line of its own), its peak counter
-    reset, its clock started."""
+def _phase_start(torch, phase: str) -> dict:
+    """A phase's record: the bytes allocated on the card as it starts (also
+    printed at once, on a line of its own), its peak counter reset, its
+    clock started."""
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     allocated = torch.cuda.memory_allocated()
@@ -3026,7 +3391,7 @@ def train_dense(torch, smi: str):
     from repro_torch.launch.train import main as train_main
     from repro_torch.tree import tree_map
 
-    rec = _train_start(torch, "train_dense")
+    rec = _phase_start(torch, "train_dense")
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     ops.reset_counts()
     trainer = train_main(_train_argv(TRAIN_STEPS, "--ckpt-dir", TRAIN_CKPT))
@@ -3056,7 +3421,7 @@ def train_then_serve(torch, cfg, rc, trained, smi: str) -> None:
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.tree import leaves
 
-    rec = _train_start(torch, "train_then_serve")
+    rec = _phase_start(torch, "train_then_serve")
     step = ckpt.latest_step(TRAIN_CKPT)
     restored, _ = ckpt.restore(TRAIN_CKPT, step, {"params": trained})
     restored = restored["params"]
@@ -3086,7 +3451,7 @@ def train_int8_state(torch, smi: str) -> None:
     from repro_torch.launch.train import main as train_main
     from repro_torch.tree import leaves
 
-    rec = _train_start(torch, "train_int8_state")
+    rec = _phase_start(torch, "train_int8_state")
     trainer = train_main(_train_argv(TRAIN_INT8_STEPS, "--moments", "int8",
                                      "--grad-compression", "int8_ef"))
     first, last = _history_gates("train_int8_state", trainer.history, 3, 0.0)
@@ -3120,7 +3485,7 @@ def train_resume(torch, smi: str) -> None:
     from repro_torch.train import InjectedFailure, Trainer
     from repro_torch.tree import leaves
 
-    rec = _train_start(torch, "train_resume")
+    rec = _phase_start(torch, "train_resume")
     cfg = get_config(ARCH).replace(num_layers=RESUME_LAYERS)
     rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="block", lr=TRAIN_LR,
                    warmup_steps=1, total_steps=6)
@@ -3190,7 +3555,7 @@ def train_parity_f32(torch, smi: str) -> None:
     from repro_torch.train import build_train_step, init_train_state
     from repro_torch.tree import leaves_with_paths, tree_map
 
-    rec = _train_start(torch, "train_parity_f32")
+    rec = _phase_start(torch, "train_parity_f32")
     cfg = get_config(ARCH).replace(num_layers=PARITY_LAYERS)
     rc = RunConfig(dtype="float32", param_dtype="float32", remat="none", lr=TRAIN_LR,
                    warmup_steps=1, total_steps=10)
@@ -3237,7 +3602,7 @@ def train_refuses_quantized(torch, smi: str) -> None:
     from repro_torch.models import forward, init
     from repro_torch.train import build_train_step, init_train_state
 
-    rec = _train_start(torch, "train_refuses_quantized")
+    rec = _phase_start(torch, "train_refuses_quantized")
     cfg = get_config(ARCH).replace(num_layers=1)
     rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="none",
                    quant_policy="*=int8")
@@ -3503,6 +3868,9 @@ def main() -> int:
     clock.lap("serve_vl")
     arch_serves.update(serve_llama4(torch))
     clock.lap("serve_llama4")
+    dense_gemm, dense_attn, cli_serves, calib = dense_arch_phases(torch)
+    arch_serves.update(cli_serves)
+    clock.lap("cli, dense archs, static scales")
     device_times(torch)
     free_device_memory(torch)
     before = torch.cuda.memory_allocated()
@@ -3538,7 +3906,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/tugemm_fused.cu",
          "replaces": "src/repro/kernels/tugemm_fused.py:151",
          "launches": counts["tugemm_fused"]["launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in gemm + ssm_gemm),
+         "max_abs_err": max(r["max_abs_err"] for r in gemm + ssm_gemm + dense_gemm),
          "ms": sum(r["ms"] for r in per_layer),
          "plain_ms": sum(r["plain_ms"] for r in per_layer),
          "bound_ms": sum(r["bound_ms"] for r in per_layer),
@@ -3555,12 +3923,20 @@ def main() -> int:
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
                                        for ph, (sc, c) in serves.items()},
          "experts": expert_entry(moe_gemm, moe_serves),
-         "ssm": ssm_entry(ssm_gemm)},
+         "ssm": ssm_entry(ssm_gemm),
+         "dense_archs": dense_entry(dense_gemm),
+         "static_scale": {r["case"]: {k: r[k] for k in (
+             "M", "K", "N", "bits", "clipped_share", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+             for r in dense_gemm if r.get("static")},
+         "calibrate_static_launches": calib["kernel_counts"]["tugemm_fused"]["launches"],
+         "edge_deployment_launches":
+             calib["edge"]["kernel_counts"]["tugemm_fused"]["launches"]},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
          "replaces": "src/repro/kernels/flash_paged.py:193",
          "launches": counts["flash_paged_decode"]["launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in attn),
+         "max_abs_err": max(r["max_abs_err"] for r in attn + dense_attn),
          "ms": dec["ms"], "device_ms": dec["device_ms"],
          "device_ms_source": dec["device_ms_source"], "plain_ms": dec["plain_ms"],
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -3580,7 +3956,11 @@ def main() -> int:
          "mla_serve": {r["case"]: {k: r[k] for k in (
              "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")}
-             for r in attn if r["case"].startswith("mla_serve_")}},
+             for r in attn if r["case"].startswith("mla_serve_")},
+         "dense_archs": {r["case"]: {k: r[k] for k in (
+             "sq", "heads", "kv_heads", "hd_tot", "kv_len", "splits", "max_abs_err", "ms",
+             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+             for r in dense_attn}},
     ]
     # the unfused path's kernels: one qwen3-0.6b layer's calls at M=64
     # (k and v share a shape, as gate and up do)

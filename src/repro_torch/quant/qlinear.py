@@ -23,6 +23,12 @@ card they come out of the int8 GEMM's own launch plus one assembly launch)
 or ``ops.matmul_packed``, the dequant epilogue — bit-exact against the
 fused path in outputs and stats.
 
+Inside ``calibration.calibrating()`` every quantized GEMM's activation
+absmax is observed first; under ``calibration.static_scales(reg)`` a GEMM
+whose name is in ``reg`` takes the fixed per-tensor scale ``reg[name] / hi``
+(both pipelines; ``_gemm_prequant`` consults no registry, as in the
+reference).
+
 An expert stack (a raw ``(E, K, N)`` kernel or its packed ``(E, Kp, N)``
 leaf: the MoE expert GEMMs) takes x ``(E, M, K)`` and runs either pipeline
 over all E experts at once, each expert with its own scales, as the
@@ -43,7 +49,8 @@ import torch
 from ..kernels import ops
 from ..kernels.ref import dequant_bias_ref
 from . import capture
-from .quantize import act_scale, compute_scale, fused_scales, quantize
+from .calibration import active_scales, observe
+from .quantize import act_scale, compute_scale, fused_scales, int_range, quantize, weight_scale
 from .stats import record_stats
 
 __all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree"]
@@ -160,9 +167,24 @@ def gemm(
     per_token = backend.act_scale == "token"
     lead = x.shape[:-1]
     x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
-    sx, sw = fused_scales(x2, w, bits, per_token)
+    observe(name, x2)
+    scales = active_scales()
+    if scales is not None and name in scales:
+        # static PTQ: the calibrated per-GEMM-name scale (a Python float
+        # division, as the reference takes it), per tensor whatever
+        # act_scale says; an expert stack shares it across its experts
+        sx = torch.full(x2.shape[:-2], scales[name] / int_range(bits)[1],
+                        dtype=torch.float32, device=x2.device)
+        sw = weight_scale(w, bits)
+        ops.count_dispatch("scale_w")
+    else:
+        sx, sw = fused_scales(x2, w, bits, per_token)
+        if backend.fused:
+            ops.count_dispatch("fused_scales")
+        else:
+            ops.count_dispatch("scale_x")
+            ops.count_dispatch("scale_w")
     if backend.fused:
-        ops.count_dispatch("fused_scales")
         y, stats = _emit_fused(x2, w, sx, sw, bias, backend, name, w_quantized=False,
                                return_stats=return_stats, impl=impl)
         y = y.reshape(*lead, w.shape[-1])
@@ -171,8 +193,6 @@ def gemm(
     # ------------------------------------------------ legacy unfused pipeline
     # (an expert stack: every expert's scales and codes, then one launch)
     path = _impl(backend, impl)
-    ops.count_dispatch("scale_x")
-    ops.count_dispatch("scale_w")
     xq = quantize(x2, _lead_scale(sx, x2.ndim), bits)
     wq = quantize(w, sw.unsqueeze(-2), bits)
     ops.count_dispatch("quantize_x")

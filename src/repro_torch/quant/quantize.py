@@ -14,7 +14,7 @@ import torch
 from ..core.encoding import int_range
 
 __all__ = ["int_range", "compute_scale", "raw_amax", "amax_to_scale", "fused_scales",
-           "act_scale", "quantize", "dequantize"]
+           "act_scale", "weight_scale", "quantize", "dequantize"]
 
 
 def raw_amax(x: torch.Tensor, *, axis: int | tuple | None = None) -> torch.Tensor:
@@ -55,8 +55,13 @@ def fused_scales(x: torch.Tensor, w: torch.Tensor, bits: int,
     buffer, zero-filled empty slots included (an expert that received no
     token has amax 0, which ``amax_to_scale`` clamps), or (E, M) per token;
     sw (E, N)."""
-    return act_scale(x, bits, per_token), compute_scale(w, bits, axis=(*range(w.ndim - 2),
-                                                                         w.ndim - 1))
+    return act_scale(x, bits, per_token), weight_scale(w, bits)
+
+
+def weight_scale(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """The per-out-channel weight scale of w (K, N): (N,); of an expert
+    stack w (E, K, N): (E, N)."""
+    return compute_scale(w, bits, axis=(*range(w.ndim - 2), w.ndim - 1))
 
 
 def act_scale(x: torch.Tensor, bits: int, per_token: bool = False) -> torch.Tensor:

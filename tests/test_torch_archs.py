@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 import repro.models.transformer as j_transformer
+from repro.configs.archs import ASSIGNED as J_ASSIGNED
 from repro.configs.base import RunConfig, get_config
 from repro.models import forward as j_forward
 from repro.models import init as j_init
@@ -260,11 +261,13 @@ def test_surgery_matches_reference(arch):
         assert "frontend_proj.bias" in got and "groups.0.k0.ffn.w_down.bias" in got
 
 
-@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b", "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b", "llama4-maverick-400b-a17b",
+                                  "qwen3-8b", "qwen3-14b", "smollm-360m"])
 def test_configs_are_the_reference_configs(arch):
-    """The port's copies of the three config modules, full and smoke, equal
-    the reference's field for field; ``ASSIGNED`` holds the seven archs."""
-    assert ASSIGNED == ["qwen3-0.6b", "deepseek-v2-lite-16b", "falcon-mamba-7b", "hymba-1.5b",
-                        "hubert-xlarge", "qwen2-vl-7b", "llama4-maverick-400b-a17b"]
+    """The port's copies of the config modules, full and smoke, equal the
+    reference's field for field; ``ASSIGNED`` holds the reference's ten
+    archs in the reference's order."""
+    assert ASSIGNED == J_ASSIGNED
+    assert len(ASSIGNED) == 10
     for name in (arch, arch + "_smoke"):
         assert dataclasses.asdict(t_get_config(name)) == dataclasses.asdict(get_config(name))

@@ -1,0 +1,134 @@
+"""Port parity for the serving CLI: ``repro_torch.launch.serve.main`` against
+``repro.launch.serve.main`` on the CPU with the same argv, the reference's
+seeded weights handed to the port through ``main``'s ``params`` seam
+(carried across by ``interop.params_from_reference``). Both launchers draw
+the same prompts from ``np.random.default_rng(seed)``.
+
+Per case the finished requests' token streams are identical, and so are the
+summary lines with their wall-clock figures taken out (request and token
+counts, cache stats, health counters, prefix-cache and speculation counts,
+per-request energy, the number of latency samples). The cases: a paged int8
+KV pool under the mixed policy (with ``--trace`` and ``--metrics-out``,
+whose files must validate), ``--prefix-cache``, ``--spec-gamma 2``, and
+``falcon-mamba-7b_smoke``, which falls back to the legacy Engine and the
+dense layout with the reference's messages. The mesh flags raise until the
+dp×tp mesh is ported.
+
+The reference launcher wraps its serve in a 1×1 ``jax.make_mesh``, whose
+axes this JAX makes ``Explicit`` by default, and ``with_sharding_constraint``
+then refuses the model's constraints (the breakage behind ROADMAP C4's
+reference failures). The test hands the reference launcher the same 1×1
+mesh with ``Auto`` axes, which is what its sharding code was written for;
+nothing else of the reference is touched."""
+
+import json
+import re
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs.base import RunConfig, get_config
+from repro.launch import serve as j_serve
+from repro.models import init as j_init
+from repro.obs.trace import validate_chrome_trace
+from repro_torch.interop import params_from_reference
+from repro_torch.launch import serve as t_serve
+
+BASE = ["--requests", "3", "--prompt-len", "6", "--max-new", "4", "--max-batch", "2",
+        "--capacity", "32", "--block-size", "4", "--prefill-chunk", "5", "--seed", "3"]
+PAGED = ["--kv-layout", "paged", "--kv-dtype", "int8", "--policy",
+         "attn.*=int8,mlp.*=int2,*=bf16", "--energy"]
+CASES = {
+    "paged_int8_mixed": ["--arch", "qwen3-0.6b_smoke", *PAGED],
+    "prefix_cache": ["--arch", "qwen3-0.6b_smoke", *PAGED, "--prefix-cache"],
+    "spec": ["--arch", "qwen3-0.6b_smoke", *PAGED, "--spec-gamma", "2"],
+    "legacy_fallback": ["--arch", "falcon-mamba-7b_smoke", "--kv-layout", "paged",
+                        "--gemm-backend", "int8", "--spec-gamma", "2"],
+}
+_TIMED = re.compile(r" in [0-9.]+s \([0-9.]+ tok/s\)")
+
+
+@pytest.fixture(autouse=True)
+def _auto_axes_mesh(monkeypatch):
+    def make_local_mesh(data: int = 1, model: int = 1):
+        return jax.make_mesh((data, model), ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+    monkeypatch.setattr(j_serve, "make_local_mesh", make_local_mesh)
+
+
+def _summary(out: str) -> list[str]:
+    """The launcher's lines without wall-clock figures: the first line's
+    seconds and tokens/s go, the latency line keeps its sample counts, a
+    file path is replaced by its kind."""
+    lines = []
+    for line in out.splitlines():
+        if line.startswith("  latency:"):
+            line = "latency " + " ".join(re.findall(r"\(n=\d+\)", line))
+        elif line.startswith("  trace:"):
+            line = re.sub(r"trace: \S+", "trace: <path>", line)
+        elif line.startswith("  metrics:"):
+            line = "metrics appended"
+        lines.append(_TIMED.sub("", line))
+    return lines
+
+
+def _reference_params(argv):
+    """The reference launcher's weights: ``init`` under its CPU RunConfig
+    (f32) from ``PRNGKey(seed)``, as numpy."""
+    arch = argv[argv.index("--arch") + 1]
+    seed = int(argv[argv.index("--seed") + 1])
+    rc = RunConfig(dtype="float32", param_dtype="float32", remat="none")
+    params = j_init(get_config(arch), rc, jax.random.PRNGKey(seed))
+    return params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cli_matches_reference(case, capsys, tmp_path):
+    argv = BASE + CASES[case]
+    extra = {}
+    if case == "paged_int8_mixed":
+        extra = {side: ["--trace", str(tmp_path / f"{side}.json"),
+                        "--metrics-out", str(tmp_path / f"{side}.jsonl")]
+                 for side in ("ref", "port")}
+    ref = j_serve.main(argv + extra.get("ref", []))
+    ref_out = capsys.readouterr().out
+    port = t_serve.main(argv + extra.get("port", []) + ["--device", "cpu"],
+                        params=_reference_params(argv))
+    port_out = capsys.readouterr().out
+
+    assert {r.rid: r.out for r in port} == {r.rid: r.out for r in ref}
+    assert len(port) == 3 and all(len(r.out) == 4 for r in port)
+    assert _summary(port_out) == _summary(ref_out)
+    if case == "legacy_fallback":
+        assert "falling back to the legacy engine" in port_out
+        assert "legacy engine: forcing --kv-layout dense" in port_out
+        assert "legacy engine cannot speculate" in port_out
+    if case == "prefix_cache":
+        assert "  prefix: hits=" in port_out
+    if case == "spec":
+        assert "  spec: gamma=2" in port_out
+    if extra:
+        obj = json.loads((tmp_path / "port.json").read_text())
+        validate_chrome_trace(obj)
+        assert any(e.get("name") == "tick" for e in obj["traceEvents"])
+        rec = json.loads((tmp_path / "port.jsonl").read_text().splitlines()[-1])
+        assert rec["arch"] == "qwen3-0.6b_smoke" and rec["engine"] == "scheduler"
+        assert rec["metrics"].keys() == json.loads(
+            (tmp_path / "ref.jsonl").read_text().splitlines()[-1])["metrics"].keys()
+
+
+@pytest.mark.parametrize("flags", [["--devices", "8"], ["--mesh", "2,4"], ["--data", "2"],
+                                   ["--model", "2"]])
+def test_mesh_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="A8"):
+        t_serve.main(["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags])
+
+
+def test_card_is_the_default_device(monkeypatch):
+    """Without ``--device cpu`` the launcher asks for the card and raises
+    where there is none, before any weight is drawn."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_serve.main(["--arch", "qwen3-0.6b_smoke"])

@@ -310,3 +310,29 @@ def test_new_archs_greedy_tokens_and_cycles_match_reference(arch, surgery):
     assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
     assert port.final_kv_lens == ref.final_kv_lens
     port.mgr.check_invariants()
+
+
+# ------------------------------------------ the last three dense archs
+DENSE_ARCHS = ["qwen3-8b_smoke", "qwen3-14b_smoke", "smollm-360m_smoke"]
+DENSE_POLICY = "attn.*=int8,mlp.*=int2,*=bf16"
+
+
+@pytest.mark.parametrize("surgery", [False, True])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_archs_greedy_tokens_and_cycles_match_reference(arch, surgery):
+    """qwen3-8b (GQA group 2), qwen3-14b (one kv head for five q heads) and
+    smollm-360m (tied embeddings, head_dim 20) on the dense GQA path, fused
+    dynamic and after apply_surgery under the prequant form of the policy:
+    greedy tokens, per-request cycles_by_bits and final KV lengths identical
+    to the reference's Scheduler."""
+    policy = DENSE_POLICY
+    if surgery:
+        policy = "attn.*=int8:prequant,mlp.*=int2:prequant,*=bf16"
+    ref, ref_toks, port, toks = _serve_both(policy, surgery, arch)
+    cyc = {e["rid"]: e["cycles_by_bits"] for e in port.energy_summary()}
+    assert toks == ref_toks
+    assert cyc == {e["rid"]: e["cycles_by_bits"] for e in ref.energy_summary()}
+    assert port.cycles_by_bits == ref.cycles_by_bits
+    assert all(set(c) == {8, 2} and min(c.values()) > 0 for c in cyc.values())
+    assert port.final_kv_lens == ref.final_kv_lens
+    port.mgr.check_invariants()
