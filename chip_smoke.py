@@ -197,6 +197,15 @@ Phases, each printing one JSON line:
    (tokens and cycles identical everywhere, the host trace valid, the
    profiler trace holding the ``serve/step`` and ``serve/logits`` ranges
    and the kernels).
+10b. the dp x tp mesh (``MESH_DP`` x ``MESH_TP`` ranks; gloo ranks sharing
+   the card when it is the only one, nccl with a card a rank):
+   ``check_mesh_rank`` (every mesh kernel at one rank's shapes against its
+   plain version; attention's rank slice bit for bit the full launch's
+   with ``plan_dims``), ``serve_mesh`` (qwen3-0.6b, tokens and cycles equal
+   to the ``serve`` phase's) and ``serve_mesh_moe`` (deepseek-v2-lite cut
+   to ``MESH_MOE_LAYERS`` layers against its one-card serve, drops
+   included); every rank launches the four mesh kernels and no plain
+   version.
 11. the seconds of each group of phases (``phase_seconds``), the kernels
    line, then the device line last.
 
@@ -206,6 +215,7 @@ device and exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -710,12 +720,14 @@ def check_attention(torch, flush):
     return [attn_check(torch, gen, sms, flush, *case) for case in cases]
 
 
-def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, phase="check"):
+def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, phase="check",
+               plan_dims=None):
     """One ``flash_paged_decode`` case: random pools for ``rows`` ((pos,
     lens) each) at ``shape``, the kernel against its plain version within
     ``ATTN_TOL`` (idle rows exact zeros), timed with its plain version and
     SDPA over the gathered pages; emitted under ``phase``, appended to
-    DEVICE_TIMED and returned."""
+    DEVICE_TIMED and returned. ``plan_dims`` is the kernel's, where given
+    (a mesh rank's call takes the whole launch's split plan)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_paged import (ROW_TILE, flash_paged_decode, flash_paged_ref,
@@ -726,7 +738,8 @@ def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, p
     shape = dict(shape)
     args = _attn_case(torch, gen, rows=rows, sq=sq, kv_dtype=kvt, q_dtype=qt, **shape)
     kw = dict(kv_heads=shape["kv"], causal=True, window=window)
-    got = flash_paged_decode(*args, impl="cuda", **kw)
+    kw_k = dict(kw, plan_dims=plan_dims)
+    got = flash_paged_decode(*args, impl="cuda", **kw_k)
     want = flash_paged_ref(*args, **kw)
     torch.cuda.synchronize()
     atol, rtol = ATTN_TOL["float32" if qt == f32 else "bfloat16"]
@@ -753,7 +766,7 @@ def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, p
     if window is not None:
         mask = mask & (qpos[:, :, None] - kpos[None, None, :] < window)
     mask = mask[:, None]
-    call = lambda args=args, kw=kw: flash_paged_decode(*args, impl="cuda", **kw)
+    call = lambda args=args, kw=kw_k: flash_paged_decode(*args, impl="cuda", **kw)
     lib_call = lambda qq=qq, kq=kq, vq=vq, mask=mask: F.scaled_dot_product_attention(
         qq, kq, vq, attn_mask=mask)
     ms = median_ms(torch, call, flush=flush)
@@ -761,7 +774,7 @@ def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, p
     lib = median_ms(torch, lib_call, flush=flush)
     byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"], window)
     rows_head = rep * sq
-    splits, per = split_plan(B, shape["kv"], rows_head, tables.shape[1], sms)
+    splits, per = split_plan(*(plan_dims or (B, shape["kv"], rows_head)), tables.shape[1], sms)
     bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
                kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
@@ -3646,6 +3659,264 @@ def train_phases(torch, cfg, rc, smi: str) -> None:
     free_device_memory(torch)
 
 
+# ------------------------------------------------------------ the dp x tp mesh
+# qwen3-0.6b (full width and depth) and deepseek-v2-lite (full width, cut to
+# MESH_MOE_LAYERS layers) served over a dp x tp mesh of dp*tp ranks. With
+# fewer cards than ranks every rank runs on cuda:0 and the collectives go
+# over gloo through host memory; with a card a rank, nccl.
+MESH_DP, MESH_TP = 2, 4
+MESH_MOE_LAYERS = 4
+MESH_KERNELS = ("tugemm_fused", "tugemm_int8", "tugemm_stats", "flash_paged_decode")
+
+
+def mesh_backend(torch) -> str:
+    return "nccl" if torch.cuda.device_count() >= MESH_DP * MESH_TP else "gloo"
+
+
+def check_mesh_rank(torch, flush):
+    """Every kernel of the mesh path at the shapes one rank of
+    ``serve_mesh`` launches (qwen3-0.6b at dp=2, tp=4: 2 of the 4 rows, so
+    M = 2 x 16 on a prefill tick), against its plain version: the
+    column-parallel fused GEMMs at N/tp, bit for bit; the gathered GEMMs
+    (attn.o, mlp.down) as the int8 GEMM with its stats on the full-K plane,
+    exactly; attention over the rank's rows and heads with the
+    single-device launch's split plan (``plan_dims``), which must be the
+    full launch's slice bit for bit (GQA: 2 of 8 kv heads; MLA: 4 of 16
+    heads on the replicated latent), and within ``ATTN_TOL`` of its plain
+    version. Every case's device time is read by the last phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_paged import flash_paged_decode, split_plan
+    from repro_torch.kernels.unary_stats import HDR
+    from repro_torch.quant.quantize import compute_scale
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    B, W = 4, 16
+    M = B // MESH_DP * W
+    out = []
+    for case, K, N, bits in (("attn.q", 1024, 2048, 8), ("attn.k/v", 1024, 1024, 8),
+                             ("mlp.gate/up", 1024, 3072, 2)):
+        x = torch.randn(M, K, device=dev, generator=gen).to(bf16)
+        w = (torch.randn(K, N // MESH_TP, device=dev, generator=gen) * 0.02).to(bf16)
+        sx, sw = compute_scale(x, bits), compute_scale(w, bits, axis=1)
+        xq, wq = int8_operands(torch, x, w, sx, sw, bits)
+        out.append(fused_case(torch, "check_mesh_rank", f"{case} N/tp", x, w, sx, sw, bits,
+                              False, lib_int_mm(torch, xq, wq), flush, mesh_rank=True))
+    for case, K, bits in (("attn.o", 2048, 8), ("mlp.down", 3072, 2)):
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        a = torch.randint(lo, hi, (M, K), device=dev, generator=gen, dtype=torch.int8)
+        b = torch.randint(lo, hi, (K, 1024), device=dev, generator=gen, dtype=torch.int8)
+        call = lambda a=a, b=b: ops.matmul_int8(a, b, collect_stats=True, impl="cuda")
+        got, want = call(), ops.matmul_int8(a, b, collect_stats=True, impl="torch")
+        torch.cuda.synchronize()
+        exact, err = _exact(got, want)
+        lib_call = lib_int_mm(torch, a, b)
+        rec = dict(kernel="tugemm_int8", case=f"{case} gathered", M=M, K=K, N=1024, bits=bits,
+                   stats=True, mesh_rank=True, **gemm_grid(M, 1024, K, 1), exact=exact,
+                   max_abs_err=err, ms=median_ms(torch, call, flush=flush),
+                   plain_ms=median_ms(torch, lambda a=a, b=b: ops.matmul_int8(
+                       a, b, collect_stats=True, impl="torch"), flush=flush),
+                   library_ms=None if lib_call is None else median_ms(torch, lib_call,
+                                                                     flush=flush),
+                   **_bound(nbytes(a, b) + 4 * M * 1024 + 4 * (2 * K + HDR + K),
+                            2 * M * K * 1024))
+        emit({"phase": "check_mesh_rank", **rec})
+        if not exact:
+            raise AssertionError(f"tugemm_int8 with stats disagrees with its plain version: {rec}")
+        DEVICE_TIMED.append((rec, call, lib_call))
+        out.append(rec)
+    gqa = dict(kv=8, group=2, part_dims=(128,), hdv=128, bs=16, MB=16)
+    mla = dict(kv=1, group=16, part_dims=(512, 64), hdv=512, bs=16, MB=16, alias_v=True)
+    rows = [(112, 16), (143, 1), (0, 0), (60, 1)]
+    for name, shape in (("gqa_mesh_rank_step16_int8", gqa), ("mla_mesh_rank_step16_int8", mla)):
+        args = _attn_case(torch, gen, rows=rows, sq=W, kv_dtype=torch.int8, q_dtype=bf16,
+                          **shape)
+        q, kparts, kscales, v, vs, tables, pos, kv_len = args
+        kv, H = shape["kv"], q.shape[2]
+        full = flash_paged_decode(*args, kv_heads=kv, impl="cuda")
+        bl = B // MESH_DP
+        for d, t in ((0, 0), (MESH_DP - 1, MESH_TP - 1)):
+            r = slice(d * bl, (d + 1) * bl)
+            hs = slice(t * H // MESH_TP, (t + 1) * H // MESH_TP)
+            kv_l = kv // MESH_TP if kv > 1 else 1
+
+            def heads(p):
+                if kv == 1:
+                    return p
+                f = p.shape[2] // kv
+                return p[:, :, t * kv_l * f:(t + 1) * kv_l * f].contiguous()
+
+            rargs = (q[r, :, hs].contiguous(), tuple(heads(p) for p in kparts), kscales,
+                     kparts[0] if shape.get("alias_v") else heads(v), vs, tables[r].contiguous(),
+                     pos[r].contiguous(), kv_len[r].contiguous())
+            plan = (B, kv, H // kv * W)
+            got = flash_paged_decode(*rargs, kv_heads=kv_l, impl="cuda", plan_dims=plan)
+            own = flash_paged_decode(*rargs, kv_heads=kv_l, impl="cuda")
+            torch.cuda.synchronize()
+            sliced = torch.equal(got, full[r, :, hs])
+            rec = dict(kernel="flash_paged_decode", case=name, rank=[d, t], B=bl, sq=W,
+                       heads=H // MESH_TP, kv_heads=kv_l,
+                       splits=split_plan(*plan, tables.shape[1], sms)[0],
+                       own_plan_splits=split_plan(bl, kv_l, (H // MESH_TP) // kv_l * W,
+                                                  tables.shape[1], sms)[0],
+                       slice_of_full_launch=sliced,
+                       own_plan_equal=torch.equal(own, full[r, :, hs]))
+            emit({"phase": "check_mesh_rank", **rec})
+            if not sliced:
+                raise AssertionError(f"a rank's attention is not the full launch's slice: {rec}")
+        # the rank's call against its plain version, timed
+        kv_l = kv // MESH_TP if kv > 1 else 1
+        rshape = dict(shape, kv=kv_l, group=H // MESH_TP // kv_l)
+        rec = attn_check(torch, gen, sms, flush, name, rshape, rows[:bl], W, torch.int8, bf16,
+                         None, phase="check_mesh_rank", plan_dims=(B, kv, H // kv * W))
+        rec["mesh_rank"] = True
+        out.append(rec)
+    return out
+
+
+def mesh_kernels_only(phase: str, by_rank: list) -> None:
+    """Every rank launched each of the mesh path's kernels and made no
+    plain call."""
+    for rank, c in enumerate(by_rank):
+        if any(c[k]["launches"] <= 0 for k in MESH_KERNELS) or any(
+                v["plain_calls"] for v in c.values()):
+            raise AssertionError(f"{phase}: rank {rank} did not run only the mesh kernels: {c}")
+
+
+def serve_mesh(torch, phase, cfg, rc, source, want: dict, want_cycles: dict, smi: str,
+               want_drops: int | None = None) -> dict:
+    """The serve phase's requests on a ``MESH_DP`` x ``MESH_TP`` mesh, each
+    rank drawing its own weight shard (``source``: an ``InitShards`` of the
+    single-device weights). Gates: greedy tokens and ``cycles_by_bits`` equal
+    to the single-device serve's (``want``, ``want_cycles``), and the MoE
+    drops to ``want_drops``; ``device_attribution()`` of shape (dp, tp)
+    summing exactly to the totals; every quantized collective's payload, by
+    (label, bits), at most bits/16 of its bf16 equivalent; in every rank the
+    four mesh kernels launching and no plain call. Prints the backend, the world size,
+    tokens/s, tick p50 / p99 (each tick's main step, ``tick_seconds``), the
+    wire bytes by bits against bf16 and the
+    interconnect energy. Returns (ticks, {kernel: summed counts})."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    backend = mesh_backend(torch)
+    sched, prompts = serving_scheduler(cfg, rc, source, "auto",
+                                       mesh=f"{MESH_DP},{MESH_TP}", mesh_backend=backend)
+    setup_s = time.perf_counter() - t0
+    sched.reset_rank_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    by_rank = sched.rank_kernel_counts()
+    outs = {r.rid: list(r.out) for r in done}
+    att = sched.device_attribution()
+    comms = sched.comms_summary()
+    ic = sched.interconnect_report()
+    ticks = np.asarray(sched.tick_seconds) * 1e3
+    gen = sum(len(o) for o in outs.values())
+    counts = {k: {"launches": sum(c[k]["launches"] for c in by_rank),
+                  "plain_calls": sum(c[k]["plain_calls"] for c in by_rank)} for k in by_rank[0]}
+    rec = {"phase": phase, "nvidia_smi": smi, "backend": backend,
+           "world": MESH_DP * MESH_TP, "dp": MESH_DP, "tp": MESH_TP,
+           "ranks_on": "cuda:r" if backend == "nccl" else "cuda:0 (shared, gloo through host)",
+           "arch": cfg.name, "layers": cfg.num_layers, "policy": rc.quant_policy,
+           "setup_s": setup_s, "wall_s": wall, "tokens_per_s": gen / wall, "ticks": sched.ticks,
+           "tick_ms_p50": float(np.percentile(ticks, 50)),
+           "tick_ms_p99": float(np.percentile(ticks, 99)),
+           "tokens_equal": sum(a == b for r in want for a, b in zip(want[r], outs.get(r, []))),
+           "tokens": sum(len(o) for o in want.values()),
+           "cycles_by_bits": {str(b): v for b, v in sorted(sched.cycles_by_bits.items())},
+           "cycles_equal": sched.cycles_by_bits == want_cycles,
+           "moe_dropped_tokens": sched.moe_dropped_tokens,
+           "device_attribution": {str(b): a.tolist() for b, a in att.items()},
+           "wire": {str(b): {"payload_bytes": r["payload_bytes"], "scale_bytes": r["scale_bytes"],
+                             "bf16_bytes": r["bf16_bytes"], "calls": r["calls"]}
+                    for b, r in sorted(comms["by_bits"].items())},
+           "wire_bytes": comms["bytes_moved"], "wire_bf16_bytes": comms["bf16_bytes"],
+           "interconnect_energy_j": ic["energy_j"],
+           "rank_step_s": sched.health()["mesh"]["rank_step_s"],
+           "rank_collective_s": sched.health()["mesh"]["rank_collective_s"],
+           "interconnect_by_bits": {str(b): v for b, v in ic["by_bits"].items()},
+           "kernel_counts": counts,
+           "launches_by_rank": [{k: c[k]["launches"] for k in MESH_KERNELS} for c in by_rank]}
+    emit(rec)
+    sched.close()
+    if outs != want or sched.cycles_by_bits != want_cycles:
+        raise AssertionError(f"{phase}: tokens or cycles differ from the single-device serve")
+    if want_drops is not None and sched.moe_dropped_tokens != want_drops:
+        raise AssertionError(f"{phase}: {sched.moe_dropped_tokens} MoE drops, the single-device "
+                             f"serve counted {want_drops}")
+    for b, a in att.items():
+        if a.shape != (MESH_DP, MESH_TP) or int(a.sum()) != sched.cycles_by_bits[b][
+                "serial_cycles"]:
+            raise AssertionError(f"{phase}: device attribution {a} does not sum to the totals")
+    # every quantized collective at its bits/16 (each gathered GEMM's local
+    # feature count packs here: 8 // bits divides it)
+    quant = {k: r for k, r in sched.comms.items() if k[1] < 16}
+    if not quant or any(r["payload_bytes"] * 16 > r["bf16_bytes"] * b
+                        for (_, b), r in quant.items()):
+        raise AssertionError(f"{phase}: quantized gathers above bits/16 of bf16: {quant}")
+    mesh_kernels_only(phase, by_rank)
+    ops.reset_counts()
+    return {"ticks": sched.ticks, "counts": counts}
+
+
+def mesh_entry(name: str, rank_rows: list, serves: dict) -> dict:
+    """The kernels line's mesh numbers for ``name``: its launches in each
+    mesh serve (summed over the ranks) and, where ``check_mesh_rank``
+    checked it, each rank-shape case's times against its bound."""
+    out = {"mesh_launches_by_path": {ph: r["counts"][name]["launches"]
+                                     for ph, r in serves.items()}}
+    rows = [r for r in rank_rows if r["kernel"] == name and "ms" in r]
+    if rows:
+        out["mesh_rank"] = {r["case"]: {k: r.get(k) for k in (
+            "M", "K", "N", "bits", "B", "sq", "heads", "kv_heads", "splits", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_by")} for r in rows}
+    return out
+
+
+def serve_mesh_phases(torch, cfg, rc, want: dict, want_cycles: dict, smi: str) -> dict:
+    """``serve_mesh``: qwen3-0.6b at full width and depth over the mesh,
+    against the ``serve`` phase's tokens and cycles (the same weights: each
+    rank draws the CPU generator's leaves and keeps its shard). Then
+    ``serve_mesh_moe``: deepseek-v2-lite at full width cut to
+    ``MESH_MOE_LAYERS`` layers (1 dense + 3 MoE: 64 experts, 16 a rank),
+    served on one card and over the mesh in this phase, from a CUDA
+    generator's weights. The rank pool is stopped at the end."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import close_rank_pool
+    from repro_torch.models import init
+    from repro_torch.parallel.serve_mesh import InitShards
+
+    out = {"serve_mesh": serve_mesh(torch, "serve_mesh", cfg, rc, InitShards(cfg, rc, 0, "cpu"),
+                                    want, want_cycles, smi)}
+    t0 = time.perf_counter()
+    mcfg = get_config(MOE_ARCH).replace(num_layers=MESH_MOE_LAYERS)
+    mrc = dataclasses.replace(rc, quant_policy=MOE_POLICY)
+    params = init(mcfg, mrc, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    sched, done, wall, counts, prompts = serve(torch, mcfg, mrc, params, "auto")
+    single = check_served(mcfg, sched, done, prompts, {8, 2})
+    rec = serve_record("serve_mesh_moe_single", sched, done, wall, counts, prompts)
+    rec.update(reduced={"num_layers": [get_config(MOE_ARCH).num_layers, MESH_MOE_LAYERS]},
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    want_moe, cyc_moe, drops = single, dict(sched.cycles_by_bits), sum(sched.tick_dropped_tokens)
+    del sched, params
+    free_device_memory(torch)
+    out["serve_mesh_moe"] = serve_mesh(torch, "serve_mesh_moe", mcfg, mrc,
+                                       InitShards(mcfg, mrc, 0, "cuda"), want_moe, cyc_moe, smi,
+                                       want_drops=drops)
+    close_rank_pool()
+    return out
+
+
 class PhaseClock:
     """Seconds each group of phases took, from the process start's build
     on; ``emit`` prints them on one line."""
@@ -3871,6 +4142,14 @@ def main() -> int:
     dense_gemm, dense_attn, cli_serves, calib = dense_arch_phases(torch)
     arch_serves.update(cli_serves)
     clock.lap("cli, dense archs, static scales")
+    # the dp x tp mesh: its kernels at one rank's shapes, then qwen3-0.6b
+    # against the serve phase's tokens and cycles, and deepseek-v2-lite cut
+    # to MESH_MOE_LAYERS layers against its own one-card serve
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
+    mesh_rank = check_mesh_rank(torch, flush)
+    del flush
+    mesh_serves = serve_mesh_phases(torch, cfg, rc, outs, sched.cycles_by_bits, smi)
+    clock.lap("mesh")
     device_times(torch)
     free_device_memory(torch)
     before = torch.cuda.memory_allocated()
@@ -3931,7 +4210,8 @@ def main() -> int:
              for r in dense_gemm if r.get("static")},
          "calibrate_static_launches": calib["kernel_counts"]["tugemm_fused"]["launches"],
          "edge_deployment_launches":
-             calib["edge"]["kernel_counts"]["tugemm_fused"]["launches"]},
+             calib["edge"]["kernel_counts"]["tugemm_fused"]["launches"],
+         **mesh_entry("tugemm_fused", mesh_rank, mesh_serves)},
         {"name": "flash_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_paged.cu",
          "replaces": "src/repro/kernels/flash_paged.py:193",
@@ -3957,6 +4237,7 @@ def main() -> int:
              "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")}
              for r in attn if r["case"].startswith("mla_serve_")},
+         **mesh_entry("flash_paged_decode", mesh_rank, mesh_serves),
          "dense_archs": {r["case"]: {k: r[k] for k in (
              "sq", "heads", "kv_heads", "hd_tot", "kv_len", "splits", "max_abs_err", "ms",
              "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}
@@ -3998,7 +4279,9 @@ def main() -> int:
             **({} if absmax else {
                 "launches_by_path": {"serve_unfused": counts_unf[name]["launches"], **{
                     ph: c[name]["launches"] for ph, (_, c) in moe_serves.items()}},
-                "experts": expert_int_entry(moe_int, name)})})
+                "experts": expert_int_entry(moe_int, name),
+                **(mesh_entry(name, mesh_rank, mesh_serves) if name == "tugemm_int8"
+                   else {})})})
     # rows 5-6 as the unfused serve runs them: each int8 GEMM takes both
     # maxima from its own tiles (memset + the stats instantiation) and
     # tugemm_stats assembles them. Its work: the GEMM with stats over the
@@ -4033,6 +4316,7 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in pair) else "operations",
         "library_ms": None, "device_ms": dev, "device_ms_source": route[0]["device_ms_source"],
         "library_device_ms": None, "bound_share": bound / dev,
+        **mesh_entry("tugemm_stats", [], mesh_serves),
         "route_device_launches_per_call": None if any(r["device_launches"] is None
                                                       for r in route)
         else max(r["device_launches"] for r in route),

@@ -47,8 +47,8 @@ __all__ = [
     "INTERCONNECT_PJ_PER_BYTE",
 ]
 
-# Interconnect energy price for the sharded-serving byte meter (the mesh is
-# a later slice of the port): edge-class chip-to-chip links run ~5-20 pJ/bit;
+# Interconnect energy price for the sharded-serving byte meter
+# (``Scheduler.comms_summary``): edge-class chip-to-chip links run ~5-20 pJ/bit;
 # we charge a flat 10 pJ/bit = 80 pJ/byte on *wire* bytes (quantized
 # payload + scales), which is exactly the term quantize-before-all-gather
 # shrinks by bits/16 versus gathering bf16 activations.

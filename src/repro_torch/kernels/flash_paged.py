@@ -110,7 +110,7 @@ def flash_paged_ref(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_len,
 
 
 def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_len,
-                       *, kv_heads, causal=True, window=None, impl="auto"):
+                       *, kv_heads, causal=True, window=None, impl="auto", plan_dims=None):
     """Paged attention for a step of width Sq; returns (B, Sq, H, hdv) in
     q.dtype.
 
@@ -124,7 +124,10 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
+    ``cuda`` insists on the kernel. ``plan_dims`` = (batch, kv_heads,
+    rows a kv head) replaces this call's own in ``split_plan``: a mesh
+    rank's slice of a launch takes the whole launch's plan, and with it
+    the whole launch's per-head results."""
     if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
     k_parts, k_scales = tuple(k_parts), tuple(k_scales)
@@ -140,7 +143,8 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
         tuple(q.shape), q.dtype, kv_heads, tuple((tuple(p.shape), p.dtype) for p in k_parts),
         tuple(v_pool.shape), v_pool.dtype,
         tuple(None if t is None else (tuple(t.shape), t.dtype) for t in scales),
-        tuple(tables.shape), tuple(pos.shape), tuple(kv_len.shape), sm_count(dev))
+        tuple(tables.shape), tuple(pos.shape), tuple(kv_len.shape), sm_count(dev),
+        None if plan_dims is None else tuple(plan_dims))
     if tables.dtype != torch.int32:
         tables = tables.to(torch.int32)
     if pos.dtype != torch.int32:
@@ -176,7 +180,7 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
 
 @functools.lru_cache(maxsize=256)
 def _shape_plan(q_shape, q_dtype, kv, parts, v_shape, v_dtype, scales, t_shape, p_shape,
-                l_shape, sms):
+                l_shape, sms, plan_dims=None):
     """The kernel's shape checks and launch plan: (feature widths of the K
     parts, hdv, page size, pages per row, splits, pages per split, q dtype
     code, pool dtype code). Raises on shapes the kernel does not take."""
@@ -202,5 +206,5 @@ def _shape_plan(q_shape, q_dtype, kv, parts, v_shape, v_dtype, scales, t_shape, 
           and hd * qes % 16 == 0 and hdv <= 512,
           f"flash_paged_decode: head widths {feats}/{hdv} must be whole 16-byte rows, hdv <= 512")
     MB = t_shape[1]
-    splits, per = split_plan(B, kv, (H // kv) * sq, MB, sms)
+    splits, per = split_plan(*(plan_dims or (B, kv, (H // kv) * sq)), MB, sms)
     return feats, hdv, bs, MB, splits, per, DTYPE_CODE[q_dtype], DTYPE_CODE[v_dtype]

@@ -1,1 +1,3 @@
-"""Launch layer: the training CLI (``python -m repro_torch.launch.train``)."""
+"""Launch layer: the serving and training CLIs (``python -m
+repro_torch.launch.serve``, ``python -m repro_torch.launch.train``) and the
+rank runtime of the dp×tp serving mesh (``launch/mesh.py``)."""

@@ -11,9 +11,17 @@ serve the same prompts.
 
 Serves on the card in bf16 (weights drawn there by a CUDA generator) unless
 ``--device cpu`` (f32, the plain PyTorch versions); asking for the card
-without one raises. One process, one device: ``--devices`` above 0,
-``--mesh`` and a local mesh above 1×1 (``--data`` / ``--model``) come with
-the dp×tp mesh (ROADMAP A8) and raise until then.
+without one raises.
+
+``--mesh DP,TP`` shards the Scheduler's step over ``DP·TP`` ranks
+(``parallel/serve_mesh.py``, ``launch/mesh.py``): this process is rank 0,
+``--mesh-backend`` must name ``gloo`` (every rank on ``--device``: the CPU,
+or one shared card) or ``nccl`` (rank r on ``cuda:r``), and the summary
+gains a ``mesh:`` line. ``--devices N`` says how many ranks the
+machine may start (the reference's N host devices; default: as many as the
+mesh wants). A local training mesh above 1×1 (``--data`` / ``--model``)
+comes with the training half of the mesh (ROADMAP A8) and raises until
+then.
 """
 
 from __future__ import annotations
@@ -76,9 +84,15 @@ def main(argv=None, *, params=None):
                     help="QuantPolicy for the speculative draft pass "
                          "(ignored unless --spec-gamma > 0)")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="dp×tp device mesh (not in the port yet: ROADMAP A8)")
+                    help="shard the scheduler's mixed step over a dp×tp mesh of "
+                         "ranks (tensor/expert-parallel with quantize-before-"
+                         "all-gather). Scheduler engine only, e.g. --mesh 2,4")
     ap.add_argument("--devices", type=int, default=0,
-                    help="forced host device count (not in the port yet: ROADMAP A8)")
+                    help="ranks the machine may start for --mesh (the reference's "
+                         "N host devices; 0 = as many as the mesh wants)")
+    ap.add_argument("--mesh-backend", default=None, choices=["gloo", "nccl"],
+                    help="needed with --mesh: gloo puts every rank on --device "
+                         "(the CPU or one shared card); nccl puts rank r on cuda:r")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
@@ -113,9 +127,9 @@ def main(argv=None, *, params=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.devices > 0 or args.mesh or args.data > 1 or args.model > 1:
-        raise NotImplementedError("a mesh (--devices, --mesh, --data/--model above 1) "
-                                  "comes with the dp x tp mesh (ROADMAP A8)")
+    if args.data > 1 or args.model > 1:
+        raise NotImplementedError("a local training mesh (--data/--model above 1) comes "
+                                  "with the training half of the dp x tp mesh (ROADMAP A8)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     dtype = "float32" if dev.type == "cpu" else "bfloat16"
@@ -145,6 +159,18 @@ def main(argv=None, *, params=None):
     if not use_scheduler and rc.spec_gamma:
         print("[serve] legacy engine cannot speculate: disabling --spec-gamma")
         rc = dataclasses.replace(rc, spec_gamma=0, draft_policy=None)
+    if args.mesh and not use_scheduler:
+        raise SystemExit("[serve] --mesh needs the scheduler engine")
+    if args.mesh and rc.spec_gamma:
+        print("[serve] speculative decoding is single-device: disabling --spec-gamma")
+        rc = dataclasses.replace(rc, spec_gamma=0, draft_policy=None)
+    if args.mesh:
+        from ..parallel.serve_mesh import as_spec, validate
+
+        if args.mesh_backend is None:
+            ap.error("--mesh needs --mesh-backend: gloo (every rank on --device) or nccl "
+                     "(rank r on cuda:r)")
+        validate(cfg, rc, as_spec(args.mesh), args.max_batch, world=args.devices or None)
 
     if params is None:
         params = init(cfg, rc, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
@@ -173,7 +199,7 @@ def main(argv=None, *, params=None):
             temperature=args.temperature, seed=args.seed,
             draft_params=draft_params,
             admission=adm, track_energy=args.energy,
-            tracer=tracer, device=dev,
+            tracer=tracer, device=dev, mesh=args.mesh, mesh_backend=args.mesh_backend,
         )
     else:
         eng = Engine(
@@ -229,6 +255,15 @@ def main(argv=None, *, params=None):
                   f"prefill_computed={p['prefill_tokens_computed']} "
                   f"cached_pages={p['cached_pages']} "
                   f"evictions={p['evictions']} cow={p['cow_events']}")
+        if args.mesh:
+            m = h["mesh"]
+            c = m["comms"]
+            by = {b: r["payload_bytes"] for b, r in c["by_bits"].items()}
+            print(f"  mesh: dp={m['dp']} tp={m['tp']} devices={m['devices']} "
+                  f"moe_dropped_tokens={m['moe_dropped_tokens']} "
+                  f"wire_bytes={c['bytes_moved']} by_bits={by} "
+                  f"(bf16 equivalent {c['bf16_bytes']}) backend={m['backend']} "
+                  f"interconnect_energy_j={eng.interconnect_report()['energy_j']:.3g}")
         if rc.spec_gamma:
             s = eng.spec_summary()
             print(f"  spec: gamma={s['spec_gamma']} draft={s['draft_policy']} "
@@ -263,6 +298,8 @@ def main(argv=None, *, params=None):
             print(f"  metrics: appended snapshot to {args.metrics_out}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
+    if args.mesh:
+        eng.close()         # the ranks free their shards; the rank pool stays up
     return done
 
 

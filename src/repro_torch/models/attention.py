@@ -12,6 +12,14 @@ one of the reference's two layouts, or over the step's own K/V (no cache).
   and addressed through per-slot block tables, so one step mixes prefill
   chunks and decode rows; attention runs the paged flash-decode kernel.
 
+Under a mesh program (``parallel.collectives``: the sharded serving step)
+an int8 write max-merges each token's raw amax over the tp ranks' head
+shards before the scale transform, so the scale is the single-device
+all-heads one; a paged write gathers the dp-local rows' already quantized
+planes and writes the whole batch through the program's full-batch write
+view (the pool is replicated over dp). The dense layout's caches are
+batch-sharded and written locally.
+
 int8 caches store per-(row, token) scales (``_quantize_kv``); every dense
 read is length-masked, so positions at or beyond the live length read as
 exact zeros and a recycled slot never sees its previous occupant. Writes
@@ -29,6 +37,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_paged import gather_pages
+from ..parallel.collectives import current_program
 from ..quant.qlinear import dense
 from .flash import blockwise_attention, paged_decode_attention
 from .layers import apply_mrope, apply_rope, rms_norm
@@ -86,16 +95,26 @@ def init_kv_cache(cfg: ModelConfig, rows: int, width: int, dtype, device) -> dic
     return cache
 
 
-def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-(batch, position) int8 quantization over heads*dim; the scale is
-    ``max(amax, 1e-8) / 127`` in the division form (a tensor divisor, so no
-    backend rewrites it into a reciprocal multiply; filled on the device, so
-    no host copy waits for the stream)."""
-    xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=tuple(range(2, x.ndim)))
+def _kv_amax(x: torch.Tensor) -> torch.Tensor:
+    """Per-(batch, position) raw amax over heads*dim, f32."""
+    return x.to(torch.float32).abs().amax(dim=tuple(range(2, x.ndim)))
+
+
+def _kv_codes(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes and the scale ``max(amax, 1e-8) / 127`` in the division
+    form (a tensor divisor, so no backend rewrites it into a reciprocal
+    multiply; filled on the device, so no host copy waits for the stream)."""
     scale = amax.clamp_min(1e-8) / torch.full((), 127.0, dtype=torch.float32, device=x.device)
-    q = torch.round(xf / scale.reshape(scale.shape + (1,) * (x.ndim - 2)))
+    q = torch.round(x.to(torch.float32) / scale.reshape(scale.shape + (1,) * (x.ndim - 2)))
     return torch.clamp(q, -128, 127).to(torch.int8), scale
+
+
+def _quantize_kv(x: torch.Tensor, sync=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position) int8 quantization over heads*dim (``_kv_codes``
+    of ``_kv_amax``). ``sync`` max-merges the raw amax across tp head
+    shards before the scale transform."""
+    amax = _kv_amax(x)
+    return _kv_codes(x, amax if sync is None else sync(amax))
 
 
 def _paged_targets(view: KVView, B: int, S: int, num_rows: int):
@@ -142,14 +161,36 @@ def kv_cache_write(cache: dict, names: tuple[str, ...], new: tuple, pos: int | N
     ``pos[b]`` of its dense row, padded columns and positions past the
     capacity dropped. A paged view: through the block table, padded
     columns landing on the trash page (the pool's last row, never read)."""
+    prog = current_program()
+    # the paged pool is replicated over dp: every rank writes every row's
+    # tokens, so the dp-local rows' planes (already quantized: int8 on the
+    # wire) are gathered and written through the full-batch view
+    gather = (prog is not None and prog.write_view is not None and view is not None
+              and view.tables is not None)
+    if gather:
+        view = prog.write_view
+    int8 = [n for n in names if cache[n].dtype == torch.int8]
+    amax = dict(zip(names, (_kv_amax(v) if n in int8 else None for n, v in zip(names, new))))
+    if prog is not None:
+        # the tp head shards' amaxes, then the dp rows' planes: each in one
+        # collective for all of the write's leaves
+        sync = [n for n in int8 if n in prog.kv_sync_names]
+        for n, a in zip(sync, prog.sync_amax_tp_many([(f"kv.{n}", amax[n]) for n in sync])):
+            amax[n] = a
+    per_name = []
     for name, val in zip(names, new):
-        buf = cache[name]
-        if buf.dtype == torch.int8:
-            q, s = _quantize_kv(val)
-            vals = [(name, q), (name + "_scale", s)]
+        if name in int8:
+            q, s = _kv_codes(val, amax[name])
+            per_name.append([(name, q), (name + "_scale", s)])
         else:
-            vals = [(name, val.to(buf.dtype))]
-        B, S = val.shape[:2]
+            per_name.append([(name, val.to(cache[name].dtype))])
+    if gather:
+        flat = prog.gather_rows_dp_many([(f"kv.{n}", v) for vals in per_name for n, v in vals])
+        it = iter(flat)
+        per_name = [[(n, next(it)) for n, _ in vals] for vals in per_name]
+    for name, vals in zip(names, per_name):
+        buf = cache[name]
+        B, S = vals[0][1].shape[:2]
         if view is None:
             start = min(max(pos, 0), buf.shape[1] - S)
             for n, v in vals:
@@ -300,6 +341,17 @@ def mla_attention(
 
     q = dense(p["wq"], x, backend=backend, name="mla.q", impl=impl).reshape(B, S, h, scale_dim)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
+    prog = current_program()
+
+    def absorb(site, eq, a, w):
+        """An absorbed f32 product; on a mesh at the single-device batch
+        and heads, so each head's float contraction is the single-device
+        one."""
+        def f(a, w):
+            return torch.einsum(eq, a.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+        if prog is None:
+            return f(a, w)
+        return prog.at_full(site, f, (a, {0: prog.dp, 2: prog.tp}), (w, {1: prog.tp}))
     dkv = dense(p["w_dkv"], x, backend=backend, name="mla.dkv", impl=impl)
     ckv, k_rope = dkv[..., :lora], dkv[..., lora:]
     ckv = rms_norm(p["kv_norm"], ckv, cfg.rms_eps)
@@ -307,8 +359,7 @@ def mla_attention(
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
 
     # absorbed form: q_abs[b,s,h,:] = q_nope · W_uk[:,h,:]^T (in latent space)
-    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.to(torch.float32),
-                         p["w_uk"]["kernel"].to(torch.float32)).to(x.dtype)
+    q_abs = absorb("mla.w_uk", "bshn,lhn->bshl", q_nope, p["w_uk"]["kernel"])
     q_eff = torch.cat([q_abs, q_rope], dim=-1)                  # (B, S, h, lora+rope)
     # the kernel scales scores by 1/sqrt(lora+rope); MLA's is 1/sqrt(nope+rope)
     comp = ((lora + rope_d) ** 0.5) / (scale_dim ** 0.5)
@@ -329,6 +380,5 @@ def mla_attention(
         ctx = blockwise_attention(q_eff * comp, k_eff, ckv_full[:, :, None, :],
                                   q_offset=q_offset, kv_len=kv_len, causal=cfg.causal,
                                   chunk=chunk)
-    out = torch.einsum("bshl,lhv->bshv", ctx.to(torch.float32),
-                       p["w_uv"]["kernel"].to(torch.float32)).to(x.dtype)
+    out = absorb("mla.w_uv", "bshl,lhv->bshv", ctx, p["w_uv"]["kernel"])
     return dense(p["wo"], out.reshape(B, S, h * vd), backend=backend, name="mla.o", impl=impl)

@@ -225,10 +225,21 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Fused paged read + attend. Always returns the attention output: the
     kernel's on a CUDA tensor, the plain version's on a CPU tensor or under
-    ``impl="torch"``."""
+    ``impl="torch"``.
+
+    Under a mesh program (the sharded serving step) the kernel stays on,
+    over this rank's rows and heads, with the split plan of the
+    single-device launch it is a slice of (``MeshProgram.attn_plan_dims``),
+    so each head's float combine order is the single-device one. (The
+    reference takes its gather path there instead.)"""
+    from ..parallel.collectives import current_program
+
     path = ops.resolve_path(impl, q)
     ops.record_path(name, path)
     int8 = cache[k_names[0]].dtype == torch.int8
+    prog = current_program()
+    plan_dims = None if prog is None else prog.attn_plan_dims(
+        q.shape[0], q.shape[2], kv_heads, q.shape[1])
 
     def pool3(n):  # (P+1, bs, kv, hd) and (P+1, bs, f) both -> (P+1, bs, kv*f)
         p = cache[n]
@@ -241,5 +252,5 @@ def paged_decode_attention(
         pool3(v_name),
         cache[v_name + "_scale"] if int8 else None,
         view.tables, view.pos, view.kv_len,
-        kv_heads=kv_heads, causal=causal, window=window, impl=path,
+        kv_heads=kv_heads, causal=causal, window=window, impl=path, plan_dims=plan_dims,
     )

@@ -139,7 +139,7 @@ def _special(how: str, shape: tuple, gen, device) -> torch.Tensor:
     raise ValueError(f"unknown init kind {how!r}")
 
 
-def _materialize(spec, lead: tuple, gen, dtype, device):
+def _materialize(spec, lead: tuple, gen, dtype, device, keep=None, path: tuple = ()):
     """Draw one tree of leaves, leaf by leaf. A CPU generator draws in f32
     and casts (these values are fixed: tests and the card's qwen3-0.6b
     weights depend on them); a generator on the card draws each leaf there
@@ -147,52 +147,61 @@ def _materialize(spec, lead: tuple, gen, dtype, device):
     The SSM leaves' ``zeros`` / ``hippo`` / ``dt_bias`` kinds are made in
     f32 on the generator's device and cast; only ``dt_bias`` draws, and
     only SSM blocks have these leaves, so the other archs' draws are as
-    they were."""
+    they were. ``keep(path, leaf)``, where given, cuts each drawn leaf
+    before it is placed (a mesh rank's shard: ``parallel/serve_mesh.py``)."""
     if isinstance(spec, dict):
-        return {k: _materialize(v, lead, gen, dtype, device) for k, v in spec.items()}
+        return {k: _materialize(v, lead, gen, dtype, device, keep, path + (k,))
+                for k, v in spec.items()}
     shape, how, *scale = spec
     shape = lead + tuple(shape)
     if how in ("zeros", "hippo", "dt_bias"):
-        return _special(how, shape, gen, gen.device).to(dtype=dtype, device=device)
-    if gen.device.type == "cpu":
+        t = _special(how, shape, gen, gen.device)
+    elif gen.device.type == "cpu":
         if how == "ones":
             t = torch.ones(shape, dtype=torch.float32)
         else:
             t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale[0]
-        return t.to(dtype=dtype, device=device)
-    if how == "ones":
+    elif how == "ones":
         t = torch.ones(shape, dtype=dtype, device=gen.device)
     else:
         t = torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).mul_(scale[0])
-    return t.to(device=device)
+    if keep is not None:
+        t = keep(path, t)
+    return t.to(dtype=dtype, device=device)
 
 
 def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = None,
-         device=None) -> dict:
+         device=None, *, keep=None) -> dict:
     """Random parameters in the reference's tree layout (``embed``, or
     ``frontend_proj`` (512 -> d_model, biased) for an audio frontend;
     stacked ``groups``, ``final_norm`` [, ``head``]), drawn from
     ``generator`` (a fresh ``torch.Generator().manual_seed(0)`` when None)
     on its own device, leaf by leaf, and placed on ``device`` (default
-    ``cuda``)."""
+    ``cuda``). ``keep(path, leaf)`` cuts each leaf as it is drawn (path:
+    the leaf's keys as strings, e.g. ``("groups", "0", "k0", "attn",
+    "wq", "kernel")``); the draws are the same with or without it."""
     check_supported(cfg, rc)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = torch_dtype(rc.param_dtype)
+
+    def draw(spec, lead, path):
+        return _materialize(spec, lead, gen, dtype, dev, keep, path)
+
     if cfg.frontend == "audio":
-        params = {"frontend_proj": _materialize(_linear(FRONTEND_DIM, cfg.d_model, bias=True),
-                                                (), gen, dtype, dev)}
+        params = {"frontend_proj": draw(_linear(FRONTEND_DIM, cfg.d_model, bias=True), (),
+                                        ("frontend_proj",))}
     else:
-        params = {"embed": _materialize(
-            {"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)}, (), gen, dtype, dev)}
+        params = {"embed": draw({"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)},
+                                (), ("embed",))}
     params["groups"] = tuple(
-        {f"k{j}": _materialize(_block_shapes(cfg, kind), (g.repeats,), gen, dtype, dev)
+        {f"k{j}": draw(_block_shapes(cfg, kind), (g.repeats,), ("groups", str(gi), f"k{j}"))
          for j, kind in enumerate(g.kinds)}
-        for g in plan_groups(cfg)
+        for gi, g in enumerate(plan_groups(cfg))
     )
-    params["final_norm"] = _materialize(_norm(cfg.d_model), (), gen, dtype, dev)
+    params["final_norm"] = draw(_norm(cfg.d_model), (), ("final_norm",))
     if not cfg.tie_embeddings:
-        params["head"] = _materialize(_linear(cfg.d_model, cfg.vocab_size), (), gen, dtype, dev)
+        params["head"] = draw(_linear(cfg.d_model, cfg.vocab_size), (), ("head",))
     return params
 
 

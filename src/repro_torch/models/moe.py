@@ -26,9 +26,14 @@ hardware boundary); shared experts run as an always-on MLP named
 run recorded, routes by them instead (teacher forcing: two numerically
 different paths then dispatch the same tokens to the same experts).
 
-The reference's mesh branches (sequence-sharded dispatch groups and expert
-parallelism over a tensor-parallel axis) wait for the dp×tp slice; on one
-device they are dead code and are left out.
+Under a mesh program (the sharded serving step) the groups are the rank's
+dp-local rows, and the expert stacks arrive tp-sharded on the experts axis
+(detected by shape: a stack's leading dim ``E_local < E``): the dispatched
+buffer is sliced to this rank's experts ``[t·E_local, (t+1)·E_local)``, and
+the down-projection's outputs are all-gathered back to every expert at full
+precision (the gate-weighted combine stays bit-exact). The drop count is
+pushed per rank; the mesh merge counts it once per dp group. (The
+reference's sequence-sharded dispatch groups belong to its training mesh.)
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.collectives import current_program
 from ..quant import capture as stats_capture
 from ..quant.qlinear import GemmBackend, dense
 from .layers import mlp
@@ -144,17 +150,26 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     # one dispatch group per batch row
     cap = moe_capacity(cfg, S)
     xin, dest = _dispatch_group(x, gate_idx, E, cap)                # (B, E*cap, D), (B, S*k)
-    if stats_capture.stats_wanted():
+    if stats_capture.capturing():
         stats_capture.push_scalar("moe.dropped_tokens",
                                   (dest == E * cap).sum().to(torch.int32))
 
     # groups -> experts: (E, B*cap, D)
     xin = xin.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
     ex = p["experts"]
+    # expert parallelism on a mesh: this rank's slice of the experts
+    prog = current_program()
+    wg = ex["w_gate"]
+    E_w = (wg["qkernel"] if isinstance(wg, dict) else wg).shape[0]
+    ep = prog is not None and E_w != E
+    if ep:
+        xin = xin[prog.t * E_w:(prog.t + 1) * E_w]
     g = _expert_mm(ex["w_gate"], xin, backend, "moe.gate", impl)
     u = _expert_mm(ex["w_up"], xin, backend, "moe.up", impl)
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
     yout = _expert_mm(ex["w_down"], h, backend, "moe.down", impl)   # (E, B*cap, D)
+    if ep:
+        yout = prog.gather_experts(yout, "moe.down")
 
     # experts -> groups, then each group's gate-weighted combine
     yg = yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)

@@ -353,7 +353,15 @@ def forward(
 
 def lm_logits(cfg: ModelConfig, rc: RunConfig, params: dict, h: torch.Tensor,
               *, impl: str = "auto") -> torch.Tensor:
-    """(B, S, D) -> (B, S, V) in h.dtype."""
+    """(B, S, D) -> (B, S, V) in h.dtype. On a mesh the tied head runs at
+    the single-device batch (``MeshProgram.at_full``), as the untied one
+    does in ``qlinear``."""
     if cfg.tie_embeddings:
-        return torch.matmul(h, params["embed"]["embedding"].to(h.dtype).t())
+        from ..parallel.collectives import current_program
+
+        emb = params["embed"]["embedding"].to(h.dtype).t()
+        prog = current_program()
+        if prog is None:
+            return torch.matmul(h, emb)
+        return prog.at_full("head.tied", torch.matmul, (h, {0: prog.dp}), (emb, {}))
     return dense(params["head"], h, backend=backend_from(rc), name="lm_head", impl=impl)

@@ -1,0 +1,349 @@
+"""Quantize-before-all-gather collectives and the mesh program of one
+sharded step (the reference's ``repro/parallel/collectives.py`` on
+``torch.distributed``).
+
+The sharded serving step (``parallel/serve_mesh.py``) runs the unmodified
+model body on every rank of a (dp, tp) process mesh. Model layers cannot
+take a mesh handle through their signatures without rewriting every call
+site, so the step activates a :class:`MeshProgram` for the duration of the
+call and the quant / attention / MoE layers consult it
+(``current_program()``), as ``quant.capture`` does for stats.
+
+The paper's thesis applied to the interconnect: a tensor-parallel GEMM whose
+input features are sharded (o-proj, down-proj) all-gathers the *quantized*
+planes, not the bf16 activations: int8 moves half the bytes, int4 a quarter
+(2 values a byte), int2 an eighth (4 values a byte), plus the f32 scales.
+Dequantization happens after the collective, on the gathered int planes,
+with scales synced by a MAX ``all_reduce`` over the raw amax (max is exact,
+so the synced scale is bit-identical to the single-device global scale).
+
+Every collective is metered: the program accumulates the bytes of each
+call per (label, bits), with the reference's labels and byte counts (the
+elements one rank receives, their bytes on the wire, the f32 scale bytes,
+and what the same gather would move at bf16); the scheduler rolls them into
+interconnect totals that ``core.report`` prices as an energy column.
+
+Tensors move as bytes: every gather reinterprets its operand as ``uint8``
+and views the result back, which is exact whatever dtypes a backend's
+``all_gather`` accepts. With ``host_staged`` (gloo ranks whose tensors live
+on a card) every collective copies through host memory.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+import torch
+
+__all__ = [
+    "CollectiveRecord",
+    "MeshProgram",
+    "current_program",
+    "activate",
+    "pack_wire",
+    "unpack_wire",
+    "wire_bits",
+]
+
+
+# ----------------------------------------------------------- wire bit-packing
+def wire_bits(bits: int, feature_dim: int) -> int:
+    """Bitwidth used on the wire for a quantized gather: sub-byte planes
+    pack ``8 // bits`` values a byte along the feature axis, which needs the
+    local feature count to be a multiple of the packing factor; otherwise
+    the plane ships unpacked at 8 bits (and is metered so)."""
+    if bits >= 8:
+        return 8
+    return bits if feature_dim % (8 // bits) == 0 else 8
+
+
+def pack_wire(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack an int8 plane of ``bits``-wide values along the last axis.
+
+    Values are offset-encoded (``+ 2^(bits-1)``) and packed little-endian
+    within each byte, so a tiled all-gather of packed chunks concatenates to
+    the packed form of the concatenated plane."""
+    if wire_bits(bits, q.shape[-1]) == 8:
+        return q
+    vpb = 8 // bits
+    g = q.reshape(q.shape[:-1] + (q.shape[-1] // vpb, vpb)).to(torch.int32) + (1 << (bits - 1))
+    shifts = torch.arange(vpb, dtype=torch.int32, device=q.device) * bits
+    return torch.bitwise_left_shift(g, shifts).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_wire(p: torch.Tensor, bits: int, features: int) -> torch.Tensor:
+    """Inverse of :func:`pack_wire`; ``features`` is the unpacked last dim."""
+    if wire_bits(bits, features) == 8:
+        return p
+    vpb = 8 // bits
+    shifts = torch.arange(vpb, dtype=torch.int32, device=p.device) * bits
+    vals = torch.bitwise_right_shift(p.to(torch.int32)[..., None], shifts) & ((1 << bits) - 1)
+    return (vals - (1 << (bits - 1))).to(torch.int8).reshape(p.shape[:-1] + (features,))
+
+
+# ------------------------------------------------------------- comms metering
+@dataclass
+class CollectiveRecord:
+    """Byte accounting of one collective call site."""
+
+    calls: int = 0
+    elems: int = 0            # logical elements received (before packing)
+    payload_bytes: int = 0    # bytes on the wire (after packing)
+    scale_bytes: int = 0      # f32 scale syncs riding the collective
+    bf16_bytes: int = 0       # what the same gather would move at bf16
+
+    def add(self, elems: int, payload: int, scales: int) -> None:
+        self.calls += 1
+        self.elems += elems
+        self.payload_bytes += payload
+        self.scale_bytes += scales
+        self.bf16_bytes += 2 * elems
+
+
+def _to_host(x: torch.Tensor, host_staged: bool) -> torch.Tensor:
+    x = x.detach().contiguous()
+    return x.cpu() if host_staged else x
+
+
+def _to_device(t: torch.Tensor, dev, host_staged: bool) -> torch.Tensor:
+    """Back to the card without waiting: a pinned copy queued on the
+    stream (the kernels after it wait for it, the host does not)."""
+    return t.pin_memory().to(dev, non_blocking=True) if host_staged else t
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous) as uint8, one trailing axis of its element bytes."""
+    return x.reshape(x.shape + (1,)).view(torch.uint8)
+
+
+def _gather(x: torch.Tensor, group, world: int, dim: int, host_staged: bool) -> torch.Tensor:
+    """``all_gather`` over ``group`` concatenated along ``dim``, moving the
+    operand's bytes."""
+    src = _to_host(x, host_staged)
+    raw = _bytes(src)
+    parts = [torch.empty_like(raw) for _ in range(world)]
+    torch.distributed.all_gather(parts, raw, group=group)
+    out = torch.cat(parts, dim=dim).view(x.dtype).reshape(
+        src.shape[:dim] + (world * src.shape[dim],) + src.shape[dim + 1:])
+    return _to_device(out, x.device, host_staged)
+
+
+def _gather_rows(xs: list, group, world: int, host_staged: bool) -> list:
+    """Several tensors of the same row count all-gathered along axis 0 in
+    one ``all_gather``: each row's bytes of every tensor travel together."""
+    srcs = [_to_host(x, host_staged) for x in xs]
+    rows = srcs[0].shape[0]
+    raw = torch.cat([_bytes(s).reshape(rows, -1) for s in srcs], dim=1)
+    parts = [torch.empty_like(raw) for _ in range(world)]
+    torch.distributed.all_gather(parts, raw, group=group)
+    full = torch.cat(parts, dim=0)
+    out, c = [], 0
+    for x, s in zip(xs, srcs):
+        n = s[:1].numel() * s.element_size()
+        piece = full[:, c:c + n].contiguous().view(x.dtype).reshape((world * rows,) + s.shape[1:])
+        out.append(_to_device(piece, x.device, host_staged))
+        c += n
+    return out
+
+
+def _max(xs: list, group, host_staged: bool) -> list:
+    """Elementwise MAX ``all_reduce`` over ``group`` of several f32
+    tensors in one call (new tensors)."""
+    buf = torch.cat([_to_host(x, host_staged).reshape(-1) for x in xs])
+    torch.distributed.all_reduce(buf, op=torch.distributed.ReduceOp.MAX, group=group)
+    out, c = [], 0
+    for x in xs:
+        out.append(_to_device(buf[c:c + x.numel()].reshape(x.shape), x.device, host_staged))
+        c += x.numel()
+    return out
+
+
+@dataclass
+class MeshProgram:
+    """One rank's view of a sharded step: its (d, t) coordinates, its dp
+    group (the ranks of its tp column) and tp group (the ranks of its dp
+    row), and what the layers do under the mesh.
+
+    Consulted by ``quant.qlinear`` (feature gathers and amax syncs, float
+    GEMMs at the single-device row count), ``models.attention`` (the KV
+    scale sync, the dp row gather of pool writes, MLA's absorbed products
+    at the single-device batch and heads), ``models.flash`` (the attention kernel's launch
+    plan), ``models.moe`` (the expert slice and the output gather) and the
+    tied LM head. ``comm_s`` accumulates the wall time spent inside the
+    collectives."""
+
+    dp: int = 1
+    tp: int = 1
+    d: int = 0
+    t: int = 0
+    dp_group: object = None
+    tp_group: object = None
+    world_group: object = None          # every rank (a dp and tp sync at once)
+    host_staged: bool = False
+    # GEMM names whose *input features* are tp-sharded (the upstream GEMM
+    # was column-parallel) and are gathered before the contraction
+    gather_gemms: frozenset = frozenset()
+    # KV cache leaves with a tp-sharded head axis (their per-token scale is
+    # amax-synced over tp); empty for MLA (the latent has no heads)
+    kv_sync_names: frozenset = frozenset()
+    # full-batch write view of the dp-replicated paged pool (None: the
+    # dense layout, whose caches are batch-sharded and written locally)
+    write_view: object = None
+    # (label, bits) -> CollectiveRecord, filled as the step runs
+    meter: dict = field(default_factory=dict)
+    comm_s: float = 0.0
+    # the last activation amax synced, keyed by its input (the q, k, v GEMMs
+    # of one input, and gate / up, share one sync)
+    memo: object = None
+
+    # ---------------------------------------------------------------- meter
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.comm_s += time.perf_counter() - t0
+
+    def _rec(self, label: str, bits: int) -> CollectiveRecord:
+        return self.meter.setdefault((label, int(bits)), CollectiveRecord())
+
+    def meter_snapshot(self) -> dict:
+        """{(label, bits): {calls, elems, payload_bytes, scale_bytes,
+        bf16_bytes}}: plain data, safe to accumulate on the host."""
+        return {k: {"calls": r.calls, "elems": r.elems, "payload_bytes": r.payload_bytes,
+                    "scale_bytes": r.scale_bytes, "bf16_bytes": r.bf16_bytes}
+                for k, r in self.meter.items()}
+
+    # --------------------------------------------------------- attention
+    def attn_plan_dims(self, batch: int, heads: int, kv_heads: int, sq: int) -> tuple:
+        """(batch, kv heads, rows a kv head) of the single-device launch
+        that this rank's attention call is a slice of: the paged kernel
+        takes its split plan from these, so each head's float combine order
+        is the single-device one. Batch rows are dp-sharded; query heads
+        are tp-sharded, kv heads too where the pool's head axis is."""
+        kv = kv_heads * self.tp if self.kv_sync_names else kv_heads
+        return batch * self.dp, kv, heads * self.tp // kv * sq
+
+    # -------------------------------------------- float products at full shape
+    def at_full(self, site: str, fn, *operands):
+        """``fn`` over ``operands``, each a ``(tensor or None, {dim:
+        factor})`` pair whose dim ``d`` is zero-padded ``factor``-fold to
+        the single-device launch's shape, the result cut back along the
+        first operand's padded dims. cuBLAS picks a float product's
+        algorithm by its shape, and on the card a rank's shape moved two
+        kinds of product by an ulp (``scripts/mesh_full_probe.py``): the
+        bf16 GEMMs with the row count, MLA's absorbed einsums with the head
+        count. Padded so, the rank's entries are the single-device ones
+        bit for bit. ``site`` names the product. Integer GEMMs are exact at
+        any shape and need no padding."""
+        def pad(x, dims):
+            if x is None:
+                return x
+            full = list(x.shape)
+            for d, f in dims.items():
+                full[d] *= f
+            if full == list(x.shape):
+                return x
+            z = x.new_zeros(full)
+            z[tuple(slice(0, n) for n in x.shape)] = x
+            return z
+
+        y = fn(*(pad(x, dims) for x, dims in operands))
+        x, dims = operands[0]
+        for d in dims:
+            y = y.narrow(d, 0, x.shape[d])
+        return y
+
+    # ---------------------------------------------------------- scale syncs
+    def sync_amax(self, amax: torch.Tensor, label: str, *, tp: bool = False, dp: bool = False,
+                  moved: bool = True) -> torch.Tensor:
+        """The global amax over tp (features or heads are tp-sharded)
+        and / or dp (activation rows are dp-sharded): the reference's
+        ``sync_amax_tp`` and ``sync_amax_dp`` as one MAX ``all_reduce`` over
+        the ranks that span the asked axes, metered as the reference's one
+        record an axis. ``moved=False`` meters the sync without moving
+        anything (the caller holds its result already)."""
+        tp, dp = tp and self.tp > 1, dp and self.dp > 1
+        for on, n in ((tp, self.tp), (dp, self.dp)):
+            if on:
+                self._rec(f"amax:{label}", 32).add(amax.numel(), 0, 4 * amax.numel() * (n - 1))
+        if not moved or not (tp or dp):
+            return amax
+        group = self.world_group if tp and dp else self.tp_group if tp else self.dp_group
+        return self._timed(_max, [amax], group, self.host_staged)[0]
+
+    def sync_amax_tp_many(self, items: list) -> list:
+        """[(label, amax)] synced over tp in one ``all_reduce``, each
+        metered as its own sync (the KV leaves of one write)."""
+        if self.tp == 1 or not items:
+            return [a for _, a in items]
+        for label, a in items:
+            self.sync_amax(a, label, tp=True, moved=False)
+        return self._timed(_max, [a for _, a in items], self.tp_group, self.host_staged)
+
+    # ---------------------------------------------------- quantized gathers
+    def gather_features_quant(self, q: torch.Tensor, bits: int, label: str) -> torch.Tensor:
+        """All-gather a locally quantized int8 plane over tp along the last
+        (feature) axis, packed to ``bits`` on the wire when the local
+        feature count allows. Returns the full-feature int8 plane."""
+        if self.tp == 1:
+            return q
+        k_local = q.shape[-1]
+        wb = wire_bits(bits, k_local)
+        elems = q.numel() * (self.tp - 1)
+        self._rec(f"gather:{label}", bits).add(elems, elems * wb // 8, 0)
+        full = self._timed(_gather, pack_wire(q, bits), self.tp_group, self.tp, q.ndim - 1,
+                           self.host_staged)
+        return unpack_wire(full, bits, k_local * self.tp)
+
+    def gather_features_f(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        """Full-precision feature gather over tp (the bf16 path; metered so
+        the byte comparison is honest)."""
+        if self.tp == 1:
+            return x
+        elems = x.numel() * (self.tp - 1)
+        self._rec(f"gather:{label}", 16).add(elems, elems * x.element_size(), 0)
+        return self._timed(_gather, x, self.tp_group, self.tp, x.ndim - 1, self.host_staged)
+
+    def gather_rows_dp_many(self, items: list) -> list:
+        """[(label, x)] of one row count all-gathered over dp to the full
+        batch along axis 0 in one ``all_gather`` (the paged pool's KV
+        writes: every rank writes every row's tokens), each metered as the
+        reference's ``gather_rows_dp`` meters it."""
+        if self.dp == 1 or not items:
+            return [x for _, x in items]
+        for label, x in items:
+            elems = x.numel() * (self.dp - 1)
+            self._rec(f"gather:{label}", 8 * x.element_size()).add(
+                elems, elems * x.element_size(), 0)
+        return self._timed(_gather_rows, [x for _, x in items], self.dp_group, self.dp,
+                           self.host_staged)
+
+    def gather_experts(self, y: torch.Tensor, label: str) -> torch.Tensor:
+        """All-gather expert-local outputs over tp along the experts axis
+        (axis 0), at full precision: the combine's gate-weighted sum must
+        equal the single-device result bit for bit."""
+        if self.tp == 1:
+            return y
+        elems = y.numel() * (self.tp - 1)
+        self._rec(f"gather:{label}", 16).add(elems, elems * y.element_size(), 0)
+        return self._timed(_gather, y, self.tp_group, self.tp, 0, self.host_staged)
+
+
+_PROGRAM: list[MeshProgram] = []
+
+
+def current_program() -> MeshProgram | None:
+    return _PROGRAM[-1] if _PROGRAM else None
+
+
+@contextmanager
+def activate(prog: MeshProgram):
+    """Activate ``prog`` for the enclosed step."""
+    _PROGRAM.append(prog)
+    try:
+        yield prog
+    finally:
+        _PROGRAM.pop()

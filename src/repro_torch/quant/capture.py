@@ -12,7 +12,9 @@ MoE experts of one launch): the totals sum ``serial_cycles`` *and*
 ``parallel_cycles`` over them, as the reference does — distinct GEMMs
 time-multiplex one unit even in the parallel micro-architecture. Named
 scalars that are not GEMMs (``moe.dropped_tokens``) ride along as
-:class:`CapturedScalar` entries.
+:class:`CapturedScalar` entries; a ``scalars_only`` capture keeps only
+those (the mesh step's MoE drop counter when energy tracking is off), and
+no GEMM computes stats for it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "Capture",
     "capture_stats",
     "stats_wanted",
+    "capturing",
     "push",
     "push_scalar",
     "scalar_totals",
@@ -62,19 +65,27 @@ class CapturedScalar:
 class Capture:
     entries: list[CapturedGemm] = field(default_factory=list)
     scalars: list[CapturedScalar] = field(default_factory=list)
+    scalars_only: bool = False
 
 
 _ACTIVE: list[Capture] = []
 
 
 def stats_wanted() -> bool:
+    """Whether GEMMs should compute stats: a capture that takes them is
+    active."""
+    return bool(_ACTIVE) and not _ACTIVE[-1].scalars_only
+
+
+def capturing() -> bool:
+    """Whether named scalars are recorded: any capture is active."""
     return bool(_ACTIVE)
 
 
 def push(name: str, M: int, K: int, N: int, stats: TuGemmStats, bits: int = 8) -> None:
     """Record one GEMM in the innermost capture (no-op when not capturing
     or inside ``ops.quiet_records``)."""
-    if _ACTIVE and recording():
+    if _ACTIVE and not _ACTIVE[-1].scalars_only and recording():
         _ACTIVE[-1].entries.append(CapturedGemm(name, int(M), int(K), int(N), stats, int(bits)))
 
 
@@ -86,10 +97,11 @@ def push_scalar(name: str, value: torch.Tensor) -> None:
 
 
 @contextmanager
-def capture_stats():
-    """Collect every quantized GEMM run inside the block; yields the
-    :class:`Capture` whose ``entries`` hold the result."""
-    cap = Capture()
+def capture_stats(*, scalars_only: bool = False):
+    """Collect every quantized GEMM run inside the block (with
+    ``scalars_only``, only the named scalars); yields the :class:`Capture`
+    whose ``entries`` hold the result."""
+    cap = Capture(scalars_only=scalars_only)
     _ACTIVE.append(cap)
     try:
         yield cap

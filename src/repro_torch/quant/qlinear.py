@@ -29,6 +29,18 @@ whose name is in ``reg`` takes the fixed per-tensor scale ``reg[name] / hi``
 (both pipelines; ``_gemm_prequant`` consults no registry, as in the
 reference).
 
+Under a mesh program (``parallel.collectives``; the sharded serving step)
+the scales are the mesh-global ones: the raw amax is max-merged over tp
+when the GEMM's input features are tp-sharded (``prog.gather_gemms``) and
+over dp when the scale is per tensor, then ``amax_to_scale``, which gives
+the single-device ``fused_scales`` bit for bit. A gathered GEMM quantizes
+its local feature chunk, puts the int plane on the wire (bit-packed below
+8 bits) and runs the int8 GEMM with stats on the gathered full-K plane, then
+the dequant epilogue; a gathered prequant GEMM hands the dequantized
+full-K plane to the fused packed kernel (``round(q·s / s) == q`` in f32
+for ``|q| <= 127``, so its on-load quantization reproduces the plane). A
+gathered bf16 GEMM gathers its input at full precision.
+
 An expert stack (a raw ``(E, K, N)`` kernel or its packed ``(E, Kp, N)``
 leaf: the MoE expert GEMMs) takes x ``(E, M, K)`` and runs either pipeline
 over all E experts at once, each expert with its own scales, as the
@@ -50,7 +62,8 @@ from ..kernels import ops
 from ..kernels.ref import dequant_bias_ref
 from . import capture
 from .calibration import active_scales, observe
-from .quantize import act_scale, compute_scale, fused_scales, int_range, quantize, weight_scale
+from .quantize import (act_scale, amax_to_scale, compute_scale, fused_scales, int_range, quantize,
+                       raw_amax, weight_scale)
 from .stats import record_stats
 
 __all__ = ["GemmBackend", "BF16", "QBits", "gemm", "dense", "prequantize_tree"]
@@ -114,12 +127,12 @@ def _sink_stats(stats, x2, N, backend: GemmBackend, name: str, return_stats: boo
 
 
 def _emit_fused(x2, w, sx, sw, bias, backend: GemmBackend, name: str, *,
-                w_quantized: bool, return_stats: bool, impl: str):
+                w_quantized: bool, return_stats: bool, impl: str, out_dtype=None):
     """One fused dispatch plus stats routing; returns (y, stats|None)."""
     want = _want_stats(backend, return_stats)
     out = ops.matmul_fused(
         x2, w, sx=sx, sw=sw, bias=bias, bits=backend.bits, w_quantized=w_quantized,
-        collect_stats=want, impl=_impl(backend, impl), name=name,
+        collect_stats=want, out_dtype=out_dtype, impl=_impl(backend, impl), name=name,
     )
     if not want:
         return out, None
@@ -128,11 +141,44 @@ def _emit_fused(x2, w, sx, sw, bias, backend: GemmBackend, name: str, *,
     return y, stats
 
 
-def _bf16_gemm(x, w, bias):
+def _bf16_gemm(x, w, bias, name: str = "gemm"):
+    prog = _mesh()
+    if prog is None:
+        return _plain_gemm(x, w, bias)
+    # at the single-device row count (an expert stack's rows are axis 1);
+    # the weight stays the rank's: no product moved with its columns or
+    # experts
+    return prog.at_full(f"gemm:{name}", _plain_gemm, (x, {int(w.ndim == 3): prog.dp}),
+                        (w, {}), (bias, {}))
+
+
+def _plain_gemm(x, w, bias):
     y = torch.matmul(x, w.to(x.dtype))
     if bias is not None:
         y = y + (bias if w.ndim == 2 else bias.unsqueeze(-2)).to(y.dtype)
     return y
+
+
+def _mesh():
+    """The active mesh program (``parallel.collectives``), or None."""
+    from ..parallel import collectives
+
+    return collectives.current_program()
+
+
+def _mesh_act_scale(prog, x2: torch.Tensor, bits: int, per_token: bool, gathered: bool,
+                    name: str) -> torch.Tensor:
+    """The activation scale over the whole mesh: the local raw amax (per
+    tensor, or per row), max-merged over tp when x's features are sharded
+    and over dp when the scale is per tensor (rows are dp-sharded), in one
+    ``all_reduce``. Consecutive GEMMs of one input (q, k, v; gate, up)
+    share the sync, each metered as its own."""
+    key = (x2.data_ptr(), tuple(x2.shape), tuple(x2.stride()), x2._version, per_token, gathered)
+    hit = prog.memo is not None and prog.memo[0] == key
+    amax = prog.memo[2] if hit else raw_amax(x2, axis=tuple(range(x2.ndim - 2 + per_token)))
+    amax = prog.sync_amax(amax, name, tp=gathered, dp=not per_token, moved=not hit)
+    prog.memo = (key, x2, amax)       # x2 held: its storage cannot be reused meanwhile
+    return amax_to_scale(amax, bits)
 
 
 def _lead_scale(s: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -160,8 +206,13 @@ def gemm(
     runs dynamic whatever the mode: a ``prequant`` rule on a leaf that was
     never packed quantizes on the fly, which is bit-exact with prequant."""
     backend = backend.for_gemm(name)
+    prog = _mesh()
+    gathered = prog is not None and name in prog.gather_gemms
     if backend.kind == "bf16":
-        y = _bf16_gemm(x, w, bias)
+        if gathered:
+            # a bf16 GEMM on tp-sharded features gathers them at full precision
+            x = prog.gather_features_f(x, name)
+        y = _bf16_gemm(x, w, bias, name)
         return (y, None) if return_stats else y
     bits = backend.bits
     per_token = backend.act_scale == "token"
@@ -177,6 +228,11 @@ def gemm(
                         dtype=torch.float32, device=x2.device)
         sw = weight_scale(w, bits)
         ops.count_dispatch("scale_w")
+    elif prog is not None:
+        sx = _mesh_act_scale(prog, x2, bits, per_token, gathered, name)
+        sw = weight_scale(w, bits)
+        ops.count_dispatch("scale_x")
+        ops.count_dispatch("scale_w")
     else:
         sx, sw = fused_scales(x2, w, bits, per_token)
         if backend.fused:
@@ -184,6 +240,26 @@ def gemm(
         else:
             ops.count_dispatch("scale_x")
             ops.count_dispatch("scale_w")
+    if gathered:
+        # quantize-before-all-gather: quantize the local feature chunk with
+        # the global scale, gather the int planes (bit-packed when sub-byte),
+        # then the int8 GEMM with its stats on the full-K plane; bit-exact
+        # against the single-device fused pass (the unfused composition is)
+        path = _impl(backend, impl)
+        xq = quantize(x2, _lead_scale(sx, x2.ndim), bits)
+        wq = quantize(w, sw.unsqueeze(-2), bits)
+        ops.count_dispatch("quantize_x")
+        ops.count_dispatch("quantize_w")
+        xq = prog.gather_features_quant(xq, bits, name)
+        want = _want_stats(backend, return_stats)
+        out = ops.matmul_int8(xq, wq, collect_stats=want, impl=path)
+        y_int, stats = out if want else (out, None)
+        if want:
+            _sink_stats(stats, xq, w.shape[-1], backend, name, return_stats)
+        y = dequant_bias_ref(y_int, sx, sw, bias, x.dtype)
+        ops.count_dispatch("dequant_epilogue")
+        y = y.reshape(*lead, w.shape[-1])
+        return (y, stats) if return_stats else y
     if backend.fused:
         y, stats = _emit_fused(x2, w, sx, sw, bias, backend, name, w_quantized=False,
                                return_stats=return_stats, impl=impl)
@@ -240,10 +316,29 @@ def _gemm_prequant(
     lead = x.shape[:-1]
     experts = leaf["qkernel"].ndim == 3
     x2 = x if experts else x.reshape(-1, x.shape[-1])
-    sx = act_scale(x2, bits, per_token)
+    prog = _mesh()
+    gathered = prog is not None and name in prog.gather_gemms
+    if prog is not None:
+        sx = _mesh_act_scale(prog, x2, bits, per_token, gathered, name)
+    else:
+        sx = act_scale(x2, bits, per_token)
     ops.count_dispatch("scale_x")
     sw = leaf["qscale"]
     N = sw.shape[-1]
+    if gathered:
+        # quantize-before-all-gather into the fused packed-weight kernel:
+        # the gathered plane goes in dequantized (f32) with the same scale,
+        # so the kernel's on-load quantization reproduces it and its stats
+        # are the full-K statistics (under an unfused rule too)
+        xq = quantize(x2, _lead_scale(sx, x2.ndim), bits)
+        ops.count_dispatch("quantize_x")
+        xq = prog.gather_features_quant(xq, bits, name)
+        xdq = xq.to(torch.float32) * _lead_scale(sx, xq.ndim)
+        y, stats = _emit_fused(xdq, leaf["qkernel"], sx, sw, bias, backend, name,
+                               w_quantized=True, return_stats=return_stats, impl=impl,
+                               out_dtype=x.dtype)
+        y = y.reshape(*lead, N)
+        return (y, stats) if return_stats else y
     if backend.fused:
         # the plane decode runs inside the fused kernel, and real cycle
         # stats come out of the same pass

@@ -33,8 +33,12 @@ This module owns the *host* side:
   block-aligned — a lookup returns the longest chain of full
   ``block_size``-token chunks present in the trie, never a partial block.
 
-The mesh's per-device table shards (``table_shard``) come with the mesh
-slice.
+``BlockManager.table_shard`` is a tp-way mesh's per-group ownership view of
+the tables (page ``p`` belongs to group ``p % tp``): an accounting
+partition, not a data layout; the KV data itself is head-sharded, every
+rank holding a head slice of every page. ``copy_pages`` performs the
+copy-on-write page copies on a pool's leaves (every mesh rank applies them
+to its own shard).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ __all__ = [
     "PrefixCache",
     "PrefixNode",
     "cache_bytes",
+    "copy_pages",
     "dense_cache_tokens",
     "num_pages_for",
 ]
@@ -507,6 +512,20 @@ class BlockManager:
         pages = [int(self.tables[slot, b]) for b in range(nblocks)]
         return self.prefix.register(seq, nblocks, pages, now=now)
 
+    def table_shard(self, rank: int, tp: int) -> np.ndarray:
+        """Group ``rank``'s view of the block tables on a tp-way mesh: the
+        group owns page ``p`` iff ``p % tp == rank`` (the trash page belongs
+        to everyone), and entries it does not own are masked to trash, so
+        the ``tp`` shards partition the global table: every live entry
+        appears in exactly one shard. An ownership partition for
+        attribution; the KV data is head-sharded (every rank holds a head
+        slice of every page)."""
+        if not (0 <= rank < tp):
+            raise ValueError(f"rank {rank} out of range for tp={tp}")
+        t = self.tables.copy()
+        t[(t != self.trash) & (t % tp != rank)] = self.trash
+        return t
+
     def drain_cow_copies(self) -> list[tuple[int, int]]:
         """Hand the pending (src, dst) page copies to the caller (the
         scheduler performs them on every device pool sharing these tables
@@ -569,3 +588,34 @@ def cache_bytes(caches) -> int:
     if isinstance(caches, torch.Tensor):
         return caches.numel() * caches.element_size()
     return 0
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def copy_pages(pools, copies: list[tuple[int, int]], device) -> None:
+    """Perform copy-on-write page copies ``leaf[:, dst] = leaf[:, src]`` on
+    every tensor leaf of ``pools`` (cache trees whose leaves are (layers,
+    num_pages + 1, block_size, ...), int8 scales included). When no page is
+    both a source and a destination, one ``index_select`` / ``index_copy_``
+    a leaf does them all; otherwise the pairs go one by one in queue order.
+    The copies run on the pools' device, queued on its stream."""
+    if not copies:
+        return
+    leaves = _tensors(pools)
+    src = [s_ for s_, _ in copies]
+    dst = [d for _, d in copies]
+    if set(src).isdisjoint(dst):
+        si = torch.tensor(src, dtype=torch.int64).to(device)
+        di = torch.tensor(dst, dtype=torch.int64).to(device)
+        for leaf in leaves:
+            leaf.index_copy_(1, di, leaf.index_select(1, si))
+        return
+    for s_, d in copies:
+        for leaf in leaves:
+            leaf[:, d] = leaf[:, s_]

@@ -58,8 +58,25 @@ stacks have no resumable mixer state for chunked prefill and are refused:
 they serve through the legacy ``serve.Engine``. An encoder-only config
 (hubert-xlarge) has no decode step and is refused with a ``ValueError``
 (the reference does not check; ROADMAP C). An M-RoPE config's step takes
-(3, B, W) positions with t = h = w (a text stream). The mesh is a later
-slice.
+(3, B, W) positions with t = h = w (a text stream).
+
+Sharded serving (``mesh="dp,tp"``, ``parallel/serve_mesh.py``, DESIGN.md
+§12): the same mixed step over a (dp, tp) mesh of ``dp·tp`` ranks
+(``launch/mesh.py``), this Scheduler's process being rank 0. It plans every
+tick, owns the one ``BlockManager`` and every robustness and observability
+layer, and each tick sends the ranks the step's inputs; each rank runs its
+rows and heads on its own weight and cache shards. Logits come back from tp
+rank 0 of each dp group, the stats as (dp, tp) stacks that merge into the
+single-device step's (tokens and cycle totals identical), and the
+collectives' bytes into ``comms_summary()`` (priced by
+``interconnect_report()``); ``device_attribution()`` splits the cycle
+totals over the ranks. The fallback step and the copy-on-write page copies
+run on every rank too. A mesh needs ``mesh_backend`` named: ``gloo``
+(every rank on ``device``: the CPU, or one shared card) or ``nccl`` (rank r
+on ``cuda:r``); none is chosen for the caller. Speculative decoding on a
+mesh is refused, as in the reference. ``params`` is the full tree (rank 0
+cuts each rank's shard) or a ``serve_mesh.InitShards`` (each rank draws
+its own).
 """
 
 from __future__ import annotations
@@ -93,7 +110,7 @@ from .admission import (
     Rejection,
     RejectReason,
 )
-from .cache import BlockManager, cache_bytes, dense_cache_tokens, num_pages_for
+from .cache import BlockManager, cache_bytes, copy_pages, dense_cache_tokens, num_pages_for
 
 __all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "install_sigint_drain",
            "sample", "uniform", "categorical", "STREAM_SAMPLE", "STREAM_DRAFT",
@@ -428,7 +445,9 @@ class Scheduler:
     observability parts (defaults: unbounded classes, no faults, no
     tracing, a private registry). ``draft_params`` is the float tree the
     speculative draft view is built from when ``params`` were already
-    packed for the target policy (default: ``params``).
+    packed for the target policy (default: ``params``). ``mesh`` ("dp,tp",
+    a (dp, tp) pair or a ``MeshSpec``) shards the step over ``dp·tp`` ranks
+    on ``mesh_backend`` (see the module docstring).
     """
 
     def __init__(
@@ -450,6 +469,8 @@ class Scheduler:
         metrics: MetricsRegistry | None = None,
         device=None,
         impl: str = "auto",
+        mesh=None,
+        mesh_backend: str | None = None,
     ):
         if any(k.mixer in ("ssm", "hybrid") for g in plan_groups(cfg) for k in g.kinds):
             raise NotImplementedError(
@@ -505,9 +526,19 @@ class Scheduler:
             self.mgr = BlockManager(pages, rc.block_size, max_batch, capacity,
                                     prefix_cache=self.prefix_caching)
             self.mgr.bind_registry(self.metrics)
-        self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
-                                  device=self.device)
-        self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
+        # sharded serving (parallel/serve_mesh.py): the planner, the
+        # BlockManager and every host loop stay here; the ranks hold the
+        # weight and cache shards
+        self.mesh = None
+        self._pool = None
+        self.comms: dict = {}               # (label, bits) -> byte totals
+        self._device_weight: dict = {}      # bits -> (dp, tp) int64 serial load
+        if mesh is not None:
+            self._attach_mesh(mesh, mesh_backend, params, pages)
+        else:
+            self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
+                                      device=self.device)
+            self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
         # speculative decoding: a draft-policy view + draft pool
         # (serve.spec.SpecDecoder) backed by this one BlockManager, and a
         # verify step that keeps every column's logits; spec_gamma == 0
@@ -546,12 +577,45 @@ class Scheduler:
         self._fault_fired = False        # injected alloc failure this tick
         self._stall_this_tick = False
         self._fb_step = None             # lazily built fallback-policy step
+        self._fb_rc = None               # ... and its RunConfig
         self._fb_unavailable = False
         if self.mgr is not None and self.faults is not None:
             self.mgr.fault_hook = self._alloc_fault_hook
         # one registry for the whole engine: the controller's counters move in
         self.admission.bind_registry(self.metrics)
         self._register_gauges()
+
+    def _attach_mesh(self, mesh, backend: str, params, pages) -> None:
+        """Start (or reuse) the rank pool and build every rank's engine:
+        rank r's weights from ``params`` (the full tree, cut here; or an
+        ``InitShards`` each rank draws from), its cache shards and step."""
+        from ..launch.mesh import rank_pool
+        from ..parallel import serve_mesh as sm
+
+        if getattr(self.rc, "spec_gamma", 0) > 0:
+            raise NotImplementedError(
+                "speculative decoding on a mesh is not supported yet: the draft "
+                "pool's fork / rollback protocol is single-device")
+        spec = self.mesh = sm.as_spec(mesh)
+        sm.validate(self.cfg, self.rc, spec, self.max_batch)
+        if isinstance(params, dict):
+            sources = [sm.TreeShard(sm.shard_params(spec, params, *divmod(r, spec.tp)))
+                       for r in range(spec.devices)]
+        else:
+            sources = [params] * spec.devices
+        self._pool = rank_pool(spec, backend=backend, device=self.device)
+        self._eid = self._pool.attach(
+            sources, cfg=self.cfg, rc=self.rc, spec=spec, max_batch=self.max_batch,
+            capacity=self.capacity, num_pages=pages, with_stats=self.track_energy,
+            impl=self.impl)
+        eng = self._pool.engine
+        self.params, self.caches = eng.params, eng.caches
+        self._mesh_step = eng.step
+        # each rank's step seconds and their part inside collectives
+        self._rank_seconds = np.zeros((spec.devices, 2))
+        # the whole mesh's cache bytes (cache_stats), from the full shapes
+        self._mesh_cache_bytes = cache_bytes(init_caches(
+            self.cfg, self.rc, self.max_batch, self.capacity, num_pages=pages, device="meta"))
 
     # ---------------------------------------------------------- observability
     def _init_metrics(self) -> None:
@@ -921,18 +985,10 @@ class Scheduler:
         copies = self.mgr.drain_cow_copies()
         if not copies:
             return
-        src = [s_ for s_, _ in copies]
-        dst = [d for _, d in copies]
-        leaves = self._pools()
-        if set(src).isdisjoint(dst):
-            si = upload(np.array(src, np.int64), self.device)
-            di = upload(np.array(dst, np.int64), self.device)
-            for leaf in leaves:
-                leaf.index_copy_(1, di, leaf.index_select(1, si))
+        if self.mesh is not None:
+            self._pool.call(("cow", self._eid, copies))     # every rank's pool shard
             return
-        for s_, d in copies:
-            for leaf in leaves:
-                leaf[:, d] = leaf[:, s_]
+        copy_pages(self._pools(), copies, self.device)
 
     # ----------------------------------------------------------------- tick
     def _plan(self):
@@ -980,9 +1036,12 @@ class Scheduler:
 
     def _tables(self) -> torch.Tensor | None:
         """Device copy of the block tables, re-uploaded only when the host
-        manager mutated since the last tick (None on the dense layout)."""
+        manager mutated since the last tick (None on the dense layout; on a
+        mesh the host tables, which every rank uploads itself)."""
         if self.mgr is None:
             return None
+        if self.mesh is not None:
+            return self.mgr.tables
         if self._tables_version != self.mgr.version:
             self._tables_dev = upload(self.mgr.tables, self.device)
             self._tables_version = self.mgr.version
@@ -1133,23 +1192,26 @@ class Scheduler:
             for i in fbset:
                 lens_main[i] = 0
             t0 = time.perf_counter()
-            out = self._step(self.params, self.caches,
-                             *self._step_args(tokens, pos, lens_main, width), tables)
-            if self.track_energy:
-                self.caches, logits, cap = out
-                step_by_bits = tree_totals_by_bits(cap)
-                if cap.scalars:
-                    self.tick_dropped_tokens.append(
-                        scalar_totals(cap).get("moe.dropped_tokens", 0))
+            if self.mesh is not None:
+                main_np, step_by_bits = self._mesh_main(tokens, pos, lens_main, width, tables)
             else:
-                self.caches, logits = out
+                out = self._step(self.params, self.caches,
+                                 *self._step_args(tokens, pos, lens_main, width), tables)
+                if self.track_energy:
+                    self.caches, logits, cap = out
+                    step_by_bits = tree_totals_by_bits(cap)
+                    if cap.scalars:
+                        self.tick_dropped_tokens.append(
+                            scalar_totals(cap).get("moe.dropped_tokens", 0))
+                else:
+                    self.caches, logits = out
+                # the host copy is the tick's one sync with the device
+                main_np = logits.to(torch.float32).cpu().numpy()
             for b, d in step_by_bits.items():
                 acc = self.cycles_by_bits.setdefault(
                     b, {"serial_cycles": 0, "parallel_cycles": 0})
                 for k2, v2 in d.items():
                     acc[k2] += int(v2)
-            # the host copy is the tick's one sync with the device
-            main_np = logits.to(torch.float32).cpu().numpy()
             self.tick_seconds.append(time.perf_counter() - t0)
             if logits_np is None:
                 logits_np = main_np
@@ -1284,7 +1346,7 @@ class Scheduler:
         propagates."""
         if self._fb_unavailable:
             return None
-        if self._fb_step is None:
+        if self._fb_rc is None:
             rc_fb = self._fallback_rc()
             try:
                 step_backend(self.cfg, rc_fb, self.params)
@@ -1294,11 +1356,18 @@ class Scheduler:
                              error=repr(e)))
                 self._fb_unavailable = True
                 return None
-            self._fb_step = build_mixed_step(self.cfg, rc_fb, impl=self.impl,
-                                             scope="serve/fallback")
+            self._fb_rc = rc_fb
+            if self.mesh is None:
+                self._fb_step = build_mixed_step(self.cfg, rc_fb, impl=self.impl,
+                                                 scope="serve/fallback")
         lens_fb = np.zeros_like(lens)
         for i in fb_rows:
             lens_fb[i] = lens[i]
+        if self.mesh is not None:
+            # the ranks build their sharded fallback step on first use
+            return self._mesh_logits(self._pool.call((
+                "step", self._eid, "fallback", tokens[:, :width], pos, lens_fb, tables,
+                self._fb_rc)))
         self.caches, logits = self._fb_step(self.params, self.caches,
                                             *self._step_args(tokens, pos, lens_fb, width),
                                             tables)
@@ -1748,7 +1817,16 @@ class Scheduler:
                 else {"enabled": False,
                       "prefill_tokens_computed": self.prefill_tokens_computed}),
             "sharding": {"replicated_dims": 0, "dropped_rules": {}},
-            "mesh": {"enabled": False},
+            "mesh": ({
+                "dp": self.mesh.dp,
+                "tp": self.mesh.tp,
+                "devices": self.mesh.devices,
+                "backend": self._pool.backend,
+                "moe_dropped_tokens": self.moe_dropped_tokens,
+                "comms": self.comms_summary(),
+                "rank_step_s": self._rank_seconds[:, 0].tolist(),
+                "rank_collective_s": self._rank_seconds[:, 1].tolist(),
+            } if self.mesh is not None else {"enabled": False}),
             "stalled_rows_total": self.stalled_rows_total,
             "stall_episodes": self.stall_episodes,
             "engine_stalls": self.engine_stalls,
@@ -1758,6 +1836,102 @@ class Scheduler:
             "draft_stale_events": self.draft_stale_events,
             "draft_resyncs": self.draft_resyncs,
         }
+
+    # ---------------------------------------------------------------- mesh
+    def _mesh_logits(self, res: list) -> np.ndarray:
+        """The step's (B, V) logits from tp rank 0 of each dp group (and
+        each rank's seconds into ``_rank_seconds``)."""
+        self._rank_seconds += np.array([r["seconds"] for r in res])
+        tp = self.mesh.tp
+        return np.concatenate([res[d * tp]["logits"] for d in range(self.mesh.dp)])
+
+    def _mesh_main(self, tokens, pos, lens, width, tables):
+        """One main step on every rank: (logits (B, V), the merged cycle
+        totals by bits). The MoE drops count every tick, energy tracking or
+        not; the collectives' bytes go to ``comms``."""
+        res = self._pool.call(("step", self._eid, "main", tokens[:, :width], pos, lens, tables,
+                               None))
+        self.caches = self._pool.engine.caches
+        step = self._mesh_step
+        raw = step.stack_raw(self._pool.engine.capture, [r["stats"] for r in res])
+        self.moe_dropped_tokens += step.moe_drops(raw)
+        self._accum_comms(res[0]["meter"])
+        by_bits: dict = {}
+        if self.track_energy:
+            merged = step.merge_stats(raw)
+            by_bits = tree_totals_by_bits(merged)
+            self._accum_device_load(step.device_serial_by_bits(raw))
+            if merged.scalars:
+                self.tick_dropped_tokens.append(
+                    scalar_totals(merged).get("moe.dropped_tokens", 0))
+        return self._mesh_logits(res), by_bits
+
+    def _accum_comms(self, snap: dict) -> None:
+        """Fold one step's collective meter into the running totals."""
+        for key, r in snap.items():
+            acc = self.comms.setdefault(key, {k: 0 for k in r})
+            for k, v in r.items():
+                acc[k] += v
+
+    def _accum_device_load(self, dev: dict) -> None:
+        for bits, m in dev.items():
+            acc = self._device_weight.get(bits)
+            self._device_weight[bits] = m if acc is None else acc + m
+
+    def comms_summary(self) -> dict:
+        """Interconnect rollup: {bits: {calls, elems, payload_bytes,
+        scale_bytes, bf16_bytes}} over every collective so far, plus the
+        grand totals ``core.report`` prices as interconnect energy."""
+        by_bits: dict = {}
+        for (_, bits), r in self.comms.items():
+            acc = by_bits.setdefault(int(bits), {"calls": 0, "elems": 0, "payload_bytes": 0,
+                                                 "scale_bytes": 0, "bf16_bytes": 0})
+            for k, v in r.items():
+                acc[k] += v
+        total = sum(r["payload_bytes"] + r["scale_bytes"] for r in by_bits.values())
+        bf16 = sum(r["bf16_bytes"] for r in by_bits.values())
+        return {"by_bits": by_bits, "bytes_moved": total, "bf16_bytes": bf16}
+
+    def interconnect_report(self) -> dict:
+        """``core.report``'s interconnect column over ``comms_summary()``:
+        {"by_bits": {bits: {bytes_moved, bf16_bytes, energy_j}},
+        "energy_j": total}."""
+        from ..core.report import energy_report
+
+        rep = energy_report([], comms=self.comms_summary())
+        return {"by_bits": rep.interconnect, "energy_j": rep.interconnect_energy_j}
+
+    def device_attribution(self) -> dict:
+        """Each rank's share of the cycle totals: {bits: (dp, tp) int64},
+        split in proportion to each rank's own executed serial cycles and
+        summing exactly to ``cycles_by_bits``. Needs a mesh and
+        ``track_energy``."""
+        if self.mesh is None:
+            raise ValueError("device_attribution() needs a mesh scheduler")
+        from ..parallel.serve_mesh import ShardedStep
+
+        out = {}
+        for bits, acc in self.cycles_by_bits.items():
+            w = self._device_weight.get(bits)
+            if w is None:
+                w = np.ones((self.mesh.dp, self.mesh.tp), np.int64)
+            shares = ShardedStep.split_exact(acc["serial_cycles"], w.reshape(-1))
+            out[bits] = shares.reshape(self.mesh.dp, self.mesh.tp)
+        return out
+
+    def rank_kernel_counts(self) -> list:
+        """``ops.kernel_counts()`` of every rank of the mesh, by rank."""
+        return self._pool.counts()
+
+    def reset_rank_counts(self) -> None:
+        """Zero the kernel counters of every rank of the mesh."""
+        self._pool.reset_counts()
+
+    def close(self) -> None:
+        """Free the ranks' shards of this mesh Scheduler (the rank pool
+        stays up for the next one). A no-op on one device."""
+        if self._pool is not None and not self._pool.closed and self._pool.me.eid == self._eid:
+            self._pool.call(("detach", self._eid))
 
     # -------------------------------------------------------------- energy
     def energy_summary(self, variant: str = "serial") -> list[dict]:
@@ -1791,7 +1965,7 @@ class Scheduler:
         """Live-vs-reserved cache accounting (the draft pool included: one
         BlockManager, so one page high-water, backs both pools). The dense
         layout reserves ``max_batch * capacity`` tokens whatever the load."""
-        total = cache_bytes(self.caches)
+        total = self._mesh_cache_bytes if self.mesh is not None else cache_bytes(self.caches)
         if self.spec is not None:
             total += cache_bytes(self.spec.caches)
         if self.mgr is None:

@@ -11,8 +11,10 @@ per-request energy, the number of latency samples). The cases: a paged int8
 KV pool under the mixed policy (with ``--trace`` and ``--metrics-out``,
 whose files must validate), ``--prefix-cache``, ``--spec-gamma 2``, and
 ``falcon-mamba-7b_smoke``, which falls back to the legacy Engine and the
-dense layout with the reference's messages. The mesh flags raise until the
-dp×tp mesh is ported.
+dense layout with the reference's messages. On a CPU mesh of gloo ranks
+(``--mesh``, ``--devices``) the CLI serves the single-device CLI's tokens
+and summary, plus its ``mesh:`` line; a local training mesh (``--data`` /
+``--model`` above 1) raises until the training half of the mesh is ported.
 
 The reference launcher wraps its serve in a 1×1 ``jax.make_mesh``, whose
 axes this JAX makes ``Explicit`` by default, and ``with_sharding_constraint``
@@ -34,6 +36,7 @@ from repro.models import init as j_init
 from repro.obs.trace import validate_chrome_trace
 from repro_torch.interop import params_from_reference
 from repro_torch.launch import serve as t_serve
+from repro_torch.launch.mesh import close_rank_pool
 
 BASE = ["--requests", "3", "--prompt-len", "6", "--max-new", "4", "--max-batch", "2",
         "--capacity", "32", "--block-size", "4", "--prefill-chunk", "5", "--seed", "3"]
@@ -119,11 +122,61 @@ def test_cli_matches_reference(case, capsys, tmp_path):
             (tmp_path / "ref.jsonl").read_text().splitlines()[-1])["metrics"].keys()
 
 
+# the mesh flags' cases: a GQA arch at dp=4 x tp=2 (its 2 kv heads), and
+# the MLA + MoE arch at dp=2 x tp=4 (4 heads, 4 experts)
+MESH_CASES = {
+    "--devices": ["--arch", "qwen3-0.6b_smoke", *PAGED, "--max-batch", "4", "--mesh", "4,2",
+                  "--mesh-backend", "gloo"],
+    "--mesh": ["--arch", "deepseek-v2-lite-16b_smoke", *PAGED, "--policy",
+               "mla.*=int8,moe.*=int2,mlp.*=int2,*=bf16", "--mesh", "2,4", "--mesh-backend",
+               "gloo"],
+}
+
+
+@pytest.fixture
+def _stop_rank_pool():
+    yield
+    close_rank_pool()
+
+
 @pytest.mark.parametrize("flags", [["--devices", "8"], ["--mesh", "2,4"], ["--data", "2"],
                                    ["--model", "2"]])
-def test_mesh_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="A8"):
-        t_serve.main(["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags])
+def test_mesh_flags_raise(flags, capsys, _stop_rank_pool):
+    """``--data`` / ``--model`` above 1 still raise, naming the training half
+    of A8. ``--devices 8`` and ``--mesh`` now serve on a CPU mesh of gloo
+    ranks: the tokens and the summary lines equal the single-device CLI's,
+    and the summary adds the ``mesh:`` line; a mesh wanting more ranks than
+    ``--devices`` gives is refused with the reference's message, and one
+    without ``--mesh-backend`` is refused."""
+    if flags[0] in ("--data", "--model"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            t_serve.main(["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags])
+        return
+    base = BASE + ["--max-batch", "4"] + MESH_CASES[flags[0]]
+    mesh_at = base.index("--mesh")
+    single = base[:mesh_at] + base[mesh_at + 4:]
+    extra = flags if flags[0] == "--devices" else []
+    params = _reference_params(single)
+    one = t_serve.main(single + ["--device", "cpu"], params=params)
+    one_out = capsys.readouterr().out
+    mesh = t_serve.main(base + extra + ["--device", "cpu"], params=params)
+    mesh_out = capsys.readouterr().out
+    assert {r.rid: r.out for r in mesh} == {r.rid: r.out for r in one}
+    lines = _summary(mesh_out)
+    mesh_line = [ln for ln in lines if ln.startswith("  mesh:")]
+    assert len(mesh_line) == 1
+    dp, tp = base[mesh_at + 1].split(",")
+    assert f"mesh: dp={dp} tp={tp} devices=8 " in mesh_line[0]
+    assert "backend=gloo" in mesh_line[0] and "wire_bytes=" in mesh_line[0]
+    assert [ln for ln in lines if not ln.startswith("  mesh:")] == _summary(one_out)
+    if flags[0] == "--mesh":
+        # no backend is chosen for the caller
+        with pytest.raises(SystemExit):
+            t_serve.main(single + ["--mesh", "2,4", "--device", "cpu"], params=params)
+        assert "--mesh needs --mesh-backend" in capsys.readouterr().err
+    if flags[0] == "--devices":
+        with pytest.raises(ValueError, match="wants 8 devices, only 4 available"):
+            t_serve.main(base + ["--devices", "4", "--device", "cpu"], params=params)
 
 
 def test_card_is_the_default_device(monkeypatch):
