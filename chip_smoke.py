@@ -206,6 +206,23 @@ Phases, each printing one JSON line:
    to ``MESH_MOE_LAYERS`` layers against its one-card serve, drops
    included); every rank launches the four mesh kernels and no plain
    version.
+10c. dp x tp training (``MESH_TRAIN`` = 2 x 2 ranks of ``Trainer(mesh=)``,
+   after the serving mesh; no tuGEMM kernel: training runs ``*=bf16``):
+   ``train_mesh_parity`` and ``train_mesh_parity_int8_ef`` (qwen3-0.6b at
+   full width, 2 layers, f32, 3 steps on 2 x 64 tokens against the one-card
+   ``Trainer`` on the same weights and batches: the loss to 1e-5 relative,
+   every gathered parameter leaf to 1e-4 relative L2, 2e-3 with int8
+   moments and ``int8_ef``), ``train_mesh`` (full depth, bf16, remat
+   ``block``, 8 x 512 tokens, 10 steps: finite and falling; every rank's
+   state bytes at most its specs' share, beside the one-card state's; step
+   p50; a step's bytes on the wire by collective; a checkpoint),
+   ``train_mesh_then_serve`` (that checkpoint restored into the one-card
+   model bit for bit against the gathered state and served under
+   ``ROBUST_POLICY`` on the kernels: tokens and ``cycles_by_bits`` equal),
+   ``train_mesh_moe`` (deepseek-v2-lite cut to ``MESH_MOE_LAYERS`` layers,
+   experts over ``model``: 3 bf16 steps, finite) and
+   ``train_mesh_moe_parity`` (2 layers, f32, as ``train_mesh_parity``).
+   Each prints its seconds and the peak allocation of every rank.
 11. the seconds of each group of phases (``phase_seconds``), the kernels
    line, then the device line last.
 
@@ -3423,20 +3440,22 @@ def train_dense(torch, smi: str):
     return cfg, params
 
 
-def train_then_serve(torch, cfg, rc, trained, smi: str) -> None:
-    """Restore ``train_dense``'s last checkpoint and serve 4 requests with
-    ``ROBUST_POLICY`` on the kernels: the restored weights bit for bit the
-    trained ones, and greedy tokens and ``cycles_by_bits`` equal to a serve
-    of the trained weights held in memory."""
+def train_then_serve(torch, cfg, rc, trained, smi: str, phase: str = "train_then_serve",
+                     ckpt_dir: str = TRAIN_CKPT) -> None:
+    """Restore the last checkpoint in ``ckpt_dir`` (``train_dense``'s, or
+    ``train_mesh``'s) and serve 4 requests with ``ROBUST_POLICY`` on the
+    kernels: the restored weights bit for bit the trained ones, and greedy
+    tokens and ``cycles_by_bits`` equal to a serve of the trained weights
+    held in memory."""
     import dataclasses
 
     from repro_torch.kernels import ops
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.tree import leaves
 
-    rec = _phase_start(torch, "train_then_serve")
-    step = ckpt.latest_step(TRAIN_CKPT)
-    restored, _ = ckpt.restore(TRAIN_CKPT, step, {"params": trained})
+    rec = _phase_start(torch, phase)
+    step = ckpt.latest_step(ckpt_dir)
+    restored, _ = ckpt.restore(ckpt_dir, step, {"params": trained})
     restored = restored["params"]
     same = all(torch.equal(a, b) for a, b in zip(leaves(trained), leaves(restored)))
     rc_s = dataclasses.replace(rc, quant_policy=ROBUST_POLICY)
@@ -3445,7 +3464,7 @@ def train_then_serve(torch, cfg, rc, trained, smi: str) -> None:
         sched, done, wall, counts, prompts = serve(torch, cfg, rc_s, params, "auto", requests=4)
         runs[name] = (check_served(cfg, sched, done, prompts, {8, 2}),
                       dict(sched.cycles_by_bits), counts, wall)
-        _only_fused_on_cuda(f"train_then_serve ({name})", counts, ops.path_counts())
+        _only_fused_on_cuda(f"{phase} ({name})", counts, ops.path_counts())
     (out_m, cyc_m, counts_m, wall_m), (out_r, cyc_r, _, wall_r) = runs["in_memory"], runs["restored"]
     rec.update(checkpoint_step=step, restored_bitwise=same, tokens_equal=out_m == out_r,
                cycles_equal=cyc_m == cyc_r, policy=ROBUST_POLICY, requests=len(out_m),
@@ -3453,7 +3472,7 @@ def train_then_serve(torch, cfg, rc, trained, smi: str) -> None:
                kernel_counts=counts_m, wall_s={"in_memory": wall_m, "restored": wall_r})
     _train_emit(torch, rec, smi)
     if not (same and out_m == out_r and cyc_m == cyc_r):
-        raise AssertionError(f"train_then_serve: the restored checkpoint serves other tokens "
+        raise AssertionError(f"{phase}: the restored checkpoint serves other tokens "
                              f"or cycles than the trained weights: {rec}")
 
 
@@ -3669,8 +3688,8 @@ MESH_MOE_LAYERS = 4
 MESH_KERNELS = ("tugemm_fused", "tugemm_int8", "tugemm_stats", "flash_paged_decode")
 
 
-def mesh_backend(torch) -> str:
-    return "nccl" if torch.cuda.device_count() >= MESH_DP * MESH_TP else "gloo"
+def mesh_backend(torch, world: int = MESH_DP * MESH_TP) -> str:
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
 
 
 def check_mesh_rank(torch, flush):
@@ -3824,7 +3843,7 @@ def serve_mesh(torch, phase, cfg, rc, source, want: dict, want_cycles: dict, smi
                   "plain_calls": sum(c[k]["plain_calls"] for c in by_rank)} for k in by_rank[0]}
     rec = {"phase": phase, "nvidia_smi": smi, "backend": backend,
            "world": MESH_DP * MESH_TP, "dp": MESH_DP, "tp": MESH_TP,
-           "ranks_on": "cuda:r" if backend == "nccl" else "cuda:0 (shared, gloo through host)",
+           "ranks_on": "cuda:r" if backend == "nccl" else "cuda:0 (shared; collectives in shared host memory)",
            "arch": cfg.name, "layers": cfg.num_layers, "policy": rc.quant_policy,
            "setup_s": setup_s, "wall_s": wall, "tokens_per_s": gen / wall, "ticks": sched.ticks,
            "tick_ms_p50": float(np.percentile(ticks, 50)),
@@ -3915,6 +3934,242 @@ def serve_mesh_phases(torch, cfg, rc, want: dict, want_cycles: dict, smi: str) -
                                        want_drops=drops)
     close_rank_pool()
     return out
+
+
+# ------------------------------------------------------- dp x tp training
+# qwen3-0.6b and deepseek-v2-lite trained on a (data, model) mesh of ranks
+# (``Trainer(mesh=)``: each rank holds its part of the train state and runs
+# the sharded step of parallel/train_mesh.py). With fewer cards than ranks
+# every rank runs on cuda:0 and the collectives go over gloo through host
+# memory. No tuGEMM kernel runs: training is *=bf16 (quantized GEMMs have no
+# backward, ROADMAP C14).
+MESH_TRAIN = (2, 2)
+MESH_TRAIN_STEPS = 10
+MESH_MOE_STEPS, MESH_MOE_BATCH = 3, 4
+MESH_PARITY_STEPS = 3
+MESH_EF_PARAM_TOL = 2e-3       # int8 moments + int8_ef: one-ulp flips of EF codes, Adam-carried
+MESH_CKPT = os.path.join(HERE, "build", "train_mesh_ckpt")
+
+
+def _quiet(*_):
+    pass
+
+
+def _mesh_trainer(torch, cfg, rc, **kw):
+    from repro_torch.train import Trainer
+
+    return Trainer(cfg, rc, device=DEVICE, mesh=MESH_TRAIN, log_fn=_quiet,
+                   mesh_backend=mesh_backend(torch, MESH_TRAIN[0] * MESH_TRAIN[1]), **kw)
+
+
+def _mesh_rec(torch, rec: dict, trainer) -> dict:
+    """The mesh's layout, and every rank's state bytes against its specs'
+    share and the one-card state's, and its card peak; raises when a rank
+    holds more than its share."""
+    res = trainer.resident_bytes()
+    rec.update(mesh={"data": MESH_TRAIN[0], "model": MESH_TRAIN[1]},
+               backend=mesh_backend(torch, len(res)),
+               ranks_on="cuda:r" if mesh_backend(torch, len(res)) == "nccl"
+               else "cuda:0 (shared; collectives in shared host memory)",
+               rank_state_bytes=[r["state_bytes"] for r in res],
+               rank_share_bytes=[r["share_bytes"] for r in res],
+               one_card_state_bytes=res[0]["one_process_bytes"],
+               rank_peak_allocated_gb=[(r["peak_allocated_bytes"] or 0) / 1e9 for r in res])
+    over = [i for i, r in enumerate(res) if r["state_bytes"] > r["share_bytes"]]
+    if over:
+        raise AssertionError(f"{rec['phase']}: ranks {over} hold more than their share: {res}")
+    return rec
+
+
+def _mesh_parity(torch, phase: str, cfg, rc, param_tol: float, smi: str, params=None,
+                 generator="cpu"):
+    """``MESH_PARITY_STEPS`` f32 steps on ``PARITY_BATCH`` x ``PARITY_SEQ``
+    tokens, on one card and on the mesh from the same weights and batches:
+    the loss to ``PARITY_LOSS_TOL`` relative, every gathered parameter leaf
+    to ``param_tol`` relative L2."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batches
+    from repro_torch.train import Trainer
+
+    rec = _phase_start(torch, phase)
+    it = make_batches(cfg, ShapeConfig("parity", PARITY_SEQ, PARITY_BATCH, "train"), seed=0)
+    batches = [next(it) for _ in range(MESH_PARITY_STEPS)]
+    it.close()
+    one = Trainer(cfg, rc, device=DEVICE, log_fn=_quiet, params=params)
+    one.run(iter(batches), MESH_PARITY_STEPS)
+    want = {n: t.to("cpu", torch.float64) for n, t in one.gather_state("params").items()}
+    loss_one = [h["loss"] for h in one.history]
+    del one, params
+    free_device_memory(torch)
+    mt = _mesh_trainer(torch, cfg, rc, init_generator=generator)
+    mt.run(iter(batches), MESH_PARITY_STEPS)
+    got = {n: t.to(torch.float64) for n, t in mt.gather_state("params").items()}
+    loss_mesh = [h["loss"] for h in mt.history]
+    _mesh_rec(torch, rec, mt)
+    mt.close()
+    errs = {n: float(torch.linalg.vector_norm(got[n] - want[n])
+                     / torch.clamp_min(torch.linalg.vector_norm(want[n]), 1e-30)) for n in want}
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_mesh, loss_one))
+    rec.update(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, steps=MESH_PARITY_STEPS,
+               tokens=PARITY_BATCH * PARITY_SEQ, moments=rc.moments_dtype,
+               grad_compression=rc.grad_compression, loss_one_card=loss_one,
+               loss_mesh=loss_mesh, loss_rel_err=loss_err, worst_leaf=worst,
+               worst_rel_l2=errs[worst], loss_tol=PARITY_LOSS_TOL, param_tol=param_tol,
+               leaves=len(errs), leaves_equal=sorted(got) == sorted(want))
+    _train_emit(torch, rec, smi)
+    if loss_err > PARITY_LOSS_TOL or errs[worst] > param_tol or sorted(got) != sorted(want):
+        raise AssertionError(f"{phase}: the mesh and the one-card Trainer disagree: {rec}")
+
+
+def train_mesh_parity(torch, smi: str) -> None:
+    """qwen3-0.6b at full width cut to ``PARITY_LAYERS`` layers: f32 moments,
+    then int8 moments with ``int8_ef``."""
+    from repro_torch.configs.base import RunConfig, get_config
+
+    cfg = get_config(ARCH).replace(num_layers=PARITY_LAYERS)
+    kw = dict(dtype="float32", param_dtype="float32", remat="none", lr=TRAIN_LR,
+              warmup_steps=5, total_steps=60)
+    _mesh_parity(torch, "train_mesh_parity", cfg, RunConfig(**kw), PARITY_PARAM_TOL, smi)
+    _mesh_parity(torch, "train_mesh_parity_int8_ef", cfg,
+                 RunConfig(**kw, moments_dtype="int8", grad_compression="int8_ef"),
+                 MESH_EF_PARAM_TOL, smi)
+
+
+def _step_parts(ranks: list) -> dict:
+    """One step of every rank: its collectives by label (calls, operand
+    bytes, ring bytes received and seconds), summed over the ranks and rank
+    0's; each rank's seconds in the step's parts (views, forward and
+    backward, gradient reduction, optimizer) and inside collectives."""
+    wire: dict = {}
+    for r in ranks:
+        for label, m in r["meter"].items():
+            acc = wire.setdefault(label, {"calls": 0, "bytes": 0, "wire_bytes": 0,
+                                          "seconds": 0.0})
+            for k in acc:
+                acc[k] += m[k]
+    return {"wire_step": {"all_ranks": wire, "rank0": ranks[0]["meter"]},
+            "step_laps_by_rank": [r["laps"] for r in ranks],
+            "step_collective_s_by_rank": [r["seconds"][1] for r in ranks]}
+
+
+def train_mesh(torch, smi: str):
+    """qwen3-0.6b at full width and depth, bf16, remat ``block``, on the
+    mesh for ``MESH_TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens with a checkpoint at the end. Gates: loss and grad norm finite,
+    the last 3 steps' mean loss below the first 3's, every rank within its
+    share. Prints the step p50, each rank's state bytes beside the one-card
+    state's, and a step's bytes on the wire by collective. Returns (cfg,
+    the gathered parameters on the card)."""
+    import math
+    import shutil
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import abstract_params
+    from repro_torch.tree import leaves_with_paths, unflatten_like
+
+    rec = _phase_start(torch, "train_mesh")
+    cfg = get_config(ARCH)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="block", lr=TRAIN_LR,
+                   warmup_steps=3, total_steps=TRAIN_STEPS)
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    mt = _mesh_trainer(torch, cfg, rc, ckpt_dir=MESH_CKPT, ckpt_every=MESH_TRAIN_STEPS)
+    setup_s = time.perf_counter() - t0
+    it = make_batches(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0)
+    t1 = time.perf_counter()
+    mt.run(it, MESH_TRAIN_STEPS)
+    run_s = time.perf_counter() - t1
+    it.close()
+    launched = {k: c for k, c in ops.kernel_counts().items() if c["launches"]}
+    hist = mt.history
+    bad = [h["step"] for h in hist if not (math.isfinite(h["loss"])
+                                           and math.isfinite(h["grad_norm"]))]
+    first = statistics.mean(h["loss"] for h in hist[:3])
+    last = statistics.mean(h["loss"] for h in hist[-3:])
+    rec.update(_history_record(mt, cfg, TRAIN_SEQ, TRAIN_BATCH), setup_s=setup_s, run_s=run_s,
+               loss_first3=first, loss_last3=last, **_step_parts(mt.rank_steps[-1]),
+               kernel_launches=len(launched),
+               checkpoint_bytes=sum(os.path.getsize(os.path.join(dp, f))
+                                    for dp, _, fs in os.walk(MESH_CKPT) for f in fs))
+    _mesh_rec(torch, rec, mt)
+    abstract = abstract_params(cfg, rc)
+    full = mt.gather_state("params")
+    gathered = unflatten_like(abstract, [full["params/" + n].to(DEVICE)
+                                         for n, _ in leaves_with_paths(abstract)])
+    mt.close()
+    del full
+    _train_emit(torch, rec, smi)
+    if bad or not last < first or launched:
+        raise AssertionError(f"train_mesh: loss not finite at {bad}, or not falling "
+                             f"({first} -> {last}), or kernels launched ({launched})")
+    return cfg, gathered
+
+
+def train_mesh_moe(torch, smi: str) -> None:
+    """deepseek-v2-lite at full width cut to ``MESH_MOE_LAYERS`` layers (its
+    64 experts over ``model``), drawn on the card: ``MESH_MOE_STEPS`` bf16
+    steps of ``MESH_MOE_BATCH`` x ``TRAIN_SEQ`` tokens (loss and grad norm
+    finite), then the f32 parity at ``PARITY_LAYERS`` layers."""
+    import math
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batches
+    from repro_torch.models import init
+
+    rec = _phase_start(torch, "train_mesh_moe")
+    base = get_config(MOE_ARCH)
+    cfg = base.replace(num_layers=MESH_MOE_LAYERS)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="block", lr=TRAIN_LR,
+                   warmup_steps=3, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    mt = _mesh_trainer(torch, cfg, rc, init_generator="cuda")
+    setup_s = time.perf_counter() - t0
+    it = make_batches(cfg, ShapeConfig("train", TRAIN_SEQ, MESH_MOE_BATCH, "train"), seed=0)
+    mt.run(it, MESH_MOE_STEPS)
+    it.close()
+    hist = mt.history
+    bad = [h["step"] for h in hist if not (math.isfinite(h["loss"])
+                                           and math.isfinite(h["grad_norm"]))]
+    rec.update(_history_record(mt, cfg, TRAIN_SEQ, MESH_MOE_BATCH), setup_s=setup_s,
+               reduced={"num_layers": [base.num_layers, MESH_MOE_LAYERS]},
+               experts=cfg.num_experts, **_step_parts(mt.rank_steps[-1]))
+    _mesh_rec(torch, rec, mt)
+    mt.close()
+    del mt
+    _train_emit(torch, rec, smi)
+    if bad:
+        raise AssertionError(f"train_mesh_moe: loss or grad norm not finite at steps {bad}")
+    pcfg = base.replace(num_layers=PARITY_LAYERS)
+    prc = RunConfig(dtype="float32", param_dtype="float32", remat="none", lr=TRAIN_LR,
+                    warmup_steps=5, total_steps=60)
+    # the weights are passed, not held here: the one-card Trainer's go
+    # before the mesh's are drawn
+    _mesh_parity(torch, "train_mesh_moe_parity", pcfg, prc, PARITY_PARAM_TOL, smi,
+                 params=init(pcfg, prc, torch.Generator(device=DEVICE).manual_seed(0),
+                             device=DEVICE), generator="cuda")
+
+
+def train_mesh_phases(torch, rc, smi: str) -> None:
+    """The dp x tp training group, in order; ``rc`` is the serve phases'
+    (``train_mesh_then_serve`` serves with it under ``ROBUST_POLICY``). The
+    rank pool is stopped at the end."""
+    import shutil
+
+    from repro_torch.launch.mesh import close_rank_pool
+
+    train_mesh_parity(torch, smi)
+    cfg, gathered = train_mesh(torch, smi)
+    train_then_serve(torch, cfg, rc, gathered, smi, phase="train_mesh_then_serve",
+                     ckpt_dir=MESH_CKPT)
+    del gathered
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    train_mesh_moe(torch, smi)
+    close_rank_pool()
+    free_device_memory(torch)
 
 
 class PhaseClock:
@@ -4150,6 +4405,10 @@ def main() -> int:
     del flush
     mesh_serves = serve_mesh_phases(torch, cfg, rc, outs, sched.cycles_by_bits, smi)
     clock.lap("mesh")
+    # dp x tp training on the same card: qwen3-0.6b (parity at 2 layers, full
+    # depth, its checkpoint served on the kernels) and deepseek-v2-lite
+    train_mesh_phases(torch, rc, smi)
+    clock.lap("mesh training")
     device_times(torch)
     free_device_memory(torch)
     before = torch.cuda.memory_allocated()

@@ -7,8 +7,9 @@ something to learn and its loss falls). ``SyntheticLM`` and
 ``FastSynthetic`` are the reference's numpy generators, so both packages
 draw the same tokens for a seed and step. Each process builds its slice of
 the global batch (``host_slice``: the world of ``torch.distributed`` when
-it is initialised, else one process), and a background thread keeps
-``prefetch`` batches of CPU tensors ahead of the loop. The thread makes no
+it is initialised, else one process; the ranks of a ``launch/mesh.py`` pool
+count as one), and a background thread keeps ``prefetch`` batches of CPU
+tensors ahead of the loop. The thread makes no
 CUDA call: the trainer moves each batch to the card itself.
 """
 
@@ -76,9 +77,13 @@ class FastSynthetic:
 
 
 def _world() -> tuple[int, int]:
-    """(world size, rank) of ``torch.distributed``, or (1, 0)."""
+    """(world size, rank) of ``torch.distributed``, or (1, 0). The ranks of
+    a rank pool (``launch/mesh.py``) are one host: its controller builds
+    the global batch and hands every rank its rows."""
+    from ..launch.mesh import in_rank_pool
+
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
+    if dist.is_available() and dist.is_initialized() and not in_rank_pool():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
 

@@ -19,9 +19,8 @@ without one raises.
 or one shared card) or ``nccl`` (rank r on ``cuda:r``), and the summary
 gains a ``mesh:`` line. ``--devices N`` says how many ranks the
 machine may start (the reference's N host devices; default: as many as the
-mesh wants). A local training mesh above 1×1 (``--data`` / ``--model``)
-comes with the training half of the mesh (ROADMAP A8) and raises until
-then.
+mesh wants). The reference's ``--data`` / ``--model`` (its GSPMD-layout
+serve over a local mesh) raise: they come with the dry-run (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -128,8 +127,9 @@ def main(argv=None, *, params=None):
     args = ap.parse_args(argv)
 
     if args.data > 1 or args.model > 1:
-        raise NotImplementedError("a local training mesh (--data/--model above 1) comes "
-                                  "with the training half of the dp x tp mesh (ROADMAP A8)")
+        raise NotImplementedError("--data/--model (the reference's GSPMD-layout serve over a "
+                                  "local mesh) come with the dry-run (ROADMAP A12); "
+                                  "--mesh DP,TP shards the serve")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     dtype = "float32" if dev.type == "cpu" else "bfloat16"

@@ -1,26 +1,36 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``
 (the reference's ``repro/launch/train.py`` and its flags, plus
-``--device``).
+``--device`` and ``--mesh-backend``).
 
 Trains on the card in bf16 unless ``--device cpu`` (f32 there) or
-``--dtype`` says otherwise. One process, one device: ``--production-mesh``,
-``--multi-pod`` and a local mesh above 1×1 (``--data`` / ``--model``) come
-with the dp×tp mesh (ROADMAP A8) and raise until then. A prequant policy is
-refused, as the reference refuses it (packed frozen weights are a serving
-form). The GEMMs run under the policy: ``*=bf16`` (the default) trains
-through ``torch.matmul``; a quantized policy trains through the plain
-versions on the CPU and is refused by the kernels on the card (no TPU
-kernel has a backward).
+``--dtype`` says otherwise. ``--data D --model M`` (either above 1) trains
+on a D×M mesh of processes (``Trainer(mesh=)``: the sharded step of
+``parallel/train_mesh.py``) and needs ``--mesh-backend``, which has no
+default: ``gloo`` runs every rank on the one device (the CPU, or one shared
+card), ``nccl`` puts rank r on ``cuda:r``. ``--production-mesh`` takes the
+reference's (data=16, model=16) shape, and ``--multi-pod`` its (pod=2,
+data=16, model=16): one card a rank over nccl, so they raise on a machine
+with fewer cards, naming the ranks and the cards; the mesh is never
+shrunk. A prequant policy is refused, as the reference refuses it (packed
+frozen weights are a serving form). The GEMMs run under the policy:
+``*=bf16`` (the default) trains through ``torch.matmul``; a quantized
+policy trains through the plain versions on the CPU and is refused by the
+kernels on the card (no TPU kernel has a backward). A script that starts
+a mesh needs an ``if __name__ == "__main__":`` guard: the ranks are
+spawned.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from ..configs.base import SHAPES, RunConfig, ShapeConfig, get_config
 from ..data import make_batches
 from ..quant.policy import QuantPolicy, load_policy
 from ..train import Trainer
+from .mesh import make_local_mesh, make_production_mesh
 
 __all__ = ["main"]
 
@@ -51,11 +61,25 @@ def main(argv=None):
     ap.add_argument("--model", type=int, default=1, help="local mesh model-axis size")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh-backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's collectives (no default): nccl, one card a rank; gloo, "
+                         "every rank on the one device")
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod or args.data > 1 or args.model > 1:
-        raise NotImplementedError("a mesh (--production-mesh, --multi-pod, --data/--model "
-                                  "above 1) comes with the dp x tp mesh (ROADMAP A8)")
+    mesh, backend = None, args.mesh_backend
+    if args.production_mesh or args.multi_pod:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if backend == "gloo" or n < mesh.size:
+            raise ValueError(f"--production-mesh{' --multi-pod' if args.multi_pod else ''} is "
+                             f"{dict(mesh.shape)}: {mesh.size} ranks over nccl, one card each; "
+                             f"this machine has {n} cards. It is never shrunk: use --data/--model")
+        backend = "nccl"
+    elif args.data > 1 or args.model > 1:
+        if backend is None:
+            raise ValueError("--data/--model want --mesh-backend: nccl (one card a rank) or "
+                             "gloo (every rank on the one device)")
+        mesh = make_local_mesh(args.data, args.model)
     cfg = get_config(args.arch)
     on_cpu = args.device == "cpu"
     dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
@@ -80,9 +104,10 @@ def main(argv=None):
         if args.shape
         else ShapeConfig("custom", args.seq_len, args.global_batch, "train")
     )
-    print(f"[launch] {args.arch} on {args.device} | {shape}")
+    where = args.device if mesh is None else f"mesh {mesh.shape} ({backend})"
+    print(f"[launch] {args.arch} on {where} | {shape}")
     trainer = Trainer(cfg, rc, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                      seed=args.seed, device=args.device)
+                      seed=args.seed, device=args.device, mesh=mesh, mesh_backend=backend)
     batches = make_batches(cfg, shape, seed=args.seed, start_step=trainer.step)
     try:
         trainer.run(batches, args.steps - trainer.step)

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
 from ..kernels import ops
+from ..parallel.collectives import current_train
 from .transformer import LayerKind, check_supported, forward, lm_logits, plan_groups, torch_dtype
 
 # the audio frontend stub's frame width (the conv feature extractor's output)
@@ -22,32 +23,40 @@ FRONTEND_DIM = 512
 # the loss's sequence chunk: logits exist for this many columns at a time
 LOSS_CHUNK = 512
 
-__all__ = ["init", "input_batch", "loss_fn", "count_params", "active_params", "model_flops"]
+__all__ = ["init", "input_batch", "loss_fn", "count_params", "active_params", "model_flops",
+           "param_axes", "abstract_params"]
 
 
-def _linear(d_in: int, d_out: int, scale: float = 0.02, bias: bool = False) -> dict:
-    out = {"kernel": ((d_in, d_out), "normal", scale)}
+# A leaf's spec: (shape, logical axes, init kind[, scale]); the axes are the
+# reference's ParamSpec axes (``parallel/sharding.py`` maps them to a mesh)
+def _linear(d_in: int, d_out: int, axes: tuple, scale: float = 0.02,
+            bias: bool = False) -> dict:
+    out = {"kernel": ((d_in, d_out), axes, "normal", scale)}
     if bias:
-        out["bias"] = ((d_out,), "zeros")
+        out["bias"] = ((d_out,), (axes[1],), "zeros")
     return out
 
 
 def _norm(dim: int) -> dict:
-    return {"scale": ((dim,), "ones")}
+    return {"scale": ((dim,), (None,), "ones")}
 
 
 def _mlp(d: int, ff: int, mlp_type: str = "swiglu") -> dict:
     """The reference's ``mlp_spec``: SwiGLU, or the non-gated gelu MLP with
     zero-initialised biases (hubert)."""
     if mlp_type == "gelu":
-        return {"w_up": _linear(d, ff, bias=True), "w_down": _linear(ff, d, bias=True)}
-    return {"w_gate": _linear(d, ff), "w_up": _linear(d, ff), "w_down": _linear(ff, d)}
+        return {"w_up": _linear(d, ff, ("embed", "mlp"), bias=True),
+                "w_down": _linear(ff, d, ("mlp", "embed"), bias=True)}
+    return {"w_gate": _linear(d, ff, ("embed", "mlp")), "w_up": _linear(d, ff, ("embed", "mlp")),
+            "w_down": _linear(ff, d, ("mlp", "embed"))}
 
 
 def _gqa_shapes(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    attn = {"wq": _linear(d, h * hd), "wk": _linear(d, kv * hd), "wv": _linear(d, kv * hd),
-            "wo": _linear(h * hd, d)}
+    attn = {"wq": _linear(d, h * hd, ("embed", "heads")),
+            "wk": _linear(d, kv * hd, ("embed", "kv_heads")),
+            "wv": _linear(d, kv * hd, ("embed", "kv_heads")),
+            "wo": _linear(h * hd, d, ("heads", "embed"))}
     if cfg.qk_norm:
         attn["q_norm"] = _norm(hd)
         attn["k_norm"] = _norm(hd)
@@ -60,12 +69,12 @@ def _mla_shapes(cfg: ModelConfig) -> dict:
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
     return {
-        "wq": _linear(d, h * (nope + rope_d)),
-        "w_dkv": _linear(d, lora + rope_d),
+        "wq": _linear(d, h * (nope + rope_d), ("embed", "heads")),
+        "w_dkv": _linear(d, lora + rope_d, ("embed", "kv_lora")),
         "kv_norm": _norm(lora),
-        "w_uk": {"kernel": ((lora, h, nope), "normal", 0.02)},
-        "w_uv": {"kernel": ((lora, h, vd), "normal", 0.02)},
-        "wo": _linear(h * vd, d),
+        "w_uk": {"kernel": ((lora, h, nope), ("kv_lora", "heads", "qk_dim"), "normal", 0.02)},
+        "w_uv": {"kernel": ((lora, h, vd), ("kv_lora", "heads", "qk_dim"), "normal", 0.02)},
+        "wo": _linear(h * vd, d, ("heads", "embed")),
     }
 
 
@@ -74,11 +83,11 @@ def _moe_shapes(cfg: ModelConfig) -> dict:
     (E, K, N) expert stacks, and the shared experts as one wide MLP."""
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
     spec = {
-        "router": _linear(d, e, scale=0.02 / d ** 0.5),
+        "router": _linear(d, e, ("embed", None), scale=0.02 / d ** 0.5),
         "experts": {
-            "w_gate": ((e, d, ff), "normal", 0.02),
-            "w_up": ((e, d, ff), "normal", 0.02),
-            "w_down": ((e, ff, d), "normal", 0.02),
+            "w_gate": ((e, d, ff), ("experts", "embed", "mlp"), "normal", 0.02),
+            "w_up": ((e, d, ff), ("experts", "embed", "mlp"), "normal", 0.02),
+            "w_down": ((e, ff, d), ("experts", "mlp", "embed"), "normal", 0.02),
         },
     }
     if cfg.num_shared_experts:
@@ -92,15 +101,15 @@ def _mamba_shapes(cfg: ModelConfig) -> dict:
     dt), ``A_log`` (``hippo``: log(n+1) along the state axis) and ``D``."""
     d, di, n, r, ck = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     return {
-        "in_proj": _linear(d, 2 * di),
-        "conv_w": ((ck, di), "normal", 0.1),
-        "conv_b": ((di,), "zeros"),
-        "x_proj": _linear(di, r + 2 * n),
-        "dt_w": _linear(r, di),
-        "dt_bias": ((di,), "dt_bias"),
-        "A_log": ((di, n), "hippo"),
-        "D": ((di,), "ones"),
-        "out_proj": _linear(di, d),
+        "in_proj": _linear(d, 2 * di, ("embed", "inner")),
+        "conv_w": ((ck, di), ("conv", "inner"), "normal", 0.1),
+        "conv_b": ((di,), ("inner",), "zeros"),
+        "x_proj": _linear(di, r + 2 * n, ("inner", "dt")),
+        "dt_w": _linear(r, di, ("dt", "inner")),
+        "dt_bias": ((di,), ("inner",), "dt_bias"),
+        "A_log": ((di, n), ("inner", "state"), "hippo"),
+        "D": ((di,), ("inner",), "ones"),
+        "out_proj": _linear(di, d, ("inner", "embed")),
     }
 
 
@@ -139,7 +148,55 @@ def _special(how: str, shape: tuple, gen, device) -> torch.Tensor:
     raise ValueError(f"unknown init kind {how!r}")
 
 
-def _materialize(spec, lead: tuple, gen, dtype, device, keep=None, path: tuple = ()):
+def _stack(spec, repeats: int):
+    """A block's spec tree stacked ``repeats`` deep: a leading ``layers``
+    axis of that size on every leaf (the reference's ``_stack_spec``)."""
+    if isinstance(spec, dict):
+        return {k: _stack(v, repeats) for k, v in spec.items()}
+    shape, axes, *rest = spec
+    return ((repeats,) + tuple(shape), ("layers",) + tuple(axes), *rest)
+
+
+def _spec_tree(cfg: ModelConfig) -> dict:
+    """Every leaf's spec in ``init``'s layout and draw order (the
+    reference's ``model_spec``): ``embed`` or ``frontend_proj``, the stacked
+    ``groups``, ``final_norm`` [, ``head``]."""
+    d = cfg.d_model
+    if cfg.frontend == "audio":
+        tree = {"frontend_proj": _linear(FRONTEND_DIM, d, (None, "embed"), bias=True)}
+    else:
+        tree = {"embed": {"embedding": ((cfg.vocab_size, d), ("vocab", "embed"), "normal", 0.02)}}
+    tree["groups"] = tuple({f"k{j}": _stack(_block_shapes(cfg, kind), g.repeats)
+                            for j, kind in enumerate(g.kinds)} for g in plan_groups(cfg))
+    tree["final_norm"] = _norm(d)
+    if not cfg.tie_embeddings:
+        tree["head"] = _linear(d, cfg.vocab_size, ("embed", "vocab"))
+    return tree
+
+
+def _spec_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and tree and isinstance(tree[0], dict):
+        return tuple(_spec_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Every parameter leaf's logical axes, in ``init``'s layout (the
+    reference's ``tree_axes(model_spec(cfg))``)."""
+    return _spec_map(lambda spec: tuple(spec[1]), _spec_tree(cfg))
+
+
+def abstract_params(cfg: ModelConfig, rc: RunConfig) -> dict:
+    """``init``'s tree as ``meta`` tensors: every leaf's shape and dtype,
+    no storage."""
+    dtype = torch_dtype(rc.param_dtype)
+    return _spec_map(lambda spec: torch.empty(spec[0], dtype=dtype, device="meta"),
+                     _spec_tree(cfg))
+
+
+def _materialize(spec, gen, dtype, device, keep=None, path: tuple = ()):
     """Draw one tree of leaves, leaf by leaf. A CPU generator draws in f32
     and casts (these values are fixed: tests and the card's qwen3-0.6b
     weights depend on them); a generator on the card draws each leaf there
@@ -148,12 +205,13 @@ def _materialize(spec, lead: tuple, gen, dtype, device, keep=None, path: tuple =
     f32 on the generator's device and cast; only ``dt_bias`` draws, and
     only SSM blocks have these leaves, so the other archs' draws are as
     they were. ``keep(path, leaf)``, where given, cuts each drawn leaf
-    before it is placed (a mesh rank's shard: ``parallel/serve_mesh.py``)."""
+    before it is placed (a mesh rank's shard: ``parallel/serve_mesh.py``,
+    ``parallel/train_mesh.py``)."""
     if isinstance(spec, dict):
-        return {k: _materialize(v, lead, gen, dtype, device, keep, path + (k,))
+        return {k: _materialize(v, gen, dtype, device, keep, path + (k,))
                 for k, v in spec.items()}
-    shape, how, *scale = spec
-    shape = lead + tuple(shape)
+    shape, _, how, *scale = spec
+    shape = tuple(shape)
     if how in ("zeros", "hippo", "dt_bias"):
         t = _special(how, shape, gen, gen.device)
     elif gen.device.type == "cpu":
@@ -184,24 +242,13 @@ def init(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator | None = No
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dtype = torch_dtype(rc.param_dtype)
-
-    def draw(spec, lead, path):
-        return _materialize(spec, lead, gen, dtype, dev, keep, path)
-
-    if cfg.frontend == "audio":
-        params = {"frontend_proj": draw(_linear(FRONTEND_DIM, cfg.d_model, bias=True), (),
-                                        ("frontend_proj",))}
-    else:
-        params = {"embed": draw({"embedding": ((cfg.vocab_size, cfg.d_model), "normal", 0.02)},
-                                (), ("embed",))}
-    params["groups"] = tuple(
-        {f"k{j}": draw(_block_shapes(cfg, kind), (g.repeats,), ("groups", str(gi), f"k{j}"))
-         for j, kind in enumerate(g.kinds)}
-        for gi, g in enumerate(plan_groups(cfg))
-    )
-    params["final_norm"] = draw(_norm(cfg.d_model), (), ("final_norm",))
-    if not cfg.tie_embeddings:
-        params["head"] = draw(_linear(cfg.d_model, cfg.vocab_size), (), ("head",))
+    params = {}
+    for key, spec in _spec_tree(cfg).items():
+        if key == "groups":
+            params[key] = tuple({kj: _materialize(b, gen, dtype, dev, keep, (key, str(gi), kj))
+                                 for kj, b in grp.items()} for gi, grp in enumerate(spec))
+        else:
+            params[key] = _materialize(spec, gen, dtype, dev, keep, (key,))
     return params
 
 
@@ -235,7 +282,11 @@ def _xent_chunk(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
 
 
 def _chunk_nll(cfg, rc, params, h, labels, mask):
-    return _xent_chunk(lm_logits(cfg, rc, params, h), labels, mask)
+    tr = current_train()
+    logits = lm_logits(cfg, rc, params, h)
+    if tr is not None and tr.tp > 1:
+        return tr.xent(logits, labels, mask)
+    return _xent_chunk(logits, labels, mask)
 
 
 def _quiet_recompute():
@@ -251,8 +302,13 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
     reference's scan branch; each chunk is checkpointed, so its logits are
     recomputed in the backward and one chunk's (B, 512, V) logits exist at
     a time in either direction), else in one piece. ``batch`` holds the
-    forward's inputs, ``labels`` (B, S) and optionally ``loss_mask``."""
+    forward's inputs, ``labels`` (B, S) and optionally ``loss_mask``.
+    Under a training mesh the head and the cross-entropy are
+    vocab-parallel, and the mean is over the global batch."""
     h, _, aux = forward(cfg, rc, params, batch)
+    tr = current_train()
+    if tr is not None:
+        h = tr.enter(h)         # the head is vocab-parallel on a training mesh
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -272,27 +328,27 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
             nll, cnt = nll + n, cnt + m
     else:
         nll, cnt = _chunk_nll(cfg, rc, params, h, labels, mask)
+    if tr is not None:
+        # a training mesh: the mean over the global batch's tokens (this
+        # rank's rows' NLL over the global count: the ranks' objectives sum
+        # to the loss); the metrics are the global ones
+        cnt = torch.clamp_min(tr.sum_dp(cnt, "dp_all_reduce:loss_count"), 1.0)
+        sums = tr.sum_dp(torch.stack([nll.detach(), aux.detach()]), "dp_all_reduce:metrics")
+        return nll / cnt + 0.01 * aux, {"loss": sums[0] / cnt, "aux": sums[1]}
     loss = nll / torch.clamp_min(cnt, 1.0)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 # --------------------------------------------------------------- accounting
-def _numel(spec) -> int:
-    if isinstance(spec, dict):
-        return sum(_numel(v) for v in spec.values())
-    return math.prod(spec[0])
-
-
 def count_params(cfg: ModelConfig) -> int:
     """Every parameter of ``init``'s tree, counted from the shapes alone."""
-    d = cfg.d_model
-    n = (_numel(_linear(FRONTEND_DIM, d, bias=True)) if cfg.frontend == "audio"
-         else cfg.vocab_size * d)
-    n += sum(g.repeats * sum(_numel(_block_shapes(cfg, k)) for k in g.kinds)
-             for g in plan_groups(cfg))
-    n += d
-    if not cfg.tie_embeddings:
-        n += d * cfg.vocab_size
+    n = 0
+
+    def add(spec):
+        nonlocal n
+        n += math.prod(spec[0])
+
+    _spec_map(add, _spec_tree(cfg))
     return n
 
 

@@ -34,6 +34,13 @@ the down-projection's outputs are all-gathered back to every expert at full
 precision (the gate-weighted combine stays bit-exact). The drop count is
 pushed per rank; the mesh merge counts it once per dp group. (The
 reference's sequence-sharded dispatch groups belong to its training mesh.)
+
+Under a training mesh (``parallel/train_mesh.py``) the router runs on the
+replicated tokens; the dispatch enters the tensor-parallel region, the
+rank's ``E/tp`` experts run on their slots, the others' stay zero, the
+combine (its gates entering the region too) and the shared experts give
+this rank's partial sum, which leaves the region summed over tp. The aux
+loss's token fractions and mean probabilities are over the global batch.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..parallel.collectives import current_program
+from ..parallel.collectives import current_program, current_train
 from ..quant import capture as stats_capture
 from ..quant.qlinear import GemmBackend, dense
 from .layers import mlp
@@ -143,13 +150,26 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Switch aux loss: E * sum_e (token fraction)_e * (mean prob)_e
-    me = probs.mean((0, 1))
-    ce = F.one_hot(gate_idx[..., 0], E).to(torch.float32).mean((0, 1))
-    aux = E * torch.sum(me * ce)
+    tr = current_train()
+    if tr is None:
+        me = probs.mean((0, 1))
+        ce = F.one_hot(gate_idx[..., 0], E).to(torch.float32).mean((0, 1))
+        aux = E * torch.sum(me * ce)
+    else:
+        # a training mesh: both means are over the global batch, so the
+        # counts and the token total are summed over the batch's ranks
+        # first; this rank's share of the loss is its own rows' probability
+        # sums against the global fractions (the shares sum to the loss)
+        counts = torch.cat([F.one_hot(gate_idx[..., 0], E).to(torch.float32).sum((0, 1)),
+                            probs.new_full((1,), float(B * S))])
+        counts = tr.sum_dp(counts, "dp_all_reduce:moe_aux")
+        n = counts[-1]
+        aux = E * torch.sum(probs.sum((0, 1)) / n * (counts[:E] / n))
+        x_tp = tr.enter(x)
 
     # one dispatch group per batch row
     cap = moe_capacity(cfg, S)
-    xin, dest = _dispatch_group(x, gate_idx, E, cap)                # (B, E*cap, D), (B, S*k)
+    xin, dest = _dispatch_group(x if tr is None else x_tp, gate_idx, E, cap)   # (B, E*cap, D)
     if stats_capture.capturing():
         stats_capture.push_scalar("moe.dropped_tokens",
                                   (dest == E * cap).sum().to(torch.int32))
@@ -162,14 +182,22 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     wg = ex["w_gate"]
     E_w = (wg["qkernel"] if isinstance(wg, dict) else wg).shape[0]
     ep = prog is not None and E_w != E
-    if ep:
-        xin = xin[prog.t * E_w:(prog.t + 1) * E_w]
+    t_ep = prog.t if ep else tr.t if tr is not None and E_w != E else None
+    if t_ep is not None:
+        xin = xin[t_ep * E_w:(t_ep + 1) * E_w]
     g = _expert_mm(ex["w_gate"], xin, backend, "moe.gate", impl)
     u = _expert_mm(ex["w_up"], xin, backend, "moe.up", impl)
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
     yout = _expert_mm(ex["w_down"], h, backend, "moe.down", impl)   # (E, B*cap, D)
     if ep:
         yout = prog.gather_experts(yout, "moe.down")
+    elif t_ep is not None:
+        # training: the other experts' slots stay zero here; the combine
+        # below is this rank's partial sum, added up over tp at the end
+        z = yout.new_zeros
+        yout = torch.cat([z((t_ep * E_w,) + yout.shape[1:]), yout,
+                          z(((E // E_w - t_ep - 1) * E_w,) + yout.shape[1:])])
+        gate_vals = tr.enter(gate_vals)
 
     # experts -> groups, then each group's gate-weighted combine
     yg = yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)
@@ -178,5 +206,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     got = got.reshape(B, S, k, D) * gate_vals[..., None].to(yg.dtype)
     y = got.sum(2)
     if cfg.num_shared_experts:
-        y = y + mlp(p["shared"], x, backend=backend, name="moe.shared", impl=impl)
+        y = y + mlp(p["shared"], x if tr is None else x_tp, backend=backend, name="moe.shared",
+                    impl=impl)
+    if tr is not None:
+        y = tr.exit(y)
     return y, aux

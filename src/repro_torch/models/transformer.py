@@ -25,6 +25,10 @@ Block layouts (pre-norm, residual):
 The KV cache is the dense per-slot layout or the paged pool
 (``rc.kv_layout``), with float or offline-packed
 (``quant.surgery.apply_surgery``) linear weights.
+
+Under a training mesh (``parallel/train_mesh.py``) the embedding is
+vocab-parallel and a block's attention and dense MLP run on the rank's
+heads and columns between ``TrainProgram.enter`` and ``exit``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..kernels import ops
+from ..parallel.collectives import current_train
 from ..quant.policy import QuantPolicy, effective_policy
 from ..quant.qlinear import dense
 from ..quant.surgery import _check_stack_consistency, gemm_name_targets
@@ -248,15 +253,20 @@ def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_vi
     any longer step runs the full scan from a zero state, as the
     reference's does."""
     h = rms_norm(p["norm1"], x, cfg.rms_eps)
+    # a training mesh (parallel/train_mesh.py): the block's attention and
+    # dense MLP run on this rank's heads and columns between enter and exit
+    tr = current_train()
     state = None
     if kind.mixer in ("gqa", "mla", "hybrid"):
         attn = mla_attention if kind.mixer == "mla" else gqa_attention
         kv_cache = None
         if cache is not None and ("k" in cache or "ckv" in cache):
             kv_cache = {n: t for n, t in cache.items() if n not in ("h", "conv")}
-        y = y_attn = attn(cfg, p["attn"], h, positions, backend=backend, cache=kv_cache,
-                          cache_pos=cache_pos, kv_view=kv_view, is_global=kind.is_global,
-                          chunk=chunk, impl=impl)
+        y = y_attn = attn(cfg, p["attn"], h if tr is None else tr.enter(h), positions,
+                          backend=backend, cache=kv_cache, cache_pos=cache_pos, kv_view=kv_view,
+                          is_global=kind.is_global, chunk=chunk, impl=impl)
+        if tr is not None:
+            y = y_attn = tr.exit(y)
     if kind.mixer in ("ssm", "hybrid"):
         if cache is not None and "h" in cache and x.shape[1] == 1:
             y_ssm, state = mamba_decode_step(cfg, p["ssm"], h,
@@ -276,6 +286,9 @@ def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_vi
     if kind.moe:
         y2, aux = moe_ffn(cfg, p["ffn"], h2, backend=backend, impl=impl)
         return x + y2, state, aux
+    if tr is not None:
+        y2 = mlp(p["ffn"], tr.enter(h2), cfg.mlp_type, backend=backend, impl=impl)
+        return x + tr.exit(y2), state, None
     return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl), state, None
 
 
@@ -306,7 +319,10 @@ def forward(
     ``kernels/ops.py``); a policy rule's own impl overrides it."""
     backend = step_backend(cfg, rc, params)
     dtype = torch_dtype(rc.dtype)
-    if "tokens" in batch:
+    tr = current_train()
+    if "tokens" in batch and tr is not None:
+        x = tr.embed(params["embed"]["embedding"], batch["tokens"], dtype)
+    elif "tokens" in batch:
         x = embed_lookup(params["embed"], batch["tokens"], dtype)
     else:
         x = dense(params["frontend_proj"], batch["embeds"].to(dtype), backend=backend,

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from ..configs.base import RunConfig
-from ..tree import leaves, tree_map
+from ..tree import leaves, leaves_with_paths, tree_map
 
 __all__ = ["AdamWState", "init_opt_state", "adamw_update", "lr_schedule", "global_norm",
            "clip_by_global_norm"]
@@ -45,38 +45,52 @@ def _unblocks(xb: torch.Tensor, K: int) -> torch.Tensor:
     return xb.reshape(*xb.shape[:-2], -1)[..., :K]
 
 
+def _lin_codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 codes of x at scale s (s broadcast against x)."""
+    return torch.round(x / s).to(torch.int8)
+
+
+def _log_codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """uint8 geometric codes of non-negative x at scale s: code c > 0
+    stands for ``s * r^(255 - c)``, code 0 for zero."""
+    ratio = torch.clamp(x / s, 1e-12, 1.0)
+    c = 255.0 - torch.log(ratio) / _LOG_LN_R
+    return torch.where(x <= s * 1e-8, 0.0, torch.clamp(torch.round(c), 1, 255)).to(torch.uint8)
+
+
+def _lin_values(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * s
+
+
+def _log_values(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    qf = q.to(torch.float32)
+    return torch.where(qf == 0, 0.0, torch.exp((255.0 - qf) * _LOG_LN_R)) * s
+
+
 def _q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (..., K) -> (q int8 (..., K), scales f32 (..., nb))."""
     xb = _blocks(x)
     s = xb.abs().amax(-1) / 127.0 + 1e-12
-    q = torch.round(xb / s[..., None]).to(torch.int8)
-    return _unblocks(q, x.shape[-1]), s
+    return _unblocks(_lin_codes(xb, s[..., None]), x.shape[-1]), s
 
 
 def _dq8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     K = q.shape[-1]
     qb = torch.nn.functional.pad(q, (0, s.shape[-1] * _BLOCK - K))
-    xb = qb.reshape(*q.shape[:-1], s.shape[-1], _BLOCK).to(torch.float32) * s[..., None]
-    return _unblocks(xb, K)
+    return _unblocks(_lin_values(qb.reshape(*q.shape[:-1], s.shape[-1], _BLOCK), s[..., None]), K)
 
 
 def _q8_log(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Non-negative x (..., K) -> (codes uint8, scales f32 (..., nb)): code
-    c > 0 stands for ``s * r^(255 - c)``, code 0 for zero."""
+    """Non-negative x (..., K) -> (codes uint8, scales f32 (..., nb))."""
     xb = _blocks(x)
     s = xb.amax(-1) + 1e-30
-    ratio = torch.clamp(xb / s[..., None], 1e-12, 1.0)
-    c = 255.0 - torch.log(ratio) / _LOG_LN_R
-    c = torch.where(xb <= s[..., None] * 1e-8, 0.0, torch.clamp(torch.round(c), 1, 255))
-    return _unblocks(c.to(torch.uint8), x.shape[-1]), s
+    return _unblocks(_log_codes(xb, s[..., None]), x.shape[-1]), s
 
 
 def _dq8_log(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     K = q.shape[-1]
     qp = torch.nn.functional.pad(q, (0, s.shape[-1] * _BLOCK - K))
-    qb = qp.reshape(*q.shape[:-1], s.shape[-1], _BLOCK).to(torch.float32)
-    v = torch.where(qb == 0, 0.0, torch.exp((255.0 - qb) * _LOG_LN_R)) * s[..., None]
-    return _unblocks(v, K)
+    return _unblocks(_log_values(qp.reshape(*q.shape[:-1], s.shape[-1], _BLOCK), s[..., None]), K)
 
 
 def _quantize_moments(leaf: torch.Tensor) -> bool:
@@ -128,8 +142,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    gn = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, gn: torch.Tensor | None = None):
+    """``tree`` scaled to at most ``max_norm`` in global norm (``gn``, its
+    norm where the caller has it: a sharded tree's is the mesh's)."""
+    gn = global_norm(tree) if gn is None else gn
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-12), 1.0)
     return tree_map(lambda g: g.to(torch.float32) * scale, tree), gn
 
@@ -138,22 +154,44 @@ def _is_moment(x) -> bool:
     return isinstance(x, dict) and set(x) == {"q", "s"}
 
 
+class _Local:
+    """The block quantizers of a whole (unsharded) leaf."""
+
+    @staticmethod
+    def q8(name: str, x: torch.Tensor, log: bool):
+        return (_q8_log if log else _q8)(x)
+
+    @staticmethod
+    def dq8(name: str, q: torch.Tensor, s: torch.Tensor, log: bool):
+        return (_dq8_log if log else _dq8)(q, s)
+
+
 @torch.no_grad()
 def adamw_update(grads: dict, state: AdamWState, rc: RunConfig,
-                 params: dict) -> tuple[dict, AdamWState, dict]:
+                 params: dict, *, mesh=None) -> tuple[dict, AdamWState, dict]:
     """One AdamW step: ``(params, state, {"lr", "grad_norm"})``, ``state``
-    and ``params`` (a tree of the grads' structure) updated in place."""
+    and ``params`` (a tree of the grads' structure) updated in place.
+
+    ``mesh``: a rank's parts of a sharded state (``parallel/train_mesh.py``)
+    supply the global norm over every rank's parts (``global_norm(grads)``)
+    and the int8 moments' block quantizers over the global leaf's blocks
+    (``q8(name, x, log)`` / ``dq8(name, q, s, log)``, ``name`` the leaf's
+    path in ``grads``); everything else is elementwise on the parts."""
     step = state.step + 1
     stepf = step.to(torch.float32)
     lr = lr_schedule(rc, stepf)
-    grads, gnorm = clip_by_global_norm(grads, rc.grad_clip)
+    quant = _Local if mesh is None else mesh
+    grads, gnorm = clip_by_global_norm(grads, rc.grad_clip,
+                                       None if mesh is None else mesh.global_norm(grads))
     b1, b2, eps, wd = rc.beta1, rc.beta2, rc.eps, rc.weight_decay
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
+    names = iter([n for n, _ in leaves_with_paths(grads)])
 
     def upd(g, master, m, v):
-        mf = _dq8(m["q"], m["s"]) if _is_moment(m) else m
-        vf = _dq8_log(v["q"], v["s"]) if _is_moment(v) else v
+        name = next(names)
+        mf = quant.dq8(name, m["q"], m["s"], False) if _is_moment(m) else m
+        vf = quant.dq8(name, v["q"], v["s"], True) if _is_moment(v) else v
         mf = b1 * mf + (1.0 - b1) * g
         vf = b2 * vf + (1.0 - b2) * g * g
         mhat = mf / bc1
@@ -163,8 +201,8 @@ def adamw_update(grads: dict, state: AdamWState, rc: RunConfig,
         decay = wd if master.ndim >= 2 else 0.0
         master.copy_(mw - lr * (mhat / (torch.sqrt(vhat) + eps) + decay * mw))
         if _is_moment(m):
-            m["q"], m["s"] = _q8(mf)
-            v["q"], v["s"] = _q8_log(vf)
+            m["q"], m["s"] = quant.q8(name, mf, False)
+            v["q"], v["s"] = quant.q8(name, vf, True)
         else:
             m.copy_(mf)
             v.copy_(vf)

@@ -23,6 +23,13 @@ elements one rank receives, their bytes on the wire, the f32 scale bytes,
 and what the same gather would move at bf16); the scheduler rolls them into
 interconnect totals that ``core.report`` prices as an energy column.
 
+The sharded train step (``parallel/train_mesh.py``) activates a
+:class:`TrainProgram` instead: the conjugate pair of Megatron's
+tensor-parallel cut (``enter``: identity forward, sum over tp backward;
+``exit``: sum over tp forward, identity backward) as autograd Functions,
+the vocab-parallel embedding and cross-entropy, and the sums over the
+batch's ranks.
+
 Tensors move as bytes: every gather reinterprets its operand as ``uint8``
 and views the result back, which is exact whatever dtypes a backend's
 ``all_gather`` accepts. With ``host_staged`` (gloo ranks whose tensors live
@@ -37,11 +44,16 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .host_shm import ShmGroup
+
 __all__ = [
     "CollectiveRecord",
     "MeshProgram",
     "current_program",
     "activate",
+    "TrainProgram",
+    "current_train",
+    "activate_train",
     "pack_wire",
     "unpack_wire",
     "wire_bits",
@@ -347,3 +359,176 @@ def activate(prog: MeshProgram):
         yield prog
     finally:
         _PROGRAM.pop()
+
+
+# ------------------------------------------------------------ training mesh
+def ring_bytes(kind: str, nbytes: int, world: int) -> int:
+    """Bytes one rank receives in a ring collective over ``world`` ranks
+    whose operand on this rank is ``nbytes``: an all-reduce ``2(n-1)/n`` of
+    it, a reduce-scatter ``(n-1)/n``, an all-gather ``(n-1)`` times it."""
+    if world <= 1:
+        return 0
+    if kind == "all_reduce":
+        return 2 * (world - 1) * nbytes // world
+    if kind == "reduce_scatter":
+        return (world - 1) * nbytes // world
+    return (world - 1) * nbytes
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``x`` summed (or maxed) over ``group`` (a
+    ``host_shm.ShmGroup``, or a process group whose backend takes ``x``
+    where it lies: nccl on the card)."""
+    if isinstance(group, ShmGroup):
+        return group.all_reduce(x, op)
+    buf = x.detach().clone(memory_format=torch.contiguous_format)
+    red = torch.distributed.ReduceOp.SUM if op == "sum" else torch.distributed.ReduceOp.MAX
+    torch.distributed.all_reduce(buf, op=red, group=group)
+    return buf
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` of every rank of ``group``, in group-rank order, concatenated
+    along ``dim``."""
+    if isinstance(group, ShmGroup):
+        return group.all_gather(x, dim)
+    return _gather(x, group, torch.distributed.get_world_size(group), dim, False)
+
+
+def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` summed over ``group``, this rank's ``1/n`` part along ``dim``
+    (group-rank order)."""
+    if isinstance(group, ShmGroup):
+        return group.reduce_scatter(x, dim)
+    n = torch.distributed.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    torch.distributed.reduce_scatter(out, list(src.chunk(n)), group=group)
+    return out.movedim(0, dim)
+
+
+class _Enter(torch.autograd.Function):
+    """Where a replicated activation enters a tensor-parallel region:
+    identity forward, the gradient summed over tp backward (each tp rank
+    holds the part of the gradient its heads, columns or experts made)."""
+
+    @staticmethod
+    def forward(ctx, x, prog):
+        ctx.prog = prog
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.prog.reduce_tp(g, "tp_all_reduce:enter_bwd"), None
+
+
+class _Exit(torch.autograd.Function):
+    """Where a tensor-parallel region's partial sums leave it: summed over
+    tp forward, identity backward (every tp rank's consumer is the same
+    replicated computation, so its gradient is already whole)."""
+
+    @staticmethod
+    def forward(ctx, x, prog, label):
+        return prog.reduce_tp(x, label)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+@dataclass
+class TrainProgram:
+    """One rank's view of a sharded train step (``parallel/train_mesh.py``),
+    consulted by the model body: ``models.transformer`` (a block's attention
+    and MLP between :meth:`enter` and :meth:`exit`, the vocab-parallel
+    embedding), ``models.moe`` (the rank's experts, the batch-global aux
+    loss) and ``models.model.loss_fn`` (the vocab-parallel cross-entropy,
+    the loss over the global batch). Every collective is metered by label:
+    calls, operand bytes and the ring model's bytes received a rank
+    (:func:`ring_bytes`); ``comm_s`` is the wall time inside them."""
+
+    tp: int = 1
+    t: int = 0
+    tp_group: object = None
+    dp_group: object = None             # the ranks of this tp column: the batch's split
+    dp: int = 1
+    meter: dict = field(default_factory=dict)
+    comm_s: float = 0.0
+
+    def run(self, label: str, kind: str, x: torch.Tensor, world: int, fn, *args):
+        """``fn(x, *args)``, metered under ``label`` as a ``kind``
+        collective over ``world`` ranks whose operand is ``x``."""
+        nbytes = x.numel() * x.element_size()
+        r = self.meter.setdefault(label, {"calls": 0, "bytes": 0, "wire_bytes": 0,
+                                          "seconds": 0.0})
+        t0 = time.perf_counter()
+        try:
+            return fn(x, *args)
+        finally:
+            dt = time.perf_counter() - t0
+            r["calls"] += 1
+            r["bytes"] += nbytes
+            r["wire_bytes"] += ring_bytes(kind, nbytes, world)
+            r["seconds"] += dt
+            self.comm_s += dt
+
+    def reduce_tp(self, x: torch.Tensor, label: str, op: str = "sum") -> torch.Tensor:
+        return self.run(label, "all_reduce", x, self.tp, all_reduce, self.tp_group, op)
+
+    def sum_dp(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        """``x`` (no gradient) summed over the batch's ranks."""
+        if self.dp == 1:
+            return x.detach()
+        return self.run(label, "all_reduce", x, self.dp, all_reduce, self.dp_group)
+
+    # ------------------------------------------------------ model-body hooks
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self) if self.tp > 1 else x
+
+    def exit(self, x: torch.Tensor, label: str = "tp_all_reduce:exit") -> torch.Tensor:
+        return _Exit.apply(x, self, label) if self.tp > 1 else x
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+        """The vocab-parallel lookup: this rank's rows of the table (a
+        ``1/tp`` vocab range), zero for a token outside it, summed over
+        tp."""
+        if self.tp == 1:
+            return table.to(dtype)[tokens]
+        v = table.shape[0]
+        local = tokens.long() - self.t * v
+        inside = (local >= 0) & (local < v)
+        x = table.to(dtype)[local.clamp(0, v - 1)] * inside[..., None].to(dtype)
+        return self.exit(x, "tp_all_reduce:embed")
+
+    def xent(self, logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+        """The vocab-parallel token cross-entropy of logits over this rank's
+        vocab range: (sum of masked NLL, sum of the mask) over this rank's
+        rows, each the same on every tp rank. The log-sum-exp takes the max
+        over tp, then one sum over tp of (the exp sums, the gold logit)."""
+        lf = logits.to(torch.float32)
+        m = self.reduce_tp(lf.detach().amax(dim=-1), "tp_all_reduce:xent_max", op="max")
+        s = torch.exp(lf - m[..., None]).sum(dim=-1)
+        v = lf.shape[-1]
+        local = labels.long() - self.t * v
+        inside = (local >= 0) & (local < v)
+        gold = torch.gather(lf, -1, local.clamp(0, v - 1)[..., None])[..., 0] * inside
+        s, gold = self.exit(torch.stack([s, gold]), "tp_all_reduce:xent_sum").unbind(0)
+        nll = (m + torch.log(s) - gold) * mask
+        return nll.sum(), mask.sum()
+
+
+_TRAIN: list[TrainProgram] = []
+
+
+def current_train() -> TrainProgram | None:
+    return _TRAIN[-1] if _TRAIN else None
+
+
+@contextmanager
+def activate_train(prog: TrainProgram):
+    """Activate ``prog`` for the enclosed forward and backward."""
+    _TRAIN.append(prog)
+    try:
+        yield prog
+    finally:
+        _TRAIN.pop()

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["leaves", "leaves_with_paths", "tree_map", "unflatten_like"]
+__all__ = ["leaves", "leaves_with_paths", "tree_map", "tree_map_with_path", "unflatten_like"]
 
 
 def _children(node):
@@ -63,6 +63,18 @@ def tree_map(fn, tree, *rest):
     others = [_children(r) for r in rest]
     return _rebuild(tree, [tree_map(fn, v, *(o[i][1] for o in others))
                            for i, (_, v) in enumerate(kids)])
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(name, leaf)`` over the leaves of ``tree``, ``name`` as
+    :func:`leaves_with_paths` gives it."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    return _rebuild(tree, [tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                           for k, v in kids])
 
 
 def unflatten_like(tree, flat: list):

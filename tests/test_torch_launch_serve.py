@@ -13,8 +13,8 @@ whose files must validate), ``--prefix-cache``, ``--spec-gamma 2``, and
 ``falcon-mamba-7b_smoke``, which falls back to the legacy Engine and the
 dense layout with the reference's messages. On a CPU mesh of gloo ranks
 (``--mesh``, ``--devices``) the CLI serves the single-device CLI's tokens
-and summary, plus its ``mesh:`` line; a local training mesh (``--data`` /
-``--model`` above 1) raises until the training half of the mesh is ported.
+and summary, plus its ``mesh:`` line; the reference's GSPMD-layout serve
+(``--data`` / ``--model`` above 1) raises until the dry-run (ROADMAP A12).
 
 The reference launcher wraps its serve in a 1×1 ``jax.make_mesh``, whose
 axes this JAX makes ``Explicit`` by default, and ``with_sharding_constraint``
@@ -142,14 +142,14 @@ def _stop_rank_pool():
 @pytest.mark.parametrize("flags", [["--devices", "8"], ["--mesh", "2,4"], ["--data", "2"],
                                    ["--model", "2"]])
 def test_mesh_flags_raise(flags, capsys, _stop_rank_pool):
-    """``--data`` / ``--model`` above 1 still raise, naming the training half
-    of A8. ``--devices 8`` and ``--mesh`` now serve on a CPU mesh of gloo
+    """``--data`` / ``--model`` above 1 still raise, naming A12 (the
+    reference's GSPMD-layout serve comes with the dry-run). ``--devices 8`` and ``--mesh`` now serve on a CPU mesh of gloo
     ranks: the tokens and the summary lines equal the single-device CLI's,
     and the summary adds the ``mesh:`` line; a mesh wanting more ranks than
     ``--devices`` gives is refused with the reference's message, and one
     without ``--mesh-backend`` is refused."""
     if flags[0] in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A12"):
             t_serve.main(["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags])
         return
     base = BASE + ["--max-batch", "4"] + MESH_CASES[flags[0]]

@@ -29,7 +29,6 @@ from repro_torch.configs.base import RunConfig as TRunConfig
 from repro_torch.optim import adamw as t_adamw
 from repro_torch.optim import (
     adamw_update,
-    compressed_psum,
     ef_compress,
     init_ef_state,
     init_opt_state,
@@ -175,11 +174,6 @@ def test_ef_compress_matches_reference():
         tc, te = ef_compress(_torch(g), te)
         for name, a in _flat(jax.tree.map(np.asarray, {"c": jc, "e": je})).items():
             _close(_np(_flat({"c": tc, "e": te})[name]), a, name)
-
-
-def test_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="A8"):
-        compressed_psum({"w": torch.zeros(3)}, "data")
 
 
 # ------------------------------------------------- the port's own optimizer tests

@@ -4,9 +4,8 @@
 train step, checkpoints, the Trainer and the launcher, against the
 reference on the same numpy inputs with its weights carried across by
 ``repro_torch.interop``; then the port's versions of
-``tests/test_train.py``'s tests (on ``qwen3-0.6b_smoke``: the port has no
-``smollm-360m`` config yet, ROADMAP A13) with the reference's RunConfig and
-shape.
+``tests/test_train.py``'s tests on its arch (``smollm-360m_smoke``) with the
+reference's RunConfig and shape.
 
 Tolerances (f32 on both sides; the frameworks order sums differently and
 their exp/rsqrt/tanh differ in the last bit, nothing else):
@@ -72,6 +71,7 @@ ARCHS = ["qwen3-0.6b_smoke", "deepseek-v2-lite-16b_smoke", "falcon-mamba-7b_smok
          "hymba-1.5b_smoke", "hubert-xlarge_smoke", "qwen2-vl-7b_smoke",
          "llama4-maverick-400b-a17b_smoke"]
 ARCH = "qwen3-0.6b_smoke"
+MIRROR_ARCH = "smollm-360m_smoke"     # the reference's tests/test_train.py arch
 F32 = dict(dtype="float32", param_dtype="float32")
 # the reference's test_train.py RunConfig and shape
 RC_KW = dict(F32, remat="none", lr=1e-2, warmup_steps=5, total_steps=60)
@@ -415,12 +415,12 @@ def test_async_checkpointer_keeps_three(tmp_path):
 
 # ---------------------------------------- the port's versions of test_train.py
 def _trainer(**kw):
-    return Trainer(t_get_config(ARCH), TRunConfig(**RC_KW), device="cpu",
+    return Trainer(t_get_config(MIRROR_ARCH), TRunConfig(**RC_KW), device="cpu",
                    log_fn=lambda *a: None, **kw)
 
 
 def _tbatches(seed, start_step=0):
-    return make_batches(t_get_config(ARCH), TShapeConfig("tiny", *SHAPE, "train"),
+    return make_batches(t_get_config(MIRROR_ARCH), TShapeConfig("tiny", *SHAPE, "train"),
                         seed=seed, start_step=start_step)
 
 
@@ -496,10 +496,10 @@ def test_launch_train_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--production-mesh"], NotImplementedError),
-    (["--multi-pod"], NotImplementedError),
-    (["--data", "2"], NotImplementedError),
-    (["--model", "2"], NotImplementedError),
+    (["--production-mesh"], ValueError),      # 256 ranks, one card each: not here
+    (["--multi-pod"], ValueError),            # 512
+    (["--data", "2"], ValueError),            # a mesh without --mesh-backend
+    (["--model", "2"], ValueError),
     (["--policy", "*=int8:prequant"], SystemExit),
 ])
 def test_launch_train_refusals(argv, exc):

@@ -1,5 +1,5 @@
 """Port parity for training's gradients: ``loss_fn`` and every gradient
-leaf on the seven registered ``_smoke`` archs (``ARCHS``), against the
+leaf on the ten registered ``_smoke`` archs (``ARCHS``), against the
 reference's jitted ``value_and_grad`` on the same numpy batch, with the
 reference's weights carried across by ``repro_torch.interop``. The rest of
 training's parity (``*=int8`` gradients, remat, microbatches, steps,
@@ -29,7 +29,8 @@ torch.set_float32_matmul_precision("highest")
 
 ARCHS = ["qwen3-0.6b_smoke", "deepseek-v2-lite-16b_smoke", "falcon-mamba-7b_smoke",
          "hymba-1.5b_smoke", "hubert-xlarge_smoke", "qwen2-vl-7b_smoke",
-         "llama4-maverick-400b-a17b_smoke"]
+         "llama4-maverick-400b-a17b_smoke", "qwen3-8b_smoke", "qwen3-14b_smoke",
+         "smollm-360m_smoke"]
 F32 = dict(dtype="float32", param_dtype="float32")
 GRAD_TOL = 1e-4
 
