@@ -248,9 +248,16 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # fixed cuBLAS workspace set before cuBLAS starts (before torch is imported)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core rate
-F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+# every kernel's bound and its counts come from the port's roofline: the
+# ``h100`` profile's rates (HBM3, dense int8, f32 outside the tensor cores,
+# dense bf16) and ``kernel_cost``'s formulas, which the dry-run charges too
+from repro_torch.roofline.analysis import HW_PROFILES  # noqa: E402
+from repro_torch.roofline.kernel_cost import attn_bytes_ops as _attn_bytes_ops  # noqa: E402
+from repro_torch.roofline.kernel_cost import bound as _bound  # noqa: E402
+from repro_torch.roofline.kernel_cost import gemm_grid  # noqa: E402
+
+H100 = HW_PROFILES["h100"]
+HBM_BYTES_PER_S = H100.hbm_bw
 ARCH = "qwen3-0.6b"
 DEVICE = "cuda"
 # the MLA + MoE slice: deepseek-v2-lite at full width, all 27 layers (a cut,
@@ -499,20 +506,6 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------ kernel checks
-def gemm_grid(M: int, N: int, Kw: int, planes: int, xbytes: int = 1, experts: int = 1) -> dict:
-    """The grid of the GEMM kernels on the split-K mainloop (fused, int8 and
-    packed) at a call's shapes: tile width, K splits (the cluster size) and
-    blocks, from ``split_plan``."""
-    import torch
-
-    from repro_torch.kernels.tugemm_fused import BM, split_plan
-
-    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
-    bn, splits, chunks = split_plan(M, N, Kw, planes, sms, xbytes, experts)
-    return dict(bn=bn, splits=splits, chunks=chunks,
-                blocks=splits * -(-N // bn) * experts * -(-M // BM))
-
-
 def lib_int_mm(torch, a, b):
     """torch._int_mm(a, b) as a library yardstick, or None where cuBLASLt's
     int8 product does not take the shape (M > 16, K and N multiples of 8)."""
@@ -580,10 +573,7 @@ def check_gemm(torch, flush):
                    x_dtype=str(x.dtype).split(".")[-1], out_dtype=str(out_dtype).split(".")[-1],
                    **gemm_grid(M, N, w.shape[0], planes, x.element_size()), exact=exact,
                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                   bytes=byts, ops=ops,
-                   bound_ms=max(byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3,
-                   bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S
-                   else "operations")
+                   **_bound(byts, ops))
         emit({"phase": "check", **rec})
         if not exact or err > GEMM_TOL:
             raise AssertionError(f"tugemm_fused disagrees with its plain version: {rec}")
@@ -659,31 +649,6 @@ def _attn_case(torch, gen, *, rows, sq, kv, group, part_dims, hdv, bs, MB, kv_dt
     q = torch.randn(B, sq, kv * group, sum(part_dims), device=dev, generator=gen).to(q_dtype)
     return (q, tuple(p for p, _ in parts), tuple(s for _, s in parts), v, vs,
             tables, pos, kv_len)
-
-
-def _attn_bytes_ops(args, kv, bs, window=None):
-    """Bytes each input once + output, and f32 operations, counting only what
-    this run's rows can see: per row, the pages holding its visible keys
-    (causal, window) and, per query row, 2·(hd + hdv) flops a visible key."""
-    q, kparts, kscales, v, vs, tables, pos, kv_len = args
-    B, sq, H, hd = q.shape
-    pages, flops = 0, 0
-    hdv = v.shape[2] // kv
-    for p, n in zip(pos.tolist(), kv_len.tolist()):
-        his = [min(n, p + s + 1) for s in range(sq)]
-        los = [0 if window is None else max(0, p + s - window + 1) for s in range(sq)]
-        vis = [max(0, h - l) for h, l in zip(his, los)]
-        flops += sum(2 * H * x * (hd + hdv) for x in vis)
-        if any(vis):
-            pages += -(-max(his) // bs) - min(los) // bs
-    per_tok = sum(p.shape[2] * p.element_size() for p in kparts)
-    if not any(v is p for p in kparts):
-        per_tok += v.shape[2] * v.element_size()
-    scales = [s for s in (*kscales, vs) if s is not None]
-    per_tok += 4 * len({id(s) for s in scales})
-    out_b = B * sq * H * hdv * q.element_size()
-    byts = nbytes(q, tables, pos, kv_len) + pages * bs * per_tok + out_b
-    return byts, flops
 
 
 def check_attention(torch, flush):
@@ -792,7 +757,6 @@ def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, p
     byts, flops = _attn_bytes_ops(args, shape["kv"], shape["bs"], window)
     rows_head = rep * sq
     splits, per = split_plan(*(plan_dims or (B, shape["kv"], rows_head)), tables.shape[1], sms)
-    bound = max(byts / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     rec = dict(kernel="flash_paged_decode", case=name, B=B, sq=sq, heads=H,
                kv_heads=shape["kv"], hd_tot=hd, hdv=shape["hdv"], bs=shape["bs"],
                pages=tables.shape[1], kv_len=kv_len.tolist(),
@@ -800,21 +764,12 @@ def attn_check(torch, gen, sms, flush, name, shape, rows, sq, kvt, qt, window, p
                window=window, splits=splits, pages_per_split=per,
                blocks=B * shape["kv"] * -(-rows_head // ROW_TILE) * splits,
                within_tol=ok, idle_rows_zero=zeros, max_abs_err=err, tol=[atol, rtol],
-               ms=ms, plain_ms=plain, library_ms=lib, bytes=byts, ops=flops,
-               bound_ms=bound,
-               bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-               else "operations")
+               ms=ms, plain_ms=plain, library_ms=lib, **_bound(byts, flops, "f32"))
     emit({"phase": phase, **rec})
     if not (ok and zeros):
         raise AssertionError(f"flash_paged_decode disagrees with its plain version: {rec}")
     DEVICE_TIMED.append((rec, call, lib_call))
     return rec
-
-
-def _bound(byts: int, ops: int) -> dict:
-    tb, to = byts / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return dict(bytes=byts, ops=ops, bound_ms=max(tb, to) * 1e3,
-                bound_by="bytes" if tb >= to else "operations")
 
 
 def _flat(out) -> tuple:
@@ -1347,12 +1302,10 @@ def check_c1(torch, flush, params):
         torch.cuda.synchronize()
         exact = got.dtype == want.dtype and torch.equal(got, want)
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
-        tb, to = byts / HBM_BYTES_PER_S, n_ops / rate
         rec = dict(kernel=kernel, case=case, **extra, exact=exact, max_abs_err=err,
                    ms=median_ms(torch, fn, flush=flush),
                    plain_ms=median_ms(torch, plain, flush=flush), library_ms=lib_ms,
-                   bytes=byts, ops=n_ops, bound_ms=max(tb, to) * 1e3,
-                   bound_by="bytes" if tb >= to else "operations")
+                   **_bound(byts, n_ops, rate))
         emit({"phase": "check_c1", **rec})
         if not exact or err > C1_TOL:
             raise AssertionError(f"{kernel} disagrees with its plain version: {rec}")
@@ -1389,7 +1342,7 @@ def check_c1(torch, flush, params):
         s_bytes = 4 if form == "float" else nbytes(scale)
         call = lambda: via(x, scale, bitwidth=bits, impl="cuda")
         run("quantize_sym", case, call, lambda: via(x, scale, bitwidth=bits, impl="torch"),
-            None, nbytes(x) + s_bytes + M * N, M * N, F32_FLOPS_PER_S, M=M, N=N, bits=bits,
+            None, nbytes(x) + s_bytes + M * N, M * N, "f32", M=M, N=N, bits=bits,
             dtype=str(x.dtype).split(".")[-1], scale_form=form, scale_bytes=s_bytes,
             via=via.__module__.rsplit(".", 1)[-1] + ".quantize_sym", serve=serve)
         if timed:
@@ -1445,7 +1398,7 @@ def check_c1(torch, flush, params):
         _, ks, _, us = split_plan(M, N, K, steps, sms)
         run("temporal_unary_gemm", case, call,
             lambda: temporal_unary_gemm(a, b, bitwidth=bits, impl="torch"), lib,
-            nbytes(a, b) + 4 * M * N, steps * 2 * M * K * N, INT8_OPS_PER_S,
+            nbytes(a, b) + 4 * M * N, steps * 2 * M * K * N, "int8",
             M=M, K=K, N=N, bits=bits, unary_steps=steps, int8_kernel_ms=int8,
             blocks=-(-M // BM) * -(-N // BN) * ks * us)
         DEVICE_TIMED.append((records[-1], call, lib_call))
@@ -1479,7 +1432,7 @@ def check_c1(torch, flush, params):
     run("temporal_unary_gemm", "saturation",
         lambda: temporal_unary_gemm(a, b, bitwidth=2, impl="cuda"),
         lambda: temporal_unary_gemm(sat, b, bitwidth=2, impl="torch"), None,
-        nbytes(a, b) + 4 * 64 * 2048, 2 * 2 * 64 * 1024 * 2048, INT8_OPS_PER_S,
+        nbytes(a, b) + 4 * 64 * 2048, 2 * 2 * 64 * 1024 * 2048, "int8",
         M=64, K=1024, N=2048, bits=2, unary_steps=2)
     return records
 
@@ -3341,7 +3294,7 @@ TRAIN_DROP = 0.5               # nats: the last 5 steps' mean loss below the fir
 RESUME_LAYERS, RESUME_SEQ, RESUME_BATCH = 4, 256, 4   # train_resume: depth cut, full width
 PARITY_LAYERS, PARITY_SEQ, PARITY_BATCH = 2, 64, 2    # train_parity_f32: card vs host
 PARITY_LOSS_TOL, PARITY_PARAM_TOL = 1e-5, 1e-4        # relative; each leaf's relative L2
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+BF16_FLOPS_PER_S = H100.peak_flops
 TRAIN_CKPT = os.path.join(HERE, "build", "train_ckpt")
 
 
@@ -4172,6 +4125,87 @@ def train_mesh_phases(torch, rc, smi: str) -> None:
     free_device_memory(torch)
 
 
+# the dry-run and roofline tooling's card path: the energy probe at full width
+# under both policies of its docstring, and one production cell the rank
+# programs accept, priced on meta tensors with the profile the card's name picks
+PROBE_POLICIES = ("attn.*=int8,mlp.*=int2,*=bf16", "*=int4:prequant")
+PROBE_BATCH, PROBE_SEQ = 4, 64
+DRYRUN_CELL = ("deepseek-v2-lite-16b", "decode_32k")
+
+
+def probe_energy(torch) -> dict:
+    """``launch.probe.energy_probe`` on ``ARCH`` at full width (28 layers,
+    d_model 1024, vocab 151,936; f32, the reference probe's RunConfig) under
+    each of ``PROBE_POLICIES``: the surgered forward through ``tugemm_fused``
+    and ``tugemm_stats`` (the counts are set to 0 before and read after),
+    then the same probe through the plain versions on the card. Every
+    GEMM's cycles must be identical, and the report's energy equal; only
+    those two kernels may launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.probe import energy_probe
+
+    out = {}
+    for policy in PROBE_POLICIES:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        rep = energy_probe(ARCH, policy=policy, batch=PROBE_BATCH, seq=PROBE_SEQ, device=DEVICE)
+        wall = time.perf_counter() - t0
+        counts = ops.kernel_counts()
+        t1 = time.perf_counter()
+        plain = energy_probe(ARCH, policy=policy, batch=PROBE_BATCH, seq=PROBE_SEQ,
+                             device=DEVICE, impl="torch", label="energy (plain versions)")
+        plain_wall = time.perf_counter() - t1
+        rows = [(le.label, le.bits, le.serial_cycles, le.parallel_cycles) for le in rep.layers]
+        want = [(le.label, le.bits, le.serial_cycles, le.parallel_cycles)
+                for le in plain.layers]
+        same = sum(a == b for a, b in zip(rows, want))
+        rel = abs(rep.total_energy_j - plain.total_energy_j) / max(plain.total_energy_j, 1e-30)
+        ran = {k: c for k, c in counts.items() if c["launches"] or c["plain_calls"]}
+        rec = {"phase": "probe_energy", "arch": ARCH, "policy": policy, "batch": PROBE_BATCH,
+               "seq": PROBE_SEQ, "gemms": len(rows), "cycles_equal": same,
+               "total_cycles": rep.total_cycles, "plain_total_cycles": plain.total_cycles,
+               "total_energy_j": rep.total_energy_j, "plain_total_energy_j":
+               plain.total_energy_j, "energy_rel_diff": rel, "by_bits": {
+                   b: {"cycles": v["cycles"], "energy_j": v["energy_j"]}
+                   for b, v in rep.by_bits.items()},
+               "wall_s": wall, "plain_wall_s": plain_wall, "kernel_counts": counts}
+        emit(rec)
+        if rows != want or rel > 1e-12:
+            raise AssertionError(f"the energy probe's cycles on the kernels differ from the "
+                                 f"plain versions': {same} of {len(rows)} GEMMs equal")
+        if set(ran) != {"tugemm_fused", "tugemm_stats"} or any(
+                c["plain_calls"] for c in ran.values()):
+            raise AssertionError(f"the energy probe did not run only tugemm_fused and "
+                                 f"tugemm_stats: {ran}")
+        out[policy] = rec
+    return out
+
+
+def dryrun_cell(torch) -> dict:
+    """One production cell (``DRYRUN_CELL`` on the 16×16 mesh) priced by
+    ``launch.dryrun.run_cell`` on meta tensors with ``hw_profile("auto")``,
+    which must pick ``h100`` by the card's name; prints its row (a price
+    from counts, not a measurement)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline.analysis import hw_profile
+
+    hw = hw_profile("auto")
+    t0 = time.perf_counter()
+    arch, shape = DRYRUN_CELL
+    row = run_cell(arch, SHAPES[shape], multi_pod=False, hw=hw)
+    rec = {"phase": "dryrun_cell", "device_name": torch.cuda.get_device_name(),
+           "profile": hw.name, "seconds": time.perf_counter() - t0, **row}
+    emit(rec)
+    if hw.name != "h100" or row["hw"] != "h100":
+        raise AssertionError(f"hw_profile('auto') picked {hw.name!r} on "
+                             f"{torch.cuda.get_device_name()!r}")
+    if not (row["hlo_flops_per_chip"] > 0 and row["collective_bytes_per_chip"] > 0):
+        raise AssertionError(f"the dry-run cell priced nothing: {row}")
+    return rec
+
+
 class PhaseClock:
     """Seconds each group of phases took, from the process start's build
     on; ``emit`` prints them on one line."""
@@ -4409,6 +4443,10 @@ def main() -> int:
     # depth, its checkpoint served on the kernels) and deepseek-v2-lite
     train_mesh_phases(torch, rc, smi)
     clock.lap("mesh training")
+    probes = probe_energy(torch)
+    clock.lap("probe_energy")
+    dryrun_cell(torch)
+    clock.lap("dryrun_cell")
     device_times(torch)
     free_device_memory(torch)
     before = torch.cuda.memory_allocated()
@@ -4457,7 +4495,9 @@ def main() -> int:
              ph: c["tugemm_fused"]["launches"] for ph, (_, c) in serves.items()}, **{
              ph: r["kernel_counts"]["tugemm_fused"]["launches"]
              for ph, r in engine_serves.items()},
-             "encode_audio": audio_counts["tugemm_fused"]["launches"]},
+             "encode_audio": audio_counts["tugemm_fused"]["launches"],
+             **{f"probe_energy {pol}": r["kernel_counts"]["tugemm_fused"]["launches"]
+                for pol, r in probes.items()}},
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
                                        for ph, (sc, c) in serves.items()},
          "experts": expert_entry(moe_gemm, moe_serves),
@@ -4566,7 +4606,9 @@ def main() -> int:
                                 for ph, (_, c) in serves.items()},
                              **{ph: r["kernel_counts"]["tugemm_stats"]["launches"]
                                 for ph, r in engine_serves.items()},
-                             "encode_audio": audio_counts["tugemm_stats"]["launches"]},
+                             "encode_audio": audio_counts["tugemm_stats"]["launches"],
+                             **{f"probe_energy {pol}": r["kernel_counts"]["tugemm_stats"][
+                                 "launches"] for pol, r in probes.items()}},
         "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
                                         if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),

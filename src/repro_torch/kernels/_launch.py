@@ -5,7 +5,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DTYPE_CODE", "KernelCount", "check", "ptr", "stream_ptr", "raise_on", "sm_count"]
+__all__ = ["DTYPE_CODE", "KernelCount", "check", "ptr", "stream_ptr", "raise_on", "sm_count",
+           "IMPLS", "meta_route", "charge_meta"]
+
+# ``impl`` values of the kernel wrappers. ``auto`` on a meta tensor returns
+# empty outputs of the right shapes and charges the kernel's count to the
+# active ``roofline.op_cost.OpCost``: the tensor alone decides that path
+IMPLS = ("auto", "torch", "cuda")
 
 # dtype codes of the C launchers (csrc/*.cu)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -26,6 +32,24 @@ class KernelCount:
 
     def as_dict(self) -> dict:
         return {"launches": self.launches, "plain_calls": self.plain_calls}
+
+
+def meta_route(impl: str, t: torch.Tensor) -> bool:
+    """Whether a call with ``impl`` on ``t`` takes the meta path: ``auto``
+    on a meta tensor (raises on an unknown ``impl``). A meta tensor under
+    ``cuda`` does not: the kernel path then raises, as on any non-CUDA
+    tensor."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl == "auto" and t.device.type == "meta"
+
+
+def charge_meta(count: "KernelCount", cost: tuple, shape=()) -> None:
+    """Charge one meta call of ``count``'s kernel at ``cost`` = (bytes,
+    operations) (``roofline.kernel_cost``); no launch, no plain call."""
+    from ..roofline.kernel_cost import charge
+
+    charge(count.name, *cost, shape=tuple(shape))
 
 
 def check(cond: bool, msg) -> None:

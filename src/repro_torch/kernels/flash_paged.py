@@ -19,7 +19,8 @@ import functools
 import torch
 
 from . import build
-from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (DTYPE_CODE, KernelCount, charge_meta, check, meta_route, ptr, raise_on,
+                      sm_count, stream_ptr)
 
 __all__ = ["flash_paged_decode", "flash_paged_ref", "gather_pages", "split_plan", "COUNT",
            "NEG_INF", "ROW_TILE"]
@@ -127,10 +128,19 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
     ``cuda`` insists on the kernel. ``plan_dims`` = (batch, kv_heads,
     rows a kv head) replaces this call's own in ``split_plan``: a mesh
     rank's slice of a launch takes the whole launch's plan, and with it
-    the whole launch's per-head results."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    the whole launch's per-head results. On meta tensors (or ``meta``) the
+    output is empty and the call is charged with every page of the table
+    read (``roofline.kernel_cost.attn_bytes_ops``)."""
     k_parts, k_scales = tuple(k_parts), tuple(k_scales)
+    if meta_route(impl, q):
+        from ..roofline.kernel_cost import attn_bytes_ops
+
+        B, sq, H, _ = q.shape
+        out = torch.empty((B, sq, H, v_pool.shape[2] // kv_heads), dtype=q.dtype, device=q.device)
+        args = (q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_len)
+        charge_meta(COUNT, attn_bytes_ops(args, kv_heads, v_pool.shape[1], window,
+                                          every_page=True), out.shape)
+        return out
     if impl == "torch" or (impl == "auto" and q.device.type == "cpu"):
         COUNT.plain_calls += 1
         return flash_paged_ref(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_len,

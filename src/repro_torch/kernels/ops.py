@@ -4,7 +4,10 @@
 hand-written CUDA kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; ``torch`` runs the plain version on any device;
 ``cuda`` insists on the kernel. A CUDA tensor under ``auto`` launches or
-raises — there is no fallback.
+raises — there is no fallback. A ``meta`` tensor (the dry-run) under
+``auto`` takes each kernel's meta path: empty outputs of the right shapes,
+and one op charged at the kernel's own count (``roofline.kernel_cost``).
+No ``impl`` value asks for that path: the tensor alone decides it.
 
 Three kinds of counters answer "which path did the work take":
 ``kernel_counts()`` reads each kernel's launch counter and its plain
@@ -62,6 +65,7 @@ __all__ = [
     "count_dispatch",
     "counting_dispatches",
     "record_path",
+    "kernel_impl",
     "path_counts",
     "kernel_counts",
     "kernel_counters",
@@ -121,11 +125,14 @@ def record_path(name: str, path: str) -> None:
 
 
 def resolve_path(impl: str, t: torch.Tensor, *operands) -> str:
-    """The path a call with ``impl`` takes for tensor ``t``. A CUDA path
+    """The path a call with ``impl`` takes for tensor ``t``: ``auto`` gives
+    ``cuda`` on a CUDA tensor, ``meta`` on a meta tensor (the kernel's
+    count charged, no data: ``roofline.op_cost``), else ``torch``; ``meta``
+    is a path and no ``impl`` (a wrapper takes :func:`kernel_impl` of it). A CUDA path
     raises ``RuntimeError`` while grad is enabled and ``t`` or one of
     ``operands`` (tensors or None) requires grad: no kernel has a backward."""
     if impl == "auto":
-        path = "cuda" if t.device.type == "cuda" else "torch"
+        path = {"cuda": "cuda", "meta": "meta"}.get(t.device.type, "torch")
     elif impl in ("torch", "cuda"):
         path = impl
     else:
@@ -137,6 +144,12 @@ def resolve_path(impl: str, t: torch.Tensor, *operands) -> str:
             "kernel has a backward, and the launch would drop the gradient. Train under "
             "a *=bf16 policy on the card, or run the plain versions (impl='torch')")
     return path
+
+
+def kernel_impl(path: str) -> str:
+    """The kernel wrapper's ``impl`` for a path from :func:`resolve_path`:
+    the wrappers take ``meta`` from their ``auto`` on the meta tensor."""
+    return "auto" if path == "meta" else path
 
 
 def path_counts() -> dict:
@@ -206,18 +219,18 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     count_dispatch("matmul_int8")
     path = resolve_path(impl, a, b, c)
     if not collect_stats:
-        return _int8.tugemm_int8(a, b, c, impl=path)
+        return _int8.tugemm_int8(a, b, c, impl=kernel_impl(path))
     count_dispatch("absmax_a")
     count_dispatch("absmax_b")
-    y, ca, rb = _int8.tugemm_int8(a, b, c, collect_stats=True, impl=path)
-    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, a.shape[-1], impl=path))
+    y, ca, rb = _int8.tugemm_int8(a, b, c, collect_stats=True, impl=kernel_impl(path))
+    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, a.shape[-1], impl=kernel_impl(path)))
 
 
 def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") -> TuGemmStats:
     """tuGEMM data-dependent cycle statistics for A (M, K) @ B (K, N)."""
     count_dispatch("absmax_a")
     count_dispatch("absmax_b")
-    return TuGemmStats(*_stats.unary_step_stats(a, b, impl=resolve_path(impl, a, b)))
+    return TuGemmStats(*_stats.unary_step_stats(a, b, impl=kernel_impl(resolve_path(impl, a, b))))
 
 
 def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
@@ -227,7 +240,8 @@ def matmul_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     (``pack_weights``' padding). A leading expert axis (A (E, M, K), B (E,
     Kp, N)) runs E GEMMs in one launch."""
     count_dispatch("matmul_packed")
-    return _packed.tugemm_packed(a, packed_b, bits=bits, impl=resolve_path(impl, a, packed_b))
+    return _packed.tugemm_packed(a, packed_b, bits=bits,
+                                  impl=kernel_impl(resolve_path(impl, a, packed_b)))
 
 
 def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
@@ -241,7 +255,7 @@ def temporal_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
     record_path("temporal_gemm", path)
     if path == "cuda":
         a, b = a.to(torch.int8).contiguous(), b.to(torch.int8).contiguous()
-    return _temporal.temporal_unary_gemm(a, b, bitwidth=bitwidth, impl=path)
+    return _temporal.temporal_unary_gemm(a, b, bitwidth=bitwidth, impl=kernel_impl(path))
 
 
 def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -> torch.Tensor:
@@ -255,7 +269,7 @@ def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -
     record_path("quantize_sym", path)
     if path == "cuda":
         x = x.contiguous()
-    return _quantize.quantize_sym(x, scale, bitwidth=bitwidth, impl=path)
+    return _quantize.quantize_sym(x, scale, bitwidth=bitwidth, impl=kernel_impl(path))
 
 
 def matmul_fused(
@@ -307,10 +321,10 @@ def matmul_fused(
         sx.reshape(lead + ((-1, 1) if per_token else (1, 1))),
         sw.to(torch.float32).reshape(lead + (1, N)), bias,
         bits=bits, w_mode=w_mode, collect_stats=collect_stats,
-        out_dtype=out_dtype if out_dtype is not None else x.dtype, impl=path,
+        out_dtype=out_dtype if out_dtype is not None else x.dtype, impl=kernel_impl(path),
     )
     if not collect_stats:
         return out
     y, ca, rb = out
     # plane-major maxima; plane p holds the logical rows [p·Kw, (p+1)·Kw)
-    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, K, impl=path))
+    return y, TuGemmStats(*_stats.tugemm_stats(ca, rb, K, impl=kernel_impl(path)))

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from . import build
-from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (DTYPE_CODE, KernelCount, charge_meta, check, meta_route, ptr, raise_on,
+                      sm_count, stream_ptr)
 from .ref import quantize_sym_ref
 
 __all__ = ["quantize_sym", "launch", "quantize_plan", "host_reciprocal", "COUNT"]
@@ -108,12 +109,18 @@ def quantize_sym(x: torch.Tensor, scale, *, bitwidth: int, impl: str = "auto") -
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    ``cuda`` insists on the kernel; on meta tensors (or ``meta``) the
+    outputs are empty and the call is charged (``roofline.kernel_cost``)."""
+    meta = meta_route(impl, x)
     n_scale = scale.numel() if isinstance(scale, torch.Tensor) else np.size(scale)
     check(x.ndim == 2 and n_scale in (1, x.shape[1]), lambda: f"quantize_sym: a scale of "
           f"{n_scale} values is neither per tensor nor per column of x {tuple(x.shape)}")
+    if meta:
+        from ..roofline.kernel_cost import quantize_bytes_ops
+
+        q = torch.empty(tuple(x.shape), dtype=torch.int8, device=x.device)
+        charge_meta(COUNT, quantize_bytes_ops(x, scale, q), q.shape)
+        return q
     if impl == "torch" or (impl == "auto" and x.device.type == "cpu"):
         COUNT.plain_calls += 1
         inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=x.device)

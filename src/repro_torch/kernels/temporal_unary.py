@@ -25,7 +25,8 @@ import functools
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (KernelCount, charge_meta, check, meta_route, ptr, raise_on, sm_count,
+                      stream_ptr)
 from .ref import temporal_unary_gemm_ref
 
 __all__ = ["temporal_unary_gemm", "split_plan", "COUNT"]
@@ -76,9 +77,14 @@ def temporal_unary_gemm(a: torch.Tensor, b: torch.Tensor, *, bitwidth: int,
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    ``cuda`` insists on the kernel; on meta tensors (or ``meta``) the
+    outputs are empty and the call is charged (``roofline.kernel_cost``)."""
+    if meta_route(impl, a):
+        from ..roofline.kernel_cost import temporal_bytes_ops
+
+        y = torch.empty((a.shape[0], b.shape[1]), dtype=torch.int32, device=a.device)
+        charge_meta(COUNT, temporal_bytes_ops(a, b, y, bitwidth), y.shape)
+        return y
     if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
         COUNT.plain_calls += 1
         return temporal_unary_gemm_ref(a, b, bitwidth)

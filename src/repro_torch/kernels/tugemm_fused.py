@@ -21,7 +21,8 @@ import functools
 import torch
 
 from . import build
-from ._launch import DTYPE_CODE, KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (DTYPE_CODE, KernelCount, charge_meta, check, meta_route, ptr, raise_on,
+                      sm_count, stream_ptr)
 from .packing import PLANES
 from .ref import fused_gemm_ref
 
@@ -184,9 +185,10 @@ def tugemm_fused(
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    ``cuda`` insists on the kernel; on meta tensors (or ``meta``) the
+    outputs are empty and the call is charged (``roofline.kernel_cost``)."""
+    if meta_route(impl, x):
+        return _meta(x, w, sx, sw, bias, bits, w_mode, collect_stats, out_dtype)
     if impl == "torch" or (impl == "auto" and x.device.type == "cpu"):
         COUNT.plain_calls += 1
         return fused_gemm_ref(x, w, sx, sw, bias, bits=bits, w_mode=w_mode,
@@ -246,3 +248,60 @@ def tugemm_fused(
     half = E * planes * Kw
     return (y, stats[:half].view(lead + (planes, Kw)),
             stats[half:].view(lead + (Kw, planes)))
+
+
+def _meta(x, w, sx, sw, bias, bits, w_mode, collect_stats, out_dtype):
+    """The meta path: empty (y[, ca, rb]) and one charge at the kernel's count."""
+    from ..roofline.kernel_cost import gemm_bytes_ops
+
+    planes = PLANES[bits] if w_mode == "packed" else 1
+    lead = tuple(x.shape[:-2])
+    M, Kx = x.shape[-2:]
+    Kw, N = w.shape[-2:]
+    y = torch.empty(lead + (M, N), dtype=out_dtype, device=x.device)
+    outs = (y,)
+    if collect_stats:
+        outs += (torch.empty(lead + (planes, Kw), dtype=torch.int32, device=x.device),
+                 torch.empty(lead + (Kw, planes), dtype=torch.int32, device=x.device))
+    E = lead[0] if lead else 1
+    charge_meta(COUNT, gemm_bytes_ops((x, w, sx, sw, bias), outs, M, Kx, N, E), y.shape)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (sx, sw, bias)):
+        y = _MetaDequant.apply(y, sx, sw, bias)
+        outs = (y,) + outs[1:]
+    return outs if collect_stats else y
+
+
+class _MetaDequant(torch.autograd.Function):
+    """The plain version's autograd structure on the meta path: ``y = acc ·
+    (sx·sw) + bias`` is differentiable in the scales and the bias (rounding
+    cuts the rest), so a train step on meta tensors runs the backward the
+    plain version (and the reference's XLA twin) runs. The kernel itself has
+    no backward: on the card such a call raises (``ops.resolve_path``)."""
+
+    @staticmethod
+    def forward(ctx, y, sx, sw, bias):
+        ctx.save_for_backward(y, sx, sw)
+        ctx.bias_shape = None if bias is None else bias.shape
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sx, sw = ctx.saved_tensors
+        acc = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+        gf = g.to(torch.float32) * acc
+
+        def reduce_to(t, shape):
+            while t.ndim > len(shape):
+                t = t.sum(0)
+            return t.sum(tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1),
+                         keepdim=True)
+
+        dsx = reduce_to(gf * sw, sx.shape) if ctx.needs_input_grad[1] else None
+        dsw = reduce_to(gf * sx, sw.shape) if ctx.needs_input_grad[2] else None
+        dbias = None
+        if ctx.needs_input_grad[3]:
+            gb = g.to(torch.float32)
+            dbias = gb.sum(-2) if len(ctx.bias_shape) == gb.ndim - 1 else reduce_to(
+                gb, ctx.bias_shape)
+            dbias = dbias.reshape(ctx.bias_shape)
+        return None, dsx, dsw, dbias

@@ -24,7 +24,8 @@ import ctypes
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (KernelCount, charge_meta, check, meta_route, ptr, raise_on, sm_count,
+                      stream_ptr)
 from .ref import matmul_int_ref
 from .tugemm_fused import split_plan
 from .unary_stats import colabsmax, rowabsmax
@@ -61,9 +62,8 @@ def tugemm_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    ``cuda`` insists on the kernel; on meta tensors (or ``meta``) the
+    outputs are empty and the call is charged (``roofline.kernel_cost``)."""
     check(a.ndim == b.ndim and a.ndim in (2, 3) and a.shape[:-2] == b.shape[:-2],
           lambda: f"tugemm_int8: a {tuple(a.shape)}, b {tuple(b.shape)}: 2-D, or 3-D with "
                   "one expert axis")
@@ -73,6 +73,8 @@ def tugemm_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
           lambda: f"tugemm_int8: stats of a {tuple(a.shape)} by b {tuple(b.shape)} need "
                   "M, N, K > 0")
     lead = tuple(a.shape[:-2])
+    if meta_route(impl, a):
+        return _meta(a, b, c, collect_stats)
     if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
         COUNT.plain_calls += 1
         y = matmul_int_ref(a, b, c)
@@ -108,3 +110,20 @@ def tugemm_int8(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None = None,
     if not collect_stats:
         return y
     return y, stats[:E * K].view(lead + (1, K)), stats[E * K:].view(lead + (K, 1))
+
+
+def _meta(a, b, c, collect_stats):
+    """The meta path: empty (y[, ca, rb]) and one charge at the kernel's count."""
+    from ..roofline.kernel_cost import gemm_bytes_ops
+
+    lead = tuple(a.shape[:-2])
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    y = torch.empty(lead + (M, N), dtype=torch.int32, device=a.device)
+    outs = (y,)
+    if collect_stats:
+        outs += (torch.empty(lead + (1, K), dtype=torch.int32, device=a.device),
+                 torch.empty(lead + (K, 1), dtype=torch.int32, device=a.device))
+    E = lead[0] if lead else 1
+    charge_meta(COUNT, gemm_bytes_ops((a, b, c), outs, M, K, N, E), y.shape)
+    return outs if collect_stats else y

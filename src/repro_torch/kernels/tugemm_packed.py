@@ -21,7 +21,8 @@ import ctypes
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, sm_count, stream_ptr
+from ._launch import (KernelCount, charge_meta, check, meta_route, ptr, raise_on, sm_count,
+                      stream_ptr)
 from .packing import BITS_TO_PLANES
 from .ref import packed_matmul_ref
 from .tugemm_fused import split_plan
@@ -54,9 +55,9 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
 
     ``impl``: ``auto`` launches the kernel on CUDA tensors and runs the plain
     version on CPU tensors; ``torch`` runs the plain version anywhere;
-    ``cuda`` insists on the kernel."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
+    ``cuda`` insists on the kernel; on meta tensors (or ``meta``) the
+    outputs are empty and the call is charged (``roofline.kernel_cost``)."""
+    meta = meta_route(impl, a)
     check(bits in BITS_TO_PLANES, lambda: f"tugemm_packed: bits={bits}; packed weights are 4 or 2 bits")
     check(a.ndim == packed_b.ndim and a.ndim in (2, 3) and a.shape[:-2] == packed_b.shape[:-2],
           lambda: f"tugemm_packed: a {tuple(a.shape)}, packed b {tuple(packed_b.shape)}: 2-D, "
@@ -68,6 +69,13 @@ def tugemm_packed(a: torch.Tensor, packed_b: torch.Tensor, *, bits: int,
     check(K <= planes * Kp,
           lambda: f"tugemm_packed: a {tuple(a.shape)} has more columns than packed b "
           f"{tuple(packed_b.shape)} holds at {bits} bits")
+    if meta:
+        from ..roofline.kernel_cost import gemm_bytes_ops
+
+        y = torch.empty(lead + (M, N), dtype=torch.int32, device=a.device)
+        charge_meta(COUNT, gemm_bytes_ops((a, packed_b), (y,), M, K, N,
+                                          lead[0] if lead else 1), y.shape)
+        return y
     if impl == "torch" or (impl == "auto" and a.device.type == "cpu"):
         COUNT.plain_calls += 1
         return packed_matmul_ref(torch.nn.functional.pad(a, (0, planes * Kp - K)),

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from . import build
-from ._launch import KernelCount, check, ptr, raise_on, stream_ptr
+from ._launch import KernelCount, charge_meta, check, meta_route, ptr, raise_on, stream_ptr
 from .ref import colabsmax_ref, finish_stats_ref, rowabsmax_ref
 
 __all__ = ["colabsmax", "rowabsmax", "unary_step_stats", "tugemm_stats", "stats_fields", "HDR",
@@ -76,6 +76,8 @@ def stats_fields(out: torch.Tensor, K: int):
 
 def colabsmax(a: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """``max_m |A[m, k]|``: (M, K) int8 -> (K,) int32 (the A-side stats)."""
+    if meta_route(impl, a):
+        return _meta_absmax(COL_COUNT, a, a.shape[1])
     if _plain(a, impl):
         COL_COUNT.plain_calls += 1
         return colabsmax_ref(a)
@@ -90,6 +92,8 @@ def colabsmax(a: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
 
 def rowabsmax(b: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """``max_n |B[k, n]|``: (K, N) int8 -> (K,) int32 (the B-side stats)."""
+    if meta_route(impl, b):
+        return _meta_absmax(ROW_COUNT, b, b.shape[0])
     if _plain(b, impl):
         ROW_COUNT.plain_calls += 1
         return rowabsmax_ref(b)
@@ -111,7 +115,12 @@ def unary_step_stats(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"):
           lambda: f"unary_step_stats: a {tuple(a.shape)}, b {tuple(b.shape)}: needs "
                   "A (M, K) and B (K, N) with M, N, K > 0")
     K = a.shape[1]
-    if _plain(a, impl):
+    if meta_route(impl, a):
+        from ..roofline.kernel_cost import nbytes
+
+        ca, rb = torch.empty((2, K), dtype=torch.int32, device=a.device).unbind()
+        charge_meta(PAIR_COUNT, (nbytes(a, b, ca, rb), a.numel() + b.numel()), (2, K))
+    elif _plain(a, impl):
         PAIR_COUNT.plain_calls += 1
         ca, rb = colabsmax(a, impl="torch"), rowabsmax(b, impl="torch")
     else:
@@ -131,10 +140,12 @@ def tugemm_stats(ca: torch.Tensor, rb: torch.Tensor, K: int, *, impl: str = "aut
     K``: as ``unary_step_stats`` returns them. One launch. A leading expert
     axis (ca (E, planes, Kw), rb (E, Kw, planes): ``tugemm_fused`` over the
     MoE experts) gives every field a leading (E,) axis, still one launch."""
-    if _plain(ca, impl, torch.int32, (2, 3)):
+    meta = meta_route(impl, ca)
+    if not meta and _plain(ca, impl, torch.int32, (2, 3)):
         FINISH_COUNT.plain_calls += 1
         return finish_stats_ref(ca, rb, K)
-    _operand(rb, torch.int32, (ca.ndim,))
+    if not meta:
+        _operand(rb, torch.int32, (ca.ndim,))
     lead = tuple(ca.shape[:-2])
     E = ca.shape[0] if lead else 1
     planes, Kw = ca.shape[-2:]
@@ -143,7 +154,21 @@ def tugemm_stats(ca: torch.Tensor, rb: torch.Tensor, K: int, *, impl: str = "aut
           lambda: f"tugemm_stats: ca {tuple(ca.shape)}, rb {tuple(rb.shape)}, K={K}")
     stride = HDR + K + (K % 2 if lead else 0)   # rows keep the int64 sum aligned
     out = torch.empty(lead + (stride,), dtype=torch.int32, device=ca.device)
+    if meta:
+        from ..roofline.kernel_cost import stats_bytes_ops
+
+        charge_meta(FINISH_COUNT, stats_bytes_ops((ca, rb), (out,)), out.shape)
+        return stats_fields(out, K)
     raise_on(_load().tugemm_stats_launch(ptr(ca), ptr(rb), E, Kw, planes, K, stride,
                                          ptr(out), stream_ptr(ca.device)), "tugemm_stats")
     FINISH_COUNT.launches += 1
     return stats_fields(out, K)
+
+
+def _meta_absmax(count: KernelCount, x: torch.Tensor, K: int) -> torch.Tensor:
+    """The meta path of an absmax: an empty (K,) and one charge."""
+    from ..roofline.kernel_cost import absmax_bytes_ops
+
+    out = torch.empty(K, dtype=torch.int32, device=x.device)
+    charge_meta(count, absmax_bytes_ops(x, out), out.shape)
+    return out

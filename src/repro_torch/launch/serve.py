@@ -19,8 +19,16 @@ without one raises.
 or one shared card) or ``nccl`` (rank r on ``cuda:r``), and the summary
 gains a ``mesh:`` line. ``--devices N`` says how many ranks the
 machine may start (the reference's N host devices; default: as many as the
-mesh wants). The reference's ``--data`` / ``--model`` (its GSPMD-layout
-serve over a local mesh) raise: they come with the dry-run (ROADMAP A12).
+mesh wants).
+
+``--data D --model M`` open the reference's mesh context,
+``use_mesh(make_local_mesh(D, M))``, around init and serve, so
+``health()["sharding"]`` reports its accounting (dropped rules, replicated
+dims). At D·M = 1 the serve is unchanged. At D·M > 1 the serve runs on the
+rank pool at (D, M), as ``--mesh D,M`` does (the port's only sharded serve;
+the reference's runs GSPMD's layout on one process's devices): it needs
+``--mesh-backend``, and a ``--mesh`` given too must say the same. The CLI
+never serves on one device while the flags ask for D·M (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import RunConfig, get_config
 from ..models import init
+from ..parallel.sharding import use_mesh
 from ..quant import apply_surgery
 from ..quant.policy import load_policy
 from ..serve import AdmissionController, Engine, Request, Scheduler, install_sigint_drain
@@ -126,10 +135,13 @@ def main(argv=None, *, params=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError("--data/--model (the reference's GSPMD-layout serve over a "
-                                  "local mesh) come with the dry-run (ROADMAP A12); "
-                                  "--mesh DP,TP shards the serve")
+    if args.data * args.model > 1:
+        want = f"{args.data},{args.model}"
+        if args.mesh is not None and [int(v) for v in args.mesh.split(",")] != [args.data,
+                                                                               args.model]:
+            raise SystemExit(f"[serve] --mesh {args.mesh} and --data {args.data} --model "
+                             f"{args.model} ask for different meshes")
+        args.mesh = want
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     dtype = "float32" if dev.type == "cpu" else "bfloat16"
@@ -172,6 +184,14 @@ def main(argv=None, *, params=None):
                      "(rank r on cuda:r)")
         validate(cfg, rc, as_spec(args.mesh), args.max_batch, world=args.devices or None)
 
+    from .mesh import make_local_mesh
+
+    with use_mesh(make_local_mesh(args.data, args.model)):
+        return _serve(args, cfg, rc, dev, rng, use_scheduler, params)
+
+
+def _serve(args, cfg, rc, dev, rng, use_scheduler, params):
+    """Init, serve and print the summary under the caller's mesh context."""
     if params is None:
         params = init(cfg, rc, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     # the draft weight view must derive from the float tree BEFORE the
@@ -264,6 +284,10 @@ def main(argv=None, *, params=None):
                   f"wire_bytes={c['bytes_moved']} by_bits={by} "
                   f"(bf16 equivalent {c['bf16_bytes']}) backend={m['backend']} "
                   f"interconnect_energy_j={eng.interconnect_report()['energy_j']:.3g}")
+            s = h["sharding"]
+            if s["dropped_rules"] or s["replicated_dims"]:
+                print(f"  sharding: replicated_dims={s['replicated_dims']} "
+                      f"dropped_rules={s['dropped_rules']}")
         if rc.spec_gamma:
             s = eng.spec_summary()
             print(f"  spec: gamma={s['spec_gamma']} draft={s['draft_policy']} "

@@ -38,6 +38,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_paged import gather_pages
 from ..parallel.collectives import current_program
+from ..parallel.sharding import constrain
 from ..quant.qlinear import dense
 from .flash import blockwise_attention, paged_decode_attention
 from .layers import apply_mrope, apply_rope, rms_norm
@@ -294,6 +295,7 @@ def gqa_attention(
     elif cfg.attn_type != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "act_heads", None)
     window = None if is_global else cfg.sliding_window
     if cache is None:
         out = blockwise_attention(q, k, v, causal=cfg.causal, window=window, chunk=chunk,
@@ -309,6 +311,7 @@ def gqa_attention(
                                                        cache_pos, kv_view)
         out = blockwise_attention(q, k_full, v_full, q_offset=q_offset, kv_len=kv_len,
                                   causal=cfg.causal, window=window, chunk=chunk)
+    out = constrain(out, "batch", "seq", "act_heads", None)
     return dense(p["wo"], out.reshape(B, S, h * hd), backend=backend, name="attn.o", impl=impl)
 
 

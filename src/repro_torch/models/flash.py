@@ -252,5 +252,6 @@ def paged_decode_attention(
         pool3(v_name),
         cache[v_name + "_scale"] if int8 else None,
         view.tables, view.pos, view.kv_len,
-        kv_heads=kv_heads, causal=causal, window=window, impl=path, plan_dims=plan_dims,
+        kv_heads=kv_heads, causal=causal, window=window, impl=ops.kernel_impl(path),
+        plan_dims=plan_dims,
     )

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain
 from ..quant.qlinear import dense
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "apply_mrope", "mlp", "embed_lookup"]
@@ -77,6 +78,7 @@ def mlp(p: dict, x: torch.Tensor, mlp_type: str = "swiglu", *, backend,
                    approximate="tanh")
     else:
         raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    h = constrain(h, "batch", None, "act_mlp")
     return dense(p["w_down"], h, backend=backend, name=f"{name}.down", impl=impl)
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..parallel.collectives import current_program, current_train
+from ..parallel.sharding import constrain
 from ..quant import capture as stats_capture
 from ..quant.qlinear import GemmBackend, dense
 from .layers import mlp
@@ -169,13 +170,15 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
 
     # one dispatch group per batch row
     cap = moe_capacity(cfg, S)
-    xin, dest = _dispatch_group(x if tr is None else x_tp, gate_idx, E, cap)   # (B, E*cap, D)
+    xg = constrain(x if tr is None else x_tp, "batch", None, None)
+    xin, dest = _dispatch_group(xg, gate_idx, E, cap)                         # (B, E*cap, D)
     if stats_capture.capturing():
         stats_capture.push_scalar("moe.dropped_tokens",
                                   (dest == E * cap).sum().to(torch.int32))
 
     # groups -> experts: (E, B*cap, D)
-    xin = xin.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
+    xin = constrain(xin.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D),
+                    "experts", "group_data", None)
     ex = p["experts"]
     # expert parallelism on a mesh: this rank's slice of the experts
     prog = current_program()
@@ -188,6 +191,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     g = _expert_mm(ex["w_gate"], xin, backend, "moe.gate", impl)
     u = _expert_mm(ex["w_up"], xin, backend, "moe.up", impl)
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    h = constrain(h, "experts", "group_data", None)
     yout = _expert_mm(ex["w_down"], h, backend, "moe.down", impl)   # (E, B*cap, D)
     if ep:
         yout = prog.gather_experts(yout, "moe.down")
@@ -200,7 +204,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
         gate_vals = tr.enter(gate_vals)
 
     # experts -> groups, then each group's gate-weighted combine
-    yg = yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)
+    yg = constrain(yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D),
+                   "batch", None, None)
     ypad = torch.cat([yg, yg.new_zeros((B, 1, D))], dim=1)          # dropped -> 0
     got = torch.gather(ypad, 1, dest.long().unsqueeze(-1).expand(B, S * k, D))
     got = got.reshape(B, S, k, D) * gate_vals[..., None].to(yg.dtype)

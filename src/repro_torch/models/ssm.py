@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import constrain
 from ..quant.qlinear import dense
 
 __all__ = ["mamba_mixer", "mamba_decode_step", "init_ssm_state"]
@@ -79,11 +80,15 @@ def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend, impl: st
     return dt, B_, C_, A
 
 
-def _gate_out(p: dict, y, x_act, z, u, *, backend, impl: str) -> torch.Tensor:
-    """y + D·x, gated by silu(z), through ``ssm.out_proj``."""
+def _gate_out(p: dict, y, x_act, z, u, *, backend, impl: str, site: bool = False) -> torch.Tensor:
+    """y + D·x, gated by silu(z), through ``ssm.out_proj`` (``site``: the
+    full scan's, whose input is constrained as the reference's)."""
     y = y + p["D"].to(torch.float32) * x_act
     y = y * F.silu(z.to(torch.float32))
-    return dense(p["out_proj"], y.to(u.dtype), backend=backend, name="ssm.out_proj", impl=impl)
+    y = y.to(u.dtype)
+    if site:
+        y = constrain(y, "batch", None, "act_inner")
+    return dense(p["out_proj"], y, backend=backend, name="ssm.out_proj", impl=impl)
 
 
 def mamba_mixer(cfg: ModelConfig, p: dict, u: torch.Tensor, *, backend,
@@ -96,6 +101,7 @@ def mamba_mixer(cfg: ModelConfig, p: dict, u: torch.Tensor, *, backend,
     di = cfg.d_inner
     xz = dense(p["in_proj"], u, backend=backend, name="ssm.in_proj", impl=impl)
     x, z = xz[..., :di], xz[..., di:]
+    x = constrain(x, "batch", None, "act_inner")
     x_act = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]).to(torch.float32))
     dt, B_, C_, A = _ssm_inputs(cfg, p, x_act.to(u.dtype), backend=backend, impl=impl)
     # discretize: a = exp(dt*A), b = dt * B ⊙ x, both (B, S, di, n)
@@ -103,7 +109,7 @@ def mamba_mixer(cfg: ModelConfig, p: dict, u: torch.Tensor, *, backend,
     b = (dt * x_act)[..., None] * B_[:, :, None, :]
     _, hs = _scan(a, b)
     y = (hs * C_[:, :, None, :]).sum(-1)                         # (B, S, di)
-    out = _gate_out(p, y, x_act, z, u, backend=backend, impl=impl)
+    out = _gate_out(p, y, x_act, z, u, backend=backend, impl=impl, site=True)
     if not return_state:
         return out, None
     return out, {"h": hs[:, -1].to(torch.float32),

@@ -44,6 +44,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..kernels import ops
 from ..parallel.collectives import current_train
+from ..parallel.sharding import at_layer, constrain
 from ..quant.policy import QuantPolicy, effective_policy
 from ..quant.qlinear import dense
 from ..quant.surgery import _check_stack_consistency, gemm_name_targets
@@ -223,7 +224,18 @@ def _remat_contexts(remat: str):
     if remat == "full":
         return contextlib.nullcontext(), _quiet(contextlib.nullcontext())
     fwd, rec = create_selective_checkpoint_contexts(_save_dots)
-    return fwd, _quiet(rec)
+    return fwd, _quiet(_gemms_saved(rec))
+
+
+@contextlib.contextmanager
+def _gemms_saved(ctx):
+    """``ctx`` with the GEMM kernels' outputs counted as saved: a dry-run's
+    recompute (meta tensors) charges no GEMM kernel again, as ``mm`` /
+    ``addmm`` are not run again (``roofline.kernel_cost.gemms_saved``)."""
+    from ..roofline.kernel_cost import gemms_saved
+
+    with ctx, gemms_saved():
+        yield
 
 
 def _block(rc: RunConfig, remat: bool, **kw):
@@ -279,17 +291,18 @@ def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_vi
     if kind.mixer == "hybrid":
         y = 0.5 * (rms_norm(p["fuse_attn_norm"], y_attn, cfg.rms_eps)
                    + rms_norm(p["fuse_ssm_norm"], y_ssm, cfg.rms_eps))
-    x = x + y
+    x = x + constrain(y, "batch", "seq", "act_embed")
     if kind.mixer == "ssm":
         return x, state, None
     h2 = rms_norm(p["norm2"], x, cfg.rms_eps)
     if kind.moe:
         y2, aux = moe_ffn(cfg, p["ffn"], h2, backend=backend, impl=impl)
-        return x + y2, state, aux
+        return x + constrain(y2, "batch", "seq", "act_embed"), state, aux
     if tr is not None:
         y2 = mlp(p["ffn"], tr.enter(h2), cfg.mlp_type, backend=backend, impl=impl)
-        return x + tr.exit(y2), state, None
-    return x + mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl), state, None
+        return x + constrain(tr.exit(y2), "batch", "seq", "act_embed"), state, None
+    y2 = mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl)
+    return x + constrain(y2, "batch", "seq", "act_embed"), state, None
 
 
 def forward(
@@ -336,6 +349,8 @@ def forward(
             positions = cache_pos.long()[:, None] + cols
         else:
             positions = (cols + (cache_pos or 0)).expand(B, S)
+    at_layer(None, step=(B, S))
+    x = constrain(x, "batch", "seq", "act_embed")
     want_state = caches is not None
     # remat (rc.remat) only where a backward will run: grad on, no caches
     remat = torch.is_grad_enabled() and caches is None
@@ -348,7 +363,10 @@ def forward(
         for i in range(g.repeats):
             p_i = _select(gp, i)
             c_i = _select(gc, i) if gc is not None else None
+            at_layer((gi, i))
+            x = constrain(x, "batch", "seq", "act_embed")
             for j, kind in enumerate(g.kinds):
+                at_layer((gi, i, j))
                 x, st, aux = _block(
                     rc, remat, cfg=cfg, kind=kind, p=p_i[f"k{j}"], x=x, positions=positions,
                     backend=backend, cache=c_i[f"k{j}"] if c_i is not None else None,
@@ -363,7 +381,8 @@ def forward(
                 kj: {**gc[kj], **({n: torch.stack([st[n] for st in states[kj]])
                                    for n in ("h", "conv")} if states[kj] else {})}
                 for kj in gc})
-    x = rms_norm(params["final_norm"], x, cfg.rms_eps)
+    at_layer(None)
+    x = constrain(rms_norm(params["final_norm"], x, cfg.rms_eps), "batch", "seq", "act_embed")
     return x, (tuple(new_caches) if caches is not None else None), aux_total
 
 
@@ -378,6 +397,9 @@ def lm_logits(cfg: ModelConfig, rc: RunConfig, params: dict, h: torch.Tensor,
         emb = params["embed"]["embedding"].to(h.dtype).t()
         prog = current_program()
         if prog is None:
-            return torch.matmul(h, emb)
-        return prog.at_full("head.tied", torch.matmul, (h, {0: prog.dp}), (emb, {}))
-    return dense(params["head"], h, backend=backend_from(rc), name="lm_head", impl=impl)
+            logits = torch.matmul(h, emb)
+        else:
+            logits = prog.at_full("head.tied", torch.matmul, (h, {0: prog.dp}), (emb, {}))
+    else:
+        logits = dense(params["head"], h, backend=backend_from(rc), name="lm_head", impl=impl)
+    return constrain(logits, "batch", None, "act_vocab")

@@ -32,28 +32,39 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["named_scope", "device_trace", "TRACE_FILE"]
+__all__ = ["named_scope", "current_scope", "device_trace", "TRACE_FILE"]
 
 log = logging.getLogger("repro_torch.obs")
 
 TRACE_FILE = "device_trace.json"
 
 _warned = False
+_SCOPES: list[str] = []
+
+
+def current_scope() -> str:
+    """The innermost open :func:`named_scope`'s name ("" outside any): the
+    label ``roofline.op_cost`` charges an op to."""
+    return _SCOPES[-1] if _SCOPES else ""
 
 
 @contextmanager
 def named_scope(name: str, *, cuda: bool = False):
     """A ``torch.profiler.record_function(name)`` range; with ``cuda`` (the
     step's tensors live on the card) also an NVTX range of the same name."""
-    with torch.profiler.record_function(name):
-        if not cuda:
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+    _SCOPES.append(name)
+    try:
+        with torch.profiler.record_function(name):
+            if not cuda:
+                yield
+                return
+            torch.cuda.nvtx.range_push(name)
+            try:
+                yield
+            finally:
+                torch.cuda.nvtx.range_pop()
+    finally:
+        _SCOPES.pop()
 
 
 @contextmanager

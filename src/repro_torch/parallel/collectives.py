@@ -34,6 +34,11 @@ Tensors move as bytes: every gather reinterprets its operand as ``uint8``
 and views the result back, which is exact whatever dtypes a backend's
 ``all_gather`` accepts. With ``host_staged`` (gloo ranks whose tensors live
 on a card) every collective copies through host memory.
+
+A :class:`MetaGroup` stands in for a group of any size in the dry-run
+(``launch/dryrun.py``): one rank's program runs on ``meta`` tensors, and
+each collective returns a meta result of the right shape and charges the
+active ``roofline.op_cost.OpCost`` (the reference's HLO collective table).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from .host_shm import ShmGroup
 
 __all__ = [
     "CollectiveRecord",
+    "MetaGroup",
     "MeshProgram",
     "current_program",
     "activate",
@@ -130,9 +136,65 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,)).view(torch.uint8)
 
 
+class MetaGroup:
+    """A group of ``size`` ranks for a program run on ``meta`` tensors: the
+    interface of ``host_shm.ShmGroup`` (and the serving path's gathers),
+    each call returning an empty result of the shape the real collective
+    gives and charging the active ``OpCost`` one collective of its kind
+    (``calls`` keeps (kind, operand bytes, result bytes) of each)."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+        self.calls: list = []
+
+    def _charge(self, kind: str, operand: int, result: int) -> None:
+        from ..roofline.op_cost import current_cost
+
+        self.calls.append((kind, operand, result))
+        cost = current_cost()
+        if cost is not None:
+            cost.collective(kind, operand, result)
+
+    @staticmethod
+    def _nb(x: torch.Tensor) -> int:
+        return x.numel() * x.element_size()
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        self._charge("all-reduce", self._nb(x), self._nb(x))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        self._charge("all-gather", self._nb(x), self._nb(x) * self.size)
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        self._charge("reduce-scatter", self._nb(x), self._nb(x) // self.size)
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    def gather_rows(self, xs: list) -> list:
+        """Several tensors of one row count gathered along axis 0 in one
+        ``all_gather`` (``_gather_rows``)."""
+        nb = sum(self._nb(x) for x in xs)
+        self._charge("all-gather", nb, nb * self.size)
+        return [torch.empty((self.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                            device=x.device) for x in xs]
+
+    def max_many(self, xs: list) -> list:
+        """Several tensors MAX-reduced in one ``all_reduce`` (``_max``)."""
+        nb = sum(self._nb(x) for x in xs)
+        self._charge("all-reduce", nb, nb)
+        return [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in xs]
+
+
 def _gather(x: torch.Tensor, group, world: int, dim: int, host_staged: bool) -> torch.Tensor:
     """``all_gather`` over ``group`` concatenated along ``dim``, moving the
     operand's bytes."""
+    if isinstance(group, MetaGroup):
+        return group.all_gather(x, dim)
     src = _to_host(x, host_staged)
     raw = _bytes(src)
     parts = [torch.empty_like(raw) for _ in range(world)]
@@ -145,6 +207,8 @@ def _gather(x: torch.Tensor, group, world: int, dim: int, host_staged: bool) -> 
 def _gather_rows(xs: list, group, world: int, host_staged: bool) -> list:
     """Several tensors of the same row count all-gathered along axis 0 in
     one ``all_gather``: each row's bytes of every tensor travel together."""
+    if isinstance(group, MetaGroup):
+        return group.gather_rows(xs)
     srcs = [_to_host(x, host_staged) for x in xs]
     rows = srcs[0].shape[0]
     raw = torch.cat([_bytes(s).reshape(rows, -1) for s in srcs], dim=1)
@@ -163,6 +227,8 @@ def _gather_rows(xs: list, group, world: int, host_staged: bool) -> list:
 def _max(xs: list, group, host_staged: bool) -> list:
     """Elementwise MAX ``all_reduce`` over ``group`` of several f32
     tensors in one call (new tensors)."""
+    if isinstance(group, MetaGroup):
+        return group.max_many(xs)
     buf = torch.cat([_to_host(x, host_staged).reshape(-1) for x in xs])
     torch.distributed.all_reduce(buf, op=torch.distributed.ReduceOp.MAX, group=group)
     out, c = [], 0
@@ -379,7 +445,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``x`` summed (or maxed) over ``group`` (a
     ``host_shm.ShmGroup``, or a process group whose backend takes ``x``
     where it lies: nccl on the card)."""
-    if isinstance(group, ShmGroup):
+    if isinstance(group, (ShmGroup, MetaGroup)):
         return group.all_reduce(x, op)
     buf = x.detach().clone(memory_format=torch.contiguous_format)
     red = torch.distributed.ReduceOp.SUM if op == "sum" else torch.distributed.ReduceOp.MAX
@@ -390,7 +456,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``x`` of every rank of ``group``, in group-rank order, concatenated
     along ``dim``."""
-    if isinstance(group, ShmGroup):
+    if isinstance(group, (ShmGroup, MetaGroup)):
         return group.all_gather(x, dim)
     return _gather(x, group, torch.distributed.get_world_size(group), dim, False)
 
@@ -398,7 +464,7 @@ def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``x`` summed over ``group``, this rank's ``1/n`` part along ``dim``
     (group-rank order)."""
-    if isinstance(group, ShmGroup):
+    if isinstance(group, (ShmGroup, MetaGroup)):
         return group.reduce_scatter(x, dim)
     n = torch.distributed.get_world_size(group)
     src = x.detach().movedim(dim, 0).contiguous()

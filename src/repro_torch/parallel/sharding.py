@@ -16,17 +16,26 @@ table gives DP / FSDP / TP / EP:
 The mesh is a shape (:class:`MeshShape`: axis names with sizes), not a set
 of devices: the port's ranks are processes (``launch/mesh.py``) and each
 one cuts its own part of a tree by the specs (``parallel/state_sharding.py``).
-The reference's ``constrain``, ``sharding_for``, ``shape_structs`` and
-``with_sharding`` hand layouts to XLA's partitioner; an eager program has
-no partitioner to hand them to, so they have no counterpart here: the
-sharded train step (``parallel/train_mesh.py``) issues its collectives
-itself. A spec is a tuple with one entry a dim: a mesh axis, a tuple of
-them, or None (the reference's ``PartitionSpec`` entries).
+The reference's ``sharding_for``, ``shape_structs`` and ``with_sharding``
+hand layouts to XLA's partitioner; an eager program has no partitioner to
+hand them to, so they have no counterpart here: the sharded steps
+(``parallel/serve_mesh.py``, ``parallel/train_mesh.py``) issue their
+collectives themselves. :func:`constrain`, called at the reference's 15
+sites of the model body, keeps only the reference's *accounting*: under an
+active context it asks :func:`spec_for` for the activation's spec, so a dim
+that does not divide its mesh axis counts in ``replicated_dims`` (what
+``health()["sharding"]`` and the dry-run report); it lays nothing out and
+moves nothing. The reference counts at trace time; the port counts each
+(site, layer, shape, step width) once a context, which equals the reference
+traced with ``scan_layers=False``, one trace a step width. A spec is a tuple with one
+entry a dim: a mesh axis, a tuple of them, or None (the reference's
+``PartitionSpec`` entries).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import threading
 import warnings
 from contextlib import contextmanager
@@ -41,6 +50,8 @@ __all__ = [
     "suspend_mesh",
     "current_ctx",
     "spec_for",
+    "constrain",
+    "at_layer",
 ]
 
 
@@ -128,6 +139,13 @@ class MeshContext:
     # rules whose mesh axes were absent from this mesh at use_mesh() time:
     # {logical axis: original mesh axis spec}
     dropped_rules: dict = field(default_factory=dict)
+    # (site, layer, shape, step) of every constrain call counted under this context
+    constrained: set = field(default_factory=set)
+    # whether any mesh axis is larger than 1 (else no dim can replicate)
+    splits: bool = field(init=False, default=False)
+
+    def __post_init__(self):
+        self.splits = self.mesh.size > 1
 
     def note_replicated(self, name, dim: int, mesh_ax) -> None:
         """Record one divisibility drop; warn the first time this exact
@@ -233,3 +251,38 @@ def spec_for(axes: tuple, shape: tuple | None = None) -> tuple:
         out.append(flat[0] if len(flat) == 1 else mesh_ax)
         used.update(flat)
     return tuple(out)
+
+
+_layer = [None, None]
+
+
+def at_layer(key, step=None) -> None:
+    """Mark the layer the model body is in (``models/transformer.py``;
+    None outside the layers) and, at a forward's start, the step's input
+    shape (the reference's trace), for :func:`constrain`'s count."""
+    _layer[0] = key
+    if step is not None:
+        _layer[1] = step
+
+
+def constrain(x, *axes):
+    """The reference's ``constrain`` as accounting only: under an active
+    context the spec of ``x`` by logical ``axes`` is taken once for each
+    (calling site, layer, shape, step width), so a dim that does not divide counts in
+    ``replicated_dims``; ``x`` is returned as it is (no layout, no copy).
+    A context whose mesh axes are all 1 replicates nothing: nothing is taken."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.splits:
+        return x
+    from .collectives import current_program
+
+    if current_program() is not None:
+        # a rank of the serving mesh holds a slice of each activation: its
+        # shapes are not the layout's, and count nothing
+        return x
+    f = sys._getframe(1)
+    key = (f.f_code.co_filename, f.f_lineno, _layer[0], _layer[1], tuple(x.shape))
+    if key not in ctx.constrained:
+        ctx.constrained.add(key)
+        spec_for(tuple(axes), tuple(x.shape))
+    return x

@@ -54,8 +54,9 @@ What must equal the one-process step, and how it does:
 Under gloo (the ranks of one machine) every collective of the step meets
 in shared host memory (``parallel/host_shm.py``), whatever device the
 tensors are on; under nccl, on the cards. Refused: the SSM and hybrid mixers,
-the audio frontend and the gelu MLP (no tp cut here), and a rules table
-that shards the batch other than over every non-``model`` axis.
+the audio frontend and the gelu MLP (no tp cut here), a rules table that
+shards the batch other than over every non-``model`` axis, and one that
+shards the sequence (no sequence parallelism).
 """
 
 from __future__ import annotations
@@ -121,7 +122,10 @@ def validate(cfg: ModelConfig, rc: RunConfig, mesh: MeshShape):
     if bad:
         raise ValueError(f"{cfg.name}: model={tp} must divide {bad}")
     with use_mesh(mesh, overrides=rc.sharding_overrides) as ctx:
-        rows = ctx.rules.get("batch")
+        rows, seq = ctx.rules.get("batch"), ctx.rules.get("seq")
+    if seq is not None:
+        raise NotImplementedError(f"the training mesh does not shard the sequence (sequence "
+                                  f"parallelism is not cut); the rules give seq -> {seq!r}")
     if set(_flat(rows)) != set(_dp_axes(mesh)) or tuple(_flat(rows)) != tuple(
             a for a in mesh.axes if a in _flat(rows)):
         raise NotImplementedError(f"the training mesh splits the batch over {_dp_axes(mesh)} in "
@@ -508,7 +512,9 @@ class TrainEngine:
                                                 self.state["params"], mesh=self)
         row = torch.stack([metrics["loss"].reshape(()).float(), metrics["aux"].reshape(()).float(),
                            om["lr"].reshape(()).float().to(self.device),
-                           om["grad_norm"].reshape(()).float()]).tolist()
+                           om["grad_norm"].reshape(()).float()])
+        # a dry-run's step (meta tensors) has shapes, no values
+        row = [math.nan] * 4 if row.is_meta else row.tolist()
         clock.lap("optimizer")
         self._prog = None
         return {"metrics": dict(zip(("loss", "aux", "lr", "grad_norm"), row)),

@@ -186,9 +186,24 @@ class QuantPolicy:
     def any_prequant(self) -> bool:
         return any(r.is_quant and r.mode == "prequant" for r in (*self.rules, self.default))
 
+    def bits_used(self) -> tuple[int, ...]:
+        """Distinct quant bitwidths this policy can assign (sorted desc)."""
+        return tuple(sorted({r.bits for r in (*self.rules, self.default) if r.is_quant},
+                            reverse=True))
+
     def resolved(self) -> "ResolvedPolicy":
         """A lazily-memoizing resolution table (trace-time cache)."""
         return ResolvedPolicy(self)
+
+    def compile(self, names: Iterable) -> "ResolvedPolicy":
+        """Validate against the model's GEMM-name universe and build the
+        full name -> backend table (the hot path then never pattern-matches).
+        ``names``: strings or (name, dotted_path) pairs (surgery plans); the
+        paths feed validation only, the table resolves by *name*, as the
+        runtime does."""
+        targets = [(t, None) if isinstance(t, str) else tuple(t) for t in names]
+        self.validate(targets)
+        return ResolvedPolicy(self, {n: self.resolve(n) for n, _ in targets})
 
     # ------------------------------------------------------------ validation
     def validate(self, names: Iterable) -> None:
@@ -267,6 +282,14 @@ class QuantPolicy:
         return cls(rules=tuple(rules), default=default)
 
     @classmethod
+    def uniform(cls, kind_or_bits, mode: str = "dynamic", **kw) -> "QuantPolicy":
+        """Every GEMM at one precision (the old single-backend world)."""
+        bits = _coerce_bits(kind_or_bits)
+        if bits == 16:
+            return cls()
+        return cls(default=LayerRule("*", bits, mode, **kw))
+
+    @classmethod
     def from_legacy(
         cls,
         kind: str,
@@ -315,16 +338,17 @@ class QuantPolicy:
 class ResolvedPolicy:
     """Per-GEMM-name → resolved :class:`GemmBackend` table.
 
-    Built lazily by :meth:`QuantPolicy.resolved`: the first lookup of a name
-    runs the pattern match and memoizes, so every later layer and tick sees
-    only a dict hit. Quacks like a backend for ``qlinear.gemm/dense``
+    Built by :meth:`QuantPolicy.compile` (the full table, validated) or
+    lazily by :meth:`QuantPolicy.resolved`: the first lookup of a name runs
+    the pattern match and memoizes, so every later layer and tick sees only
+    a dict hit. Quacks like a backend for ``qlinear.gemm/dense``
     (``for_gemm``)."""
 
     __slots__ = ("policy", "_table")
 
-    def __init__(self, policy: QuantPolicy):
+    def __init__(self, policy: QuantPolicy, table: dict | None = None):
         self.policy = policy
-        self._table: dict[str, GemmBackend] = {}
+        self._table: dict[str, GemmBackend] = dict(table or {})
 
     def for_gemm(self, name: str) -> GemmBackend:
         be = self._table.get(name)
@@ -332,6 +356,9 @@ class ResolvedPolicy:
             be = self.policy.resolve(name)
             self._table[name] = be
         return be
+
+    def bits_for(self, name: str) -> int:
+        return self.for_gemm(name).bits
 
     def __repr__(self) -> str:
         return f"ResolvedPolicy({self.policy.describe()!r}, {len(self._table)} names)"

@@ -9,12 +9,26 @@ with them every quantized carrier — are bit-identical to the reference's.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ..core.encoding import int_range
 
-__all__ = ["int_range", "compute_scale", "raw_amax", "amax_to_scale", "fused_scales",
-           "act_scale", "weight_scale", "quantize", "dequantize"]
+__all__ = ["QuantConfig", "int_range", "compute_scale", "raw_amax", "amax_to_scale",
+           "fused_scales", "act_scale", "weight_scale", "quantize", "dequantize", "fake_quant"]
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    bits: int = 8
+    per_channel: bool = True        # scale per output channel (weights) / feature
+    percentile: float = 100.0       # 100 = absmax calibration
+    mode: str = "dynamic"           # dynamic | prequant (weights packed offline)
+
+    def __post_init__(self):
+        if self.bits not in (2, 4, 8):
+            raise ValueError(f"bits must be one of 2/4/8, got {self.bits}")
 
 
 def raw_amax(x: torch.Tensor, *, axis: int | tuple | None = None) -> torch.Tensor:
@@ -81,3 +95,14 @@ def quantize(x: torch.Tensor, scale, bits: int) -> torch.Tensor:
 
 def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def fake_quant(x: torch.Tensor, bits: int, *, axis: int | None = None) -> torch.Tensor:
+    """Quantize-dequantize (the straight-through value), in x's dtype; per
+    tensor, or one scale per slice along ``axis``."""
+    s = compute_scale(x, bits, axis=axis)
+    if axis is not None:
+        shape = [1] * x.ndim
+        shape[axis] = x.shape[axis]
+        s = s.reshape(shape)
+    return dequantize(quantize(x, s, bits), s).to(x.dtype)

@@ -93,6 +93,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..core.report import slot_energy
 from ..kernels import ops as _kops
+from ..launch.ctx_report import sharding_report
 from ..models import KVView, forward, init_caches, input_batch, lm_logits
 from ..models.transformer import backend_from, check_supported, plan_groups, step_backend
 from ..obs.logs import kv
@@ -100,6 +101,7 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.metrics import family_percentile as _family_percentile
 from ..obs.profile import named_scope
 from ..obs.trace import NULL_TRACER, PID_REQUESTS, PID_SCHED, TID_TICK
+from ..parallel.sharding import current_ctx as sharding_ctx
 from ..quant import capture as stats_capture
 from ..quant.capture import scalar_totals, tree_totals_by_bits
 from .admission import (
@@ -530,6 +532,8 @@ class Scheduler:
         # BlockManager and every host loop stay here; the ranks hold the
         # weight and cache shards
         self.mesh = None
+        self._shard_ctx = sharding_ctx()    # for health(): dropped rules, replicated dims
+        self._accounted: dict = {}          # step width -> the context it was counted in (rank pool)
         self._pool = None
         self.comms: dict = {}               # (label, bits) -> byte totals
         self._device_weight: dict = {}      # bits -> (dp, tp) int64 serial load
@@ -1766,8 +1770,11 @@ class Scheduler:
         and the per-call-site path counts (``kernels/ops.py``) accumulated
         since this engine was built. ``latency`` summarizes the wall-clock
         histograms (seconds): TTFT, inter-token and tick percentiles over
-        every priority class. The sharding and mesh entries carry the values
-        the reference gives with those features off."""
+        every priority class. ``sharding`` reads the mesh context that was
+        active when this engine was built (its dropped rules and the dims
+        its model body's ``constrain`` sites replicated; on the rank pool
+        those of the controller's meta steps, :meth:`_account_sharding`), or
+        the reference's empty block without one."""
         mgr = self.mgr
 
         def _pct(h):
@@ -1816,7 +1823,7 @@ class Scheduler:
             } if mgr is not None and mgr.prefix is not None
                 else {"enabled": False,
                       "prefill_tokens_computed": self.prefill_tokens_computed}),
-            "sharding": {"replicated_dims": 0, "dropped_rules": {}},
+            "sharding": sharding_report(self._shard_ctx),
             "mesh": ({
                 "dp": self.mesh.dp,
                 "tp": self.mesh.tp,
@@ -1845,10 +1852,39 @@ class Scheduler:
         tp = self.mesh.tp
         return np.concatenate([res[d * tp]["logits"] for d in range(self.mesh.dp)])
 
+    def _account_sharding(self, width: int) -> None:
+        """The ``constrain`` accounting of a step of ``width`` on the rank
+        pool. A rank holds slices of each activation, so its ``constrain``
+        sites count nothing (``parallel.sharding.constrain``); under an
+        active context that splits, the controller runs the single-device
+        mixed step once a width on ``meta`` tensors, whose sites count what
+        one process's steps of that width count. The fallback step's sites
+        and shapes are the main step's, and add nothing."""
+        ctx = sharding_ctx()
+        if ctx is None or not ctx.splits or self._accounted.get(width) is ctx:
+            return
+        self._accounted[width] = ctx
+        from ..models.model import abstract_params
+        from ..quant import apply_surgery
+
+        cfg, rc, B = self.cfg, self.rc, self.max_batch
+        params = apply_surgery(cfg, rc, abstract_params(cfg, rc))
+        caches = init_caches(cfg, rc, B, self.capacity,
+                             num_pages=None if self.mgr is None else self.mgr.num_pages,
+                             device="meta")
+        rows = torch.empty((B,), dtype=torch.int32, device="meta")
+        tables = None if self.mgr is None else torch.empty(
+            self.mgr.tables.shape, dtype=torch.int32, device="meta")
+        with _kops.quiet_records():
+            build_mixed_step(cfg, rc, impl=self.impl)(
+                params, caches, torch.empty((B, width), dtype=torch.int32, device="meta"),
+                rows, rows, tables)
+
     def _mesh_main(self, tokens, pos, lens, width, tables):
         """One main step on every rank: (logits (B, V), the merged cycle
         totals by bits). The MoE drops count every tick, energy tracking or
         not; the collectives' bytes go to ``comms``."""
+        self._account_sharding(width)
         res = self._pool.call(("step", self._eid, "main", tokens[:, :width], pos, lens, tables,
                                None))
         self.caches = self._pool.engine.caches

@@ -13,8 +13,10 @@ whose files must validate), ``--prefix-cache``, ``--spec-gamma 2``, and
 ``falcon-mamba-7b_smoke``, which falls back to the legacy Engine and the
 dense layout with the reference's messages. On a CPU mesh of gloo ranks
 (``--mesh``, ``--devices``) the CLI serves the single-device CLI's tokens
-and summary, plus its ``mesh:`` line; the reference's GSPMD-layout serve
-(``--data`` / ``--model`` above 1) raises until the dry-run (ROADMAP A12).
+and summary, plus its ``mesh:`` line and, as the reference prints it on a
+mesh, the ``sharding:`` line of its (1, 1) context's dropped rules;
+``--data`` / ``--model`` above 1 serve on the rank pool at (data, model),
+as ``--mesh`` does.
 
 The reference launcher wraps its serve in a 1×1 ``jax.make_mesh``, whose
 axes this JAX makes ``Explicit`` by default, and ``with_sharding_constraint``
@@ -142,15 +144,32 @@ def _stop_rank_pool():
 @pytest.mark.parametrize("flags", [["--devices", "8"], ["--mesh", "2,4"], ["--data", "2"],
                                    ["--model", "2"]])
 def test_mesh_flags_raise(flags, capsys, _stop_rank_pool):
-    """``--data`` / ``--model`` above 1 still raise, naming A12 (the
-    reference's GSPMD-layout serve comes with the dry-run). ``--devices 8`` and ``--mesh`` now serve on a CPU mesh of gloo
-    ranks: the tokens and the summary lines equal the single-device CLI's,
-    and the summary adds the ``mesh:`` line; a mesh wanting more ranks than
-    ``--devices`` gives is refused with the reference's message, and one
-    without ``--mesh-backend`` is refused."""
+    """``--data`` / ``--model`` above 1 serve on the rank pool at (data,
+    model): they need ``--mesh-backend``, a ``--mesh`` that says otherwise is
+    refused, and ``--data 2`` gives the single-device CLI's tokens with the
+    ``mesh:`` line of a dp=2 tp=1 pool. ``--devices 8`` and ``--mesh`` serve
+    on a CPU mesh of gloo ranks: the tokens and the summary lines equal the
+    single-device CLI's, and the summary adds the ``mesh:`` and
+    ``sharding:`` lines; a mesh wanting more ranks than ``--devices`` gives
+    is refused with the reference's message, and one without
+    ``--mesh-backend`` is refused."""
     if flags[0] in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            t_serve.main(["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags])
+        argv = ["--arch", "qwen3-0.6b_smoke", "--device", "cpu", *flags]
+        with pytest.raises(SystemExit):
+            t_serve.main(argv)
+        assert "--mesh needs --mesh-backend" in capsys.readouterr().err
+        with pytest.raises(SystemExit, match="ask for different meshes"):
+            t_serve.main(argv + ["--mesh", "2,4", "--mesh-backend", "gloo"])
+        if flags[0] == "--data":
+            single = BASE + ["--max-batch", "4", "--arch", "qwen3-0.6b_smoke", *PAGED]
+            params = _reference_params(single)
+            one = t_serve.main(single + ["--device", "cpu"], params=params)
+            capsys.readouterr()
+            mesh = t_serve.main(single + ["--device", "cpu", *flags, "--mesh-backend", "gloo"],
+                                params=params)
+            out = capsys.readouterr().out
+            assert {r.rid: r.out for r in mesh} == {r.rid: r.out for r in one}
+            assert "  mesh: dp=2 tp=1 devices=2 " in out
         return
     base = BASE + ["--max-batch", "4"] + MESH_CASES[flags[0]]
     mesh_at = base.index("--mesh")
@@ -168,7 +187,9 @@ def test_mesh_flags_raise(flags, capsys, _stop_rank_pool):
     dp, tp = base[mesh_at + 1].split(",")
     assert f"mesh: dp={dp} tp={tp} devices=8 " in mesh_line[0]
     assert "backend=gloo" in mesh_line[0] and "wire_bytes=" in mesh_line[0]
-    assert [ln for ln in lines if not ln.startswith("  mesh:")] == _summary(one_out)
+    assert [ln for ln in lines if not ln.startswith(("  mesh:", "  sharding:"))] == \
+        _summary(one_out)
+    assert "  sharding: replicated_dims=0 dropped_rules={'batch': ('pod', 'data'), " in mesh_out
     if flags[0] == "--mesh":
         # no backend is chosen for the caller
         with pytest.raises(SystemExit):

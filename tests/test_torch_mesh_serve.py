@@ -50,6 +50,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import RunConfig as TRunConfig
 from repro_torch.configs.base import get_config as t_get_config
 from repro_torch.interop import params_from_reference
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import RankPool, close_rank_pool, rank_pool
 from repro_torch.models import init_caches as t_init_caches
 from repro_torch.parallel import serve_mesh as t_sm
@@ -227,6 +228,43 @@ def test_moe_drops_match_single_device_step():
     assert pool.engine.step.moe_drops(raw) == single > 0
     assert pool.engine.step.comms_for(W) == res[0]["meter"] != {}
     pool.call(("detach", eid))
+
+
+@pytest.mark.parametrize("arch", ["gqa", "mla"])
+def test_dryrun_meta_step_matches_the_pools_meter(arch):
+    """The dry-run's rank-0 program (``launch.dryrun.serve_program``: the
+    sharded step on meta tensors, its collectives on ``MetaGroup``s)
+    records the collective calls and bytes by (label, bits) that rank 0 of
+    the real 2×4 gloo pool records for the same step, and holds the real
+    rank's weight and cache bytes."""
+    _, tcfg, policy = _cfgs(arch)
+    trc = TRunConfig(quant_policy=policy, kv_layout="paged", **RC_KW)
+    _, tparams = _params(arch)
+    B, W = 4, 8
+    tokens = np.random.default_rng(2).integers(0, tcfg.vocab_size, (B, W)).astype(np.int32)
+    pos = np.array([0, 3, 0, 9], np.int32)
+    lens = np.array([W, 1, 5, 1], np.int32)
+    tables = np.arange(B * 8, dtype=np.int32).reshape(B, 8) % 32
+    spec = t_sm.MeshSpec(2, 4)
+    pool = rank_pool(spec, backend="gloo", device="cpu")
+    sources = [t_sm.TreeShard(t_sm.shard_params(spec, tparams, *divmod(r, 4))) for r in range(8)]
+    eid = pool.attach(sources, cfg=tcfg, rc=trc, spec=spec, max_batch=B, capacity=64,
+                      num_pages=32, with_stats=True, impl="auto")
+    real = pool.call(("step", eid, "main", tokens, pos, lens, tables, None))[0]["meter"]
+    held = sum(t.numel() * t.element_size() for t in _leaves(
+        (pool.engine.params, pool.engine.caches)))
+    pool.call(("detach", eid))
+
+    cell = dryrun.serve_program(tcfg, trc, spec, B, W, 64, num_pages=32)
+    meter = cell.run()
+    assert meter == {f"{label}@{bits}": r for (label, bits), r in real.items()} != {}
+    assert sum(t.numel() * t.element_size() for t in _leaves(cell.state)) == held
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def test_fallback_step_runs_sharded():

@@ -45,7 +45,8 @@ from repro_torch.configs.base import ShapeConfig as TShapeConfig
 from repro_torch.configs.base import get_config as t_get_config
 from repro_torch.data import make_batches
 from repro_torch.interop import params_from_reference
-from repro_torch.launch.mesh import close_rank_pool
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import close_rank_pool, make_local_mesh
 from repro_torch.launch.train import main as train_main
 from repro_torch.train import Trainer
 from repro_torch.train import checkpoint as ckpt
@@ -228,3 +229,29 @@ def test_launch_train_mesh_refusals(argv, match):
     cards: refused before any rank starts."""
     with pytest.raises(ValueError, match=match):
         train_main(["--arch", "qwen3-0.6b_smoke", "--steps", "1", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b_smoke", "deepseek-v2-lite-16b_smoke"])
+def test_dryrun_meta_step_matches_the_pools_meter(arch):
+    """The dry-run's rank-0 train step (``launch.dryrun.train_program``: the
+    sharded step on meta tensors, its collectives on ``MetaGroup``s)
+    records the collective calls, operand bytes and ring bytes by label
+    that rank 0 of the real 2×2 gloo pool records for the same batch, and
+    holds the real rank's state bytes."""
+    trc, tcfg = TRunConfig(**RC_KW), t_get_config(arch)
+    batch = _batches(arch, n=1)[0]
+    mt = Trainer(tcfg, trc, device="cpu", mesh=MESH, mesh_backend="gloo", log_fn=_quiet)
+    mt.run(iter([{k: torch.from_numpy(v) for k, v in batch.items()}]), 1)
+    real = mt.rank_steps[-1][0]["meter"]
+    held = mt.resident_bytes()[0]["state_bytes"]
+
+    meta = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+            for k, v in batch.items()}
+    cell = dryrun.train_program(tcfg, trc, make_local_mesh(*MESH), meta)
+    meter = cell.run()
+    keep = ("calls", "bytes", "wire_bytes")
+    assert {n: {k: r[k] for k in keep} for n, r in meter.items()} == {
+        n: {k: r[k] for k in keep} for n, r in real.items()} != {}
+    from repro_torch.tree import leaves
+
+    assert sum(t.numel() * t.element_size() for t in leaves(cell.state)) == held
