@@ -70,8 +70,9 @@ Phases, each printing one JSON line:
    ``ROBUST_POLICY``: ``serve_spec`` (γ=4, ``*=int2`` draft),
    ``serve_spec_selfdraft`` (the draft at the target's policy: acceptance
    near 1) and ``serve_spec_prequant`` (``*=int2:prequant``: a second,
-   packed int2 view) each give the plain serve's tokens and final KV
-   lengths; ``serve_prefix`` (a shared 96-token prefix, 10 requests, the
+   packed int2 view), on ``SPEC_REQUESTS`` = 4 of the requests, each give
+   the plain serve's tokens and final KV lengths of those requests;
+   ``serve_prefix`` (a shared 96-token prefix, 10 requests, the
    cache off then on: the same tokens, at least 8 forks, fewer prefill
    tokens); ``serve_prefix_spec`` (both at once) and ``cow_copy`` (a forced
    copy-on-write drained into every leaf of the target and draft pools,
@@ -114,16 +115,18 @@ Phases, each printing one JSON line:
    ``tugemm_int8`` launch with stats over the 64 experts) and
    ``serve_moe_unfused_prequant`` (``moe.*=int2:prequant:unfused``: one
    ``tugemm_packed`` launch over the experts' planes; the shared experts,
-   which ``moe.*`` also takes, run the route's 2-D calls); every expert GEMM
-   call of both held bit for bit against its plain arithmetic, the same
-   tokens and int8 cycles from both.
+   which ``moe.*`` also takes, run the route's 2-D calls), each on the first
+   ``MOE_UNFUSED_REQUESTS`` of the requests; every expert GEMM call of both
+   held bit for bit against its plain arithmetic, the same tokens and int8
+   cycles from both.
 9c. the legacy dense-slot Engine at full width, bf16 weights drawn on the
    card: ``serve_ssm`` (falcon-mamba-7b, 64 layers, ``ssm.*=int8,*=bf16``)
    and ``serve_hybrid`` (hymba-1.5b, 32 layers,
-   ``attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16``, int8 dense KV) on the 8
-   requests, then ``serve_hybrid_long`` (one 1,100-token prompt at capacity
-   1,152: the sliding window and a second KV chunk). Each runs through the
-   kernels and through the plain versions: identical greedy tokens and
+   ``attn.*=int8,ssm.*=int8,mlp.*=int2,*=bf16``, int8 dense KV) on
+   ``ENGINE_REQUESTS`` = 4 of the requests, then ``serve_hybrid_long``
+   (one 1,100-token prompt at capacity 1,152: the sliding window and a
+   second KV chunk). Each runs through the kernels and through the plain
+   versions: identical greedy tokens and
    per-request ``cycles_by_bits``, only ``tugemm_fused`` and
    ``tugemm_stats`` launching (no ``flash_paged_decode``); tokens/s, step
    and prefill ms, launches a decode step, weight GB and peak memory.
@@ -175,8 +178,8 @@ Phases, each printing one JSON line:
    freed the checked cases' operands and before ``serve_traced``; each
    phase prints the bytes allocated as it starts. ``train_dense``
    (``repro_torch.launch.train.main``: bf16, remat ``block``, 8 x 512
-   tokens, 30 steps, lr 1e-3, a checkpoint directory under ``build/``;
-   loss and grad norm finite, the last 5 steps' mean loss 0.5 nats below
+   tokens, ``TRAIN_STEPS`` = 15 steps, lr 1e-3, a checkpoint directory
+   under ``build/``; loss and grad norm finite, the last 5 steps' mean loss 0.5 nats below
    the first 5's; tokens/s, step p50/p99, peak memory, the share of the
    989 TFLOP/s bf16 peak from ``model_flops``), ``train_then_serve`` (its
    checkpoint restored bit for bit and 4 requests served under
@@ -191,8 +194,8 @@ Phases, each printing one JSON line:
    ``*=int8`` step raises before any launch; the no-grad forward launches).
    ``free_qwen3_phases``, after the quickstart, prints what the
    qwen3-0.6b phases held on the card, by owner, and frees it.
-10b. serve_traced — the serve phase's workload untraced and with a
-   ``Tracer`` and a ``MetricsRegistry``, in turns (off, on, on, off: tick,
+10b. serve_traced — ``TRACED_REQUESTS`` of the serve phase's requests
+   untraced and with a ``Tracer`` and a ``MetricsRegistry`` (off, on: tick,
    TTFT and inter-token ms), then traced inside ``obs.device_trace``
    (tokens and cycles identical everywhere, the host trace valid, the
    profiler trace holding the ``serve/step`` and ``serve/logits`` ranges
@@ -201,9 +204,10 @@ Phases, each printing one JSON line:
    the card when it is the only one, nccl with a card a rank):
    ``check_mesh_rank`` (every mesh kernel at one rank's shapes against its
    plain version; attention's rank slice bit for bit the full launch's
-   with ``plan_dims``), ``serve_mesh`` (qwen3-0.6b, tokens and cycles equal
-   to the ``serve`` phase's) and ``serve_mesh_moe`` (deepseek-v2-lite cut
-   to ``MESH_MOE_LAYERS`` layers against its one-card serve, drops
+   with ``plan_dims``), ``serve_mesh`` (qwen3-0.6b cut to
+   ``MESH_DENSE_LAYERS`` layers, tokens and cycles equal to its one-card
+   serve's) and ``serve_mesh_moe`` (deepseek-v2-lite cut to
+   ``MESH_MOE_LAYERS`` layers against its one-card serve, drops
    included); every rank launches the four mesh kernels and no plain
    version.
 10c. dp x tp training (``MESH_TRAIN`` = 2 x 2 ranks of ``Trainer(mesh=)``,
@@ -212,17 +216,24 @@ Phases, each printing one JSON line:
    full width, 2 layers, f32, 3 steps on 2 x 64 tokens against the one-card
    ``Trainer`` on the same weights and batches: the loss to 1e-5 relative,
    every gathered parameter leaf to 1e-4 relative L2, 2e-3 with int8
-   moments and ``int8_ef``), ``train_mesh`` (full depth, bf16, remat
-   ``block``, 8 x 512 tokens, 10 steps: finite and falling; every rank's
-   state bytes at most its specs' share, beside the one-card state's; step
+   moments and ``int8_ef``), ``train_mesh`` (``MESH_TRAIN_LAYERS`` = 8
+   layers, bf16, remat ``block``, 8 x 512 tokens, 10 steps: finite and
+   falling; every rank's state bytes at most its specs' share, beside the one-card state's; step
    p50; a step's bytes on the wire by collective; a checkpoint),
    ``train_mesh_then_serve`` (that checkpoint restored into the one-card
    model bit for bit against the gathered state and served under
    ``ROBUST_POLICY`` on the kernels: tokens and ``cycles_by_bits`` equal),
    ``train_mesh_moe`` (deepseek-v2-lite cut to ``MESH_MOE_LAYERS`` layers,
    experts over ``model``: 3 bf16 steps, finite) and
-   ``train_mesh_moe_parity`` (2 layers, f32, as ``train_mesh_parity``).
-   Each prints its seconds and the peak allocation of every rank.
+   ``train_mesh_moe_parity`` (2 layers, f32, as ``train_mesh_parity``),
+   ``train_mesh_ssm`` (falcon-mamba-7b at full width cut to
+   ``MESH_SSM_LAYERS`` layers, its mixer cut over ``inner``) and
+   ``train_mesh_hybrid_sp`` (hymba-1.5b at full width cut to
+   ``MESH_HYBRID_LAYERS`` layers under ``seq -> model``, attention and the
+   vocab whole on every rank): ``MESH_ARCH_STEPS`` bf16 steps each, finite
+   and falling, no kernel launched, then the f32 parity at 2 layers
+   (``*_parity``). Each prints its seconds and the peak allocation of every
+   rank.
 11. the seconds of each group of phases (``phase_seconds``), the kernels
    line, then the device line last.
 
@@ -269,6 +280,10 @@ MOE_PREQUANT_POLICY = "mla.*=int8,moe.*=int2:prequant,mlp.*=int2:prequant,*=bf16
 # the unfused expert route on the same weights: the expert GEMMs through the
 # int8 GEMM (row 3) and, packed, the plane-packed GEMM (row 4) over all experts
 MOE_UNFUSED_POLICY = "mla.*=int8,moe.*=int2:unfused,*=bf16"
+# the unfused expert serves check every expert GEMM call against its plain
+# arithmetic: one wave of 4 of the serve phase's 8 requests (kept to 4 for the
+# script's time limit)
+MOE_UNFUSED_REQUESTS = 4
 MOE_UNFUSED_PREQUANT_POLICY = "mla.*=int8,moe.*=int2:prequant:unfused,*=bf16"
 # the last three archs' model paths at full width: hubert-xlarge's encoder on
 # 4 clips of 1,000 stub frames (20 s of audio each at HuBERT's 20 ms frame
@@ -662,6 +677,7 @@ def check_attention(torch, flush):
     mla = dict(kv=1, group=16, part_dims=(512, 64), hdv=512, bs=16, MB=128, alias_v=True)
     serve = dict(gqa, MB=16)   # the serve phase's pool: capacity 256 in pages of 16
     mla_serve = dict(mla, MB=16)
+    smollm = dict(kv=1, group=3, part_dims=(20,), hdv=20, bs=16, MB=16)
     # (pos, lens) per row: a long decode to 2048 tokens, a mid one, an idle
     # row (lens 0, kv_len 0: must emit exact zeros), a short one
     dec = [(2047, 1), (1000, 1), (0, 0), (16, 1)]
@@ -698,6 +714,12 @@ def check_attention(torch, flush):
         # the quickstart's own shape: 2 rows of 16 tokens from position 0 in
         # one page of 16, f32 pools and f32 q (the f32 model dtype)
         ("gqa_quickstart_f32", dict(gqa, MB=1), [(0, 16), (0, 16)], 16, f32, f32, None),
+        # smollm-360m_smoke's head_dim 20 (40-byte bf16 rows, 20-byte int8
+        # rows): the kernel's narrow path, at the serve phase's pool
+        ("smollm_smoke_step16_bf16", smollm, [(112, 16), (143, 1), (0, 0), (60, 1)], 16, bf16,
+         bf16, None),
+        ("smollm_smoke_decode_int8", smollm, [(200, 1), (143, 1), (0, 0), (60, 1)], 1, i8, bf16,
+         None),
     ]
     return [attn_check(torch, gen, sms, flush, *case) for case in cases]
 
@@ -2018,6 +2040,9 @@ def serve_overload(torch, cfg, rc, params):
 # verify column's GEMMs compute what a decode column's do, so greedy
 # speculative decoding is held to the plain serve's tokens exactly.
 SPEC_GAMMA = 4
+# the speculative serves: one wave of 4 requests, against their own plain
+# serve (4 of the 8 requests, for the script's time limit)
+SPEC_REQUESTS = 4
 PREFIX_NEW = 8                 # new tokens a request of the shared-prompt trace
 
 
@@ -2053,12 +2078,24 @@ def _margin(torch, cfg, rc, params, seq) -> float:
     return (top[0] - top[1]).item()
 
 
+def spec_reference(torch, cfg, rc, params):
+    """The plain ``ROBUST_POLICY`` serve of the first ``SPEC_REQUESTS``
+    requests, which the speculative serves are held to: (its tokens, its
+    final KV lengths)."""
+    import dataclasses
+
+    rc_pt = dataclasses.replace(rc, quant_policy=ROBUST_POLICY)
+    sched, done, _, _, prompts = serve(torch, cfg, rc_pt, params, "auto", requests=SPEC_REQUESTS)
+    return check_served(cfg, sched, done, prompts, {8, 2}), sched.final_kv_lens
+
+
 def serve_spec(torch, cfg, rc, params, want: dict, want_kv: dict, phase: str,
                draft_policy: str):
-    """The serve phase's 8 requests with speculative decoding (γ=4) under
-    ``ROBUST_POLICY`` and ``draft_policy``: greedy tokens and final KV
-    lengths equal to the plain ``ROBUST_POLICY`` serve's (``serve_chaos``'s
-    fault-free run), no page left, only the fused GEMM, its stats assembly
+    """The first ``SPEC_REQUESTS`` of the serve phase's requests with
+    speculative decoding (γ=4) under ``ROBUST_POLICY`` and ``draft_policy``:
+    greedy tokens and final KV lengths equal to the plain ``ROBUST_POLICY``
+    serve's of the same requests (``spec_reference``), no page left, only
+    the fused GEMM, its stats assembly
     and attention launched on the cuda route. Prints drafted and accepted
     counts, the target's and the draft's ``cycles_by_bits``, tokens/s and
     launches a tick; under a self-draft below 0.99 acceptance, the first
@@ -2082,7 +2119,8 @@ def serve_spec(torch, cfg, rc, params, want: dict, want_kv: dict, phase: str,
 
     spec_mod.greedy_accept = watched
     try:
-        sched, done, wall, counts, prompts = serve(torch, cfg, rc_sp, params, "auto")
+        sched, done, wall, counts, prompts = serve(torch, cfg, rc_sp, params, "auto",
+                                                   requests=len(want))
     finally:
         spec_mod.greedy_accept = accept
     paths = ops.path_counts()
@@ -2300,14 +2338,20 @@ def serve_prefix_spec(torch, cfg, rc, params, want: dict):
     return sched, counts, cow_copy(torch, sched)
 
 
-def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
-    """The serve phase's workload with a ``Tracer`` and a ``MetricsRegistry``,
-    without and with ``obs.device_trace``. First four serves in turns
-    (untraced, traced, traced, untraced) for tick ms with tracing on and
-    off in this call; then one traced serve inside ``device_trace``, last,
-    since a profiler session over a whole serve slows the rest of the
-    process. Every traced serve gives the untraced serve's tokens and
-    ``cycles_by_bits``; the host trace passes ``validate_chrome_trace``; the
+# serve_traced's serves: the first 4 of the serve phase's 8 requests (for the
+# script's time limit)
+TRACED_REQUESTS = 4
+
+
+def serve_traced(torch, cfg, rc, params, smi: str):
+    """The first ``TRACED_REQUESTS`` of the serve phase's requests with a
+    ``Tracer`` and a ``MetricsRegistry``, without and with
+    ``obs.device_trace``. First two serves (untraced, traced) for tick ms
+    with tracing on and off in this call; then one traced serve inside
+    ``device_trace``, last, since a profiler session over a whole serve
+    slows the rest of the process. Every traced serve gives the untraced
+    serve's tokens and ``cycles_by_bits``; the host trace passes
+    ``validate_chrome_trace``; the
     ``torch.profiler`` trace (build/serve_traced/) holds the ``serve/step``
     and ``serve/logits`` ranges and the kernels. The profiler must start:
     this phase fails where ``device_trace`` would only warn."""
@@ -2315,9 +2359,10 @@ def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
                                  validate_chrome_trace)
 
     runs = {"off": [], "on": []}
-    for mode in ("off", "on", "on", "off"):
+    for mode in ("off", "on"):
         kw = dict(tracer=Tracer(), metrics=MetricsRegistry()) if mode == "on" else {}
-        sched, done, wall, _, _ = serve(torch, cfg, rc, params, "auto", **kw)
+        sched, done, wall, _, _ = serve(torch, cfg, rc, params, "auto",
+                                        requests=TRACED_REQUESTS, **kw)
         runs[mode].append((sched, done, wall))
     tracer = Tracer()
     t0 = time.perf_counter()
@@ -2325,7 +2370,8 @@ def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
         if path is None:
             raise AssertionError("serve_traced: torch.profiler did not start")
         sched, done, wall_prof, _, _ = serve(torch, cfg, rc, params, "auto", tracer=tracer,
-                                             metrics=MetricsRegistry())
+                                             metrics=MetricsRegistry(),
+                                             requests=TRACED_REQUESTS)
     export_s = time.perf_counter() - t0 - wall_prof
     runs["profiled"] = [(sched, done, wall_prof)]
     host = tracer.to_dict()
@@ -2344,7 +2390,7 @@ def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
         return [r[0].health()["latency"][key][p] * 1e3 for r in runs[mode]]
 
     rec = {"phase": "serve_traced", "card": smi, "policy": rc.quant_policy,
-           "order": "off, on, on, off, then on with the profiler",
+           "order": "off, on, then on with the profiler", "requests": TRACED_REQUESTS,
            "tick_ms_p50": {m: lat(m, "tick_s", "p50") for m in runs},
            "tick_ms_p99": {m: lat(m, "tick_s", "p99") for m in runs},
            "ttft_ms_p50": {m: lat(m, "ttft_s", "p50") for m in runs},
@@ -2357,7 +2403,9 @@ def serve_traced(torch, cfg, rc, params, outs, sched_off, smi: str):
            "profiler_export_s": export_s, "trace_bytes": trace_bytes,
            "profiler_ranges": found, "host_trace": trace_summary(host)["spans"]}
     emit(rec)
-    for s, d, _ in runs["on"] + runs["off"] + runs["profiled"]:
+    sched_off, done_off, _ = runs["off"][0]
+    outs = {r.rid: list(r.out) for r in done_off}
+    for s, d, _ in runs["on"] + runs["profiled"]:
         if {r.rid: list(r.out) for r in d} != outs or s.cycles_by_bits != sched_off.cycles_by_bits:
             raise AssertionError("serve_traced: tracing changed tokens or cycle counts")
     if not all(found.values()):
@@ -2464,7 +2512,8 @@ def serve_moe_unfused(torch, cfg, rc, params) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto")
+            sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto",
+                                                       requests=MOE_UNFUSED_REQUESTS)
         finally:
             ops.matmul_int8, ops.matmul_packed = orig
         outs[phase] = check_served(cfg, sched, done, prompts, bits)
@@ -3037,14 +3086,20 @@ LONG_CAPACITY = 1152          # the long request's pool: 1,100 prompt + 16 new t
 ENGINE_KERNELS = {"tugemm_fused", "tugemm_stats"}
 
 
+# the Engine serves: one wave of 4 of the serve phase's 8 requests (for the
+# script's time limit)
+ENGINE_REQUESTS = 4
+
+
 def engine_requests(cfg) -> list:
-    """The serve phase's 8 requests (32-128 prompt tokens from numpy seed 0,
-    16 new tokens each) as (prompt, max_new)."""
+    """The first ``ENGINE_REQUESTS`` of the serve phase's requests (32-128
+    prompt tokens from numpy seed 0, 16 new tokens each) as (prompt,
+    max_new)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     return [(rng.integers(0, cfg.vocab_size, int(rng.integers(32, 129))).tolist(), 16)
-            for _ in range(8)]
+            for _ in range(ENGINE_REQUESTS)]
 
 
 def model_setup_engine(torch, arch: str, policy: str, kv_cache_dtype: str = "bfloat16"):
@@ -3166,7 +3221,8 @@ def serve_engine_pair(torch, phase, cfg, rc, params, reqs, bits: set, *, capacit
 def serve_engine_phases(torch) -> dict:
     """The legacy Engine at full width: ``serve_ssm`` (falcon-mamba-7b, 64
     layers, ``SSM_POLICY``) and ``serve_hybrid`` (hymba-1.5b, 32 layers,
-    ``HYBRID_POLICY``, int8 dense KV) on the serve phase's 8 requests, then
+    ``HYBRID_POLICY``, int8 dense KV) on ``ENGINE_REQUESTS`` of the serve
+    phase's requests, then
     ``serve_hybrid_long``: one 1,100-token prompt and 16 new tokens at
     capacity 1,152, through the 1024-token sliding window of 29 of the 32
     layers and ``blockwise_attention``'s second KV chunk. Each serve runs
@@ -3289,7 +3345,7 @@ def expert_int_entry(moe_int: list, kernel: str) -> dict:
 # embeddings) trained through ``repro_torch.launch.train``: bf16, remat
 # ``block``, 8 x 512 tokens a step, lr 1e-3 (warmup 3 steps, cosine to 30)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 512, 8, 1e-3
-TRAIN_STEPS, TRAIN_INT8_STEPS = 30, 10
+TRAIN_STEPS, TRAIN_INT8_STEPS = 15, 10      # 15, not 30: the script's time limit
 TRAIN_DROP = 0.5               # nats: the last 5 steps' mean loss below the first 5's
 RESUME_LAYERS, RESUME_SEQ, RESUME_BATCH = 4, 256, 4   # train_resume: depth cut, full width
 PARITY_LAYERS, PARITY_SEQ, PARITY_BATCH = 2, 64, 2    # train_parity_f32: card vs host
@@ -3637,6 +3693,7 @@ def train_phases(torch, cfg, rc, smi: str) -> None:
 # fewer cards than ranks every rank runs on cuda:0 and the collectives go
 # over gloo through host memory; with a card a rank, nccl.
 MESH_DP, MESH_TP = 2, 4
+MESH_DENSE_LAYERS = 8          # qwen3-0.6b: 28 -> 8 (the script's time limit)
 MESH_MOE_LAYERS = 4
 MESH_KERNELS = ("tugemm_fused", "tugemm_int8", "tugemm_stats", "flash_paged_decode")
 
@@ -3854,11 +3911,11 @@ def mesh_entry(name: str, rank_rows: list, serves: dict) -> dict:
     return out
 
 
-def serve_mesh_phases(torch, cfg, rc, want: dict, want_cycles: dict, smi: str) -> dict:
-    """``serve_mesh``: qwen3-0.6b at full width and depth over the mesh,
-    against the ``serve`` phase's tokens and cycles (the same weights: each
-    rank draws the CPU generator's leaves and keeps its shard). Then
-    ``serve_mesh_moe``: deepseek-v2-lite at full width cut to
+def serve_mesh_phases(torch, cfg, rc, smi: str) -> dict:
+    """``serve_mesh``: qwen3-0.6b at full width cut to ``MESH_DENSE_LAYERS``
+    layers, served on one card (``serve_mesh_single``) and over the mesh,
+    from the CPU generator's weights (each rank draws them and keeps its
+    shard). Then ``serve_mesh_moe``: deepseek-v2-lite at full width cut to
     ``MESH_MOE_LAYERS`` layers (1 dense + 3 MoE: 64 experts, 16 a rank),
     served on one card and over the mesh in this phase, from a CUDA
     generator's weights. The rank pool is stopped at the end."""
@@ -3867,8 +3924,20 @@ def serve_mesh_phases(torch, cfg, rc, want: dict, want_cycles: dict, smi: str) -
     from repro_torch.models import init
     from repro_torch.parallel.serve_mesh import InitShards
 
-    out = {"serve_mesh": serve_mesh(torch, "serve_mesh", cfg, rc, InitShards(cfg, rc, 0, "cpu"),
-                                    want, want_cycles, smi)}
+    t0 = time.perf_counter()
+    dcfg = cfg.replace(num_layers=MESH_DENSE_LAYERS)
+    params = init(dcfg, rc, torch.Generator().manual_seed(0), device=DEVICE)
+    sched, done, wall, counts, prompts = serve(torch, dcfg, rc, params, "auto")
+    want = check_served(dcfg, sched, done, prompts, {8, 2})
+    rec = serve_record("serve_mesh_single", sched, done, wall, counts, prompts)
+    rec.update(reduced={"num_layers": [cfg.num_layers, MESH_DENSE_LAYERS]},
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    want_cycles = dict(sched.cycles_by_bits)
+    del sched, params
+    free_device_memory(torch)
+    out = {"serve_mesh": serve_mesh(torch, "serve_mesh", dcfg, rc,
+                                    InitShards(dcfg, rc, 0, "cpu"), want, want_cycles, smi)}
     t0 = time.perf_counter()
     mcfg = get_config(MOE_ARCH).replace(num_layers=MESH_MOE_LAYERS)
     mrc = dataclasses.replace(rc, quant_policy=MOE_POLICY)
@@ -3898,6 +3967,7 @@ def serve_mesh_phases(torch, cfg, rc, want: dict, want_cycles: dict, smi: str) -
 # backward, ROADMAP C14).
 MESH_TRAIN = (2, 2)
 MESH_TRAIN_STEPS = 10
+MESH_TRAIN_LAYERS = 8          # train_mesh: qwen3-0.6b 28 -> 8 (the script's time limit)
 MESH_MOE_STEPS, MESH_MOE_BATCH = 3, 4
 MESH_PARITY_STEPS = 3
 MESH_EF_PARAM_TOL = 2e-3       # int8 moments + int8_ef: one-ulp flips of EF codes, Adam-carried
@@ -4007,8 +4077,9 @@ def _step_parts(ranks: list) -> dict:
 
 
 def train_mesh(torch, smi: str):
-    """qwen3-0.6b at full width and depth, bf16, remat ``block``, on the
-    mesh for ``MESH_TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    """qwen3-0.6b at full width cut to ``MESH_TRAIN_LAYERS`` layers, bf16,
+    remat ``block``, on the mesh for ``MESH_TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``
     tokens with a checkpoint at the end. Gates: loss and grad norm finite,
     the last 3 steps' mean loss below the first 3's, every rank within its
     share. Prints the step p50, each rank's state bytes beside the one-card
@@ -4024,7 +4095,7 @@ def train_mesh(torch, smi: str):
     from repro_torch.tree import leaves_with_paths, unflatten_like
 
     rec = _phase_start(torch, "train_mesh")
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=MESH_TRAIN_LAYERS)
     rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="block", lr=TRAIN_LR,
                    warmup_steps=3, total_steps=TRAIN_STEPS)
     shutil.rmtree(MESH_CKPT, ignore_errors=True)
@@ -4044,6 +4115,7 @@ def train_mesh(torch, smi: str):
     first = statistics.mean(h["loss"] for h in hist[:3])
     last = statistics.mean(h["loss"] for h in hist[-3:])
     rec.update(_history_record(mt, cfg, TRAIN_SEQ, TRAIN_BATCH), setup_s=setup_s, run_s=run_s,
+               reduced={"num_layers": [get_config(ARCH).num_layers, MESH_TRAIN_LAYERS]},
                loss_first3=first, loss_last3=last, **_step_parts(mt.rank_steps[-1]),
                kernel_launches=len(launched),
                checkpoint_bytes=sum(os.path.getsize(os.path.join(dp, f))
@@ -4106,6 +4178,84 @@ def train_mesh_moe(torch, smi: str) -> None:
                              device=DEVICE), generator="cuda")
 
 
+# falcon-mamba-7b and hymba-1.5b at full width on the mesh: the Mamba mixer
+# cut over inner (in_proj's paired cut), the hybrid block with attention
+# whole on every rank (25 / 5 heads and a vocab of 32,001 on model=2), and
+# sequence parallelism (seq -> model)
+MESH_SSM_LAYERS = 4            # falcon-mamba-7b: 64 -> 4
+MESH_HYBRID_LAYERS = 8         # hymba-1.5b: 32 -> 8 (layer 0 global, 1-7 sliding-window)
+MESH_ARCH_STEPS, MESH_ARCH_SEQ, MESH_ARCH_BATCH = 4, 256, 4
+SEQ_PARALLEL = {"seq": "model"}
+
+
+def train_mesh_arch(torch, smi: str, phase: str, arch: str, layers: int,
+                    overrides: dict) -> None:
+    """``arch`` at full width cut to ``layers`` layers on the mesh, drawn on
+    the card, under the rules ``overrides``: ``MESH_ARCH_STEPS`` bf16 steps
+    of ``MESH_ARCH_BATCH`` x ``MESH_ARCH_SEQ`` tokens, remat ``block``.
+    Gates: loss and grad norm finite, the last 2 steps' mean loss below the
+    first 2's, no kernel launched, every rank within its share. Prints the
+    step p50, each rank's state bytes and a step's collectives by label.
+    Then ``<phase>_parity``: the f32 parity at ``PARITY_LAYERS`` layers."""
+    import math
+
+    from repro_torch.configs.base import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import make_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+
+    rec = _phase_start(torch, phase)
+    base = get_config(arch)
+    cfg = base.replace(num_layers=layers)
+    rc = RunConfig(dtype="bfloat16", param_dtype="bfloat16", remat="block", lr=TRAIN_LR,
+                   warmup_steps=3, total_steps=TRAIN_STEPS, sharding_overrides=overrides)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    mt = _mesh_trainer(torch, cfg, rc, init_generator="cuda")
+    setup_s = time.perf_counter() - t0
+    it = make_batches(cfg, ShapeConfig("train", MESH_ARCH_SEQ, MESH_ARCH_BATCH, "train"), seed=0)
+    mt.run(it, MESH_ARCH_STEPS)
+    it.close()
+    launched = {k: c for k, c in ops.kernel_counts().items() if c["launches"]}
+    hist = mt.history
+    bad = [h["step"] for h in hist if not (math.isfinite(h["loss"])
+                                           and math.isfinite(h["grad_norm"]))]
+    first = statistics.mean(h["loss"] for h in hist[:2])
+    last = statistics.mean(h["loss"] for h in hist[-2:])
+    rec.update(_history_record(mt, cfg, MESH_ARCH_SEQ, MESH_ARCH_BATCH), setup_s=setup_s,
+               reduced={"num_layers": [base.num_layers, layers]},
+               sequence_parallel=bool(overrides), cut_over_model=sorted(mt.engine.cuts),
+               loss_first2=first, loss_last2=last, kernel_launches=len(launched),
+               **_step_parts(mt.rank_steps[-1]))
+    _mesh_rec(torch, rec, mt)
+    mt.close()
+    del mt
+    _train_emit(torch, rec, smi)
+    if bad or not last < first or launched:
+        raise AssertionError(f"{phase}: loss not finite at {bad}, or not falling "
+                             f"({first} -> {last}), or kernels launched ({launched})")
+    pcfg = base.replace(num_layers=PARITY_LAYERS)
+    prc = RunConfig(dtype="float32", param_dtype="float32", remat="none", lr=TRAIN_LR,
+                    warmup_steps=5, total_steps=60, sharding_overrides=overrides)
+    _mesh_parity(torch, phase + "_parity", pcfg, prc, PARITY_PARAM_TOL, smi,
+                 params=init(pcfg, prc, torch.Generator(device=DEVICE).manual_seed(0),
+                             device=DEVICE), generator="cuda")
+
+
+def train_mesh_ssm(torch, smi: str) -> None:
+    """falcon-mamba-7b (d_model 4096, d_inner 8192, vocab 65,024) cut to
+    ``MESH_SSM_LAYERS`` layers: its mixer cut over ``inner``."""
+    train_mesh_arch(torch, smi, "train_mesh_ssm", SSM_ARCH, MESH_SSM_LAYERS, {})
+
+
+def train_mesh_hybrid_sp(torch, smi: str) -> None:
+    """hymba-1.5b (25 / 5 heads, vocab 32,001) cut to ``MESH_HYBRID_LAYERS``
+    layers under sequence parallelism: attention and the vocab whole on
+    every rank, the SSM branch and the MLP cut."""
+    train_mesh_arch(torch, smi, "train_mesh_hybrid_sp", HYBRID_ARCH, MESH_HYBRID_LAYERS,
+                    SEQ_PARALLEL)
+
+
 def train_mesh_phases(torch, rc, smi: str) -> None:
     """The dp x tp training group, in order; ``rc`` is the serve phases'
     (``train_mesh_then_serve`` serves with it under ``ROBUST_POLICY``). The
@@ -4121,6 +4271,8 @@ def train_mesh_phases(torch, rc, smi: str) -> None:
     del gathered
     shutil.rmtree(MESH_CKPT, ignore_errors=True)
     train_mesh_moe(torch, smi)
+    train_mesh_ssm(torch, smi)
+    train_mesh_hybrid_sp(torch, smi)
     close_rank_pool()
     free_device_memory(torch)
 
@@ -4321,10 +4473,11 @@ def main() -> int:
 
     # prefix caching and speculative decoding on the same model
     slice_serves = {}
+    want_sp, want_sp_kv = spec_reference(torch, cfg, rc, params)
     for phase, draft in (("serve_spec", "*=int2"), ("serve_spec_selfdraft", ROBUST_POLICY),
                          ("serve_spec_prequant", "*=int2:prequant")):
-        slice_serves[phase] = serve_spec(torch, cfg, rc, params, want_pt,
-                                         base_pt.final_kv_lens, phase, draft)
+        slice_serves[phase] = serve_spec(torch, cfg, rc, params, want_sp, want_sp_kv, phase,
+                                         draft)
     want_prefix = serve_prefix(torch, cfg, rc, params)
     sched_ps, counts_ps, cow = serve_prefix_spec(torch, cfg, rc, params, want_prefix)
     slice_serves["serve_prefix_spec"] = (sched_ps, counts_ps)
@@ -4432,12 +4585,12 @@ def main() -> int:
     arch_serves.update(cli_serves)
     clock.lap("cli, dense archs, static scales")
     # the dp x tp mesh: its kernels at one rank's shapes, then qwen3-0.6b
-    # against the serve phase's tokens and cycles, and deepseek-v2-lite cut
-    # to MESH_MOE_LAYERS layers against its own one-card serve
+    # cut to MESH_DENSE_LAYERS layers and deepseek-v2-lite cut to
+    # MESH_MOE_LAYERS layers, each against its own one-card serve
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=DEVICE)
     mesh_rank = check_mesh_rank(torch, flush)
     del flush
-    mesh_serves = serve_mesh_phases(torch, cfg, rc, outs, sched.cycles_by_bits, smi)
+    mesh_serves = serve_mesh_phases(torch, cfg, rc, smi)
     clock.lap("mesh")
     # dp x tp training on the same card: qwen3-0.6b (parity at 2 layers, full
     # depth, its checkpoint served on the kernels) and deepseek-v2-lite
@@ -4459,7 +4612,7 @@ def main() -> int:
     # before serve_traced (whose profiler session slows the rest of a process)
     train_phases(torch, cfg, rc, smi)
     clock.lap("training")
-    serve_traced(torch, cfg, rc, sched.params, outs, sched, smi)
+    serve_traced(torch, cfg, rc, sched.params, smi)
     clock.lap("serve_traced")
     for r in moe_gemm + moe_int:
         want = 1 if r["kernel"] == "tugemm_packed" else 3
@@ -4536,6 +4689,11 @@ def main() -> int:
              "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")}
              for r in attn if r["case"].startswith("mla_serve_")},
+         # rows that are not whole 16-byte pieces: the narrow path
+         "narrow": {r["case"]: {k: r[k] for k in (
+             "sq", "hd_tot", "kv_dtype", "kv_len", "splits", "max_abs_err", "ms", "device_ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+             for r in attn if r["case"].startswith("smollm_smoke_")},
          **mesh_entry("flash_paged_decode", mesh_rank, mesh_serves),
          "dense_archs": {r["case"]: {k: r[k] for k in (
              "sq", "heads", "kv_heads", "hd_tot", "kv_len", "splits", "max_abs_err", "ms",

@@ -40,9 +40,16 @@
 //    waits on a table lookup. It then walks its tokens in chunks of 32. Each
 //    chunk's K parts, V and scales are copied raw (int8, bf16 or f32) into a
 //    ring of three stages in shared memory (two where three do not fit) with
-//    cp.async, 16 bytes a lane (a head's token rows are whole 16-byte
+//    cp.async, 16 bytes a lane (where a head's token rows are whole 16-byte
 //    pieces), neighbouring lanes on neighbouring bytes of a token row; two
-//    chunks are in flight while one is consumed. A token's page is found
+//    chunks are in flight while one is consumed. Head widths whose rows are
+//    not whole 16-byte pieces (smollm-360m_smoke's head_dim 20: 40-byte bf16
+//    rows) take the narrow instantiation (WIDE = false): 4-byte cp.async
+//    pieces where every row is whole 4-byte words, else one element a lane
+//    copied in place; the query tile, the dot products, P.V (a column a
+//    lane, up to 16 per lane) and the partials go element by element, in the
+//    wide path's summation order, in tiles of RT rows (one instantiation a
+//    dtype pair). The wide instantiation is as it was. A token's page is found
 //    once per token row, never per element. Tokens past the block's range
 //    are zero-filled. When V is the ckv pool (MLA), V is read from the K
 //    part's copy.
@@ -116,6 +123,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p, float) {
 __device__ __forceinline__ float4 load4(const float* p, float) {
   return *reinterpret_cast<const float4*>(p);
 }
+
+// one pool element from a raw shared tile in f32 (int8 times its token's scale)
+__device__ __forceinline__ float load1(const int8_t* p, float s) { return __fmul_rn((float)*p, s); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p, float) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load1(const float* p, float) { return *p; }
 
 // a += p.x v[0] + p.y v[1] + p.z v[2] + p.w v[3], per component, in that order
 __device__ __forceinline__ void pv4(float4& a, float4 p, const float4 (&v)[4]) {
@@ -210,6 +224,19 @@ __device__ __forceinline__ void score_part(float (&acc)[RPW], const unsigned cha
   }
 }
 
+// score_part for rows that are not whole 16-byte pieces: one element at a
+// time, the same FMA chain in d
+template <typename KVT, int RPW>
+__device__ __forceinline__ void score_part1(float (&acc)[RPW], const unsigned char* k, int f,
+                                            float scale, const float* q, int hd, int warp) {
+  const KVT* kr = reinterpret_cast<const KVT*>(k);
+  for (int d = 0; d < f; ++d) {
+    const float kv = load1(kr + d, scale);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) acc[i] = fmaf(q[(warp + 4 * i) * hd + d], kv, acc[i]);
+  }
+}
+
 // Shared-memory plan of pass 1 (bytes), identical on host and device: the
 // Q tile (rows x hd f32), a ring of nst chunk stages, the scores (then
 // probabilities) of one chunk and the page ids of one split.
@@ -239,15 +266,17 @@ struct Layout {
 // ROWS: query rows per block (2, 4, 8 or 16), a compile-time count so that
 // no inner loop branches per row; rows of the tile past the kv head's last
 // one hold a zero query and are never stored. Warp w owns rows w + 4i; at
-// ROWS = 2 warps 2 and 3 own none and only copy chunks.
-template <typename QT, typename KVT, int ROWS>
+// ROWS = 2 warps 2 and 3 own none and only copy chunks. WIDE: every row is
+// whole 16-byte pieces; else the narrow path, whose copies move `lb` bytes
+// a piece (4, or one element).
+template <typename QT, typename KVT, int ROWS, bool WIDE>
 __global__ void __launch_bounds__(NT) flash_split_kernel(
     const QT* __restrict__ q, const KVT* k0, const float* ks0, const KVT* k1,
     const float* ks1, const KVT* v, const float* vs, const int* __restrict__ tables,
     const int* __restrict__ pos, const int* __restrict__ kv_len, float* __restrict__ pm,
     float* __restrict__ pl, float* __restrict__ pacc, int sq, int H, int kv, int f0, int f1,
     int hdv, int bs, int MB, int pages_per_split, float qscale, int causal, int window,
-    int alias, int nst) {
+    int alias, int nst, int lb) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ES = sizeof(KVT);
   constexpr int RPW = ROWS >= 4 ? ROWS / 4 : 1;   // rows a warp owns (softmax, P.V)
@@ -282,9 +311,13 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
         pm[(row0 + r) * S + split] = NEG_INF;
         pl[(row0 + r) * S + split] = 0.f;
       }
-      for (int c = lane * 4; c < hdv; c += 128)
-        *reinterpret_cast<float4*>(pacc + ((row0 + r) * S + split) * hdv + c) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (WIDE) {
+        for (int c = lane * 4; c < hdv; c += 128)
+          *reinterpret_cast<float4*>(pacc + ((row0 + r) * S + split) * hdv + c) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        for (int c = lane; c < hdv; c += 32) pacc[((row0 + r) * S + split) * hdv + c] = 0.f;
+      }
     }
     return;
   }
@@ -294,8 +327,16 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
   for (int i = tid; i < (k_hi + bs - 1) / bs - m_lo; i += NT)
     pg[i] = tables[(long)b * MB + m_lo + i];
   // the query tile, pre-scaled, in f32; rows past R are zeros. 16-byte
-  // loads, four a thread in flight
-  {
+  // loads, four a thread in flight (narrow rows: an element a thread)
+  if constexpr (!WIDE) {
+    for (int e = tid; e < ROWS * hd; e += NT) {
+      const int r = e / hd, d = e - r * hd;
+      const int j = r0 + r, rep = j / sq, s = j - rep * sq;
+      Qs[e] = r < R ? __fmul_rn(to_f32(q[(((long)b * sq + s) * H + g * group + rep) * hd + d]),
+                                qscale)
+                    : 0.f;
+    }
+  } else {
     constexpr int EPC = 16 / sizeof(QT);
     const int cpr = hd / EPC;   // 16-byte pieces of a query row
     for (int e0 = 0; e0 < ROWS * cpr; e0 += 4 * NT) {
@@ -334,17 +375,24 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
     const int ml = kl / bs;
     const int row_l = kl < k_hi ? pg[ml - m_lo] * bs + (kl - ml * bs) : 0;
     auto rows8 = [&](unsigned char* dst, int stride, const KVT* pool, int width) {
-      const int cpr = width * ES / 16;   // 16-byte pieces per token row
+      const int pb = WIDE ? 16 : lb;     // bytes a piece
+      const int cpr = width * ES / pb;   // pieces per token row
       for (int e0 = 0; e0 < 8 * cpr; e0 += 32) {
         const int e = e0 + lane;
         const int k = e < 8 * cpr ? e / cpr : 0;
         const int i = warp * 8 + k;
         const long row = __shfl_sync(0xffffffffu, row_l, i);
         if (live && e < 8 * cpr) {
-          const int o = (e - k * cpr) * 16;
-          cp_async(dst + i * stride + o,
-                   reinterpret_cast<const char*>(pool + row * kv * width + (long)g * width) + o,
-                   16, kc0 + i < k_hi);
+          const int o = (e - k * cpr) * pb;
+          const char* src =
+              reinterpret_cast<const char*>(pool + row * kv * width + (long)g * width) + o;
+          const bool ok = kc0 + i < k_hi;
+          if (WIDE || pb == 4) {
+            cp_async(dst + i * stride + o, src, pb, ok);
+          } else {   // one element in place (zero past the block's tokens)
+            KVT* d = reinterpret_cast<KVT*>(dst + i * stride + o);
+            *d = ok ? *reinterpret_cast<const KVT*>(src) : KVT(0.f);
+          }
         }
       }
     };
@@ -371,13 +419,19 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
     row_l[i] = 0.f;
     row_q[i] = p0 + (r0 + warp + 4 * i) % sq;
   }
-  // P.V: the warp's rows x columns 4 (lane + 32j), j < ncg
+  // P.V: the warp's rows x columns 4 (lane + 32j), j < ncg (narrow rows:
+  // columns lane + 32j, j < ncol, in acc1)
   const int ncg = (hdv + 127) / 128;
+  const int ncol = (hdv + 31) / 32;
   float4 acc[RPW][4];
+  float acc1[RPW][16];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i)
+  for (int i = 0; i < RPW; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc1[i][j] = 0.f;
+  }
 
 
   // nst - 1 chunks in flight ahead of the one consumed; a commit without
@@ -410,9 +464,15 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
     {
       const float s0 = ks0 != nullptr ? sc[lane] : 1.f;
       const float s1 = ks0 != nullptr && f1 > 0 ? sc[TC + lane] : 1.f;
-      score_part<KVT, RPW>(sacc, base + lay.k0 + lane * lay.ks0, f0, s0, Qs, hd, warp);
-      if (f1 > 0)
-        score_part<KVT, RPW>(sacc, base + lay.k1 + lane * lay.ks1, f1, s1, Qs + f0, hd, warp);
+      if constexpr (WIDE) {
+        score_part<KVT, RPW>(sacc, base + lay.k0 + lane * lay.ks0, f0, s0, Qs, hd, warp);
+        if (f1 > 0)
+          score_part<KVT, RPW>(sacc, base + lay.k1 + lane * lay.ks1, f1, s1, Qs + f0, hd, warp);
+      } else {
+        score_part1<KVT, RPW>(sacc, base + lay.k0 + lane * lay.ks0, f0, s0, Qs, hd, warp);
+        if (f1 > 0)
+          score_part1<KVT, RPW>(sacc, base + lay.k1 + lane * lay.ks1, f1, s1, Qs + f0, hd, warp);
+      }
     }
 
     // online softmax: the warp's rows, one lane per token
@@ -437,6 +497,28 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
       const KVT* V = reinterpret_cast<const KVT*>(base + (alias ? lay.k0 : lay.v));
       const float* vsc = sc + (alias ? 0 : 2 * TC);
       const int vstride = (alias ? lay.ks0 : lay.vst) / ES;
+      if constexpr (!WIDE) {   // a column a lane, every token in order
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc1[i][j] *= alpha[i];
+        for (int t = 0; t < TC; ++t) {
+          float p[RPW];
+#pragma unroll
+          for (int i = 0; i < RPW; ++i) p[i] = Ss[(warp + 4 * i) * TC + t];
+          const float vsu = ks0 != nullptr ? vsc[t] : 1.f;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = lane + 32 * j;
+            if (j < ncol && c < hdv) {
+              const float vv = load1(V + t * vstride + c, vsu);
+#pragma unroll
+              for (int i = 0; i < RPW; ++i) acc1[i][j] = fmaf(p[i], vv, acc1[i][j]);
+            }
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int i = 0; i < RPW; ++i)
 #pragma unroll
@@ -476,19 +558,29 @@ __global__ void __launch_bounds__(NT) flash_split_kernel(
         pm[(row0 + r) * S + split] = row_m[i];
         pl[(row0 + r) * S + split] = row_l[i];
       }
+      if constexpr (WIDE) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c4 = lane + 32 * j;
-        if (j < ncg && c4 * 4 < hdv)
-          *reinterpret_cast<float4*>(pacc + ((row0 + r) * S + split) * hdv + c4 * 4) = acc[i][j];
+        for (int j = 0; j < 4; ++j) {
+          const int c4 = lane + 32 * j;
+          if (j < ncg && c4 * 4 < hdv)
+            *reinterpret_cast<float4*>(pacc + ((row0 + r) * S + split) * hdv + c4 * 4) =
+                acc[i][j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = lane + 32 * j;
+          if (j < ncol && c < hdv) pacc[((row0 + r) * S + split) * hdv + c] = acc1[i][j];
+        }
       }
     }
   }
 }
 
 // Pass 2: one block per query row merges its splits in split order; a
-// thread owns 4 output columns and keeps 8 splits' loads in flight.
-template <typename QT>
+// thread owns 4 output columns (VEC; else one, for hdv not a multiple of 4)
+// and keeps 8 splits' loads in flight.
+template <typename QT, bool VEC>
 __global__ void __launch_bounds__(NT) flash_combine_kernel(
     const float* __restrict__ pm, const float* __restrict__ pl, const float* __restrict__ pacc,
     QT* __restrict__ out, int sq, int H, int kv, int hdv, int S) {
@@ -517,6 +609,15 @@ __global__ void __launch_bounds__(NT) flash_combine_kernel(
   if (tid == 0) l_tot = fmaxf(l, 1e-30f);
   __syncthreads();
   QT* o = out + (((long)b * sq + s) * H + g * group + rep) * hdv;
+  if constexpr (!VEC) {
+    for (int c = tid; c < hdv; c += NT) {
+      float a = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < S; ++i) a = fmaf(w[i], pacc[(row * S + i) * hdv + c], a);
+      o[c] = from_f32<QT>(__fdiv_rn(a, l_tot));
+    }
+    return;
+  }
   const float4* acc = reinterpret_cast<const float4*>(pacc + row * S * hdv);
   const int c4n = hdv / 4;
   for (int c = tid; c < c4n; c += NT) {
@@ -544,18 +645,18 @@ int stages(int f0, int f1, int hdv, int es, int alias, int pps, int rows) {
   return 0;
 }
 
-template <typename QT, typename KVT, int ROWS>
+template <typename QT, typename KVT, int ROWS, bool WIDE>
 int launch_rows(const void* q, const void* k0, const float* ks0, int f0, const void* k1,
                 const float* ks1, int f1, const void* v, const float* vs, int hdv,
                 const int* tables, const int* pos, const int* kv_len, void* out, float* pm,
                 float* pl, float* pacc, int B, int sq, int H, int kv, int bs, int MB,
                 int splits, int pages_per_split, float qscale, int causal, int window,
-                int alias, cudaStream_t stream) {
+                int alias, int lb, cudaStream_t stream) {
   const int es = (int)sizeof(KVT);
   const int nst = stages(f0, f1, hdv, es, alias, pages_per_split, ROWS);
   const size_t smem =
       (size_t)Layout(f0, f1, hdv, es, alias, nst, pages_per_split, ROWS).total;
-  auto kern = flash_split_kernel<QT, KVT, ROWS>;
+  auto kern = flash_split_kernel<QT, KVT, ROWS, WIDE>;
   if (smem > 48 * 1024) {   // set again only on a new device or a larger size
     static launch_attrs::Cache attrs;   // per instantiation, per device
     const cudaError_t err = launch_attrs::allow(attrs, kern, (int)smem, false);
@@ -566,11 +667,16 @@ int launch_rows(const void* q, const void* k0, const float* ks0, int f0, const v
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k0), ks0, static_cast<const KVT*>(k1),
       ks1, static_cast<const KVT*>(v), vs, tables, pos, kv_len, pm, pl, pacc, sq, H, kv, f0, f1,
-      hdv, bs, MB, pages_per_split, qscale, causal, window, alias, nst);
+      hdv, bs, MB, pages_per_split, qscale, causal, window, alias, nst, lb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_combine_kernel<QT><<<(unsigned)((long)B * kv * rows_head), NT, 0, stream>>>(
-      pm, pl, pacc, static_cast<QT*>(out), sq, H, kv, hdv, splits);
+  const unsigned blocks = (unsigned)((long)B * kv * rows_head);
+  if (hdv % 4 == 0)
+    flash_combine_kernel<QT, true><<<blocks, NT, 0, stream>>>(
+        pm, pl, pacc, static_cast<QT*>(out), sq, H, kv, hdv, splits);
+  else
+    flash_combine_kernel<QT, false><<<blocks, NT, 0, stream>>>(
+        pm, pl, pacc, static_cast<QT*>(out), sq, H, kv, hdv, splits);
   return 0;
 }
 
@@ -586,16 +692,17 @@ int launch(const void* q, const void* k0, const float* ks0, int f0, const void* 
            const float* ks1, int f1, const void* v, const float* vs, int hdv, const int* tables,
            const int* pos, const int* kv_len, void* out, float* pm, float* pl, float* pacc, int B,
            int sq, int H, int kv, int bs, int MB, int splits, int pages_per_split, float qscale,
-           int causal, int window, int alias, cudaStream_t stream) {
-#define FLASH_ROWS(N)                                                                        \
-  launch_rows<QT, KVT, N>(q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos, kv_len, out, \
-                          pm, pl, pacc, B, sq, H, kv, bs, MB, splits, pages_per_split,       \
-                          qscale, causal, window, alias, stream)
+           int causal, int window, int alias, int lb, cudaStream_t stream) {
+#define FLASH_ROWS(N, W)                                                                        \
+  launch_rows<QT, KVT, N, W>(q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos, kv_len, out, \
+                             pm, pl, pacc, B, sq, H, kv, bs, MB, splits, pages_per_split,       \
+                             qscale, causal, window, alias, lb, stream)
+  if (lb != 16) return FLASH_ROWS(RT, false);   // narrow rows: one tile height
   switch (tile_rows((H / kv) * sq)) {
-    case 2: return FLASH_ROWS(2);
-    case 4: return FLASH_ROWS(4);
-    case 8: return FLASH_ROWS(8);
-    default: return FLASH_ROWS(16);
+    case 2: return FLASH_ROWS(2, true);
+    case 4: return FLASH_ROWS(4, true);
+    case 8: return FLASH_ROWS(8, true);
+    default: return FLASH_ROWS(16, true);
   }
 #undef FLASH_ROWS
 }
@@ -605,20 +712,20 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k0, const float* ks0, i
                 const void* k1, const float* ks1, int f1, const void* v, const float* vs,
                 int hdv, const int* tables, const int* pos, const int* kv_len, void* out,
                 float* pm, float* pl, float* pacc, int B, int sq, int H, int kv, int bs, int MB,
-                int splits, int pps, float qscale, int causal, int window, int alias,
+                int splits, int pps, float qscale, int causal, int window, int alias, int lb,
                 cudaStream_t s) {
   if (kv_dtype == I8)
     return launch<QT, int8_t>(q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos, kv_len, out,
                               pm, pl, pacc, B, sq, H, kv, bs, MB, splits, pps, qscale, causal,
-                              window, alias, s);
+                              window, alias, lb, s);
   if (kv_dtype == F32)
     return launch<QT, float>(q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos, kv_len, out,
                              pm, pl, pacc, B, sq, H, kv, bs, MB, splits, pps, qscale, causal,
-                             window, alias, s);
+                             window, alias, lb, s);
   if (kv_dtype == BF16)
     return launch<QT, __nv_bfloat16>(q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos,
                                      kv_len, out, pm, pl, pacc, B, sq, H, kv, bs, MB, splits,
-                                     pps, qscale, causal, window, alias, s);
+                                     pps, qscale, causal, window, alias, lb, s);
   return -1;
 }
 
@@ -627,8 +734,10 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k0, const float* ks0, i
 // pm, pl (B*kv*rows_head, splits) and pacc (B*kv*rows_head, splits, hdv) are
 // f32 scratch. alias: V is K part 0 (same pool, same scales, hdv == f0).
 // Returns 0 on success, -1 for an unsupported dtype, -2 for head widths or a
-// plan the kernel does not take (rows must be whole 16-byte pieces), else a
-// cudaError_t.
+// plan the kernel does not take, else a cudaError_t. Rows that are whole
+// 16-byte pieces (and 16-byte aligned operands) take the wide path; any other
+// width up to MAX_HDV the narrow one, with 4-byte copies where every row is
+// whole 4-byte words, else one element a lane.
 extern "C" int flash_paged_launch(
     const void* q, int q_dtype, const void* k0, const float* ks0, int f0, const void* k1,
     const float* ks1, int f1, const void* v, const float* vs, int hdv, int kv_dtype,
@@ -639,21 +748,28 @@ extern "C" int flash_paged_launch(
   const int es = kv_dtype == I8 ? 1 : kv_dtype == BF16 ? 2 : kv_dtype == F32 ? 4 : 0;
   if (es == 0) return -1;
   const int qes = q_dtype == F32 ? 4 : 2;
-  // every token row of a head, and every query row, is whole 16-byte pieces
-  if (f0 <= 0 || (f0 * es) % 16 || (f1 * es) % 16 || (hdv * es) % 16 || ((f0 + f1) * qes) % 16 ||
-      ((uintptr_t)q | (uintptr_t)k0 | (uintptr_t)k1 | (uintptr_t)v) % 16 || hdv > MAX_HDV ||
-      (alias && hdv != f0) || splits < 1 || splits > MAX_SPLITS || pages_per_split < 1 ||
-      stages(f0, f1, hdv, es, alias, pages_per_split, tile_rows((H / kv) * sq)) == 0)
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k0 | (uintptr_t)k1 | (uintptr_t)v;
+  // the bytes a copy moves: 16 where every token row of a head, and every
+  // query row, is whole 16-byte pieces; else 4 where the pool rows are whole
+  // 4-byte words; else one element (the narrow path, tiles of RT rows)
+  auto whole = [&](int n) {
+    return (f0 * es) % n == 0 && (f1 * es) % n == 0 && (hdv * es) % n == 0 && ptrs % n == 0;
+  };
+  const int lb = whole(16) && ((f0 + f1) * qes) % 16 == 0 ? 16 : whole(4) ? 4 : es;
+  const int rows = lb == 16 ? tile_rows((H / kv) * sq) : RT;
+  if (f0 <= 0 || hdv <= 0 || hdv > MAX_HDV || (alias && hdv != f0) || splits < 1 ||
+      splits > MAX_SPLITS || pages_per_split < 1 ||
+      stages(f0, f1, hdv, es, alias, pages_per_split, rows) == 0)
     return -2;
   int rc;
   if (q_dtype == F32)
     rc = dispatch_kv<float>(kv_dtype, q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables, pos,
                             kv_len, out, pm, pl, pacc, B, sq, H, kv, bs, MB, splits,
-                            pages_per_split, qscale, causal, window, alias, s);
+                            pages_per_split, qscale, causal, window, alias, lb, s);
   else if (q_dtype == BF16)
     rc = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k0, ks0, f0, k1, ks1, f1, v, vs, hdv, tables,
                                     pos, kv_len, out, pm, pl, pacc, B, sq, H, kv, bs, MB, splits,
-                                    pages_per_split, qscale, causal, window, alias, s);
+                                    pages_per_split, qscale, causal, window, alias, lb, s);
   else
     rc = -1;
   if (rc != 0) return rc;

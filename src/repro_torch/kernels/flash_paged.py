@@ -29,7 +29,6 @@ COUNT = KernelCount("flash_paged_decode")
 NEG_INF = -1e30           # the reference's finite mask value
 ROW_TILE = 16             # csrc RT: most query rows of one kv head per block
 MAX_SPLITS = 256          # csrc MAX_SPLITS: splits the combine pass takes
-_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _lib = None
 
 
@@ -211,10 +210,10 @@ def _shape_plan(q_shape, q_dtype, kv, parts, v_shape, v_dtype, scales, t_shape, 
           "scale shapes")
     check(len(t_shape) == 2 and t_shape[0] == B and p_shape == (B,) and l_shape == (B,),
           "tables/pos/kv_len shapes")
-    es, qes = _ELEM_BYTES[v_dtype], _ELEM_BYTES[q_dtype]
-    check(feats[0] > 0 and all(f * es % 16 == 0 for f in feats) and hdv * es % 16 == 0
-          and hd * qes % 16 == 0 and hdv <= 512,
-          f"flash_paged_decode: head widths {feats}/{hdv} must be whole 16-byte rows, hdv <= 512")
+    # rows of whole 16-byte pieces take the kernel's wide path, others its
+    # narrow one (csrc/flash_paged.cu); any width up to 512 columns
+    check(feats[0] > 0 and 0 < hdv <= 512,
+          f"flash_paged_decode: head widths {feats}/{hdv} must be positive, hdv <= 512")
     MB = t_shape[1]
     splits, per = split_plan(*(plan_dims or (B, kv, (H // kv) * sq)), MB, sms)
     return feats, hdv, bs, MB, splits, per, DTYPE_CODE[q_dtype], DTYPE_CODE[v_dtype]

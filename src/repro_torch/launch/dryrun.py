@@ -24,13 +24,16 @@ the sweep runs (the reference prices on its own target, ``HW()``), and
 terms are a price computed from counts.
 
 The row prices the port's rank program, not GSPMD's layout: a cell the
-rank programs refuse (a tp that does not divide the heads, a mixer the
-training mesh does not cut, a sequence-parallel override, an arch the
-serving mesh does not run) prints ``[FAIL] <cell>: <the refusal's words>``
-and counts as a failure; no other program is priced in its place. The
+rank programs refuse (a tp that does not divide the serving mesh's heads,
+a sequence-parallel override on a serving cell, an arch the serving mesh
+does not run) prints ``[FAIL] <cell>: <the refusal's words>`` and counts as
+a failure; no other program is priced in its place. The training mesh
+takes every train cell: its ``seq -> model`` override is sequence
+parallelism, and a width tp does not divide runs whole on every tp rank. The
 row's ``replicated_dims`` / ``dropped_rules`` are the accounting of the
 state's specs (parameters, optimizer state, caches, the batch) under the
-cell's rules; a rank's activations are slices and count nothing.
+cell's rules, and of a train step's widths computed whole; a rank's
+activations are slices and count nothing.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun                # all cells
@@ -183,8 +186,8 @@ def train_program(cfg, rc, mesh, batch: dict) -> Cell:
     from ..parallel.state_sharding import abstract_train_state, batch_specs, train_state_specs
     from ..parallel.train_mesh import TrainEngine, validate
 
-    _refusing(validate, cfg, rc, mesh)
     with use_mesh(mesh, overrides=rc.sharding_overrides) as ctx:
+        _refusing(validate, cfg, rc, mesh)      # counts the widths computed whole
         train_state_specs(cfg, rc, abstract_train_state(cfg, rc))
         batch_specs(batch)
     engine = _refusing(TrainEngine, cfg, rc, mesh, 0, _MetaParts(), device="meta",

@@ -284,7 +284,7 @@ def _xent_chunk(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
 def _chunk_nll(cfg, rc, params, h, labels, mask):
     tr = current_train()
     logits = lm_logits(cfg, rc, params, h)
-    if tr is not None and tr.tp > 1:
+    if tr is not None and tr.cut("vocab"):
         return tr.xent(logits, labels, mask)
     return _xent_chunk(logits, labels, mask)
 
@@ -304,13 +304,20 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
     a time in either direction), else in one piece. ``batch`` holds the
     forward's inputs, ``labels`` (B, S) and optionally ``loss_mask``.
     Under a training mesh the head and the cross-entropy are
-    vocab-parallel, and the mean is over the global batch."""
+    vocab-parallel where tp divides the vocab (taking the gathered rows
+    under sequence parallelism), and the mean is over the global batch;
+    with a vocab tp does not divide, sequence parallelism runs the head
+    and the NLL on this rank's columns (its share of the sum)."""
     h, _, aux = forward(cfg, rc, params, batch)
     tr = current_train()
-    if tr is not None:
-        h = tr.enter(h)         # the head is vocab-parallel on a training mesh
     labels = batch["labels"]
     mask = batch.get("loss_mask")
+    shard = tr is not None and tr.sp and not tr.cut("vocab")
+    if shard:
+        labels = tr.seq_shard(labels)
+        mask = None if mask is None else tr.seq_shard(mask)
+    elif tr is not None and tr.cut("vocab"):
+        h = tr.block_in(h, True)        # into the vocab-parallel head
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     S = h.shape[1]
@@ -332,8 +339,16 @@ def loss_fn(cfg: ModelConfig, rc: RunConfig, params: dict, batch: dict):
         # a training mesh: the mean over the global batch's tokens (this
         # rank's rows' NLL over the global count: the ranks' objectives sum
         # to the loss); the metrics are the global ones
-        cnt = torch.clamp_min(tr.sum_dp(cnt, "dp_all_reduce:loss_count"), 1.0)
+        cnt = tr.sum_dp(cnt, "dp_all_reduce:loss_count")
+        if shard:
+            cnt = tr.sum_tp(cnt, "tp_all_reduce:loss_count")
+        cnt = torch.clamp_min(cnt, 1.0)
         sums = tr.sum_dp(torch.stack([nll.detach(), aux.detach()]), "dp_all_reduce:metrics")
+        if tr.sp:
+            # this rank's shares summed over tp: the aux loss's, and the
+            # NLL's where it ran on this rank's columns
+            tot = tr.sum_tp(sums, "tp_all_reduce:metrics")
+            sums = torch.stack([tot[0] if shard else sums[0], tot[1]])
         return nll / cnt + 0.01 * aux, {"loss": sums[0] / cnt, "aux": sums[1]}
     loss = nll / torch.clamp_min(cnt, 1.0)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}

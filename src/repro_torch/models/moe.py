@@ -41,6 +41,12 @@ rank's ``E/tp`` experts run on their slots, the others' stay zero, the
 combine (its gates entering the region too) and the shared experts give
 this rank's partial sum, which leaves the region summed over tp. The aux
 loss's token fractions and mean probabilities are over the global batch.
+Where tp does not divide the experts (or the shared experts' width) the
+layer runs whole on every rank. Under sequence parallelism the layer first
+gathers the whole rows (so the dispatch groups, and the capacity drops, are
+the one-device ones), router and experts run on them, and the output is
+reduce-scattered back to this rank's columns; each rank's aux loss is the
+share of its own columns' probabilities.
 """
 
 from __future__ import annotations
@@ -142,6 +148,10 @@ def _expert_mm(w, xs: torch.Tensor, backend, name: str, impl: str) -> torch.Tens
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
             impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (output (B, S, D), Switch aux load-balance loss)."""
+    tr = current_train()
+    cut = tr is not None and tr.cut("moe")
+    if tr is not None and tr.sp:
+        x = tr.block_in(x, cut)        # the whole rows: the one-device dispatch groups
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
 
@@ -151,7 +161,6 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Switch aux loss: E * sum_e (token fraction)_e * (mean prob)_e
-    tr = current_train()
     if tr is None:
         me = probs.mean((0, 1))
         ce = F.one_hot(gate_idx[..., 0], E).to(torch.float32).mean((0, 1))
@@ -165,8 +174,9 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
                             probs.new_full((1,), float(B * S))])
         counts = tr.sum_dp(counts, "dp_all_reduce:moe_aux")
         n = counts[-1]
-        aux = E * torch.sum(probs.sum((0, 1)) / n * (counts[:E] / n))
-        x_tp = tr.enter(x)
+        mine = tr.seq_shard(probs) if tr.sp else probs     # sequence parallel: its columns' share
+        aux = E * torch.sum(mine.sum((0, 1)) / n * (counts[:E] / n))
+        x_tp = tr.enter(x) if cut and not tr.sp else x
 
     # one dispatch group per batch row
     cap = moe_capacity(cfg, S)
@@ -201,7 +211,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
         z = yout.new_zeros
         yout = torch.cat([z((t_ep * E_w,) + yout.shape[1:]), yout,
                           z(((E // E_w - t_ep - 1) * E_w,) + yout.shape[1:])])
-        gate_vals = tr.enter(gate_vals)
+        if not tr.sp:       # under sequence parallelism the router is in the region already
+            gate_vals = tr.enter(gate_vals)
 
     # experts -> groups, then each group's gate-weighted combine
     yg = constrain(yout.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D),
@@ -214,5 +225,5 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend,
         y = y + mlp(p["shared"], x if tr is None else x_tp, backend=backend, name="moe.shared",
                     impl=impl)
     if tr is not None:
-        y = tr.exit(y)
+        y = tr.block_out(y, cut)
     return y, aux

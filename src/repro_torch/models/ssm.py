@@ -11,7 +11,9 @@ conv window ``conv``.
 
 The four projections route through ``quant.qlinear.dense`` (the tuGEMM
 boundary); the depthwise conv and the recurrence stay in floating point, as
-in the reference.
+in the reference. Under a training mesh a rank may hold its ``d_inner/tp``
+channels (``parallel/train_mesh.py``): the widths come from the leaves, and
+the row-parallel ``x_proj``'s output is summed over tp.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.collectives import current_train
 from ..parallel.sharding import constrain
 from ..quant.qlinear import dense
 
@@ -73,6 +76,11 @@ def _ssm_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend, impl: st
     """dt, B, C (f32) and A from the post-conv activations x (B, S, di)."""
     n, r = cfg.ssm_state, cfg.dt_rank
     dbc = dense(p["x_proj"], x, backend=backend, name="ssm.x_proj", impl=impl).to(torch.float32)
+    tr = current_train()
+    if tr is not None and tr.cut("ssm"):
+        # a training mesh's row-parallel x_proj (this rank's channels): its
+        # dt / B / C are partial sums, made whole, and so is their gradient
+        dbc = tr.enter(tr.exit(dbc, "tp_all_reduce:ssm_x_proj"))
     dt_low, B_, C_ = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     dt = dense(p["dt_w"], dt_low.to(x.dtype), backend=backend, name="ssm.dt", impl=impl)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
@@ -98,9 +106,8 @@ def mamba_mixer(cfg: ModelConfig, p: dict, u: torch.Tensor, *, backend,
     "conv": the last ``ssm_conv - 1`` pre-conv inputs (B, <= ck-1, di) f32}.
     As in the reference, a prompt shorter than ``ssm_conv - 1`` tokens gives
     a conv state of only its own length."""
-    di = cfg.d_inner
     xz = dense(p["in_proj"], u, backend=backend, name="ssm.in_proj", impl=impl)
-    x, z = xz[..., :di], xz[..., di:]
+    x, z = xz.chunk(2, dim=-1)      # [x | z]; a training mesh's rank: its channels of each
     x = constrain(x, "batch", None, "act_inner")
     x_act = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]).to(torch.float32))
     dt, B_, C_, A = _ssm_inputs(cfg, p, x_act.to(u.dtype), backend=backend, impl=impl)

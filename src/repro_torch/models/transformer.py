@@ -27,8 +27,11 @@ The KV cache is the dense per-slot layout or the paged pool
 (``quant.surgery.apply_surgery``) linear weights.
 
 Under a training mesh (``parallel/train_mesh.py``) the embedding is
-vocab-parallel and a block's attention and dense MLP run on the rank's
-heads and columns between ``TrainProgram.enter`` and ``exit``.
+vocab-parallel and each sub-block of a block (attention, the Mamba mixer,
+the dense MLP) runs on the rank's heads, channels or columns between
+``TrainProgram.block_in`` and ``block_out``, or whole on every rank where
+tp does not divide its width; under sequence parallelism the residual
+stream holds the rank's columns of the sequence.
 """
 
 from __future__ import annotations
@@ -258,6 +261,40 @@ def _select(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
+class _SubBlocks:
+    """A block's sub-blocks' inputs from one normed ``h`` and their outputs
+    under a training mesh (``TrainProgram.block_in`` / ``block_out``: cut
+    over tp, or whole on every rank; one gather of the sequence serves the
+    hybrid's two branches); without one, ``h`` and the output as they
+    are."""
+
+    def __init__(self, tr, h: torch.Tensor):
+        self.tr, self.h, self.ins = tr, h, {}
+
+    def input(self, kind: str) -> torch.Tensor:
+        if self.tr is None:
+            return self.h
+        cut = self.tr.cut(kind)
+        key = "seq" if self.tr.sp else cut
+        if key not in self.ins:
+            self.ins[key] = self.tr.block_in(self.h, cut)
+        return self.ins[key]
+
+    def output(self, y: torch.Tensor, kind: str) -> torch.Tensor:
+        return y if self.tr is None else self.tr.block_out(y, self.tr.cut(kind))
+
+
+def _dense_mlp(cfg, p: dict, h2: torch.Tensor, tr, *, backend, impl: str) -> torch.Tensor:
+    """The dense MLP sub-block; cut over tp, the row-parallel down
+    projection's bias is added once, after the sum."""
+    sub, bias = _SubBlocks(tr, h2), None
+    if tr is not None and tr.cut("mlp") and "bias" in p["w_down"]:
+        bias = p["w_down"]["bias"]
+        p = {**p, "w_down": {k: v for k, v in p["w_down"].items() if k != "bias"}}
+    y = sub.output(mlp(p, sub.input("mlp"), cfg.mlp_type, backend=backend, impl=impl), "mlp")
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_view, chunk,
                  want_state, impl):
     """One block: returns (x, the block's new SSM state or None, its aux
@@ -265,30 +302,32 @@ def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_vi
     any longer step runs the full scan from a zero state, as the
     reference's does."""
     h = rms_norm(p["norm1"], x, cfg.rms_eps)
-    # a training mesh (parallel/train_mesh.py): the block's attention and
-    # dense MLP run on this rank's heads and columns between enter and exit
+    # a training mesh (parallel/train_mesh.py): each sub-block runs on this
+    # rank's heads / channels / columns, or whole, between block_in and block_out
     tr = current_train()
+    sub = _SubBlocks(tr, h)
     state = None
     if kind.mixer in ("gqa", "mla", "hybrid"):
         attn = mla_attention if kind.mixer == "mla" else gqa_attention
         kv_cache = None
         if cache is not None and ("k" in cache or "ckv" in cache):
             kv_cache = {n: t for n, t in cache.items() if n not in ("h", "conv")}
-        y = y_attn = attn(cfg, p["attn"], h if tr is None else tr.enter(h), positions,
-                          backend=backend, cache=kv_cache, cache_pos=cache_pos, kv_view=kv_view,
-                          is_global=kind.is_global, chunk=chunk, impl=impl)
-        if tr is not None:
-            y = y_attn = tr.exit(y)
+        y = y_attn = sub.output(
+            attn(cfg, p["attn"], sub.input("attn"), positions, backend=backend, cache=kv_cache,
+                 cache_pos=cache_pos, kv_view=kv_view, is_global=kind.is_global, chunk=chunk,
+                 impl=impl), "attn")
     if kind.mixer in ("ssm", "hybrid"):
         if cache is not None and "h" in cache and x.shape[1] == 1:
             y_ssm, state = mamba_decode_step(cfg, p["ssm"], h,
                                              {"h": cache["h"], "conv": cache["conv"]},
                                              backend=backend, impl=impl)
         else:
-            y_ssm, state = mamba_mixer(cfg, p["ssm"], h, backend=backend, impl=impl,
-                                       return_state=want_state)
+            y_ssm, state = mamba_mixer(cfg, p["ssm"], sub.input("ssm"), backend=backend,
+                                       impl=impl, return_state=want_state)
+            y_ssm = sub.output(y_ssm, "ssm")
         y = y_ssm
     if kind.mixer == "hybrid":
+        # both branches are whole here (a norm is not linear in a partial sum)
         y = 0.5 * (rms_norm(p["fuse_attn_norm"], y_attn, cfg.rms_eps)
                    + rms_norm(p["fuse_ssm_norm"], y_ssm, cfg.rms_eps))
     x = x + constrain(y, "batch", "seq", "act_embed")
@@ -298,10 +337,7 @@ def _apply_block(*, cfg, kind, p, x, positions, backend, cache, cache_pos, kv_vi
     if kind.moe:
         y2, aux = moe_ffn(cfg, p["ffn"], h2, backend=backend, impl=impl)
         return x + constrain(y2, "batch", "seq", "act_embed"), state, aux
-    if tr is not None:
-        y2 = mlp(p["ffn"], tr.enter(h2), cfg.mlp_type, backend=backend, impl=impl)
-        return x + constrain(tr.exit(y2), "batch", "seq", "act_embed"), state, None
-    y2 = mlp(p["ffn"], h2, cfg.mlp_type, backend=backend, impl=impl)
+    y2 = _dense_mlp(cfg, p["ffn"], h2, tr, backend=backend, impl=impl)
     return x + constrain(y2, "batch", "seq", "act_embed"), state, None
 
 
@@ -333,14 +369,19 @@ def forward(
     backend = step_backend(cfg, rc, params)
     dtype = torch_dtype(rc.dtype)
     tr = current_train()
+    # the step's whole width (under sequence parallelism x holds this
+    # rank's columns; positions stay global)
+    B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[:2]
     if "tokens" in batch and tr is not None:
         x = tr.embed(params["embed"]["embedding"], batch["tokens"], dtype)
     elif "tokens" in batch:
         x = embed_lookup(params["embed"], batch["tokens"], dtype)
     else:
-        x = dense(params["frontend_proj"], batch["embeds"].to(dtype), backend=backend,
-                  name="frontend", impl=impl)
-    B, S = x.shape[:2]
+        embeds = batch["embeds"]
+        if tr is not None and tr.sp:
+            embeds = tr.seq_shard(embeds)
+        x = dense(params["frontend_proj"], embeds.to(dtype), backend=backend, name="frontend",
+                  impl=impl)
     if "positions" in batch:
         positions = batch["positions"]
     else:
@@ -349,7 +390,7 @@ def forward(
             positions = cache_pos.long()[:, None] + cols
         else:
             positions = (cols + (cache_pos or 0)).expand(B, S)
-    at_layer(None, step=(B, S))
+    at_layer(None, step=tuple(x.shape[:2]))
     x = constrain(x, "batch", "seq", "act_embed")
     want_state = caches is not None
     # remat (rc.remat) only where a backward will run: grad on, no caches

@@ -27,8 +27,10 @@ The sharded train step (``parallel/train_mesh.py``) activates a
 :class:`TrainProgram` instead: the conjugate pair of Megatron's
 tensor-parallel cut (``enter``: identity forward, sum over tp backward;
 ``exit``: sum over tp forward, identity backward) as autograd Functions,
-the vocab-parallel embedding and cross-entropy, and the sums over the
-batch's ranks.
+their sequence-parallel pair (an all-gather of the sequence forward and a
+reduce-scatter backward into a sub-block; a reduce-scatter forward and an
+all-gather backward out of it), the vocab-parallel embedding and
+cross-entropy, and the sums over the batch's ranks.
 
 Tensors move as bytes: every gather reinterprets its operand as ``uint8``
 and views the result back, which is exact whatever dtypes a backend's
@@ -488,6 +490,43 @@ class _Enter(torch.autograd.Function):
         return ctx.prog.reduce_tp(g, "tp_all_reduce:enter_bwd"), None
 
 
+class _SeqGather(torch.autograd.Function):
+    """Where the sequence-sharded residual stream enters a sub-block under
+    sequence parallelism: every tp rank's columns all-gathered along the
+    sequence (dim 1) forward; backward, the ranks' partial gradients summed
+    and each rank's columns kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, prog):
+        ctx.prog = prog
+        return prog.run("tp_all_gather:seq", "all_gather", x, prog.tp, all_gather_dim,
+                        prog.tp_group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.prog
+        return p.run("tp_reduce_scatter:seq_bwd", "reduce_scatter", g, p.tp, reduce_scatter_dim,
+                     p.tp_group, 1), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Where a cut sub-block's partial sums leave it under sequence
+    parallelism: summed over tp and each rank's columns kept forward (a
+    reduce-scatter along the sequence); backward, the columns' gradients
+    all-gathered (every rank's partial sum needs every column's)."""
+
+    @staticmethod
+    def forward(ctx, x, prog, label):
+        ctx.prog = prog
+        return prog.run(label, "reduce_scatter", x, prog.tp, reduce_scatter_dim, prog.tp_group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.prog
+        return p.run("tp_all_gather:seq_bwd", "all_gather", g, p.tp, all_gather_dim, p.tp_group,
+                     1), None, None
+
+
 class _Exit(torch.autograd.Function):
     """Where a tensor-parallel region's partial sums leave it: summed over
     tp forward, identity backward (every tp rank's consumer is the same
@@ -505,19 +544,27 @@ class _Exit(torch.autograd.Function):
 @dataclass
 class TrainProgram:
     """One rank's view of a sharded train step (``parallel/train_mesh.py``),
-    consulted by the model body: ``models.transformer`` (a block's attention
-    and MLP between :meth:`enter` and :meth:`exit`, the vocab-parallel
-    embedding), ``models.moe`` (the rank's experts, the batch-global aux
-    loss) and ``models.model.loss_fn`` (the vocab-parallel cross-entropy,
-    the loss over the global batch). Every collective is metered by label:
-    calls, operand bytes and the ring model's bytes received a rank
-    (:func:`ring_bytes`); ``comm_s`` is the wall time inside them."""
+    consulted by the model body: ``models.transformer`` (a block's
+    sub-blocks between :meth:`block_in` and :meth:`block_out`, the
+    vocab-parallel embedding), ``models.ssm`` (the row-parallel
+    ``x_proj``'s sum), ``models.moe`` (the rank's experts, the batch-global
+    aux loss) and ``models.model.loss_fn`` (the vocab-parallel
+    cross-entropy, the loss over the global batch). ``cuts`` names the
+    sub-blocks cut over tp (``attn``, ``mlp``, ``moe``, ``ssm``, and
+    ``vocab`` for the embedding and head); one that tp does not divide runs
+    whole on every tp rank. ``sp``: sequence parallelism (``seq ->
+    model``), the residual stream between sub-blocks holds this rank's
+    ``S/tp`` columns. Every collective is metered by label: calls, operand
+    bytes and the ring model's bytes received a rank (:func:`ring_bytes`);
+    ``comm_s`` is the wall time inside them."""
 
     tp: int = 1
     t: int = 0
     tp_group: object = None
     dp_group: object = None             # the ranks of this tp column: the batch's split
     dp: int = 1
+    cuts: frozenset = frozenset()
+    sp: bool = False
     meter: dict = field(default_factory=dict)
     comm_s: float = 0.0
 
@@ -547,23 +594,62 @@ class TrainProgram:
             return x.detach()
         return self.run(label, "all_reduce", x, self.dp, all_reduce, self.dp_group)
 
+    def sum_tp(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        """``x`` (no gradient) summed over tp."""
+        if self.tp == 1:
+            return x.detach()
+        return self.run(label, "all_reduce", x, self.tp, all_reduce, self.tp_group)
+
     # ------------------------------------------------------ model-body hooks
+    def cut(self, kind: str) -> bool:
+        """Whether the sub-block ``kind`` runs cut over tp (else whole on
+        every tp rank)."""
+        return self.tp > 1 and kind in self.cuts
+
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(x, self) if self.tp > 1 else x
 
     def exit(self, x: torch.Tensor, label: str = "tp_all_reduce:exit") -> torch.Tensor:
         return _Exit.apply(x, self, label) if self.tp > 1 else x
 
+    def seq_shard(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's ``1/tp`` of the sequence (dim ``dim``) of ``x``."""
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.t * n, n)
+
+    def block_in(self, x: torch.Tensor, cut: bool) -> torch.Tensor:
+        """A sub-block's input from the residual stream: under sequence
+        parallelism the whole sequence, gathered (its backward sums the
+        ranks' gradients); else, into a cut sub-block, :meth:`enter`; a
+        sub-block run whole takes ``x`` as it is."""
+        if self.sp:
+            return _SeqGather.apply(x, self)
+        return self.enter(x) if cut else x
+
+    def block_out(self, y: torch.Tensor, cut: bool, label: str = "tp_all_reduce:exit"):
+        """A sub-block's output back to the residual stream: a cut one's
+        partial sums summed over tp (under sequence parallelism
+        reduce-scattered to this rank's columns); a whole one's ``y`` (its
+        own columns under sequence parallelism: the other ranks' columns'
+        gradients are theirs)."""
+        if self.sp:
+            return _SeqScatter.apply(y, self, "tp_reduce_scatter:seq") if cut else self.seq_shard(y)
+        return self.exit(y, label) if cut else y
+
     def embed(self, table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
         """The vocab-parallel lookup: this rank's rows of the table (a
-        ``1/tp`` vocab range), zero for a token outside it, summed over
-        tp."""
-        if self.tp == 1:
-            return table.to(dtype)[tokens]
+        ``1/tp`` vocab range), zero for a token outside it, summed over tp
+        (reduce-scattered to this rank's columns under sequence
+        parallelism). A vocab that tp does not divide is looked up whole (on
+        this rank's columns under sequence parallelism)."""
+        if not self.cut("vocab"):
+            return table.to(dtype)[self.seq_shard(tokens) if self.sp else tokens]
         v = table.shape[0]
         local = tokens.long() - self.t * v
         inside = (local >= 0) & (local < v)
         x = table.to(dtype)[local.clamp(0, v - 1)] * inside[..., None].to(dtype)
+        if self.sp:
+            return _SeqScatter.apply(x, self, "tp_reduce_scatter:embed")
         return self.exit(x, "tp_all_reduce:embed")
 
     def xent(self, logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):

@@ -14,16 +14,51 @@ tree.
 
 **Compute** (Megatron's cut). The batch splits over the data axes: rank
 (d, ·) takes rows ``[d·B/dp, (d+1)·B/dp)`` as ``batch_specs`` says. The
-``model`` ranks of a row split every GEMM whose weight is sharded on
-``model``: q / k / v, gate / up and MLA's q and absorbed ``w_uk`` / ``w_uv``
-are column-parallel on the rank's heads and columns, o and down are
-row-parallel on its heads and columns (the stored ``("heads", "embed")`` /
-``("mlp", "embed")`` layout), the experts are the rank's ``E/tp``, and the
-embedding and the LM head are vocab-parallel. Between a replicated
-activation and such a region sits ``TrainProgram.enter`` (identity forward,
-sum over tp backward); where the region's partial sums leave it,
-``TrainProgram.exit`` (sum over tp forward, identity backward). The MoE
-router, the norms and the residual stream are replicated over tp.
+``model`` ranks of a row split every sub-block whose width tp divides
+(:func:`compute_cuts`): attention on its heads (GQA: q and kv heads both;
+q / k / v and MLA's q and absorbed ``w_uk`` / ``w_uv`` column-parallel, o
+row-parallel), the dense MLP on its columns (gate / up column-parallel with
+up's bias, down row-parallel, its bias added once after the sum), the MoE
+layer on its ``E/tp`` experts and the shared experts' columns, the Mamba
+mixer on its ``d_inner/tp`` channels, and the embedding and LM head on
+their vocab. Between the replicated residual stream and a cut sub-block sits
+``TrainProgram.enter`` (identity forward, sum over tp backward); where its
+partial sums leave it, ``TrainProgram.exit`` (sum over tp forward, identity
+backward). The MoE router, the norms and the residual stream are
+replicated over tp. A sub-block whose heads, kv heads, ``d_ff``, experts or
+``d_inner`` tp does not divide runs whole on every tp rank, outside enter
+and exit (its input gradient is whole on every rank, and so are its
+leaves'); a vocab tp does not divide takes the plain lookup and the plain
+cross-entropy. The reference's partitioner replicates such a dim the same
+way; :func:`validate` counts each in the context's ``replicated_dims``.
+
+The Mamba mixer's cut: ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``,
+``D`` and the scan are the rank's channels; ``x_proj`` is row-parallel, so
+its dt / B / C are partial sums, made whole by one tp all-reduce (and their
+gradient by another); ``dt_w`` is column-parallel and ``out_proj``
+row-parallel. ``in_proj``'s output is ``[x | z]`` along ``2·d_inner`` and
+the stored spec cuts that dim contiguously, so rank t's stored columns are
+not its channels: its compute view is the *paired* cut, x columns
+``[t·di/tp, (t+1)·di/tp)`` and the same z columns, taken from the leaf
+all-gathered over tp (``_view``); its gradient goes back by an all-gather
+of the ranks' paired gradients over tp, reordered to ``[x | z]``, and the
+stored part's columns kept (``_grad``). A hybrid block's attention and
+SSM branches each leave their cut before the fuse's norms, which are not
+linear in a partial sum.
+
+**Sequence parallelism** (``seq -> model``, Megatron's). Between
+sub-blocks a rank's residual stream holds its ``S/tp`` columns, and the
+norms and residual adds run on them; a sub-block's entry all-gathers the
+sequence (its backward reduce-scatters) in place of enter, and a cut
+sub-block's exit reduce-scatters (its backward all-gathers) in place of the
+all-reduce; a whole one keeps its own columns. So attention, the scan and
+the MoE dispatch see the whole sequence (global positions, the one-device
+dispatch groups and capacity drops), and the final norm runs on the shard
+before the head and the vocab-parallel cross-entropy take the gathered
+rows. Every leaf computed whole then gets a partial gradient (each rank's
+columns'), summed over tp; so does the aux loss, each rank's share its own
+columns' probabilities; with a vocab tp does not divide, each rank's NLL is
+its own columns'. ``S`` must divide by tp.
 
 A step starts by putting together each parameter's compute view from the
 stored parts (an all-gather over the data axes along the dim sharded on
@@ -53,10 +88,9 @@ What must equal the one-process step, and how it does:
 
 Under gloo (the ranks of one machine) every collective of the step meets
 in shared host memory (``parallel/host_shm.py``), whatever device the
-tensors are on; under nccl, on the cards. Refused: the SSM and hybrid mixers,
-the audio frontend and the gelu MLP (no tp cut here), a rules table that
+tensors are on; under nccl, on the cards. Refused: a rules table that
 shards the batch other than over every non-``model`` axis, and one that
-shards the sequence (no sequence parallelism).
+shards the sequence over any axis but ``model``.
 """
 
 from __future__ import annotations
@@ -76,7 +110,7 @@ import torch
 from ..configs.base import ModelConfig, RunConfig
 from ..tree import leaves, leaves_with_paths, tree_map, tree_map_with_path, unflatten_like
 from . import collectives as coll
-from .sharding import MeshShape, ReplicatedDimWarning, spec_for, use_mesh
+from .sharding import MeshShape, ReplicatedDimWarning, current_ctx, spec_for, use_mesh
 from .state_sharding import (
     _flat,
     _index,
@@ -87,7 +121,8 @@ from .state_sharding import (
     train_state_specs,
 )
 
-__all__ = ["MODEL_AXIS", "validate", "tp_cut", "InitParts", "GivenParts", "TrainEngine"]
+__all__ = ["MODEL_AXIS", "validate", "compute_cuts", "tp_cut", "InitParts", "GivenParts",
+           "TrainEngine"]
 
 MODEL_AXIS = "model"
 
@@ -100,64 +135,99 @@ def _dp_axes(mesh: MeshShape) -> tuple:
     return tuple(a for a in mesh.axes if a != MODEL_AXIS)
 
 
+def _compute_dims(cfg: ModelConfig) -> list:
+    """(logical axis, size, sub-block) of every width the compute cuts over
+    tp."""
+    dims = []
+    if cfg.family in ("ssm", "hybrid"):
+        dims.append(("inner", cfg.d_inner, "ssm"))
+    if cfg.family != "ssm":
+        dims.append(("heads", cfg.num_heads, "attn"))
+        if cfg.attn_type == "gqa":
+            dims.append(("kv_heads", cfg.num_kv_heads, "attn"))
+        if any(not cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
+            dims.append(("mlp", cfg.d_ff, "mlp"))
+        if cfg.num_experts:
+            dims.append(("experts", cfg.num_experts, "moe"))
+            if cfg.num_shared_experts:
+                dims.append(("mlp", (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts, "moe"))
+    dims.append(("vocab", cfg.vocab_size, "vocab"))
+    return dims
+
+
+def compute_cuts(cfg: ModelConfig, tp: int) -> frozenset:
+    """The sub-blocks the step cuts over tp (``attn``, ``mlp``, ``moe``,
+    ``ssm``, ``vocab``): those whose every width tp divides; the others
+    run whole on every tp rank."""
+    if tp == 1:
+        return frozenset()
+    dims = _compute_dims(cfg)
+    return frozenset(k for _, _, k in dims if all(n % tp == 0 for _, n, kk in dims if kk == k))
+
+
 def validate(cfg: ModelConfig, rc: RunConfig, mesh: MeshShape):
-    """Refuse what the sharded step does not cut: raises
-    ``NotImplementedError`` for an arch outside its cut and ``ValueError``
-    for a width that tp does not divide."""
-    if (cfg.family in ("ssm", "hybrid") or cfg.attn_type not in ("gqa", "mla")
-            or cfg.frontend == "audio" or cfg.mlp_type != "swiglu"):
-        raise NotImplementedError(f"{cfg.name}: the training mesh cuts GQA / MLA attention and "
-                                  "SwiGLU / MoE FFNs only (no SSM, hybrid, audio or gelu)")
-    tp = _tp(mesh)
-    need = {"vocab_size": cfg.vocab_size, "num_heads": cfg.num_heads}
-    if cfg.attn_type == "gqa":
-        need["num_kv_heads"] = cfg.num_kv_heads
-    if any(not cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
-        need["d_ff"] = cfg.d_ff
-    if cfg.num_experts:
-        need["num_experts"] = cfg.num_experts
-        if cfg.num_shared_experts:
-            need["shared d_ff"] = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
-    bad = {k: v for k, v in need.items() if v % tp}
-    if bad:
-        raise ValueError(f"{cfg.name}: model={tp} must divide {bad}")
+    """Refuse what the sharded step does not cut (``NotImplementedError``):
+    a batch split other than over every non-``model`` axis in mesh order,
+    and a sequence sharded over any axis but ``model``. Under an active
+    mesh context, every width tp does not divide (heads, kv heads, d_ff,
+    experts, d_inner, vocab) counts in its ``replicated_dims`` as
+    ``spec_for`` counts it (the sub-block runs whole on every tp rank)."""
+    if current_ctx() is not None:
+        for name, n, _ in _compute_dims(cfg):
+            spec_for((name,), (n,))
     with use_mesh(mesh, overrides=rc.sharding_overrides) as ctx:
         rows, seq = ctx.rules.get("batch"), ctx.rules.get("seq")
-    if seq is not None:
-        raise NotImplementedError(f"the training mesh does not shard the sequence (sequence "
-                                  f"parallelism is not cut); the rules give seq -> {seq!r}")
+    if seq is not None and tuple(_flat(seq)) != (MODEL_AXIS,):
+        raise NotImplementedError(f"the training mesh shards the sequence over {MODEL_AXIS!r} "
+                                  f"only (sequence parallelism); the rules give seq -> {seq!r}")
     if set(_flat(rows)) != set(_dp_axes(mesh)) or tuple(_flat(rows)) != tuple(
             a for a in mesh.axes if a in _flat(rows)):
         raise NotImplementedError(f"the training mesh splits the batch over {_dp_axes(mesh)} in "
                                   f"mesh order; the rules give {rows!r}")
 
 
-def tp_cut(keys: tuple, ndim: int, tp: int) -> tuple:
+# a cut Mamba mixer's leaves: the compute cut's dim, counted from the end
+_SSM_CUT = {"in_proj": 1, "x_proj": 2, "dt_w": 1, "out_proj": 2, "conv_w": 1, "conv_b": 1,
+            "dt_bias": 1, "A_log": 2, "D": 1}
+
+
+def tp_cut(keys: tuple, ndim: int, cuts: frozenset, sp: bool = False) -> tuple:
     """(the dim of a parameter leaf cut over tp in the compute, or None;
-    whether its gradient is partial over tp), by the leaf's path."""
-    if tp == 1:
-        return None, False
+    whether its gradient is partial over tp; whether the cut is
+    ``in_proj``'s paired one), by the leaf's path and the step's ``cuts``
+    (:func:`compute_cuts`) and sequence parallelism ``sp``. A leaf computed
+    whole has a partial gradient where it is used inside a cut sub-block
+    on that sub-block's part (q / k norms, MLA's ``w_dkv`` and ``kv_norm``)
+    and, under ``sp``, everywhere (each rank computes on its columns)."""
+    if not cuts:
+        return None, False, False
     parent = keys[-2] if len(keys) >= 2 else ""
+    c_dim, inside = None, False
     if keys[0] == "embed":
-        return 0, False                       # vocab rows
-    if keys[0] == "head":
-        return ndim - 1, False                # vocab columns
-    if "attn" in keys:
-        if parent in ("wq", "wk", "wv"):
-            return ndim - 1, False
-        if parent == "wo":
-            return ndim - 2, False
-        if parent in ("w_uk", "w_uv"):
-            return ndim - 2, False            # (layers, lora, heads, d)
-        return None, True                     # q / k / kv norms, w_dkv: used on local heads
-    if "ffn" in keys:
-        if "experts" in keys:
-            return 1, False                   # (layers, experts, ...)
-        if parent in ("w_gate", "w_up"):
-            return ndim - 1, False
-        if parent == "w_down":
-            return ndim - 2, False
-    return None, False                        # norms, the router: replicated compute
+        c_dim = 0 if "vocab" in cuts else None                      # vocab rows
+    elif keys[0] == "head":
+        c_dim = ndim - 1 if "vocab" in cuts else None               # vocab columns
+    elif "attn" in keys:
+        if "attn" in cuts:
+            inside = True
+            if parent in ("wq", "wk", "wv"):
+                c_dim = ndim - 1
+            elif parent in ("wo", "w_uk", "w_uv"):
+                c_dim = ndim - 2                # w_uk / w_uv: (layers, lora, heads, d)
+    elif "ssm" in keys:
+        if "ssm" in cuts:
+            c_dim = ndim - _SSM_CUT[parent if keys[-1] in ("kernel", "bias") else keys[-1]]
+    elif "ffn" in keys:
+        moe = any(k in keys for k in ("experts", "router", "shared"))
+        if ("moe" if moe else "mlp") in cuts:
+            if "experts" in keys:
+                c_dim = 1                       # (layers, experts, ...)
+            elif parent in ("w_gate", "w_up"):
+                c_dim = ndim - 1                # the kernel's columns and up's bias
+            elif parent == "w_down" and keys[-1] == "kernel":
+                c_dim = ndim - 2                # its bias is added after the sum
+    partial = c_dim is None and (sp or inside)
+    return c_dim, partial, c_dim is not None and "ssm" in keys and parent == "in_proj"
 
 
 @dataclass(frozen=True)
@@ -171,9 +241,11 @@ class LeafPlan:
     rest_dp: tuple
     c_dim: int | None
     partial: bool
+    paired: bool = False
 
 
-def _plan(name: str, ndim: int, spec: tuple, mesh: MeshShape) -> LeafPlan:
+def _plan(name: str, ndim: int, spec: tuple, mesh: MeshShape, cuts: frozenset,
+          sp: bool) -> LeafPlan:
     m_dim, d_dims = None, []
     for i, entry in enumerate(spec):
         axes = _flat(entry)
@@ -189,9 +261,9 @@ def _plan(name: str, ndim: int, spec: tuple, mesh: MeshShape) -> LeafPlan:
                 raise NotImplementedError(f"{name}: mesh axes {axes} out of mesh order")
             d_dims.append((i, axes))
     used = {a for _, axes in d_dims for a in axes}
-    c_dim, partial = tp_cut(tuple(name.split("/")), ndim, _tp(mesh))
+    c_dim, partial, paired = tp_cut(tuple(name.split("/")), ndim, cuts, sp)
     return LeafPlan(m_dim, tuple(d_dims), tuple(a for a in _dp_axes(mesh) if a not in used),
-                    c_dim, partial)
+                    c_dim, partial, paired)
 
 
 # ------------------------------------------------------------ param sources
@@ -257,23 +329,29 @@ class TrainEngine:
         from ..optim.adamw import AdamWState, _q8, _q8_log, _quantize_moments
         from .serve_mesh import MeshSpec, local_config
 
-        validate(cfg, rc, mesh)
         self.cfg, self.rc, self.mesh, self.rank = cfg, rc, mesh, rank
         self.coords = mesh.coords(rank)
         self.device = torch.device(device)
         self.tp = _tp(mesh)
         self.t = self.coords.get(MODEL_AXIS, 0)
         self.dp = mesh.size // self.tp
-        self.cfg_local = local_config(cfg, MeshSpec(self.dp, self.tp))
+        self.cuts = compute_cuts(cfg, self.tp)
+        # the model body's view: heads divided where attention is cut (the
+        # expert count stays global, d_inner is read off the leaves)
+        self.cfg_local = local_config(cfg, MeshSpec(self.dp, self.tp if "attn" in self.cuts
+                                                    else 1))
         self.barrier = ctl_barrier
-        with warnings.catch_warnings(), use_mesh(mesh, overrides=rc.sharding_overrides):
+        with warnings.catch_warnings(), use_mesh(mesh, overrides=rc.sharding_overrides) as ctx:
             if rank:        # rank 0 (the controller) warns for the mesh
                 warnings.simplefilter("ignore", ReplicatedDimWarning)
+            validate(cfg, rc, mesh)
+            self.sp = self.tp > 1 and ctx.rules.get("seq") is not None
             abstract = abstract_train_state(cfg, rc)
             self.specs = train_state_specs(cfg, rc, abstract)
             self.row_entry = spec_for(("batch",), None)[0]
         self.shapes = {n: tuple(t.shape) for n, t in leaves_with_paths(abstract)}
-        self.plans = [_plan(n[len("params/"):], len(self.shapes[n]), self.specs[n], mesh)
+        self.plans = [_plan(n[len("params/"):], len(self.shapes[n]), self.specs[n], mesh,
+                            self.cuts, self.sp)
                       for n, _ in leaves_with_paths(abstract["params"], "params")]
         # every group the step uses, created in one order on every rank
         subsets = {frozenset({MODEL_AXIS}) & set(mesh.axes), frozenset(_dp_axes(mesh)),
@@ -335,16 +413,23 @@ class TrainEngine:
         return math.prod(self.mesh.shape[a] for a in axes)
 
     def _view(self, plan: LeafPlan, part: torch.Tensor, prog) -> torch.Tensor:
-        """The compute view of one parameter from this rank's part."""
+        """The compute view of one parameter from this rank's part. A
+        paired cut (``in_proj``) takes this rank's x columns and the same z
+        columns of the leaf put together over tp."""
         x = part
         for dim, axes in plan.d_dims:
             x = prog.run("fsdp_all_gather", "all_gather", x, self._size(axes),
                          coll.all_gather_dim, self._group(axes), dim)
-        if plan.m_dim != plan.c_dim:
+        if plan.m_dim != plan.c_dim or plan.paired:
             if plan.m_dim is not None:
                 x = prog.run("tp_all_gather:weights", "all_gather", x, self.tp,
                              coll.all_gather_dim, self._group({MODEL_AXIS}), plan.m_dim)
-            if plan.c_dim is not None:
+            if plan.paired:
+                half = x.shape[plan.c_dim] // 2
+                n = half // self.tp
+                x = torch.cat([x.narrow(plan.c_dim, self.t * n, n),
+                               x.narrow(plan.c_dim, half + self.t * n, n)], plan.c_dim)
+            elif plan.c_dim is not None:
                 n = x.shape[plan.c_dim] // self.tp
                 x = x.narrow(plan.c_dim, self.t * n, n)
         return x.detach().requires_grad_(True)
@@ -352,14 +437,24 @@ class TrainEngine:
     def _grad(self, plan: LeafPlan, g: torch.Tensor, prog) -> torch.Tensor:
         """A compute view's gradient reduced onto this rank's stored part
         (in the gradient's dtype, as the reference's partitioner reduces
-        it), then in f32."""
-        if plan.partial and plan.c_dim is None:
+        it), then in f32. A partial one is summed over tp first
+        (reduce-scattered where the stored part is cut on ``model``); a
+        paired one's ranks' gradients are gathered and put back in ``[x |
+        z]`` order."""
+        tp_group = self._group({MODEL_AXIS}) if self.tp > 1 else None
+        if plan.partial and plan.m_dim is not None:
+            g = prog.run("grad_reduce_scatter:tp", "reduce_scatter", g, self.tp,
+                         coll.reduce_scatter_dim, tp_group, plan.m_dim)
+        elif plan.partial:
             g = prog.run("grad_all_reduce:tp", "all_reduce", g, self.tp, coll.all_reduce,
-                         self._group({MODEL_AXIS}))
-        if plan.m_dim != plan.c_dim:
+                         tp_group)
+        elif plan.m_dim != plan.c_dim or plan.paired:
             if plan.c_dim is not None:
                 g = prog.run("tp_all_gather:grads", "all_gather", g, self.tp,
-                             coll.all_gather_dim, self._group({MODEL_AXIS}), plan.c_dim)
+                             coll.all_gather_dim, tp_group, plan.c_dim)
+            if plan.paired:     # [x_0 z_0 x_1 z_1 ...] -> [x_0 x_1 ... z_0 z_1 ...]
+                c, n = plan.c_dim, g.shape[plan.c_dim] // (2 * self.tp)
+                g = g.unflatten(c, (self.tp, 2, n)).transpose(c, c + 1).flatten(c, c + 2)
             if plan.m_dim is not None:
                 n = g.shape[plan.m_dim] // self.tp
                 g = g.narrow(plan.m_dim, self.t * n, n).contiguous()
@@ -455,6 +550,15 @@ class TrainEngine:
             out[n] = x.narrow(ax, lo, B // (k * self.dp)).to(self.device)
         return out
 
+    def check_batch(self, batch: dict) -> None:
+        """Raise ``ValueError`` for a global batch whose sequence length tp
+        does not divide under sequence parallelism (before any rank starts
+        the step)."""
+        S = batch["labels"].shape[1]
+        if self.sp and S % self.tp:
+            raise ValueError(f"sequence parallelism splits the sequence over model={self.tp}: "
+                             f"a sequence of {S} tokens does not divide by {self.tp}")
+
     def step(self, batch: dict) -> dict:
         """One train step on the global ``batch`` (every rank is given the
         whole batch and takes its rows): {"metrics": the step's loss, aux,
@@ -466,7 +570,8 @@ class TrainEngine:
 
         t0 = time.perf_counter()
         rc = self.rc
-        prog = coll.TrainProgram(tp=self.tp, t=self.t, dp=self.dp,
+        self.check_batch(batch)
+        prog = coll.TrainProgram(tp=self.tp, t=self.t, dp=self.dp, cuts=self.cuts, sp=self.sp,
                                  tp_group=self.groups.get(frozenset({MODEL_AXIS})),
                                  dp_group=self.groups.get(frozenset(_dp_axes(self.mesh))))
         self._prog = prog

@@ -204,6 +204,7 @@ class Trainer:
         self.rank_steps: list = []     # a step's {"meter", "laps", "seconds"} by rank
         while self.step < end:
             batch = {n: t.cpu() for n, t in next(batches).items()}
+            self.engine.check_batch(batch)
             t0 = time.perf_counter()
             out = self._mesh_call("train_step", batch)
             dt = time.perf_counter() - t0

@@ -22,10 +22,10 @@ same step, lowered with no mesh (the C4 breakage is in ``jax.make_mesh``),
 
 A production cell: ``deepseek-v2-lite-16b × decode_32k`` on 16×16 prices
 (``[ok]``, a row priced on ``h100``) and ``qwen3-0.6b × decode_32k`` fails
-with its kv-head refusal; a train cell fails on the sequence-parallel
-override. The collective parity against real gloo runs is in
-``test_torch_mesh_train.py`` / ``test_torch_mesh_serve.py``, whose pools
-the cases share.
+with its kv-head refusal; the train cells the training mesh once refused
+(sequence parallelism, a tp that does not divide the heads) price. The
+collective parity against real gloo runs is in ``test_torch_mesh_train.py``
+/ ``test_torch_mesh_serve.py``, whose pools the cases share.
 """
 
 import json
@@ -150,14 +150,32 @@ def test_production_cell_prices_and_refusal_fails(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch,shape,words", [
-    ("deepseek-v2-lite-16b", "train_4k", "the training mesh does not shard the sequence"),
     ("falcon-mamba-7b", "decode_32k", "not chunk-resumable"),
     ("hubert-xlarge", "prefill_32k", "encoder-only"),
-    ("qwen2-vl-7b", "train_4k", "model=16 must divide"),
 ])
 def test_refused_cells_name_their_cause(arch, shape, words):
     with pytest.raises(dryrun.Refused, match=words):
         dryrun.run_cell(arch, SHAPES[shape], multi_pod=False)
+
+
+@pytest.mark.parametrize("arch,replicated", [("deepseek-v2-lite-16b", 0), ("qwen2-vl-7b", 2)])
+def test_train_cells_once_refused_now_price(arch, replicated):
+    """The train cells the training mesh refused (the ``seq -> model``
+    override; qwen2-vl's 28 heads and 4 kv heads on model=16) price on
+    16×16: sequence parallelism's gathers and reduce-scatters are on the
+    row's collectives, one reduce-scatter backward a gather forward, and
+    the widths computed whole count in its
+    ``replicated_dims`` (the state's specs replicate none here)."""
+    row = dryrun.run_cell(arch, SHAPES["train_4k"], multi_pod=False)
+    assert row["hlo_flops_per_chip"] > 0 and row["collective_bytes_per_chip"] > 0
+    assert row["peak_bytes_per_chip"] >= row["argument_bytes_per_chip"] > 0
+    labels = row["collectives_by_label"]
+    assert {"tp_all_gather:seq", "tp_reduce_scatter:seq", "tp_reduce_scatter:seq_bwd",
+            "tp_all_gather:seq_bwd"} <= set(labels)
+    # remat block: a block's gathers run again in its recompute; the head's once
+    assert labels["tp_all_gather:seq"]["calls"] == \
+        2 * labels["tp_reduce_scatter:seq_bwd"]["calls"] - 1
+    assert row["replicated_dims"] == replicated
 
 
 def test_live_cells_and_skips_are_the_references():

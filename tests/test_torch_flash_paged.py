@@ -318,20 +318,25 @@ def test_split_combine_mla_step_matches_the_plain_version(sq):
 
 
 def test_kernel_shape_plan_refuses_rows_not_whole_16_bytes():
-    """The kernel copies and reads token rows 16 bytes at a time: int8 head
-    widths must be multiples of 16, bf16 of 8, f32 of 4; the query's too."""
+    """Rows that are not whole 16-byte pieces (int8 head widths not a
+    multiple of 16, bf16 of 8, f32 of 4; the query's too) are no longer
+    refused: the kernel takes them on its narrow path. The plan still
+    refuses what no path takes: an empty head and more than 512 V
+    columns."""
     from repro_torch.kernels.flash_paged import _shape_plan
 
-    def plan(f, kv_dtype, q_dtype=torch.bfloat16):
+    def plan(f, kv_dtype, q_dtype=torch.bfloat16, hdv=None):
         scale = ((9, 16), torch.float32) if kv_dtype == torch.int8 else None
         return _shape_plan((2, 1, 4, f), q_dtype, 2, (((9, 16, 2 * f), kv_dtype),),
-                           (9, 16, 2 * f), kv_dtype, (scale, scale), (2, 4), (2,), (2,), 132)
+                           (9, 16, 2 * (hdv or f)), kv_dtype, (scale, scale), (2, 4), (2,), (2,),
+                           132)
 
     assert plan(16, torch.int8)[:2] == ([16], 16)
     assert plan(8, torch.bfloat16)[:2] == ([8], 8)
-    for f, dt in ((8, torch.int8), (4, torch.bfloat16)):
-        with pytest.raises(ValueError, match="16-byte rows"):
-            plan(f, dt)
-    with pytest.raises(ValueError, match="16-byte rows"):
-        plan(4, torch.float32)                 # f32 pools fine, bf16 q rows of 8 bytes not
+    for f, dt in ((8, torch.int8), (4, torch.bfloat16), (20, torch.int8), (20, torch.bfloat16),
+                  (5, torch.int8), (3, torch.bfloat16)):
+        assert plan(f, dt)[:2] == ([f], f)
+    assert plan(4, torch.float32)[:2] == ([4], 4)     # bf16 q rows of 8 bytes
     assert plan(4, torch.float32, torch.float32)[:2] == ([4], 4)
+    with pytest.raises(ValueError, match="hdv <= 512"):
+        plan(16, torch.bfloat16, hdv=520)

@@ -231,14 +231,22 @@ def test_launch_train_mesh_refusals(argv, match):
         train_main(["--arch", "qwen3-0.6b_smoke", "--steps", "1", "--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b_smoke", "deepseek-v2-lite-16b_smoke"])
-def test_dryrun_meta_step_matches_the_pools_meter(arch):
+@pytest.mark.parametrize("arch,kw", [
+    pytest.param("qwen3-0.6b_smoke", {}, id="qwen3-0.6b_smoke"),
+    pytest.param("deepseek-v2-lite-16b_smoke", {}, id="deepseek-v2-lite-16b_smoke"),
+    pytest.param("falcon-mamba-7b_smoke", {}, id="falcon-mamba-7b_smoke"),
+    pytest.param("hymba-1.5b_smoke", {"sharding_overrides": {"seq": "model"}},
+                 id="hymba-1.5b_smoke-seq_parallel"),
+])
+def test_dryrun_meta_step_matches_the_pools_meter(arch, kw):
     """The dry-run's rank-0 train step (``launch.dryrun.train_program``: the
     sharded step on meta tensors, its collectives on ``MetaGroup``s)
     records the collective calls, operand bytes and ring bytes by label
     that rank 0 of the real 2×2 gloo pool records for the same batch, and
-    holds the real rank's state bytes."""
-    trc, tcfg = TRunConfig(**RC_KW), t_get_config(arch)
+    holds the real rank's state bytes: the Mamba mixer's cut (falcon-mamba)
+    and sequence parallelism's gathers and reduce-scatters (hymba under
+    ``seq -> model``) included."""
+    trc, tcfg = TRunConfig(**RC_KW, **kw), t_get_config(arch)
     batch = _batches(arch, n=1)[0]
     mt = Trainer(tcfg, trc, device="cpu", mesh=MESH, mesh_backend="gloo", log_fn=_quiet)
     mt.run(iter([{k: torch.from_numpy(v) for k, v in batch.items()}]), 1)
@@ -255,3 +263,5 @@ def test_dryrun_meta_step_matches_the_pools_meter(arch):
     from repro_torch.tree import leaves
 
     assert sum(t.numel() * t.element_size() for t in leaves(cell.state)) == held
+    if kw:
+        assert {"tp_all_gather:seq", "tp_reduce_scatter:seq"} <= set(meter)
