@@ -77,6 +77,16 @@ Phases, each printing one JSON line:
    tokens); ``serve_prefix_spec`` (both at once) and ``cow_copy`` (a forced
    copy-on-write drained into every leaf of the target and draft pools,
    exactly). Only the fused GEMM, its stats assembly and attention launch.
+5d. serve_graphs — the compiled steps (``serve/graphs.py``): 4 requests
+   through the eager step, then through the CUDA graphs, on qwen3-0.6b at
+   full width (fused dynamic, the γ=4 spec serve, and after the surgery
+   below the packed MLP) and, in the mesh group, deepseek-v2-lite at 4
+   layers: tokens, KV lengths, ``cycles_by_bits`` (per request and total),
+   MoE drops, kernel counts (credited on each replay; ``serve_traced``
+   holds those against the profiler) and paths identical. Every other one-card
+   Scheduler phase runs the graphed step: one eager call a step and width,
+   replays after it (``graphed_gate``; each record's ``step_counts``); the
+   fallback step stays eager.
 6. serve_prequant / step parity / serve_unfused — the same requests on the
    same weights after ``apply_surgery``: fused GEMMs on offline-packed MLP
    weights, then the legacy unfused pipeline (int8 GEMM with its stats
@@ -199,7 +209,12 @@ Phases, each printing one JSON line:
    TTFT and inter-token ms), then traced inside ``obs.device_trace``
    (tokens and cycles identical everywhere, the host trace valid, the
    profiler trace holding the ``serve/step`` and ``serve/logits`` ranges
-   and the kernels).
+   and the kernels). The traced serve replays its steps as CUDA graphs, so
+   a wrapper counts its launches at the capture and the graph credits them
+   on each replay (``serve/graphs.py``); the kernel events of the trace,
+   counted by name (``SERVE_DEVICE_KERNELS``), must equal those credited
+   counts, each of the fused serve's three kernels. The kernels line prints
+   both (``serve_traced_launches``).
 10b. the dp x tp mesh (``MESH_DP`` x ``MESH_TP`` ranks; gloo ranks sharing
    the card when it is the only one, nccl with a card a rank):
    ``check_mesh_rank`` (every mesh kernel at one rank's shapes against its
@@ -235,7 +250,11 @@ Phases, each printing one JSON line:
    (``*_parity``). Each prints its seconds and the peak allocation of every
    rank.
 11. the seconds of each group of phases (``phase_seconds``), the kernels
-   line, then the device line last.
+   line, then the device line last. A kernel's ``launches`` and
+   ``launches_by_path`` are its wrapper's counts; on a graphed serve those
+   are counted at each capture and credited on each replay, and
+   ``serve_traced_launches`` sets the credited count of the traced serve
+   beside the kernel events its profile holds.
 
 Any failed check raises, and the script exits non-zero. It needs one CUDA
 device and exits non-zero without one.
@@ -1791,7 +1810,33 @@ def serve(torch, cfg, rc, params, impl: str, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.kernel_counts()
+    graphed_gate(sched)
     return sched, done, wall, counts, prompts
+
+
+def graphed_gate(sched) -> None:
+    """A one-card Scheduler (no mesh, ``graphs`` not turned off) ran its
+    mixed, verify and draft steps as CUDA graphs: one eager call a step and
+    width (the warm call before the capture), replays after it; only the
+    fallback step runs eagerly more than once."""
+    if sched.mesh is not None or not sched.graphs:
+        return
+    counts = {k: v for k, v in sched.step_counts().items() if k != "fallback"}
+    calls = [c for r in counts.values() for c in r.values()]
+    if not calls or any(c["eager"] != 1 for c in calls) or not any(c["replays"] for c in calls):
+        raise AssertionError(f"a one-card serve did not replay its steps as graphs: "
+                             f"{sched.step_counts()}")
+
+
+def step_record(sched) -> dict:
+    """Each step's eager calls and graph replays a width, with each graph's
+    capture ms and the bytes its capture reserved in the Scheduler's pool."""
+    counts = sched.step_counts()
+    calls = [c for r in counts.values() for c in r.values()]
+    return {"step_counts": counts, "graph_replays": sum(c["replays"] for c in calls),
+            "eager_step_calls": sum(c["eager"] for c in calls),
+            "graph_pool_bytes": sum(c.get("pool_bytes", 0) for c in calls),
+            "capture_ms": sum(c.get("capture_ms", 0.0) for c in calls)}
 
 
 def check_served(cfg, sched, done, prompts, bits: set) -> dict:
@@ -1821,11 +1866,63 @@ def serve_record(phase, sched, done, wall, counts, prompts) -> dict:
             "preemptions": sched.preemptions, "kernel_counts": counts,
             "paths": ops.path_counts(), "cycles_by_bits": {
                 str(b): d for b, d in sorted(sched.cycles_by_bits.items())},
-            "layers": sched.cfg.num_layers,
+            "layers": sched.cfg.num_layers, **step_record(sched),
             **({"dropped_tokens_per_tick": statistics.mean(sched.tick_dropped_tokens),
                 "dropped_tokens": sum(sched.tick_dropped_tokens),
                 "moe_dropped_tokens": sched.moe_dropped_tokens}
                if sched.tick_dropped_tokens else {})}
+
+
+# ------------------------------------------------- the compiled serving steps
+GRAPH_REQUESTS = 4             # one wave of the serve phase's requests a leg
+
+
+def serve_graphs(torch, leg: str, cfg, rc, params, bits: set) -> dict:
+    """One leg of ``serve_graphs``: the first ``GRAPH_REQUESTS`` of the
+    serve phase's requests through the eager step (``graphs=False``), then
+    through the CUDA graphs (``serve/graphs.py``), counts zeroed just
+    before each and read just after. Gate: tokens, KV lengths,
+    ``cycles_by_bits`` (each request's, target and draft, and the totals),
+    the MoE drops a tick, the kernel counts and the call sites' paths
+    identical; the graphed serve replayed. Prints each serve's tick p50,
+    tokens/s, wrapper launches a tick and, graphed, capture ms and pool
+    bytes a width."""
+    from repro_torch.kernels import ops
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        sched, done, wall, counts, prompts = serve(torch, cfg, rc, params, "auto",
+                                                   requests=GRAPH_REQUESTS,
+                                                   graphs=mode == "graphed")
+        paths = ops.path_counts()
+        runs[mode] = (sched, check_served(cfg, sched, done, prompts, bits), counts, paths,
+                      serve_record(f"serve_graphs {leg} {mode}", sched, done, wall, counts,
+                                   prompts))
+    (es, eo, ec, ep, er), (gs, go, gc, gp, gr) = runs["eager"], runs["graphed"]
+    energy = lambda s: [(e["cycles_by_bits"], e.get("draft_cycles_by_bits"))
+                        for e in s.energy_summary()]
+    same = {"tokens": go == eo, "final_kv_lens": gs.final_kv_lens == es.final_kv_lens,
+            "cycles_by_bits": gs.cycles_by_bits == es.cycles_by_bits,
+            "request_cycles_by_bits": energy(gs) == energy(es),
+            "dropped_tokens": gs.tick_dropped_tokens == es.tick_dropped_tokens,
+            "kernel_counts": gc == ec, "paths": gp == ep,
+            "drafted_accepted": (gs.drafted_tokens, gs.accepted_draft_tokens)
+            == (es.drafted_tokens, es.accepted_draft_tokens)}
+    keys = ("wall_s", "tokens_per_s", "ticks", "median_tick_ms", "kernel_launches_per_tick",
+            "graph_replays", "eager_step_calls", "graph_pool_bytes", "capture_ms")
+    rec = {"phase": "serve_graphs", "leg": leg, "arch": cfg.name, "layers": cfg.num_layers,
+           "policy": rc.quant_policy, "spec_gamma": rc.spec_gamma,
+           "requests": GRAPH_REQUESTS, "equal": same,
+           **{mode: {k: r[4][k] for k in keys} for mode, r in runs.items()},
+           "step_counts": gr["step_counts"], "cycles_by_bits": gr["cycles_by_bits"],
+           "tick_ms_p50_ratio": gr["median_tick_ms"] / er["median_tick_ms"]}
+    if gs.tick_dropped_tokens:
+        rec["dropped_tokens"] = sum(gs.tick_dropped_tokens)
+    emit(rec)
+    if not all(same.values()) or not gr["graph_replays"] or er["graph_replays"]:
+        raise AssertionError(f"serve_graphs {leg}: the graphed serve differs from the eager "
+                             f"one, or did not replay: {rec}")
+    return rec
 
 
 # ------------------------------------------- serving robustness and observability
@@ -2020,7 +2117,7 @@ def serve_overload(torch, cfg, rc, params):
            "tenant_spent": dict(adm.tenant_spent), "ladder_levels": sorted(levels),
            "ladder_final": h["ladder"]["name"], "ladder_occupancy": h["ladder"]["occupancy"],
            "idle_ticks_to_healthy": relax, "wall_s": wall,
-           "generated_tokens": sum(len(r.out) for r in reqs),
+           "generated_tokens": sum(len(r.out) for r in reqs), **step_record(sched),
            **{k: h[k] for k in HEALTH_COUNTERS}}
     emit(rec)
     sched.mgr.check_invariants()
@@ -2031,6 +2128,7 @@ def serve_overload(torch, cfg, rc, params):
                              f"or pages leaked: {rec}")
     if "shed" not in levels or h["ladder"]["level"] != 0:
         raise AssertionError(f"serve_overload: the ladder did not reach shed and relax: {rec}")
+    graphed_gate(sched)
     if any(r.done and len(r.out) != 16 for r in reqs):
         raise AssertionError("serve_overload: a completed request lacks tokens")
 
@@ -2191,6 +2289,7 @@ def run_prefix_trace(torch, cfg, rc, params, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     outs = {r.rid: list(r.out) for r in sched.finished}
+    graphed_gate(sched)
     return sched, outs, wall, ops.kernel_counts(), ops.path_counts()
 
 
@@ -2341,6 +2440,12 @@ def serve_prefix_spec(torch, cfg, rc, params, want: dict):
 # serve_traced's serves: the first 4 of the serve phase's 8 requests (for the
 # script's time limit)
 TRACED_REQUESTS = 4
+# the device kernel (a substring of its name in the profiler's events) that
+# each wrapper of the fused serve launches once a call; no other wrapper
+# of that serve launches (the int8 and packed GEMMs share gemm_kernel)
+SERVE_DEVICE_KERNELS = {"tugemm_fused": "tugemm::gemm_kernel<",
+                        "flash_paged_decode": "flash_split_kernel<",
+                        "tugemm_stats": "finish_kernel<"}
 
 
 def serve_traced(torch, cfg, rc, params, smi: str):
@@ -2354,7 +2459,10 @@ def serve_traced(torch, cfg, rc, params, smi: str):
     ``validate_chrome_trace``; the
     ``torch.profiler`` trace (build/serve_traced/) holds the ``serve/step``
     and ``serve/logits`` ranges and the kernels. The profiler must start:
-    this phase fails where ``device_trace`` would only warn."""
+    this phase fails where ``device_trace`` would only warn. The profiled
+    serve replays graphs: the trace's kernel events by name must equal the
+    launches the graphs credited each kernel of the serve. Returns
+    {kernel: {"credited": n, "profiled": events}}."""
     from repro_torch.obs import (MetricsRegistry, Tracer, device_trace, trace_summary,
                                  validate_chrome_trace)
 
@@ -2369,9 +2477,9 @@ def serve_traced(torch, cfg, rc, params, smi: str):
     with device_trace(os.path.join(HERE, "build", "serve_traced")) as path:
         if path is None:
             raise AssertionError("serve_traced: torch.profiler did not start")
-        sched, done, wall_prof, _, _ = serve(torch, cfg, rc, params, "auto", tracer=tracer,
-                                             metrics=MetricsRegistry(),
-                                             requests=TRACED_REQUESTS)
+        sched, done, wall_prof, counts, _ = serve(torch, cfg, rc, params, "auto",
+                                                  tracer=tracer, metrics=MetricsRegistry(),
+                                                  requests=TRACED_REQUESTS)
     export_s = time.perf_counter() - t0 - wall_prof
     runs["profiled"] = [(sched, done, wall_prof)]
     host = tracer.to_dict()
@@ -2384,7 +2492,14 @@ def serve_traced(torch, cfg, rc, params, smi: str):
     found.update({n: text.count(n) for n in ("gemm_kernel", "flash_split_kernel",
                                              "finish_kernel")})
     trace_bytes = len(text)
+    events = [e for e in json.loads(text, strict=False)["traceEvents"] if e.get("ph") == "X"]
     del text
+    launches = {name: {"credited": counts[name]["launches"],
+                       "profiled": sum(sub in e.get("name", "") for e in events)}
+                for name, sub in SERVE_DEVICE_KERNELS.items()}
+    others = {k: c["launches"] for k, c in counts.items()
+              if k not in SERVE_DEVICE_KERNELS and c["launches"]}
+    del events
 
     def lat(mode, key, p):
         return [r[0].health()["latency"][key][p] * 1e3 for r in runs[mode]]
@@ -2401,7 +2516,8 @@ def serve_traced(torch, cfg, rc, params, smi: str):
                               for m in runs},
            "wall_s": {m: [r[2] for r in runs[m]] for m in runs},
            "profiler_export_s": export_s, "trace_bytes": trace_bytes,
-           "profiler_ranges": found, "host_trace": trace_summary(host)["spans"]}
+           "profiler_ranges": found, "host_trace": trace_summary(host)["spans"],
+           "graph_replays": step_record(sched)["graph_replays"], "launches": launches}
     emit(rec)
     sched_off, done_off, _ = runs["off"][0]
     outs = {r.rid: list(r.out) for r in done_off}
@@ -2410,6 +2526,12 @@ def serve_traced(torch, cfg, rc, params, smi: str):
             raise AssertionError("serve_traced: tracing changed tokens or cycle counts")
     if not all(found.values()):
         raise AssertionError(f"serve_traced: the profiler trace lacks a range or kernel: {found}")
+    if (not rec["graph_replays"] or others
+            or any(v["profiled"] != v["credited"] or not v["credited"]
+                   for v in launches.values())):
+        raise AssertionError(f"serve_traced: the kernels the graphed serve ran (trace) differ "
+                             f"from the launches it counted: {launches}, others {others}")
+    return launches
 
 
 def serve_moe_phases(torch) -> dict:
@@ -2498,8 +2620,11 @@ def serve_moe_unfused(torch, cfg, rc, params) -> dict:
     call; every request finishes with in-vocabulary tokens and cycles at the
     route's bits ({8, 2}; the prequant route records no expert cycles, as
     the reference's does, {8}); the two serves' expert GEMMs compute the
-    same integers, so their tokens and int8 cycles are equal.
-    Returns {phase: (ticks, counts)}."""
+    same integers, so their tokens and int8 cycles are equal. The checked
+    serves step eagerly (a check reads each call's result on the host,
+    which a graph capture cannot); the same requests then replay as CUDA
+    graphs, with tokens, ``cycles_by_bits`` and kernel counts equal to the
+    checked serve's. Returns {phase: (ticks, counts)}."""
     from repro_torch.kernels import ops
 
     out, outs, cyc8 = {}, {}, {}
@@ -2513,18 +2638,29 @@ def serve_moe_unfused(torch, cfg, rc, params) -> dict:
         t0 = time.perf_counter()
         try:
             sched, done, wall, counts, prompts = serve(torch, cfg, rc_p, params_p, "auto",
-                                                       requests=MOE_UNFUSED_REQUESTS)
+                                                       requests=MOE_UNFUSED_REQUESTS,
+                                                       graphs=False)
         finally:
             ops.matmul_int8, ops.matmul_packed = orig
         outs[phase] = check_served(cfg, sched, done, prompts, bits)
         cyc8[phase] = sched.cycles_by_bits[8]
         rec = serve_record(phase, sched, done, wall, counts, prompts)
+        g_sched, g_done, g_wall, g_counts, _ = serve(torch, cfg, rc_p, params_p, "auto",
+                                                     requests=MOE_UNFUSED_REQUESTS)
+        graphed = serve_record(phase + " graphed", g_sched, g_done, g_wall, g_counts, prompts)
         rec.update(expert_calls_checked=log.get(gemm, 0),
                    shared_expert_calls=log.get(gemm + "_2d", 0),
                    expert_mismatches=log.get("mismatches", []),
                    wall_includes_checks=True, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   graphed={k: graphed[k] for k in ("wall_s", "tokens_per_s", "median_tick_ms",
+                                                    "graph_replays", "eager_step_calls",
+                                                    "graph_pool_bytes", "capture_ms")},
                    seconds=time.perf_counter() - t0)
         emit(rec)
+        if ({r.rid: list(r.out) for r in g_done} != outs[phase] or g_counts != counts
+                or g_sched.cycles_by_bits != sched.cycles_by_bits):
+            raise AssertionError(f"{phase}: the graphed serve's tokens, cycles or kernel counts "
+                                 f"differ from the checked eager serve's: {graphed}")
         want = {"tugemm_fused", "flash_paged_decode", "tugemm_stats", gemm}
         ran = {k for k, c in counts.items() if c["launches"] > 0}
         routes = {path for p in rec["paths"].values() for path in p}
@@ -2536,7 +2672,7 @@ def serve_moe_unfused(torch, cfg, rc, params) -> dict:
             raise AssertionError(f"{phase}: an expert GEMM call disagrees with its plain version "
                                  f"or went unchecked: {log} {counts[gemm]}")
         out[phase] = (types.SimpleNamespace(ticks=sched.ticks), counts)
-        del params_p, sched
+        del params_p, sched, g_sched
     (a, b), (ca, cb) = outs.values(), cyc8.values()
     same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
     emit({"phase": "moe_unfused_vs_prequant", "tokens_equal": same,
@@ -2889,10 +3025,11 @@ def serve_cli(torch, phase: str, arch: str):
            "health": {k: h[k] for k in ("completed", "rejections", "preemptions",
                                         "deadline_misses", "stall_episodes", "engine_stalls")},
            "ladder": h["ladder"]["name"], "prefix_cache": h["prefix_cache"],
-           "kernel_counts": counts, "paths": paths,
+           "kernel_counts": counts, "paths": paths, **step_record(sched),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
+    graphed_gate(sched)
     if len(done) != 8 or any(len(r.out) != 16 or not all(0 <= t < sched.cfg.vocab_size
                                                           for t in r.out) for r in done):
         raise AssertionError(f"{phase}: not every request finished with 16 tokens")
@@ -3949,7 +4086,9 @@ def serve_mesh_phases(torch, cfg, rc, smi: str) -> dict:
                seconds=time.perf_counter() - t0)
     emit(rec)
     want_moe, cyc_moe, drops = single, dict(sched.cycles_by_bits), sum(sched.tick_dropped_tokens)
-    del sched, params
+    del sched
+    serve_graphs(torch, "deepseek_4_layers", mcfg, mrc, params, {8, 2})
+    del params
     free_device_memory(torch)
     out["serve_mesh_moe"] = serve_mesh(torch, "serve_mesh_moe", mcfg, mrc,
                                        InitShards(mcfg, mrc, 0, "cuda"), want_moe, cyc_moe, smi,
@@ -4483,6 +4622,14 @@ def main() -> int:
     slice_serves["serve_prefix_spec"] = (sched_ps, counts_ps)
     del sched_ps
 
+    # the compiled steps: each leg's requests through the eager step, then
+    # through the CUDA graphs (the packed leg after the surgery below, the
+    # deepseek-v2-lite leg in the mesh group, on its 4-layer model)
+    serve_graphs(torch, "qwen3_fused", cfg, rc, params, {8, 2})
+    serve_graphs(torch, "qwen3_spec", cfg, dataclasses.replace(
+        rc, quant_policy=ROBUST_POLICY, spec_gamma=SPEC_GAMMA, draft_policy="*=int2"),
+        params, {8, 2})
+
     # the same requests on offline-packed weights: fused, then unfused
     rc_pq, params_pq = surgered(cfg, rc, params, PREQUANT_POLICY)
     sched_pq, done_pq, wall_pq, counts_pq, _ = serve(torch, cfg, rc_pq, params_pq, "auto")
@@ -4492,6 +4639,7 @@ def main() -> int:
     if ran != set(fused_kernels) or any(
             c["plain_calls"] for c in counts_pq.values()):
         raise AssertionError(f"prequant serve did not run only the fused kernels: {counts_pq}")
+    serve_graphs(torch, "qwen3_packed", cfg, rc_pq, params_pq, {8, 2})
     del params_pq
 
     rc_unf, params_unf = surgered(cfg, rc, params, UNFUSED_POLICY)
@@ -4612,7 +4760,7 @@ def main() -> int:
     # before serve_traced (whose profiler session slows the rest of a process)
     train_phases(torch, cfg, rc, smi)
     clock.lap("training")
-    serve_traced(torch, cfg, rc, sched.params, smi)
+    traced = serve_traced(torch, cfg, rc, sched.params, smi)
     clock.lap("serve_traced")
     for r in moe_gemm + moe_int:
         want = 1 if r["kernel"] == "tugemm_packed" else 3
@@ -4653,6 +4801,7 @@ def main() -> int:
                 for pol, r in probes.items()}},
          "launches_per_tick_by_path": {ph: c["tugemm_fused"]["launches"] / sc.ticks
                                        for ph, (sc, c) in serves.items()},
+         "serve_traced_launches": traced["tugemm_fused"],
          "experts": expert_entry(moe_gemm, moe_serves),
          "ssm": ssm_entry(ssm_gemm),
          "dense_archs": dense_entry(dense_gemm),
@@ -4682,6 +4831,7 @@ def main() -> int:
          "launches_per_tick_by_path": {ph: c["flash_paged_decode"]["launches"] / sc.ticks
                                        for ph, (sc, c) in {**slice_serves,
                                                           **arch_serves}.items()},
+         "serve_traced_launches": traced["flash_paged_decode"],
          "verify": {k: ver[k] for k in (
              "sq", "kv_len", "splits", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_device_ms")},
@@ -4767,6 +4917,7 @@ def main() -> int:
                              "encode_audio": audio_counts["tugemm_stats"]["launches"],
                              **{f"probe_energy {pol}": r["kernel_counts"]["tugemm_stats"][
                                  "launches"] for pol, r in probes.items()}},
+        "serve_traced_launches": traced["tugemm_stats"],
         "expert_launches_per_call": max(r["launches_a_call"]["tugemm_stats"] for r in moe_gemm
                                         if r["experts"] > 1),
         "max_abs_err": max(r["max_abs_err"] for r in st + [r for r in unf if r.get("stats")]),

@@ -5,15 +5,19 @@ scheduler serving chip_smoke.py's serve workload (its ``model_setup`` and
 prompt tokens, 16 new each) under one quantization policy, after
 ``apply_surgery`` has packed the policy's prequant leaves.
 
-Runs the workload once to warm up, then once under ``torch.profiler`` with
-CPU and CUDA activities, and prints one JSON line: wall time (profiled, and
+The Scheduler replays its steps as CUDA graphs (``serve/graphs.py``);
+``--eager`` runs them eagerly. One Scheduler serves the workload once to
+warm up (its first step at each width and, graphed, each width's capture),
+then the same requests again under ``torch.profiler`` with CPU and CUDA
+activities, and the script prints one JSON line: wall time (profiled, and
 the warm-up's without the profiler), the device's busy time (the union of
 the intervals of device-side activity: kernels, memcpy and memset; the host
 ops that launched them are not counted again), the device's idle share of
-the profiled wall, kernel launches, memsets, host copies and host waits
-for the card (stream, device and event synchronizations) per tick, the
-serve's ``cycles_by_bits``, and the top device activities and host ops by
-time.
+the profiled wall, host kernel launches, graph launches, memsets, host
+copies and host waits for the card (stream, device and event
+synchronizations) per tick, the profiled serve's ``cycles_by_bits``, each
+step's eager calls, replays, capture ms and graph pool bytes a width, and
+the top device activities and host ops by time.
 ``--policy`` may be given several times: the policies are profiled in
 turn in one process, on the same weights, one line each. ``--moe`` serves
 the same workload on deepseek-v2-lite at full width instead
@@ -22,6 +26,7 @@ dynamic and prequant MoE policies. ``--spec-gamma`` serves speculatively
 (a draft under ``--draft-policy``, built from the float weights).
 
     python3 scripts/torch_serve_profile.py          # chip_smoke.POLICY
+    python3 scripts/torch_serve_profile.py --eager  # the same, steps run eagerly
     python3 scripts/torch_serve_profile.py --policy 'attn.*=int8:unfused,mlp.*=int2:prequant:unfused,*=bf16'
     python3 scripts/torch_serve_profile.py --moe
     python3 scripts/torch_serve_profile.py --spec-gamma 4 --policy 'attn.*=int8:per_token,mlp.*=int2:per_token,*=bf16'
@@ -77,6 +82,8 @@ def main(argv=None) -> int:
                     help="speculative decoding with this many drafts a tick (default 0: off)")
     ap.add_argument("--draft-policy", default="*=int2",
                     help="the draft's QuantPolicy under --spec-gamma (default *=int2)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps eagerly (default: replay CUDA graphs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
@@ -87,11 +94,11 @@ def main(argv=None) -> int:
     else:
         cfg, rc0, params0, _ = chip_smoke.model_setup(torch)
         default = [chip_smoke.POLICY]
-    spec = {}
+    spec = {"graphs": not args.eager}
     if args.spec_gamma:
         rc0 = dataclasses.replace(rc0, spec_gamma=args.spec_gamma,
                                   draft_policy=args.draft_policy)
-        spec = {"draft_params": params0}
+        spec["draft_params"] = params0
     for policy in args.policy or default:
         rc, params = chip_smoke.surgered(cfg, rc0, params0, policy)
         profile_one(torch, chip_smoke, cfg, rc, params, policy, **spec)
@@ -100,22 +107,32 @@ def main(argv=None) -> int:
 
 
 def profile_one(torch, chip_smoke, cfg, rc, params, policy: str, **kw) -> None:
-    """Serve once to warm up, once under the profiler; print the line.
-    ``kw`` goes to the Scheduler."""
+    """Serve once to warm up, then the same requests again on the same
+    Scheduler under the profiler; print the line. ``kw`` goes to the
+    Scheduler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serve import Request
+
+    sched, prompts = chip_smoke.serving_scheduler(cfg, rc, params, "auto", **kw)
+
     def serve():
-        s, _ = chip_smoke.serving_scheduler(cfg, rc, params, "auto", **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s.run()
+        sched.run()
         torch.cuda.synchronize()
-        return s, time.perf_counter() - t0
+        return time.perf_counter() - t0
 
-    _, wall_unprofiled = serve()
+    wall_unprofiled = serve()
+    ticks0, laps0 = sched.ticks, len(sched.tick_seconds)
+    cyc0 = {b: dict(d) for b, d in sched.cycles_by_bits.items()}
+    drafted0, accepted0 = sched.drafted_tokens, sched.accepted_draft_tokens
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=len(prompts) + i, prompt=p, max_new=16))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sched, wall = serve()
+        wall = serve()
+    ticks, laps = sched.ticks - ticks0, sorted(sched.tick_seconds[laps0:])
     busy_us, by_name = device_activity(prof.events(), DeviceType.CUDA)
     if busy_us <= 0:
         raise RuntimeError("the profile holds no device-side events")
@@ -128,19 +145,23 @@ def profile_one(torch, chip_smoke, cfg, rc, params, policy: str, **kw) -> None:
     waits = sum(e.count for e in host if e.key in ("cudaStreamSynchronize",
                                                    "cudaDeviceSynchronize",
                                                    "cudaEventSynchronize"))
+    graph_launches = sum(e.count for e in host if e.key in ("cudaGraphLaunch", "cuGraphLaunch"))
     print(json.dumps({
         "phase": "serve_profile", "arch": cfg.name, "layers": cfg.num_layers,
-        "policy": policy, "wall_s": wall,
-        "wall_unprofiled_s": wall_unprofiled, "ticks": sched.ticks,
-        "median_tick_ms": 1e3 * sorted(sched.tick_seconds)[len(sched.tick_seconds) // 2],
-        "launches_per_tick": launches / sched.ticks,
-        "memsets_per_tick": memsets / sched.ticks,
-        "host_copies_per_tick": copies / sched.ticks,
-        "host_waits_per_tick": waits / sched.ticks,
+        "policy": policy, "graphs": sched.graphs, "wall_s": wall,
+        "wall_unprofiled_s": wall_unprofiled, "ticks": ticks,
+        "median_tick_ms": 1e3 * laps[len(laps) // 2],
+        "launches_per_tick": launches / ticks,
+        "graph_launches_per_tick": graph_launches / ticks,
+        "memsets_per_tick": memsets / ticks,
+        "host_copies_per_tick": copies / ticks,
+        "host_waits_per_tick": waits / ticks,
         "spec_gamma": rc.spec_gamma, "draft_policy": rc.draft_policy if rc.spec_gamma else None,
-        "drafted_tokens": sched.drafted_tokens,
-        "accepted_draft_tokens": sched.accepted_draft_tokens,
-        "cycles_by_bits": {str(b): d for b, d in sorted(sched.cycles_by_bits.items())},
+        "drafted_tokens": sched.drafted_tokens - drafted0,
+        "accepted_draft_tokens": sched.accepted_draft_tokens - accepted0,
+        "cycles_by_bits": {str(b): {k: v - cyc0.get(b, {}).get(k, 0) for k, v in d.items()}
+                           for b, d in sorted(sched.cycles_by_bits.items())},
+        "step_counts": sched.step_counts(),
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_events": sum(c for _, c in by_name.values()),

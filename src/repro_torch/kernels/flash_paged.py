@@ -171,7 +171,10 @@ def flash_paged_decode(q, k_parts, k_scales, v_pool, v_scale, tables, pos, kv_le
     out = torch.empty((B, sq, H, hdv), dtype=q.dtype, device=dev)
     if B > 0:
         n = B * kv * (H // kv) * sq * splits
-        scratch = torch.empty(n * (hdv + 2), dtype=torch.float32, device=dev).data_ptr()
+        # the split partials: held by this frame through the launch, so the
+        # allocator cannot hand the block to another tensor before it runs
+        scratch_t = torch.empty(n * (hdv + 2), dtype=torch.float32, device=dev)
+        scratch = scratch_t.data_ptr()
         two = len(k_parts) == 2
         rc = _load().flash_paged_launch(
             q.data_ptr(), q_code, k_parts[0].data_ptr(), ptr(k_scales[0]), feats[0],

@@ -70,6 +70,7 @@ __all__ = [
     "kernel_counts",
     "kernel_counters",
     "kernel_counters_since",
+    "add_counters",
     "reset_counts",
     "quiet_records",
     "recording",
@@ -191,6 +192,23 @@ def kernel_counters_since(base: dict) -> dict:
                 d[name] = row
         out[sec] = d
     return out
+
+
+def add_counters(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times a :func:`kernel_counters_since` delta to the
+    process-wide counters: a CUDA graph of a serving step takes its
+    capture's calls back out (the capture ran nothing) and adds them again
+    on each replay (``serve/graphs.py``)."""
+    for name, by in delta.get("paths", {}).items():
+        for path, n in by.items():
+            _paths[(name, path)] += sign * n
+            if _paths[(name, path)] == 0:
+                del _paths[(name, path)]
+    counts = {c.name: c for c in _COUNTS}
+    for name, by in delta.get("kernels", {}).items():
+        c = counts[name]
+        c.launches += sign * by.get("launches", 0)
+        c.plain_calls += sign * by.get("plain_calls", 0)
 
 
 def reset_counts() -> None:

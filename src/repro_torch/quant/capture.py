@@ -5,7 +5,10 @@ The reference threads stats through ``jit``/``scan`` as traced outputs
 plain list: while a :func:`capture_stats` context is active, ``qlinear``
 appends every quantized GEMM's :class:`CapturedGemm` (one per executed
 GEMM, layer by layer), and :func:`tree_totals_by_bits` sums the cycle
-counts per bitwidth on the host — one device sync per bitwidth.
+counts per bitwidth: :func:`stack_totals` reduces a capture to one small
+int64 device tensor (a CUDA graph of a serving step captures that reduction
+too, ``serve/graphs.py``), and :class:`StepTotals` brings it to the host in
+one copy.
 
 Leading axes on a GEMM's stats mean sequentially executed instances (the
 MoE experts of one launch): the totals sum ``serial_cycles`` *and*
@@ -38,6 +41,9 @@ __all__ = [
     "push_scalar",
     "scalar_totals",
     "tree_totals_by_bits",
+    "TotalsLayout",
+    "StepTotals",
+    "stack_totals",
 ]
 
 
@@ -109,26 +115,69 @@ def capture_stats(*, scalars_only: bool = False):
         _ACTIVE.pop()
 
 
-def tree_totals_by_bits(cap: Capture) -> dict[int, dict[str, int]]:
-    """Serial/parallel cycle totals per bitwidth over every captured GEMM,
-    summed in int64 on the host — cycles at different bitwidths are not
-    interchangeable (clock and Table-I power differ per width)."""
+@dataclass(frozen=True)
+class TotalsLayout:
+    """What :func:`stack_totals`' tensor holds: the serial then the parallel
+    cycle total of each bitwidth in ``bits`` (first-seen order), then the
+    sum of each named scalar in ``names``."""
+
+    bits: tuple[int, ...] = ()
+    names: tuple[str, ...] = ()
+
+
+def stack_totals(cap: Capture) -> tuple[torch.Tensor | None, TotalsLayout]:
+    """A capture's cycle totals per bitwidth and its named scalars' sums as
+    one int64 tensor on the stats' device (None when the capture holds
+    neither), and its layout. Device ops only: a few a bitwidth, none a
+    GEMM, and no host copy."""
     by: dict[int, list[CapturedGemm]] = {}
     for e in cap.entries:
         by.setdefault(int(e.bits), []).append(e)
-    out: dict[int, dict[str, int]] = {}
-    for bits, es in by.items():
-        both = torch.stack([
-            torch.stack([e.stats.serial_cycles.to(torch.int64).sum(),
-                         e.stats.parallel_cycles.to(torch.int64).sum()]) for e in es
-        ]).sum(dim=0).cpu()
-        out[bits] = {"serial_cycles": int(both[0]), "parallel_cycles": int(both[1])}
-    return out
+    names: dict[str, list[torch.Tensor]] = {}
+    for sc in cap.scalars:
+        names.setdefault(sc.name, []).append(sc.value)
+
+    def total(ts) -> torch.Tensor:
+        return torch.cat([t.reshape(-1).to(torch.int64) for t in ts]).sum()
+
+    parts = []
+    for es in by.values():
+        parts.append(total([e.stats.serial_cycles for e in es]))
+        parts.append(total([e.stats.parallel_cycles for e in es]))
+    parts.extend(total(vs) for vs in names.values())
+    layout = TotalsLayout(tuple(by), tuple(names))
+    return (torch.stack(parts) if parts else None), layout
+
+
+@dataclass
+class StepTotals:
+    """One step's :func:`stack_totals` on the device."""
+
+    values: torch.Tensor | None
+    layout: TotalsLayout
+
+    @classmethod
+    def of(cls, cap: Capture) -> "StepTotals":
+        return cls(*stack_totals(cap))
+
+    def host(self) -> tuple[dict[int, dict[str, int]], dict[str, int]]:
+        """(cycle totals by bitwidth, scalar sums by name), in one copy."""
+        if self.values is None:
+            return {}, {}
+        v = self.values.cpu().tolist()
+        nb = len(self.layout.bits)
+        by_bits = {b: {"serial_cycles": v[2 * i], "parallel_cycles": v[2 * i + 1]}
+                   for i, b in enumerate(self.layout.bits)}
+        return by_bits, dict(zip(self.layout.names, v[2 * nb:]))
+
+
+def tree_totals_by_bits(cap: Capture) -> dict[int, dict[str, int]]:
+    """Serial/parallel cycle totals per bitwidth over every captured GEMM,
+    summed in int64 — cycles at different bitwidths are not interchangeable
+    (clock and Table-I power differ per width)."""
+    return StepTotals.of(cap).host()[0]
 
 
 def scalar_totals(cap: Capture) -> dict[str, int]:
     """{name: sum over the capture's scalars of that name}, on the host."""
-    names: dict[str, list[torch.Tensor]] = {}
-    for sc in cap.scalars:
-        names.setdefault(sc.name, []).append(sc.value.to(torch.int64).reshape(()))
-    return {n: int(torch.stack(v).sum()) for n, v in names.items()}
+    return StepTotals.of(cap).host()[1]

@@ -77,6 +77,13 @@ on ``cuda:r``); none is chosen for the caller. Speculative decoding on a
 mesh is refused, as in the reference. ``params`` is the full tree (rank 0
 cuts each rank's shard) or a ``serve_mesh.InitShards`` (each rank draws
 its own).
+
+Compiled steps (``graphs``, ``serve/graphs.py``): on a CUDA device without
+a mesh the mixed, verify and draft steps run as CUDA graphs, one a step and
+width (the reference's ``jax.jit`` of each), with the eager step's tokens,
+cycles and kernel counts; ``graphs=False`` runs them eagerly, and
+``graphs=True`` on the CPU or with a mesh raises. The fallback-policy step
+and the copy-on-write page copies stay eager.
 """
 
 from __future__ import annotations
@@ -113,6 +120,7 @@ from .admission import (
     RejectReason,
 )
 from .cache import BlockManager, cache_bytes, copy_pages, dense_cache_tokens, num_pages_for
+from .graphs import CudaGraph, StepGraphs, resolve_graphs, upload
 
 __all__ = ["Request", "SlotMeter", "Scheduler", "build_mixed_step", "install_sigint_drain",
            "sample", "uniform", "categorical", "STREAM_SAMPLE", "STREAM_DRAFT",
@@ -355,17 +363,6 @@ def build_mixed_step(cfg: ModelConfig, rc: RunConfig, *, with_stats: bool = Fals
     return step_stats
 
 
-def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A copy of host array ``a`` as a tensor on ``device``: later writes to
-    ``a`` do not reach it. To a card it goes through pinned memory without
-    waiting for the stream, so a tick queues its inputs behind work already
-    on the card."""
-    t = torch.from_numpy(np.array(a))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 # ----------------------------------------------------------------- scheduler
 @dataclass
 class _Slot:
@@ -449,7 +446,8 @@ class Scheduler:
     speculative draft view is built from when ``params`` were already
     packed for the target policy (default: ``params``). ``mesh`` ("dp,tp",
     a (dp, tp) pair or a ``MeshSpec``) shards the step over ``dp·tp`` ranks
-    on ``mesh_backend`` (see the module docstring).
+    on ``mesh_backend`` (see the module docstring). ``graphs`` (None: on a
+    CUDA device without a mesh) replays the steps as CUDA graphs.
     """
 
     def __init__(
@@ -473,6 +471,7 @@ class Scheduler:
         impl: str = "auto",
         mesh=None,
         mesh_backend: str | None = None,
+        graphs: bool | None = None,
     ):
         if any(k.mixer in ("ssm", "hybrid") for g in plan_groups(cfg) for k in g.kinds):
             raise NotImplementedError(
@@ -491,6 +490,7 @@ class Scheduler:
         self.seed = seed
         self.track_energy = track_energy
         self.impl = impl
+        self.graphs = resolve_graphs(graphs, self.device, mesh)
 
         # --- observability (DESIGN.md §14) ------------------------------
         # ``self.trace`` is NULL_TRACER when tracing is off: every call site
@@ -537,25 +537,33 @@ class Scheduler:
         self._pool = None
         self.comms: dict = {}               # (label, bits) -> byte totals
         self._device_weight: dict = {}      # bits -> (dp, tp) int64 serial load
+        # the steps a tick calls (serve/graphs.py): one graph a width on the
+        # card, sharing one memory pool; eager otherwise
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.graphs else None)
+        self._step = None
         if mesh is not None:
             self._attach_mesh(mesh, mesh_backend, params, pages)
         else:
             self.caches = init_caches(cfg, rc, max_batch, capacity, num_pages=pages,
                                       device=self.device)
-            self._step = build_mixed_step(cfg, rc, with_stats=track_energy, impl=impl)
+            self._step = self._runner(build_mixed_step(cfg, rc, with_stats=track_energy,
+                                                       impl=impl), "main")
         # speculative decoding: a draft-policy view + draft pool
         # (serve.spec.SpecDecoder) backed by this one BlockManager, and a
         # verify step that keeps every column's logits; spec_gamma == 0
         # leaves the plain path as it is
         self.spec = None
+        self._vstep = None
         if getattr(rc, "spec_gamma", 0) > 0:
             from .spec import SpecDecoder
 
             self.spec = SpecDecoder(cfg, rc, params, max_batch=max_batch, capacity=capacity,
                                     num_pages=pages, track_energy=track_energy,
-                                    draft_params=draft_params, device=self.device, impl=impl)
-            self._vstep = build_mixed_step(cfg, rc, with_stats=track_energy, all_logits=True,
-                                           impl=impl, scope="serve/verify")
+                                    draft_params=draft_params, device=self.device, impl=impl,
+                                    runner=self._runner)
+            self._vstep = self._runner(build_mixed_step(
+                cfg, rc, with_stats=track_energy, all_logits=True, impl=impl,
+                scope="serve/verify"), "verify")
         self.slots: list[_Slot | None] = [None] * max_batch
         self.finished: list[Request] = []
         self.finished_meters: list[SlotMeter] = []
@@ -565,8 +573,6 @@ class Scheduler:
         self.tick_seconds: list[float] = []         # wall time of every main step, to its sync
         self._admit_counter = 0
         self._meters_by_rid: dict[int, SlotMeter] = {}
-        self._tables_dev = None          # device copy of mgr.tables ...
-        self._tables_version = -1        # ... keyed on mgr.version
         self._rr = 0                     # rotating plan start (fairness)
 
         # --- robustness layer (DESIGN.md §10) ---
@@ -588,6 +594,29 @@ class Scheduler:
         # one registry for the whole engine: the controller's counters move in
         self.admission.bind_registry(self.metrics)
         self._register_gauges()
+
+    def _runner(self, step, name: str, *, eager: bool = False) -> StepGraphs:
+        """``step`` behind a :class:`~repro_torch.serve.graphs.StepGraphs`:
+        graphed when this Scheduler replays graphs (and not ``eager``)."""
+        graphed = self.graphs and not eager
+        return StepGraphs(step, name=name, device=self.device, rows=self.max_batch,
+                          table_width=None if self.mgr is None else self.mgr.tables.shape[1],
+                          backend=CudaGraph if graphed else None, pool=self._graph_pool)
+
+    def _runners(self) -> dict:
+        """Every step runner this Scheduler built, by name."""
+        out = {"main": self._step, "verify": self._vstep,
+               "draft": self.spec._step if self.spec is not None else None,
+               "fallback": self._fb_step}
+        return {k: v for k, v in out.items() if v is not None}
+
+    def step_counts(self) -> dict:
+        """Eager calls and graph replays of each step a width (with each
+        graph's capture ms and the pool bytes its capture reserved):
+        ``{step: {width: {"eager", "replays"[, "capture_ms",
+        "pool_bytes"]}}}``. The eager calls of a graphed step are its first
+        call at each width; the fallback step is always eager."""
+        return {name: r.counts() for name, r in self._runners().items() if r.counts()}
 
     def _attach_mesh(self, mesh, backend: str, params, pages) -> None:
         """Start (or reuse) the rank pool and build every rank's engine:
@@ -1038,23 +1067,11 @@ class Scheduler:
             prefill_rows.append(i)
         return tokens, pos, lens, decode_rows, prefill_rows, stalled
 
-    def _tables(self) -> torch.Tensor | None:
-        """Device copy of the block tables, re-uploaded only when the host
-        manager mutated since the last tick (None on the dense layout; on a
-        mesh the host tables, which every rank uploads itself)."""
-        if self.mgr is None:
-            return None
-        if self.mesh is not None:
-            return self.mgr.tables
-        if self._tables_version != self.mgr.version:
-            self._tables_dev = upload(self.mgr.tables, self.device)
-            self._tables_version = self.mgr.version
-        return self._tables_dev
-
-    def _step_args(self, tokens, pos, lens, width):
-        """A step's host inputs as device tensors (tokens cut to ``width``)."""
-        return (upload(tokens[:, :width], self.device), upload(pos, self.device),
-                upload(lens, self.device))
+    def _tables(self) -> np.ndarray | None:
+        """The host block tables (None on the dense layout): each step's
+        staging copies them in with its other inputs; on a mesh every rank
+        uploads them itself."""
+        return None if self.mgr is None else self.mgr.tables
 
     def _emit(self, i: int, token: int) -> None:
         """Append a sampled token. A request's first token rides its prefill;
@@ -1199,16 +1216,12 @@ class Scheduler:
             if self.mesh is not None:
                 main_np, step_by_bits = self._mesh_main(tokens, pos, lens_main, width, tables)
             else:
-                out = self._step(self.params, self.caches,
-                                 *self._step_args(tokens, pos, lens_main, width), tables)
-                if self.track_energy:
-                    self.caches, logits, cap = out
-                    step_by_bits = tree_totals_by_bits(cap)
-                    if cap.scalars:
-                        self.tick_dropped_tokens.append(
-                            scalar_totals(cap).get("moe.dropped_tokens", 0))
-                else:
-                    self.caches, logits = out
+                self.caches, logits, totals = self._step(
+                    self.params, self.caches, tokens[:, :width], pos, lens_main, tables)
+                if totals is not None:
+                    step_by_bits, scalars = totals.host()
+                    if totals.layout.names:
+                        self.tick_dropped_tokens.append(scalars.get("moe.dropped_tokens", 0))
                 # the host copy is the tick's one sync with the device
                 main_np = logits.to(torch.float32).cpu().numpy()
             for b, d in step_by_bits.items():
@@ -1362,8 +1375,9 @@ class Scheduler:
                 return None
             self._fb_rc = rc_fb
             if self.mesh is None:
-                self._fb_step = build_mixed_step(self.cfg, rc_fb, impl=self.impl,
-                                                 scope="serve/fallback")
+                self._fb_step = self._runner(build_mixed_step(
+                    self.cfg, rc_fb, impl=self.impl, scope="serve/fallback"), "fallback",
+                    eager=True)
         lens_fb = np.zeros_like(lens)
         for i in fb_rows:
             lens_fb[i] = lens[i]
@@ -1372,9 +1386,8 @@ class Scheduler:
             return self._mesh_logits(self._pool.call((
                 "step", self._eid, "fallback", tokens[:, :width], pos, lens_fb, tables,
                 self._fb_rc)))
-        self.caches, logits = self._fb_step(self.params, self.caches,
-                                            *self._step_args(tokens, pos, lens_fb, width),
-                                            tables)
+        self.caches, logits, _ = self._fb_step(self.params, self.caches, tokens[:, :width],
+                                               pos, lens_fb, tables)
         return logits.to(torch.float32).cpu().numpy()
 
     # ------------------------------------------------------------ spec tick
@@ -1389,9 +1402,10 @@ class Scheduler:
         Prefill chunks are mirrored into the draft pool so a slot can draft
         as soon as it finishes prefilling.
 
-        Every input of the draft, verify and mirror steps is built on the
-        host and queued before the first of them launches, and the tick
-        waits for the card once: the host copy after the verify step. At
+        Every input of the draft steps and the verify step's tokens are
+        built on the host and queued before the first of them launches (the
+        other inputs of a step with the step), and the tick waits for the
+        card once: the host copy after the mirror step. At
         temperature 0 that copy holds the verify step's per-column argmax,
         its per-column finiteness and the proposals, never the logits; the
         draft's and verify's logits come to the host only at temperature >
@@ -1420,9 +1434,8 @@ class Scheduler:
                     rt[i, :n] = seq[sl.draft_pos: sl.draft_pos + n]
                     rp[i] = sl.draft_pos
                     rl[i] = n
-                    cap = spec.mirror_prefill(upload(rt, dev), upload(rp, dev), upload(rl, dev),
-                                              self._tables())
-                    by_bits = tree_totals_by_bits(cap) if cap is not None else {}
+                    totals = spec.mirror_prefill(rt, rp, rl, self._tables())
+                    by_bits = totals.host()[0] if totals is not None else {}
                     if by_bits and sl.meter is not None:
                         sl.meter.add_share(by_bits, 1.0, bucket="draft")
                     sl.draft_pos += n
@@ -1491,7 +1504,7 @@ class Scheduler:
             vt[i, 0] = self.slots[i].last_token
             vlens[i] = g[i] + 1
             vmask[i, : g[i]] = True
-        vt_d, vpos_d, vlens_d = upload(vt, dev), upload(pos, dev), upload(vlens, dev)
+        vt_d = upload(vt, dev)
         main_prefill = [i for i in prefill_rows if i not in fbset]
         if main_prefill:
             mlens = lens.copy()
@@ -1499,7 +1512,7 @@ class Scheduler:
                 mlens[i] = 0
             for i in fbset:
                 mlens[i] = 0      # fallback rows' drafts are stale anyway
-            mirror_args = (upload(tokens[:, :W], dev), vpos_d, upload(mlens, dev))
+            mirror_args = (tokens[:, :W], pos, mlens)
 
         # ---- draft phase: γ sequential low-bit steps over the draft rows
         _st = tr.ts()
@@ -1522,37 +1535,41 @@ class Scheduler:
 
         # ---- verify + prefill: one target step, every column's logits kept
         _st = tr.ts()
-        out = self._vstep(self.params, self.caches, vt_d, vpos_d, vlens_d, tables)
-        cap = None
-        if self.track_energy:
-            self.caches, logits, cap = out
-        else:
-            self.caches, logits = out
-        # ---- mirror prefill chunks into the draft pool
-        m_cap = None
-        if main_prefill:
-            with tr.span("mirror"):
-                m_cap = spec.mirror_prefill(*mirror_args, tables)
-        # the tick's one wait for the card
+        self.caches, logits, vtot = self._vstep(self.params, self.caches, vt_d, pos, vlens,
+                                                tables)
+        # what the tick reads of the verify step's logits, taken before the
+        # mirror step replays: a graph captured before the verify step's
+        # may keep its temporaries where the verify graph keeps its logits
+        # (one memory pool, serve/graphs.py)
         if self.temperature <= 0.0:
             parts = [logits.argmax(dim=-1).to(torch.int32),
                      torch.isfinite(logits).all(dim=-1).to(torch.int32)]
             if props_d is not None:
                 parts.append(props_d)
-            host = torch.cat(parts, dim=1).cpu().numpy()
+            reads = torch.cat(parts, dim=1)
+        else:
+            reads = logits.to(torch.float32, copy=True)                   # (B, Wv, V)
+        # ---- mirror prefill chunks into the draft pool
+        m_tot = None
+        if main_prefill:
+            with tr.span("mirror"):
+                m_tot = spec.mirror_prefill(*mirror_args, tables)
+        # the tick's one wait for the card
+        if self.temperature <= 0.0:
+            host = reads.cpu().numpy()
             argmax, finite = host[:, :Wv], host[:, Wv: 2 * Wv].astype(bool)
             props_np = host[:, 2 * Wv:]
             logits_np = None
         else:
-            logits_np = logits.to(torch.float32).cpu().numpy()        # (B, Wv, V)
+            logits_np = reads.cpu().numpy()
             finite = np.isfinite(logits_np).all(axis=-1)
             props_np = props_d.cpu().numpy() if props_d is not None else None
         self.tick_seconds.append(time.perf_counter() - t0)
         proposals = {r.row: [int(t) for t in props_np[r.row, : r.g]] for r in draft_rows}
 
         # ---- accounting, in the reference's order: draft, verify, mirror
-        for ev_cap, weights in draft_events:
-            by_bits = tree_totals_by_bits(ev_cap)
+        for ev_tot, weights in draft_events:
+            by_bits = ev_tot.host()[0]
             if not by_bits:
                 continue
             for i, w in weights.items():
@@ -1574,11 +1591,10 @@ class Scheduler:
         if draft_rows:
             self._c_sched_tokens.labels("draft").inc(n_drafted)
         step_by_bits: dict = {}
-        if cap is not None:
-            step_by_bits = tree_totals_by_bits(cap)
-            if cap.scalars:
-                self.tick_dropped_tokens.append(
-                    scalar_totals(cap).get("moe.dropped_tokens", 0))
+        if vtot is not None:
+            step_by_bits, scalars = vtot.host()
+            if vtot.layout.names:
+                self.tick_dropped_tokens.append(scalars.get("moe.dropped_tokens", 0))
             self._note_step_energy(step_by_bits, bucket="target")
         self.ticks += 1
         n_prefill = sum(int(lens[i]) for i in prefill_rows)
@@ -1595,7 +1611,7 @@ class Scheduler:
                 if sl.meter is not None and i not in fbset:
                     sl.meter.add_share(step_by_bits, int(vlens[i]) / total)
         if main_prefill:
-            m_by_bits = tree_totals_by_bits(m_cap) if m_cap is not None else {}
+            m_by_bits = m_tot.host()[0] if m_tot is not None else {}
             if m_by_bits and self.track_energy:
                 self._note_step_energy(m_by_bits, bucket="draft")
             m_total = float(sum(int(lens[i]) for i in main_prefill)) or 1.0

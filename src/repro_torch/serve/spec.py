@@ -35,7 +35,10 @@ target pass per *accepted run* of tokens.
 The draft steps run back to back on the card: at temperature 0 each step's
 proposals are its logits' argmax on the device, fed to the next step
 without a host copy; at temperature > 0 each step's logits come to the host,
-where the draws are made.
+where the draws are made. On the card the draft step is a CUDA graph a width
+(``serve/graphs.py``): the greedy loop replays its width-1 graph up to γ−1
+times a tick, each replay's logits read on the device before the next, and
+each replay's cycle totals a copy of their own.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ModelConfig, RunConfig
 from ..models import init_caches
+from .graphs import upload
 from .scheduler import (
     STREAM_ACCEPT,
     STREAM_DRAFT,
@@ -57,7 +61,6 @@ from .scheduler import (
     categorical,
     sample,
     uniform,
-    upload,
 )
 
 __all__ = ["DraftRow", "SpecDecoder", "greedy_accept", "rejection_accept"]
@@ -141,10 +144,11 @@ class SpecDecoder:
     owns what the *draft* pass needs: :meth:`mirror_prefill` keeps the draft
     pool in step with prompt chunks, :meth:`draft` proposes γ candidates
     per decode row. Draft steps have three widths (γ+1 catch-up, 1, the
-    prefill chunk)."""
+    prefill chunk). ``runner(step, name)`` wraps the draft step: the
+    Scheduler's ``_runner``, a graph a width on the card."""
 
     def __init__(self, cfg: ModelConfig, rc: RunConfig, params: dict, *, max_batch: int,
-                 capacity: int, num_pages: int | None, track_energy: bool = False,
+                 capacity: int, num_pages: int | None, runner, track_energy: bool = False,
                  draft_params: dict | None = None, device=None, impl: str = "auto"):
         from ..quant.surgery import draft_quant_view
 
@@ -161,8 +165,8 @@ class SpecDecoder:
         self.device = resolve_device(device)
         self.caches = init_caches(cfg, self.rc_draft, max_batch, capacity,
                                   num_pages=num_pages, device=self.device)
-        self._step = build_mixed_step(cfg, self.rc_draft, with_stats=track_energy, impl=impl,
-                                      scope="serve/draft")
+        self._step = runner(build_mixed_step(cfg, self.rc_draft, with_stats=track_energy,
+                                             impl=impl, scope="serve/draft"), "draft")
 
     def describe_draft(self) -> str:
         from ..quant.policy import effective_policy
@@ -172,17 +176,16 @@ class SpecDecoder:
     # ------------------------------------------------------------- draft ops
     def _run_step(self, toks, dpos, dlens, tables, events, rows, host_lens):
         """One draft mixed step; returns last-column logits (B, V). Under
-        track_energy, appends (capture, {row: active-token weight}) to
-        ``events`` for SlotMeter draft-bucket attribution (the caller sums
-        the capture after its one wait for the card)."""
-        out = self._step(self.draft_params, self.caches, toks, dpos, dlens, tables)
-        if not self.track_energy:
-            self.caches, logits = out
+        track_energy, appends (cycle totals, {row: active-token weight}) to
+        ``events`` for SlotMeter draft-bucket attribution (the caller reads
+        the totals after its one wait for the card)."""
+        self.caches, logits, totals = self._step(self.draft_params, self.caches, toks, dpos,
+                                                 dlens, tables)
+        if totals is None:
             return logits
-        self.caches, logits, cap = out
         total = float(sum(int(host_lens[r.row]) for r in rows))
-        if cap.entries and total > 0:
-            events.append((cap, {r.row: int(host_lens[r.row]) / total for r in rows}))
+        if totals.layout.bits and total > 0:
+            events.append((totals, {r.row: int(host_lens[r.row]) / total for r in rows}))
         return logits
 
     def mirror_prefill(self, tokens, pos, lens, tables):
@@ -190,13 +193,11 @@ class SpecDecoder:
         positions the target step processes; decode rows masked to lens 0
         by the caller). The logits are discarded: this pass exists so the
         pool covers the prompt when drafting starts. Returns the pass's
-        stats capture under track_energy, else None."""
-        out = self._step(self.draft_params, self.caches, tokens, pos, lens, tables)
-        if not self.track_energy:
-            self.caches, _ = out
-            return None
-        self.caches, _, cap = out
-        return cap
+        cycle totals (``quant.capture.StepTotals``) under track_energy,
+        else None."""
+        self.caches, _, totals = self._step(self.draft_params, self.caches, tokens, pos, lens,
+                                            tables)
+        return totals
 
     def draft(self, rows: list[DraftRow], tables, temperature: float, seed: int):
         """Propose up to γ candidates for every row, batched across rows.
@@ -206,7 +207,7 @@ class SpecDecoder:
         later step has width 1 and feeds the candidate just proposed (rows
         whose budget ran out, and idle rows, get token 0 at lens 0).
         Proposals are the argmax at temperature 0, else STREAM_DRAFT draws.
-        Every step's inputs are uploaded before the first launches. Returns
+        Every step's inputs are built before the first launches. Returns
         (proposals (B, gmax) int32 on the device, the draft logits of each
         step (B, V) on the host at temperature > 0 (for rejection sampling),
         metering events)."""
@@ -233,11 +234,10 @@ class SpecDecoder:
                 live[j - 1, r.row] = True
                 p1[j - 1, r.row] = r.pos + j
         l1 = live.astype(np.int32)
-        toks_d, dpos_d, dlens_d = upload(toks, dev), upload(dpos, dev), upload(dlens, dev)
         live_d, p1_d, l1_d = upload(live, dev), upload(p1, dev), upload(l1, dev)
 
         events: list = []
-        logits = self._run_step(toks_d, dpos_d, dlens_d, tables, events, rows, dlens)
+        logits = self._run_step(toks, dpos, dlens, tables, events, rows, dlens)
         props: list[torch.Tensor] = []
         qlogits: list[np.ndarray] = []
         for j in range(1, gmax + 1):
